@@ -9,7 +9,12 @@ Phases, in order; any failure exits non-zero:
 2. build    — compiles every hand-written kernel from csrc/ (nvcc, in parallel);
 3. kernels  — each kernel against its plain PyTorch version on the card at
               the main path's shapes, with stated tolerances, and timed
-              (CUDA events) beside its bound and a library yardstick;
+              (CUDA events: host-paced, and device-only with the stream
+              held by a spin kernel) beside its bound and a library
+              yardstick; the
+              design each case ran; bitwise row invariance (a row of a
+              B=256 launch vs the same row alone and inside B=37); the
+              T=1 vs T=17 split into fixed prologue and per-step cost;
 4. serving  — the flagship policy's batched actor step over 64 rows for 12
               ticks with resident carries and one episode reset;
 5. learner  — the PPO loss forward (teacher-forced unroll through the LSTM
@@ -37,9 +42,9 @@ import torch
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
-# Kernel vs plain version, both on the card. f32: the kernel's serial FMA
-# chain and cuBLAS's blocked sums round differently (~1e-6 per step),
-# and 17 dependent steps carry that forward. bf16: h is rounded to bf16
+# Kernel vs plain version, both on the card. f32: the kernel's split k
+# sums and cuBLAS's blocked sums round differently (~1e-6 per step), and
+# 17 dependent steps carry that forward. bf16: h is rounded to bf16
 # before every product, so a last-bit difference in z can move one h by a
 # bf16 ulp (2^-8 relative) and the next steps carry it.
 TOL_KERNEL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
@@ -63,15 +68,43 @@ def gpu_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, samples: int = 25, calls: int = 10) -> float:
+_SPIN_CYCLES_PER_MS = []
+
+
+def _spin_cycles_per_ms() -> float:
+    """Cycles of torch.cuda._sleep per millisecond on this card, measured once."""
+    if not _SPIN_CYCLES_PER_MS:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        cycles = 5_000_000
+        torch.cuda._sleep(cycles)  # warm
+        start.record()
+        torch.cuda._sleep(cycles)
+        end.record()
+        end.synchronize()
+        _SPIN_CYCLES_PER_MS.append(cycles / start.elapsed_time(end))
+    return _SPIN_CYCLES_PER_MS[0]
+
+
+def cuda_ms(fn, samples: int = 25, calls: int = 10, ahead: bool = False) -> float:
     """Median over `samples` of the mean per-call time of `calls` back-to-back
-    calls, by CUDA events, after a warm-up."""
+    calls, by CUDA events, after a warm-up. By default the host's dispatch
+    may pace the calls, as it does for a caller that launches them back to
+    back (the `ms` of the kernels line). With `ahead`, a spin kernel holds
+    the stream while the host enqueues the calls, so the events time the
+    device alone (`device_ms`)."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    spin = int(min(2.0 * (time.perf_counter() - t0) * 1e3 + 0.2, 200.0) * _spin_cycles_per_ms()) if ahead else 0
     per_call = []
     for _ in range(samples):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        if spin:
+            torch.cuda._sleep(spin)
         start.record()
         for _ in range(calls):
             fn()
@@ -104,7 +137,8 @@ def lstm_bound_ms(B, T, H, dtype):
 def cudnn_lstm_ms(x_proj, w_h, c0, h0):
     """Yardstick only: cuDNN's nn.LSTM set up to compute the same
     recurrence (identity input weights, W_hh = W_hᵀ, forget-gate bias +1;
-    PyTorch's gate order is i, f, g, o as here). The port never calls it."""
+    PyTorch's gate order is i, f, g, o as here). The port never calls it.
+    Returns (host-paced ms, device ms)."""
     B, T, H4 = x_proj.shape
     H = H4 // 4
     lstm = torch.nn.LSTM(H4, H, batch_first=True, device=x_proj.device, dtype=x_proj.dtype)
@@ -117,7 +151,7 @@ def cudnn_lstm_ms(x_proj, w_h, c0, h0):
     lstm.flatten_parameters()
     hx = (h0.to(x_proj.dtype)[None], c0.to(x_proj.dtype)[None])
     with torch.no_grad():
-        return cuda_ms(lambda: lstm(x_proj, hx))
+        return cuda_ms(lambda: lstm(x_proj, hx)), cuda_ms(lambda: lstm(x_proj, hx), ahead=True)
 
 
 def phase_kernels(device):
@@ -128,10 +162,12 @@ def phase_kernels(device):
         ("flagship_f32", 256, 17, 128, torch.float32),
         ("ragged_bf16", 37, 17, 128, torch.bfloat16),
         ("ragged_f32", 37, 17, 128, torch.float32),
+        ("wide_bf16", 256, 17, 256, torch.bfloat16),
     ]
     results = []
     with torch.no_grad():
         for i, (name, B, T, H, dt) in enumerate(cases):
+            geo = L.kernel_geometry(B, H, dt, device)
             ins = lstm_inputs(B, T, H, dt, device, seed=i)
             got = L.lstm_kernel(*ins)
             ref = L.lstm_scan(*ins)
@@ -143,16 +179,67 @@ def phase_kernels(device):
             max_err = max(errs.values())
             tol = TOL_KERNEL[dt]
             ms = cuda_ms(lambda: L.lstm_kernel(*ins))
+            device_ms = cuda_ms(lambda: L.lstm_kernel(*ins), ahead=True)
             plain_ms = cuda_ms(lambda: L.lstm_scan(*ins), samples=20, calls=2)
             bound, by = lstm_bound_ms(B, T, H, dt)
-            lib_ms = cudnn_lstm_ms(*ins)
-            row = dict(case=name, B=B, T=T, H=H, dtype=str(dt).split(".")[-1], max_abs_err=max_err, tol=tol,
-                       errs=errs, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=lib_ms)
+            lib_ms, lib_device_ms = cudnn_lstm_ms(*ins)
+            row = dict(case=name, B=B, T=T, H=H, dtype=str(dt).split(".")[-1], design=geo.design,
+                       cluster=geo.cluster, rows=geo.rows, grid=geo.grid, threads=geo.threads, smem=geo.smem_bytes,
+                       max_abs_err=max_err, tol=tol, errs=errs, ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+                       bound_ms=bound, bound_by=by, library_ms=lib_ms, library_device_ms=lib_device_ms)
             print("kernel lstm_recurrence", json.dumps(row), flush=True)
             if not max_err <= tol:
                 raise SystemExit(f"kernel {name}: max abs err {max_err} > tol {tol}")
+            if H == 128 and not geo.design.startswith("cluster"):
+                raise SystemExit(f"kernel {name}: ran the {geo.design} design, not the cluster design")
             results.append(row)
     return results
+
+
+def phase_row_invariance(device, rows=(0, 17, 255)):
+    """Rows of a B=256 launch against the same rows run alone (B=1) and
+    placed among other rows of a B=37 launch: bitwise, every output."""
+    from dotaclient_tpu_torch.ops import lstm as L
+
+    with torch.no_grad():
+        for dt in (torch.bfloat16, torch.float32):
+            x_proj, w_h, c0, h0 = lstm_inputs(256, 17, 128, dt, device, seed=11)
+            full = L.lstm_kernel(x_proj, w_h, c0, h0)
+            # B=37: row 255 first, row 0 at 17, row 17 last, others between
+            idx = list(range(100, 137))
+            idx[0], idx[17], idx[36] = rows[2], rows[0], rows[1]
+            pos = {rows[2]: 0, rows[0]: 17, rows[1]: 36}
+            sel = torch.tensor(idx, device=device)
+            mixed = L.lstm_kernel(x_proj.index_select(0, sel), w_h, c0.index_select(0, sel), h0.index_select(0, sel))
+            for r in rows:
+                alone = L.lstm_kernel(x_proj[r : r + 1], w_h, c0[r : r + 1], h0[r : r + 1])
+                for k, f, a, m in zip(("h_seq", "c_seq", "c_T", "h_T"), full, alone, mixed):
+                    if not torch.equal(f[r], a[0]) or not torch.equal(f[r], m[pos[r]]):
+                        raise SystemExit(f"row invariance: {k} of row {r} ({dt}) differs between B=256, B=1 and B=37")
+    print(f"row invariance: rows {list(rows)} of B=256 bitwise equal at B=1 and inside B=37 (bf16, f32), "
+          f"designs {L.kernel_geometry(256, 128, torch.bfloat16, device).design}/"
+          f"{L.kernel_geometry(256, 128, torch.float32, device).design}", flush=True)
+
+
+def phase_step_split(device, B=256, H=128, T=17):
+    """Kernel device time at T=1 and T=17: the per-step cost (ms17 - ms1) / 16
+    and the fixed part (prologue, launch) ms1 - per step."""
+    from dotaclient_tpu_torch.ops import lstm as L
+
+    split = {}
+    with torch.no_grad():
+        for dt in (torch.bfloat16, torch.float32):
+            ms = {}
+            for steps in (1, T):
+                ins = lstm_inputs(B, steps, H, dt, device, seed=3)
+                ms[steps] = cuda_ms(lambda: L.lstm_kernel(*ins), ahead=True)
+            per_step_us = (ms[T] - ms[1]) / (T - 1) * 1e3
+            name = str(dt).split(".")[-1]
+            split[name] = dict(ms_T1=ms[1], ms_T17=ms[T], per_step_us=per_step_us,
+                               fixed_us=ms[1] * 1e3 - per_step_us)
+            print(f"step split {name} B={B} H={H}, device time: T=1 {ms[1]:.5f} ms, T={T} {ms[T]:.5f} ms -> "
+                  f"{per_step_us:.3f} us per step, {split[name]['fixed_us']:.3f} us fixed", flush=True)
+    return split
 
 
 def phase_serving(device, ticks: int = 12, rows: int = 64):
@@ -298,10 +385,12 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
+            if any(w in line for w in ("Compiling entry", "registers", "spill", "smem")):
                 print(f"  {name}: {line.strip()}")
 
     cases = phase_kernels(device)
+    phase_row_invariance(device)
+    split = phase_step_split(device)
 
     L.LAUNCHES = 0  # the main path starts here
     net, cfg, ticks_per_s = phase_serving(device)
@@ -317,11 +406,14 @@ def main() -> int:
             "launches": launches,
             "max_abs_err": main_case["max_abs_err"],
             "ms": main_case["ms"],
+            "device_ms": main_case["device_ms"],
             "plain_ms": main_case["plain_ms"],
             "bound_ms": main_case["bound_ms"],
             "bound_by": main_case["bound_by"],
             "library_ms": main_case["library_ms"],
-            "cases": [{k: c[k] for k in ("case", "max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms")} for c in cases],
+            "cases": [{k: c[k] for k in ("case", "design", "cluster", "rows", "max_abs_err", "ms", "device_ms",
+                                         "plain_ms", "bound_ms", "library_ms", "library_device_ms")} for c in cases],
+            "step_split": split,
         }
     ]
     print(json.dumps({"kernels": kernels}))

@@ -38,7 +38,8 @@ KERNELS = {
     "lstm_recurrence": (
         "lstm_recurrence.cu",
         {
-            "lstm_recurrence_fwd": ([_P] * 8 + [_I] * 5 + [_P], _I),
+            "lstm_recurrence_fwd": ([_P] * 8 + [_I] * 10 + [_P], _I),
+            "lstm_recurrence_device_limits": ([ctypes.POINTER(_I)] * 3, _I),
             "lstm_recurrence_error_string": ([_I], ctypes.c_char_p),
         },
     ),

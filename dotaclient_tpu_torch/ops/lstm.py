@@ -20,7 +20,9 @@ the same function:
 
 from __future__ import annotations
 
-from typing import Tuple
+import ctypes
+import functools
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
@@ -59,12 +61,89 @@ def lstm_scan(x_proj, w_h, c0, h0):
     return torch.stack(hs, 1), torch.stack(cs, 1), c, h
 
 
-def rows_per_cta(B: int, H: int, n_sm: int) -> int:
-    """Batch rows per CTA: enough to cover B in about one wave over the
-    card's SMs (W_h in shared memory allows one CTA per SM), capped by the
-    1024-thread block limit (one thread per row and hidden unit)."""
-    cap = max(1, _MAX_THREADS // H)
-    return max(1, min(cap, -(-B // n_sm)))
+class Geometry(NamedTuple):
+    """How one launch of the CUDA kernel is laid out (csrc/lstm_recurrence.cu
+    checks every field and refuses a launch it cannot take)."""
+
+    design: str  # "cluster_mma" (bf16), "cluster_ffma" (f32) or "per_thread"
+    cluster: int  # CTAs per thread-block cluster (1 for per_thread)
+    rows: int  # batch rows per cluster (per CTA for per_thread)
+    grid: int  # CTAs in the launch, a multiple of `cluster`
+    threads: int  # threads per CTA
+    smem_bytes: int  # dynamic shared memory per CTA
+
+
+# Twins of the constants of the same names in csrc/lstm_recurrence.cu
+# (CLUSTER_ROWS is ROWS there); tests/test_torch_lstm.py checks they agree.
+CLUSTER_ROWS = 16  # batch rows per cluster: one m16 tile of the tensor-core product
+MAX_CLUSTER = 8  # the portable cluster size
+CLUSTER_THREADS = 512  # launch bound of the cluster kernels
+F32_HS = 20  # f32 h buffer: floats per k row (16 rows + bank pad)
+BAR_BYTES = 16  # the cluster kernels' two mbarriers, first in shared memory
+KSPLIT = 4  # bf16: k quarters, one warp each per unit group
+X_AHEAD = 3  # steps between fetching a cell's x_proj and adding it
+_DESIGN_CODES = {"per_thread": 0, "cluster_mma": 1, "cluster_ffma": 1}
+
+
+def _cluster_smem_bytes(H: int, U: int, elt: int) -> int:
+    """Shared memory of a cluster kernel's CTA, as the .cu file's
+    cluster_smem_bytes computes it: the mbarriers, the W_h slice [H, 4U + pad],
+    double-buffered h, and in bf16 the k quarters' partial sums
+    [KSPLIT, 16, U + 1] float4, in f32 the x_proj ring [X_AHEAD, 16, 4, U]."""
+    w = H * (4 * U + (8 if elt == 2 else 4)) * elt
+    h = 2 * CLUSTER_ROWS * (H + 8) * 2 if elt == 2 else 2 * H * F32_HS * 4
+    x = KSPLIT * CLUSTER_ROWS * (U + 1) * 16 if elt == 2 else X_AHEAD * CLUSTER_ROWS * 4 * U * 4
+    return BAR_BYTES + w + h + x
+
+
+@functools.lru_cache(maxsize=1024)  # the wrapper asks on every launch
+def launch_geometry(B: int, H: int, dtype: torch.dtype, n_sm: int, smem_optin: int) -> Geometry:
+    """The launch for x_proj [B, T, 4H] of `dtype` on a card with `n_sm` SMs
+    and `smem_optin` bytes of shared memory per block.
+
+    The cluster design takes every H that is a multiple of 16 whose W_h
+    slice fits one block: C = the largest cluster size <= 8 with 16·C
+    dividing H, so each CTA owns U = H/C units (a multiple of 16), and a
+    cluster owns 16 batch rows. Otherwise the per-thread design (one thread
+    per row and unit, enough rows per CTA to cover B in about one wave).
+    The design never depends on B, so a row computes the same bits in a
+    launch of any size."""
+    if B < 1 or not 1 <= H <= _MAX_THREADS:
+        raise ValueError(f"lstm kernel takes 1 <= B and 1 <= H <= {_MAX_THREADS}, got B={B} H={H}")
+    elt = torch.finfo(dtype).bits // 8
+    if H % 16 == 0:
+        C = max(c for c in range(1, MAX_CLUSTER + 1) if H % (16 * c) == 0)
+        U = H // C
+        threads = 16 * U  # bf16: 4 warps (k quarters) per 8 units; f32: 2 row groups x 8 k lanes per unit
+        smem = _cluster_smem_bytes(H, U, elt)
+        if threads <= CLUSTER_THREADS and smem <= smem_optin:
+            design = "cluster_mma" if elt == 2 else "cluster_ffma"
+            return Geometry(design, C, CLUSTER_ROWS, -(-B // CLUSTER_ROWS) * C, threads, smem)
+    rows = max(1, min(_MAX_THREADS // H, -(-B // n_sm)))
+    h_bytes, w_bytes = 2 * rows * H * elt, 4 * H * H * elt
+    smem = w_bytes + h_bytes if w_bytes + h_bytes <= smem_optin else h_bytes
+    return Geometry("per_thread", 1, rows, -(-B // rows), rows * H, smem)
+
+
+_device_limits: Dict[int, Tuple[int, int]] = {}
+
+
+def kernel_geometry(B: int, H: int, dtype: torch.dtype, device) -> Geometry:
+    """`launch_geometry` on the given CUDA device's limits (read once)."""
+    index = torch.device(device).index
+    index = torch.cuda.current_device() if index is None else index
+    limits = _device_limits.get(index)
+    if limits is None:
+        lib = _kernels.load("lstm_recurrence")
+        n_sm, optin, clusters = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+        with torch.cuda.device(index):
+            rc = lib.lstm_recurrence_device_limits(ctypes.byref(n_sm), ctypes.byref(optin), ctypes.byref(clusters))
+        if rc != 0:
+            raise RuntimeError(f"lstm kernel: reading device limits failed: {lib.lstm_recurrence_error_string(rc).decode()}")
+        if not clusters.value:
+            raise RuntimeError(f"lstm kernel: device {index} cannot launch thread-block clusters (needs sm_90)")
+        limits = _device_limits[index] = (n_sm.value, optin.value)
+    return launch_geometry(B, H, dtype, *limits)
 
 
 def lstm_kernel(x_proj, w_h, c0, h0):
@@ -98,11 +177,13 @@ def lstm_kernel(x_proj, w_h, c0, h0):
         )
     lib = _kernels.load("lstm_recurrence")
     dev = x_proj.device
+    geo = kernel_geometry(B, H, x_proj.dtype, dev)
+    if geo.design != "per_thread" and w_h.data_ptr() % 16:  # the cluster kernels copy W_h 16 bytes at a time
+        w_h = w_h.clone()
     h_seq = torch.empty((B, T, H), dtype=torch.float32, device=dev)
     c_seq = torch.empty((B, T, H), dtype=torch.float32, device=dev)
     c_T = torch.empty((B, H), dtype=torch.float32, device=dev)
     h_T = torch.empty((B, H), dtype=torch.float32, device=dev)
-    rows = rows_per_cta(B, H, torch.cuda.get_device_properties(dev).multi_processor_count)
     with torch.cuda.device(dev):
         rc = lib.lstm_recurrence_fwd(
             *(t.data_ptr() for t in (x_proj, w_h, c0, h0, h_seq, c_seq, c_T, h_T)),
@@ -110,7 +191,12 @@ def lstm_kernel(x_proj, w_h, c0, h0):
             T,
             H,
             _DTYPE_CODES[x_proj.dtype],
-            rows,
+            _DESIGN_CODES[geo.design],
+            geo.cluster,
+            geo.rows,
+            geo.grid,
+            geo.threads,
+            geo.smem_bytes,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:

@@ -36,7 +36,11 @@ def inputs(B, T, H, dtype, device, seed=0):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("B,T,H", [(256, 17, 128), (37, 17, 128), (5, 3, 32), (3, 1, 64), (9, 4, 256)])
+@pytest.mark.parametrize(
+    "B,T,H",
+    # H=48: a cluster of 3; H=40: the per-thread design; H=1024: per-thread, W_h from global memory
+    [(256, 17, 128), (37, 17, 128), (5, 3, 32), (3, 1, 64), (9, 4, 256), (21, 5, 48), (4, 3, 40), (2, 2, 1024)],
+)
 def test_kernel_matches_scan(cuda, dtype, B, T, H):
     ins = inputs(B, T, H, dtype, cuda)
     before = L.LAUNCHES
@@ -48,6 +52,51 @@ def test_kernel_matches_scan(cuda, dtype, B, T, H):
     for a, b in zip(got, ref):
         assert a.shape == b.shape and a.dtype == torch.float32
         assert (a - b).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_rows_are_bitwise_invariant(cuda, dtype):
+    """A row's outputs do not depend on the launch it is in: B=256 vs the
+    row alone (B=1) and vs the row among others in a B=37 launch."""
+    x_proj, w_h, c0, h0 = inputs(256, 17, 128, dtype, cuda, seed=5)
+    idx = list(range(40, 77))
+    idx[3], idx[20], idx[36] = 255, 0, 17
+    sel = torch.tensor(idx, device=cuda)
+    with torch.no_grad():
+        full = L.lstm_kernel(x_proj, w_h, c0, h0)
+        mixed = L.lstm_kernel(x_proj[sel], w_h, c0[sel], h0[sel])
+        for r in (0, 17, 255):
+            alone = L.lstm_kernel(x_proj[r : r + 1], w_h, c0[r : r + 1], h0[r : r + 1])
+            for f, a, m in zip(full, alone, mixed):
+                assert torch.equal(f[r], a[0])
+                assert torch.equal(f[r], m[idx.index(r)])
+
+
+@pytest.mark.parametrize("dtype,design", [(torch.bfloat16, "cluster_mma"), (torch.float32, "cluster_ffma")])
+@pytest.mark.parametrize("B", [256, 37])
+def test_flagship_shapes_run_the_cluster_design(cuda, dtype, design, B):
+    geo = L.kernel_geometry(B, 128, dtype, cuda)
+    assert geo.design == design and geo.cluster == 8 and geo.rows == 16
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_kernel_takes_misaligned_inputs(cuda, dtype):
+    """Contiguous views that start off a 16-byte boundary give the same bits
+    as aligned copies (the wrapper re-homes W_h; x_proj is read in place)."""
+    ins = inputs(37, 5, 128, dtype, cuda, seed=6)
+
+    def shifted(t):
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)
+        view = flat[1:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    x_proj, w_h, c0, h0 = ins
+    with torch.no_grad():
+        want = L.lstm_kernel(*ins)
+        got = L.lstm_kernel(shifted(x_proj), shifted(w_h), shifted(c0), shifted(h0))
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
 
 
 def test_auto_dispatch_launches_kernel(cuda):

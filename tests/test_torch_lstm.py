@@ -4,6 +4,7 @@ device dispatch, and the kernel wrapper's CPU-side contract. The CUDA
 kernel itself is held against `lstm_scan` on the GPU by
 tests/test_torch_cuda.py and chip_smoke.py."""
 
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -102,13 +103,65 @@ def test_kernel_wrapper_does_not_count_a_refused_call():
     assert L.LAUNCHES == before
 
 
+H100_SMS, H100_SMEM_OPTIN = 132, 232_448
+BF16, F32 = torch.bfloat16, torch.float32
+
+
 @pytest.mark.parametrize(
-    "B,H,n_sm,rows",
-    [(256, 128, 132, 2), (37, 128, 132, 1), (64, 128, 132, 1), (100_000, 128, 132, 8), (300, 1024, 132, 1), (5, 32, 132, 1)],
+    "B,H,dtype,optin,want",
+    [
+        # the learner's shapes: 16 clusters of 8 CTAs, 16 units each
+        (256, 128, BF16, H100_SMEM_OPTIN, ("cluster_mma", 8, 16, 128, 256, 44_560)),
+        (256, 128, F32, H100_SMEM_OPTIN, ("cluster_ffma", 8, 16, 128, 256, 67_600)),
+        (37, 128, BF16, H100_SMEM_OPTIN, ("cluster_mma", 8, 16, 24, 256, 44_560)),
+        (1, 128, F32, H100_SMEM_OPTIN, ("cluster_ffma", 8, 16, 8, 256, 67_600)),
+        (100_000, 128, BF16, H100_SMEM_OPTIN, ("cluster_mma", 8, 16, 50_000, 256, 44_560)),
+        # narrow and wide H: cluster of 2, of 8 with 32 units, of 3 (48 = 3 x 16)
+        (256, 32, BF16, H100_SMEM_OPTIN, ("cluster_mma", 2, 16, 32, 256, 24_592)),
+        (9, 256, F32, H100_SMEM_OPTIN, ("cluster_ffma", 8, 16, 8, 512, 200_720)),
+        (9, 256, BF16, H100_SMEM_OPTIN, ("cluster_mma", 8, 16, 8, 512, 120_336)),
+        (21, 48, F32, H100_SMEM_OPTIN, ("cluster_ffma", 3, 16, 6, 256, 33_040)),
+        # the per-thread design: H not a multiple of 16, or a slice too large
+        (4, 40, BF16, H100_SMEM_OPTIN, ("per_thread", 1, 1, 4, 40, 12_960)),
+        (256, 512, BF16, H100_SMEM_OPTIN, ("per_thread", 1, 2, 128, 1024, 4_096)),
+        (300, 1024, F32, H100_SMEM_OPTIN, ("per_thread", 1, 1, 300, 1024, 8_192)),
+        (300, 1024, BF16, H100_SMEM_OPTIN, ("per_thread", 1, 1, 300, 1024, 4_096)),
+        (256, 128, F32, 48 * 1024, ("per_thread", 1, 2, 128, 256, 2_048)),
+    ],
 )
-def test_rows_per_cta(B, H, n_sm, rows):
-    assert L.rows_per_cta(B, H, n_sm) == rows
-    assert rows * H <= 1024
+def test_launch_geometry(B, H, dtype, optin, want):
+    geo = L.launch_geometry(B, H, dtype, H100_SMS, optin)
+    assert tuple(geo) == want
+    assert geo.grid % geo.cluster == 0
+    assert (geo.grid // geo.cluster) * geo.rows >= B > (geo.grid // geo.cluster - 1) * geo.rows  # covers B, no spare slab
+    assert geo.smem_bytes <= optin and geo.threads <= 1024
+    if geo.design == "per_thread":
+        assert geo.threads == geo.rows * H
+    else:
+        assert geo.rows == L.CLUSTER_ROWS and geo.cluster <= 8 and H % (16 * geo.cluster) == 0
+    # the design (and so every row's arithmetic) does not depend on B
+    for other in (1, 3, 37, 4096):
+        alt = L.launch_geometry(other, H, dtype, H100_SMS, optin)
+        assert (alt.design, alt.cluster, alt.threads) == (geo.design, geo.cluster, geo.threads) or geo.design == "per_thread"
+
+
+@pytest.mark.parametrize("B,H", [(0, 128), (4, 0), (4, 1025)])
+def test_launch_geometry_refuses_shapes_the_kernel_cannot_take(B, H):
+    with pytest.raises(ValueError, match="lstm kernel takes"):
+        L.launch_geometry(B, H, BF16, H100_SMS, H100_SMEM_OPTIN)
+
+
+@pytest.mark.parametrize(
+    "c_name,py_name",
+    [("ROWS", "CLUSTER_ROWS"), ("MAX_CLUSTER", "MAX_CLUSTER"), ("CLUSTER_THREADS", "CLUSTER_THREADS"),
+     ("F32_HS", "F32_HS"), ("BAR_BYTES", "BAR_BYTES"), ("KSPLIT", "KSPLIT"), ("X_AHEAD", "X_AHEAD")],
+)
+def test_geometry_constants_match_the_kernel_source(c_name, py_name):
+    """launch_geometry sizes shared memory from the Python twins of the
+    .cu file's layout constants; the C side refuses any other size."""
+    text = (_kernels.CSRC / "lstm_recurrence.cu").read_text()
+    found = re.findall(rf"constexpr int {c_name} = (\d+);", text)
+    assert found == [str(getattr(L, py_name))]
 
 
 def test_kernel_build_is_for_sm90a_and_keyed_by_source():
