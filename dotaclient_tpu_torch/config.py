@@ -1,6 +1,7 @@
 """The slice of the reference configs the port needs, as plain dataclasses
 with the reference defaults (dotaclient_tpu/config.py: PolicyConfig,
-PPOConfig, LearnerConfig.batch_size/seq_len). No flag parsing yet."""
+PPOConfig, ReplayConfig.enabled and the LearnerConfig fields the train
+step reads). No flag parsing yet."""
 
 from __future__ import annotations
 
@@ -20,9 +21,9 @@ class PolicyConfig:
     # Auxiliary value heads (win-prob, last-hit, net-worth).
     aux_heads: bool = False
     dtype: str = "bfloat16"  # compute dtype; params stay f32
-    # LSTM recurrence implementation (ops/lstm.py): "auto" = the CUDA
-    # kernel on a CUDA tensor, the plain torch scan on a CPU tensor;
-    # "kernel" | "torch" force one.
+    # LSTM recurrence implementation (ops/lstm.py lstm_recurrence):
+    # "auto" = the CUDA kernel on a CUDA tensor, the plain torch scan on a
+    # CPU tensor; "kernel" | "torch" | "scan_recompute" force one.
     lstm_impl: str = "auto"
 
 
@@ -48,10 +49,31 @@ class PPOConfig:
 
 
 @dataclass
+class ReplayConfig:
+    """Prioritized replay reservoir; only the switch is ported (the fused
+    train step refuses it, as the reference does)."""
+
+    enabled: bool = False
+
+
+@dataclass
 class LearnerConfig:
-    """The learner fields the forward slice reads."""
+    """The learner fields the train step reads."""
 
     batch_size: int = 256  # sequences per train step
     seq_len: int = 16  # rollout chunk length = LSTM truncation window
     ppo: PPOConfig = field(default_factory=PPOConfig)
     policy: PolicyConfig = field(default_factory=PolicyConfig)
+    replay: ReplayConfig = field(default_factory=ReplayConfig)
+    # Param init and the reuse step's per-step shuffle stream.
+    seed: int = 0
+    # Stage obs floats in the policy compute dtype (bf16) on the host
+    # (runtime/staging.py cast_obs_to_compute_dtype): the policy's first
+    # op is the same cast, and the host-to-device bytes halve.
+    stage_obs_compute_dtype: bool = True
+    # The batch crosses host-to-device as dtype-grouped buffers, and with
+    # fused_single_h2d as ONE [B, row_bytes] u8 buffer
+    # (parallel/fused_io.py). The port has the single-buffer mode only:
+    # build_single_train_step refuses a config with either flag off.
+    fused_h2d: bool = True
+    fused_single_h2d: bool = True

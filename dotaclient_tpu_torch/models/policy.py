@@ -117,8 +117,9 @@ def obs_trunk(core: "PolicyCore", obs: F.Observation):
     unit_emb = core.unit_mlp2(x)  # [.., U, D]
 
     m = unit_mask[..., None]
-    neg = torch.tensor(BIG_NEG, dtype=dt, device=unit_emb.device)
-    pool_max = torch.where(m, unit_emb, neg).amax(dim=-2)
+    # a fill, not a tensor made from a Python scalar: copying one to the
+    # GPU would make the host wait for the stream on every forward
+    pool_max = unit_emb.masked_fill(~m, BIG_NEG).amax(dim=-2)
     any_unit = unit_mask.any(dim=-1, keepdim=True)
     pool_max = torch.where(any_unit, pool_max, torch.zeros_like(pool_max))
     denom = torch.clamp(m.sum(dim=-2), min=1).to(dt)

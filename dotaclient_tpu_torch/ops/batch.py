@@ -138,6 +138,38 @@ def make_train_batch(cfg: LearnerConfig, rng_seed: int = 0, with_staleness: bool
     )
 
 
+def tree_map(fn, tree):
+    """Apply `fn` to every leaf of a NamedTuple/tuple tree; None stays None
+    (as `jax.tree.map` treats it: no leaf)."""
+    if tree is None:
+        return None
+    if isinstance(tree, tuple):
+        vals = [tree_map(fn, v) for v in tree]
+        return type(tree)(*vals) if hasattr(tree, "_fields") else tuple(vals)
+    return fn(tree)
+
+
+_LEAF = "*"
+
+
+def tree_flatten(tree):
+    """(leaves, structure) in `jax.tree.flatten`'s order: NamedTuple fields
+    in declaration order, depth first, None dropped. `structure` compares
+    equal for trees of the same shape and rebuilds with `tree_unflatten`."""
+    leaves = []
+
+    def leaf(x):
+        leaves.append(x)
+        return _LEAF
+
+    return leaves, tree_map(leaf, tree)
+
+
+def tree_unflatten(structure, leaves):
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), structure)
+
+
 def _leaf_to_tensor(x, device: torch.device) -> torch.Tensor:
     a = np.asarray(x)
     if a.dtype == np.bool_:
@@ -153,13 +185,4 @@ def as_tensors(tree, device=None):
     """Map a numpy NamedTuple/tuple tree (Observation, TrainBatch, …) to
     torch tensors on `device` (default: the current CUDA device)."""
     device = resolve_device(device)
-
-    def go(x):
-        if x is None:
-            return None
-        if isinstance(x, tuple):
-            vals = [go(v) for v in x]
-            return type(x)(*vals) if hasattr(x, "_fields") else tuple(vals)
-        return _leaf_to_tensor(x, device)
-
-    return go(tree)
+    return tree_map(lambda x: _leaf_to_tensor(x, device), tree)

@@ -10,12 +10,16 @@ hidden product plus the f32 gate tail:
     h_t = σ(o)·tanh(c_t)
 
 rnd() rounds h to W_h's dtype (the compute dtype). Two implementations of
-the same function:
+the forward:
 - `lstm_scan`: plain torch, a Python loop over T — the CPU path and the
   reference the CUDA kernel is held against;
 - `lstm_kernel`: the hand-written CUDA kernel (csrc/lstm_recurrence.cu),
-  forward only in this slice.
-`lstm_recurrence` dispatches between them by the tensors' device.
+  forward only.
+`LSTMRecurrence` makes either forward differentiable with the reference's
+gate-recompute backward (`recompute_backward`, the `custom_vjp` of
+dotaclient_tpu/ops/lstm.py): z_t is rebuilt from the saved h/c sequences,
+so the 4H-wide gate activations are never stored. `lstm_recurrence`
+dispatches by the tensors' device.
 """
 
 from __future__ import annotations
@@ -172,8 +176,8 @@ def lstm_kernel(x_proj, w_h, c0, h0):
         raise ValueError(f"lstm kernel takes 1 <= B and H <= {_MAX_THREADS}, got B={B} H={H}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in ins):
         raise NotImplementedError(
-            "the CUDA LSTM kernel is forward-only until the training slice adds its "
-            "recompute backward; run under torch.no_grad() or use impl='torch'"
+            "the CUDA LSTM kernel is forward-only: differentiate through "
+            "lstm_recurrence(impl='kernel') (LSTMRecurrence), or call it under torch.no_grad()"
         )
     lib = _kernels.load("lstm_recurrence")
     dev = x_proj.device
@@ -206,16 +210,90 @@ def lstm_kernel(x_proj, w_h, c0, h0):
     return h_seq, c_seq, c_T, h_T
 
 
+def recompute_backward(res, grads):
+    """Gate-recompute backward of the recurrence (the reference's
+    `_recompute_backward`). `res` = (x_proj, w_h, c0, h0, h_seq, c_seq) as
+    the forward saw and wrote them; `grads` = (dh_seq, (dc_T, dh_T)).
+    Returns (dx_proj, dW_h, dc0, dh0).
+
+    Its precision is the reference's, not autograd's through `lstm_scan`:
+    z is rebuilt from rnd(h) with f32 sums, as the forward computed it;
+    dh_prev = dz @ W_hᵀ stays f32 (no rounding at the cast); dW_h sums
+    unrounded f32 h_prev ⊗ dz; dx_proj and dW_h are cast to the compute
+    dtype only at the end. In bf16 autograd differs at all four points.
+
+    z and the gate activations do not depend on the backward's carry, so
+    they are computed for all T at once; only the dc/dh chain walks time
+    in reverse."""
+    x_proj, w_h, c0, h0, h_seq, c_seq = res
+    dh_seq, (dc_T, dh_T) = grads
+    B, T, H = h_seq.shape
+    w32 = w_h.float()
+    h_prev = torch.cat([h0[:, None], h_seq[:, :-1]], 1)  # [B, T, H] f32
+    c_prev = torch.cat([c0[:, None], c_seq[:, :-1]], 1)
+    z = x_proj.float() + h_prev.to(w_h.dtype).float() @ w32  # [B, T, 4H]
+    zi, zf, zg, zo = torch.chunk(z, 4, dim=-1)
+    i, f, g, o = torch.sigmoid(zi), torch.sigmoid(zf + 1.0), torch.tanh(zg), torch.sigmoid(zo)
+    tanh_c = torch.tanh(c_seq)
+    dc_from_dh = o * (1.0 - tanh_c**2)  # dc_t += dh_t · this
+    # dz_t = [dc·g·i(1-i), dc·c_prev·f(1-f), dc·i(1-g²), dh·tanh_c·o(1-o)]
+    dz_coef = torch.cat([g * i * (1.0 - i), c_prev * f * (1.0 - f), i * (1.0 - g**2), tanh_c * o * (1.0 - o)], -1)
+    dh_out = dh_seq.float()
+    w32_t = w32.t()
+    dc, dh_next = dc_T.float(), dh_T.float()
+    dz = [None] * T
+    for t in reversed(range(T)):
+        dh = dh_out[:, t] + dh_next
+        dc = dc + dh * dc_from_dh[:, t]
+        dz[t] = torch.cat([dc, dc, dc, dh], -1) * dz_coef[:, t]
+        dh_next = dz[t] @ w32_t
+        dc = dc * f[:, t]
+    dz_seq = torch.stack(dz, 1)  # [B, T, 4H] f32
+    dw_h = h_prev.reshape(B * T, H).t() @ dz_seq.reshape(B * T, 4 * H)
+    return dz_seq.to(x_proj.dtype), dw_h.to(w_h.dtype), dc, dh_next
+
+
+class LSTMRecurrence(torch.autograd.Function):
+    """The recurrence as one differentiable op: `forward_fn` (`lstm_kernel`
+    or `lstm_scan`) computes (h_seq, c_seq, c_T, h_T) with autograd off,
+    the saved (x_proj, w_h, c0, h0, h_seq, c_seq) feed
+    `recompute_backward`. The twin of the reference's `_lstm_pallas`
+    custom_vjp; with `lstm_scan` as the forward, of its interpret mode.
+    Returns (h_seq, c_T, h_T)."""
+
+    @staticmethod
+    def forward(ctx, x_proj, w_h, c0, h0, forward_fn):
+        h_seq, c_seq, c_T, h_T = forward_fn(x_proj, w_h, c0, h0)
+        ctx.save_for_backward(x_proj, w_h, c0, h0, h_seq, c_seq)
+        return h_seq, c_T, h_T
+
+    @staticmethod
+    def backward(ctx, dh_seq, dc_T, dh_T):
+        res = ctx.saved_tensors
+        h_seq = res[4]
+        zero = lambda g, like: torch.zeros_like(like) if g is None else g  # an output nobody used
+        grads = (zero(dh_seq, h_seq), (zero(dc_T, h_seq[:, -1]), zero(dh_T, h_seq[:, -1])))
+        return (*recompute_backward(res, grads), None)
+
+
 def lstm_recurrence(x_proj, w_h, c0, h0, impl: str = "auto"):
-    """Returns (h_seq [B, T, H] f32, (c_T, h_T)). `impl`: "auto" runs the
-    kernel on CUDA tensors and the plain scan on CPU tensors; "kernel" and
-    "torch" force one ("kernel" on a CPU tensor raises)."""
+    """Returns (h_seq [B, T, H] f32, (c_T, h_T)), differentiable in every
+    input. `impl` (the reference dispatcher's twins):
+    - "kernel": `LSTMRecurrence` with the CUDA kernel as its forward
+      ("pallas"); a build or launch failure raises, there is no fallback;
+    - "torch": autograd through `lstm_scan` ("scan");
+    - "scan_recompute": `LSTMRecurrence` with `lstm_scan` as its forward
+      ("pallas_interpret"): the kernel path's arithmetic without the
+      kernel, for the CPU tests and the GPU smoke's plain arm;
+    - "auto": "kernel" on CUDA tensors, "torch" on CPU tensors."""
     if impl == "auto":
         impl = "kernel" if x_proj.device.type == "cuda" else "torch"
     if impl == "torch":
         h_seq, _, c_T, h_T = lstm_scan(x_proj, w_h, c0, h0)
     elif impl == "kernel":
-        h_seq, _, c_T, h_T = lstm_kernel(x_proj, w_h, c0, h0)
+        h_seq, c_T, h_T = LSTMRecurrence.apply(x_proj, w_h, c0, h0, lstm_kernel)
+    elif impl == "scan_recompute":
+        h_seq, c_T, h_T = LSTMRecurrence.apply(x_proj, w_h, c0, h0, lstm_scan)
     else:
         raise ValueError(f"unknown lstm impl {impl!r}")
     return h_seq, (c_T, h_T)

@@ -1,15 +1,16 @@
 """PPO clipped-surrogate loss over the teacher-forced LSTM re-evaluation
-(torch twin of dotaclient_tpu/ops/ppo.py, forward).
+(torch twin of dotaclient_tpu/ops/ppo.py).
 
 Re-run the policy over the shipped sequences from the shipped initial
 (c, h), form ratio = exp(logp_new − logp_old), and combine clipped
 surrogate + PPO2-clipped value loss + entropy bonus (+ aux), all masked
-means over real steps. The metric keys are the reference's.
+means over real steps. The metric keys are the reference's. Gradients
+come through autograd; the reference's stop_gradients are `detach()`.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -122,4 +123,60 @@ def ppo_loss(net, batch: TrainBatch, cfg: PPOConfig, aux_coef: float = 0.25):
         cfg,
         aux_coef,
         staleness=batch.behavior_staleness,
+    )
+
+
+class ReuseBatch(NamedTuple):
+    """A consumed batch with advantages/returns frozen from the pre-update
+    policy: what the epochs × minibatches reuse loop shuffles and slices
+    (classic PPO computes GAE once per batch, not once per update)."""
+
+    obs: object
+    actions: object
+    behavior_logp: torch.Tensor
+    behavior_value: torch.Tensor
+    advantages: torch.Tensor
+    returns: torch.Tensor
+    mask: torch.Tensor
+    initial_state: tuple
+    aux: object  # AuxTargets or None
+    staleness: Optional[torch.Tensor] = None  # [B] replay staleness stamp, or None
+
+
+def precompute_reuse(net, batch: TrainBatch, cfg: PPOConfig) -> ReuseBatch:
+    """One forward with the current (pre-update) params → frozen
+    advantages/returns for the whole reuse loop."""
+    with torch.no_grad():
+        _, out = net(batch.initial_state, batch.obs, unroll=True)
+        advantages, returns = gae(batch.rewards, out.value, batch.dones, batch.mask, cfg.gamma, cfg.gae_lambda)
+    return ReuseBatch(
+        obs=batch.obs,
+        actions=batch.actions,
+        behavior_logp=batch.behavior_logp,
+        behavior_value=batch.behavior_value,
+        advantages=advantages,
+        returns=returns,
+        mask=batch.mask,
+        initial_state=batch.initial_state,
+        aux=batch.aux,
+        staleness=batch.behavior_staleness,
+    )
+
+
+def ppo_minibatch_loss(net, mb: ReuseBatch, cfg: PPOConfig, aux_coef: float = 0.25):
+    """The reuse loop's per-update loss: a fresh forward on the minibatch,
+    surrogate against the frozen advantages/returns."""
+    _, out = net(mb.initial_state, mb.obs, unroll=True)
+    return _surrogate(
+        out,
+        mb.actions,
+        mb.behavior_logp,
+        mb.behavior_value,
+        mb.advantages,
+        mb.returns,
+        mb.mask,
+        mb.aux,
+        cfg,
+        aux_coef,
+        staleness=mb.staleness,
     )

@@ -38,8 +38,9 @@ def inputs(B, T, H, dtype, device, seed=0):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize(
     "B,T,H",
-    # H=48: a cluster of 3; H=40: the per-thread design; H=1024: per-thread, W_h from global memory
-    [(256, 17, 128), (37, 17, 128), (5, 3, 32), (3, 1, 64), (9, 4, 256), (21, 5, 48), (4, 3, 40), (2, 2, 1024)],
+    # B=128: a minibatch of the reuse step; H=48: a cluster of 3; H=40: the
+    # per-thread design; H=1024: per-thread, W_h from global memory
+    [(256, 17, 128), (128, 17, 128), (37, 17, 128), (5, 3, 32), (3, 1, 64), (9, 4, 256), (21, 5, 48), (4, 3, 40), (2, 2, 1024)],
 )
 def test_kernel_matches_scan(cuda, dtype, B, T, H):
     ins = inputs(B, T, H, dtype, cuda)
@@ -108,10 +109,85 @@ def test_auto_dispatch_launches_kernel(cuda):
 
 
 def test_kernel_refuses_grad(cuda):
+    """The raw launch stays forward-only; gradients go through LSTMRecurrence."""
     x_proj, w_h, c0, h0 = inputs(4, 3, 32, torch.float32, cuda)
     w_h.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="training slice"):
+    with pytest.raises(NotImplementedError, match="forward-only"):
         L.lstm_kernel(x_proj, w_h, c0, h0)
+
+
+def _grads(impl, ins, cot):
+    ins = [x.detach().clone().requires_grad_() for x in ins]
+    h_seq, (c_T, h_T) = L.lstm_recurrence(*ins, impl=impl)
+    torch.autograd.backward([h_seq, c_T, h_T], list(cot))
+    return [x.grad for x in ins]
+
+
+# Gradients through the kernel forward vs through the plain forward, both
+# with the recompute backward: the backward recomputes z from the saved
+# h/c, so it inherits the forward's differences (TOL) and carries them
+# through 17 reverse steps; as a share of each gradient's largest value.
+GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B", [256, 128, 37])
+def test_kernel_gradients_match_the_plain_forward(cuda, dtype, B):
+    ins = inputs(B, 17, 128, dtype, cuda, seed=7)
+    g = torch.Generator().manual_seed(8)
+    cot = [torch.randn(B, 17, 128, generator=g).to(cuda), *(torch.randn(B, 128, generator=g).to(cuda) for _ in range(2))]
+    before = L.LAUNCHES
+    got = _grads("kernel", ins, cot)
+    assert L.LAUNCHES == before + 1
+    want = _grads("scan_recompute", ins, cot)
+    for a, b, x in zip(got, want, ins):
+        assert a.dtype == b.dtype == x.dtype and a.shape == x.shape and torch.isfinite(a).all()
+        assert (a.float() - b.float()).abs().max().item() <= GRAD_TOL[dtype] * b.float().abs().max().item()
+
+
+def test_auto_dispatch_is_differentiable_through_the_kernel(cuda):
+    x_proj, w_h, c0, h0 = inputs(8, 5, 128, torch.bfloat16, cuda)
+    w_h.requires_grad_(True)
+    before = L.LAUNCHES
+    h_seq, (c_T, h_T) = L.lstm_recurrence(x_proj, w_h, c0, h0)
+    (h_seq.sum() + c_T.sum()).backward()
+    assert L.LAUNCHES == before + 1
+    assert w_h.grad is not None and w_h.grad.dtype == torch.bfloat16 and torch.isfinite(w_h.grad.float()).all()
+
+
+def test_single_train_step_on_the_card_matches_the_plain_arm(cuda):
+    """A small learner, one step through the kernel and one through the
+    plain forward, from the same start: metrics within the learner
+    forward's bf16 tolerance, Adam's mu and nu leaf by leaf within the
+    recurrence gradients' bf16 tolerance (nu twice), params within lr/2
+    (the reasons are chip_smoke.py's)."""
+    import dataclasses
+
+    from dotaclient_tpu_torch.config import LearnerConfig, PolicyConfig
+    from dotaclient_tpu_torch.ops.batch import make_train_batch
+    from dotaclient_tpu_torch.parallel import train_step as ts
+    from dotaclient_tpu_torch.runtime.staging import cast_obs_to_compute_dtype
+    from dotaclient_tpu_torch.transport.params import named_params
+
+    cfg = LearnerConfig(batch_size=32, seq_len=8, policy=PolicyConfig(unit_embed_dim=64, lstm_hidden=128, mlp_hidden=64))
+    plain = dataclasses.replace(cfg, policy=dataclasses.replace(cfg.policy, lstm_impl="scan_recompute"))
+    out = []
+    for c in (cfg, plain):
+        step, io = ts.build_single_train_step(c, cuda)
+        payload = io.to_device(io.pack_transfer(cast_obs_to_compute_dtype(c, make_train_batch(c, 0))))
+        before = L.LAUNCHES
+        state, metrics = step(ts.init_train_state(c, cuda), payload)
+        out.append((state, metrics, L.LAUNCHES - before))
+    (sk, mk, nk), (sp, mp, np_) = out
+    assert (nk, np_) == (1, 0)
+    for k in mk:
+        assert torch.isfinite(mk[k]) and abs(mk[k].item() - mp[k].item()) <= 5e-3 * (1 + abs(mp[k].item())), k
+    for name, tol in (("mu", GRAD_TOL[torch.bfloat16]), ("nu", 2 * GRAD_TOL[torch.bfloat16])):
+        mk, mp = getattr(sk.opt_state, name), getattr(sp.opt_state, name)
+        for n in mp:
+            assert (mk[n] - mp[n]).abs().max().item() <= tol * mp[n].abs().max().item(), (name, n)
+    for (_, a), (_, b) in zip(named_params(sk.net), named_params(sp.net)):
+        assert abs(a - b).max() <= 0.5 * cfg.ppo.lr
 
 
 def test_kernel_rejects_bad_inputs(cuda):

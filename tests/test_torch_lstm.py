@@ -1,14 +1,16 @@
 """LSTM recurrence of the PyTorch port: the plain `lstm_scan` against the
-JAX reference (the Pallas kernel in interpret mode, and lax.scan), the
-device dispatch, and the kernel wrapper's CPU-side contract. The CUDA
-kernel itself is held against `lstm_scan` on the GPU by
-tests/test_torch_cuda.py and chip_smoke.py."""
+JAX reference (the Pallas kernel in interpret mode, and lax.scan), its
+recompute backward against the reference's custom VJP, the device
+dispatch, and the kernel wrapper's CPU-side contract. The CUDA kernel
+itself is held against `lstm_scan` on the GPU by tests/test_torch_cuda.py
+and chip_smoke.py."""
 
 import re
 import subprocess
 import sys
 from pathlib import Path
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -85,11 +87,72 @@ def test_scan_is_stepwise_gates_and_last_step_is_final_carry():
     assert torch.equal(h_seq[:, -1], h_T) and torch.equal(c_seq[:, -1], c_T)
 
 
+def _cotangents(B, T, H, which, seed):
+    r = np.random.RandomState(seed)
+    dh_seq, dc_T, dh_T = r.randn(B, T, H), r.randn(B, H), r.randn(B, H)
+    if which == "h_seq":  # a loss of h_seq alone: c_T and h_T get zero cotangents
+        dc_T, dh_T = 0 * dc_T, 0 * dh_T
+    return tuple(a.astype(np.float32) for a in (dh_seq, dc_T, dh_T))
+
+
+def _jax_vjp(inputs, cot, dtype):
+    j, _ = both(inputs, dtype)
+    _, vjp = jax.vjp(lambda *a: JL.lstm_recurrence(*a, impl="pallas_interpret"), *j)
+    dh_seq, dc_T, dh_T = (jnp.asarray(c) for c in cot)
+    return vjp((dh_seq, (dc_T, dh_T)))
+
+
+def _torch_grads(inputs, cot, dtype, impl):
+    _, t = both(inputs, dtype)
+    t = [x.requires_grad_() for x in t]
+    h_seq, (c_T, h_T) = L.lstm_recurrence(*t, impl=impl)
+    torch.autograd.backward([h_seq, c_T, h_T], [torch.tensor(c) for c in cot])
+    return [x.grad for x in t]
+
+
+# Backward vs the reference VJP. f32: the same arithmetic up to the order
+# of f32 sums (z and dW_h are one batched product here, per-step products
+# there). bf16: dx_proj and dW_h are rounded to bf16 at the end, so a
+# last-ulp difference of the f32 value may move them by one bf16 ulp
+# (2^-7 relative at most); dc0/dh0 stay f32.
+BWD_RTOL = {"float32": 1e-5, "bfloat16": 2**-7}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("which", ["all", "h_seq"])
+def test_recompute_backward_matches_jax_vjp(dtype, which):
+    inputs = make_inputs(B=6, T=5, seed=7)
+    cot = _cotangents(6, 5, 32, which, seed=8)
+    want = _jax_vjp(inputs, cot, dtype)
+    # the plain function on the residuals the forward saves ...
+    _, t = both(inputs, dtype)
+    h_seq, c_seq, _, _ = L.lstm_scan(*t)
+    direct = L.recompute_backward((*t, h_seq, c_seq), (torch.tensor(cot[0]), (torch.tensor(cot[1]), torch.tensor(cot[2]))))
+    # ... and the autograd.Function with the plain forward
+    through = _torch_grads(inputs, cot, dtype, "scan_recompute")
+    for k, (ref, a, b) in enumerate(zip(want, direct, through)):
+        assert a.dtype == b.dtype == (t[k].dtype)
+        assert torch.equal(a, b)
+        rtol = BWD_RTOL[dtype] if k < 2 else 1e-5
+        np.testing.assert_allclose(a.float().numpy(), np.asarray(ref, np.float32), rtol=rtol, atol=1e-5)
+
+
+def test_recompute_backward_matches_autograd_in_f32():
+    """In f32 the recompute backward and autograd through lstm_scan
+    differentiate the same function: only the order of f32 sums differs.
+    (In bf16 they differ by design; see recompute_backward.)"""
+    inputs = make_inputs(B=5, T=6, seed=9)
+    cot = _cotangents(5, 6, 32, "all", seed=10)
+    for a, b in zip(_torch_grads(inputs, cot, "float32", "scan_recompute"), _torch_grads(inputs, cot, "float32", "torch")):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+
+
 def test_dispatch_on_cpu():
     t = tuple(torch.tensor(a) for a in make_inputs())
     auto = L.lstm_recurrence(*t)
     plain = L.lstm_recurrence(*t, impl="torch")
-    assert torch.equal(auto[0], plain[0])
+    recompute = L.lstm_recurrence(*t, impl="scan_recompute")
+    assert torch.equal(auto[0], plain[0]) and torch.equal(recompute[0], plain[0])
     with pytest.raises(ValueError, match="CUDA"):
         L.lstm_recurrence(*t, impl="kernel")
     with pytest.raises(ValueError, match="unknown lstm impl"):

@@ -176,39 +176,47 @@ def test_state_helpers_and_device_rule(monkeypatch):
         P.PolicyNet(dataclasses.replace(cfg, arch="transformer"), device="cpu")
 
 
+def _copy(gen: torch.Generator) -> torch.Generator:
+    g = torch.Generator(device=gen.device)
+    g.set_state(gen.get_state())
+    return g
+
+
 def test_batched_actor_step_rows_match_single_step():
-    """The port batches rows in one forward (the reference runs them one
-    by one): every row must agree with the B=1 forward of that row, and
-    sampling must respect the masks."""
+    """Each row of a batched tick is bitwise the B=1 step of that row with
+    that row's generator (the reference's lax.map contract), also when the
+    row sits among other neighbours; sampling respects the masks."""
     cfg = PolicyConfig(**SMALL)
     net = P.init_params(cfg, torch.Generator().manual_seed(1), "cpu")
     M = 6
     obs_seq = as_tensors(j_make_train_batch(JLearnerConfig(batch_size=M, seq_len=3, policy=JPolicyConfig(**SMALL)), 2).obs, "cpu")
     step, single = make_batched_actor_step(cfg), make_actor_step(cfg)
-    gen = torch.Generator().manual_seed(0)
+    gens = [torch.Generator().manual_seed(100 + i) for i in range(M)]
     state = P.initial_state(cfg, (M,), "cpu")
-    for t in range(3):
-        obs = F.Observation(*(x[:, t] for x in obs_seq))
-        prev = state
-        state, action, logp, value = step(net, state, obs, gen)
+    row = lambda tree, i: tuple(x[i : i + 1].clone() for x in tree)
+    for t in range(4):
+        # the last tick reverses the rows: every row gets new neighbours and a new slot
+        order = list(range(M)) if t < 3 else list(reversed(range(M)))
+        obs = F.Observation(*(x[:, min(t, 2)][order] for x in obs_seq))
+        prev = tuple(s[order] for s in state)
+        tick_gens = [gens[i] for i in order]
+        before = [_copy(g) for g in tick_gens]
+        new, action, logp, value = step(net, prev, obs, tick_gens)
         assert (logp <= 0).all() and torch.isfinite(value).all()
         rows = torch.arange(M)
         assert obs.action_mask[rows, action.type].all()
         targeted = (action.type == F.ACT_ATTACK) | (action.type == F.ACT_CAST)
         assert obs.target_mask[rows, action.target][targeted].all()
-        for i in range(M):
-            one = lambda x: x[i : i + 1]
-            obs1, prev1 = F.Observation(*(one(x) for x in obs)), tuple(one(s) for s in prev)
-            with torch.no_grad():
-                (c1, h1), out1 = net(prev1, obs1)
-            # bf16 trunk GEMMs of another row count may round one
-            # activation one bf16 ulp differently
-            torch.testing.assert_close(c1, one(state[0]), rtol=1e-2, atol=1e-2)
-            torch.testing.assert_close(out1.value, one(value), rtol=1e-2, atol=1e-2)
-            lp1 = ad.log_prob(out1.dist, ad.Action(*(one(a) for a in action)))
-            torch.testing.assert_close(lp1, one(logp), rtol=1e-2, atol=1e-2)
-        s1, a1, lp1, v1 = single(net, tuple(one(s) for s in prev), F.Observation(*(one(x) for x in obs)), gen)
-        assert s1[0].shape == (1, 32) and a1.type.shape == lp1.shape == v1.shape == (1,)
+        for j in range(M):
+            (c1, h1), a1, lp1, v1 = single(net, row(prev, j), F.Observation(*row(obs, j)), before[j])
+            assert c1.shape == (1, 32) and a1.type.shape == lp1.shape == v1.shape == (1,)
+            for x1, xb in zip((c1, h1, *a1, lp1, v1), (new[0], new[1], *action, logp, value)):
+                assert torch.equal(x1, xb[j : j + 1])
+            assert torch.equal(before[j].get_state(), tick_gens[j].get_state())  # each advanced its own stream
+        inverse = [order.index(i) for i in range(M)]
+        state = tuple(s[inverse] for s in new)
+    with pytest.raises(ValueError, match="generators"):
+        step(net, prev, obs, gens[:2])
 
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "dotaclient_tpu")
