@@ -24,16 +24,30 @@ Phases, in order; any failure exits non-zero:
               held against the same forward through the plain recurrence;
 6. train    — the learner's default path, build_single_train_step at the
               flagship shape: one [B, row_bytes] u8 buffer from pinned
-              memory, 3 PPO updates (kernel forward, recompute backward,
-              clip + Adam) each ending in a DTW2 frame, held against 3
+              memory, copied on the side stream the loop uses
+              (FusedBatchIO.transfer + consume), 3 PPO updates (kernel
+              forward, recompute backward, clip + Adam) each ending in a
+              DTW2 frame, held against 3
               updates through the plain forward (metrics, Adam moments
               leaf by leaf, params); ms per step, its split, the device's
               busy share and the backward recurrence's time; one
               sample-reuse step (2 epochs x 2 minibatches of 128), held
-              against its plain arm in the same way.
+              against its plain arm in the same way;
+7. learner loop — Learner.run at the flagship config: a producer thread
+              feeds DTR1 frames stamped with the newest version it
+              polled through the mem:// broker, the native packer fills
+              pinned transfer buffers, the pipelined loop trains 20 steps
+              (one kernel launch each, no plain scan), publishes DTW2
+              every step (the last frame polled is bitwise the params),
+              logs metric windows and checkpoints; a fresh learner
+              restores the checkpoint bitwise; a serial and a pipelined
+              5-step run over frames published before the run (no
+              producer thread) end bitwise equal; loop ms per step
+              without the producer and with it, the split, overlap,
+              pack ms (native vs Python), publish latency.
 Each path of the main path (serving, learner forward, each train step,
-the reuse step) is driven with the kernels' launch counters zeroed just
-before it and read just after. The last lines are one JSON object per kernel, the card line, and
+the reuse step, the learner loop) is driven with the kernels' launch
+counters zeroed just before it and read just after. The last lines are one JSON object per kernel, the card line, and
 {"ok": true, "device": {...}}.
 """
 
@@ -41,9 +55,14 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
+import shutil
 import statistics
+import struct
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 import traceback
 
@@ -486,7 +505,7 @@ def phase_train(device, steps: int = 3, lcfg=None):
     per_step, metrics_k = [], []
     for _ in range(steps):
         L.LAUNCHES = 0  # each train step of the main path runs with the counter zeroed just before it
-        state_k, m = step_k(state_k, io.to_device(buf))
+        state_k, m = step_k(state_k, io.consume(*io.transfer(buf)))
         per_step.append(L.LAUNCHES)
         metrics_k.append(m)
         frames.append(ts.weights_frame(state_k))  # waits for the step: its params go to the host
@@ -494,7 +513,7 @@ def phase_train(device, steps: int = 3, lcfg=None):
     L.LAUNCHES = 0
     metrics_p = []
     for _ in range(steps):
-        state_p, m = step_p(state_p, io.to_device(buf))
+        state_p, m = step_p(state_p, io.consume(*io.transfer(buf)))
         metrics_p.append(m)
     torch.cuda.synchronize()
     if L.LAUNCHES:
@@ -518,7 +537,7 @@ def phase_train(device, steps: int = 3, lcfg=None):
         holder = [state]
 
         def fn():
-            holder[0], _ = step(holder[0], io.to_device(buf))
+            holder[0], _ = step(holder[0], io.consume(*io.transfer(buf)))
 
         return fn
 
@@ -545,7 +564,7 @@ def phase_train(device, steps: int = 3, lcfg=None):
     # would not, and the host would block on the full queue mid-sample.
     device_k = cuda_ms(run_k, samples=7, calls=1, ahead=True)
     device_p = cuda_ms(run_p, samples=7, calls=1, ahead=True)
-    payload = io.to_device(buf)
+    payload = io.consume(*io.transfer(buf))
     batch = io.unpack_single(payload)
     net, ppo = state_k.net, lcfg.ppo
     params = named_tensors(net)
@@ -559,7 +578,7 @@ def phase_train(device, steps: int = 3, lcfg=None):
 
     grads = dict(zip(params, fwd_bwd()))
     split = {
-        "h2d": cuda_ms(lambda: io.to_device(buf), samples=10, calls=5),
+        "h2d": cuda_ms(lambda: io.consume(*io.transfer(buf)), samples=10, calls=5),
         "unpack": cuda_ms(lambda: io.unpack_single(payload), samples=10, calls=5),
         "forward": cuda_ms(fwd, samples=7, calls=3),
         "forward_backward": cuda_ms(fwd_bwd, samples=7, calls=3),
@@ -597,12 +616,12 @@ def phase_train(device, steps: int = 3, lcfg=None):
     torch.cuda.synchronize()
     L.LAUNCHES = 0  # the reuse step's main path starts here
     t0 = time.perf_counter()
-    rstate_k, rm_k = reuse_k(rstate_k, reuse_io.to_device(buf))
+    rstate_k, rm_k = reuse_k(rstate_k, reuse_io.consume(*reuse_io.transfer(buf)))
     torch.cuda.synchronize()
     reuse_ms = (time.perf_counter() - t0) * 1e3
     reuse_launches = L.LAUNCHES
     L.LAUNCHES = 0
-    rstate_p, rm_p = reuse_p(rstate_p, reuse_io.to_device(buf))
+    rstate_p, rm_p = reuse_p(rstate_p, reuse_io.consume(*reuse_io.transfer(buf)))
     torch.cuda.synchronize()
     if L.LAUNCHES:
         raise SystemExit("train: the plain arm of the reuse step launched the kernel")
@@ -612,7 +631,7 @@ def phase_train(device, steps: int = 3, lcfg=None):
     if reuse_launches != 5:
         raise SystemExit(f"train: the reuse step launched the LSTM kernel {reuse_launches} times, not 5")
     reuse_worst = compare_arms("reuse", rstate_k, rstate_p, [rm_k], [rm_p], 4, lcfg.ppo.lr)
-    reuse_step_ms = cuda_ms(lambda: reuse_k(rstate_k, reuse_io.to_device(buf)), samples=5, calls=1)
+    reuse_step_ms = cuda_ms(lambda: reuse_k(rstate_k, reuse_io.consume(*reuse_io.transfer(buf))), samples=5, calls=1)
     print(f"train: reuse step (2 epochs x 2 minibatches) loss kernel {rm_k['loss'].item():.6f} plain "
           f"{rm_p['loss'].item():.6f}; worst diffs: {json.dumps(reuse_worst)}; lstm kernel launches {reuse_launches} "
           f"(precompute forward + 4 updates); {reuse_ms:.2f} ms first call, {reuse_step_ms:.3f} ms per step "
@@ -622,6 +641,315 @@ def phase_train(device, steps: int = 3, lcfg=None):
                 bwd_device_ms=bwd_device_ms, busy_ms=busy_ms, wall_ms=wall_ms, device_kernels=n_kernels,
                 reuse_ms=reuse_ms, reuse_step_ms=reuse_step_ms, reuse_launches=reuse_launches, worst=worst,
                 reuse_worst=reuse_worst)
+
+
+def rollout_frames(cfg, n_batches: int, seed0: int = 0):
+    """Seeded synthetic DTR1 frames of full length (L = seq_len), one per
+    row of make_train_batch (legal actions, valid masks)."""
+    from dotaclient_tpu_torch.env import featurizer as F
+    from dotaclient_tpu_torch.ops.action_dist import Action
+    from dotaclient_tpu_torch.ops.batch import make_train_batch
+    from dotaclient_tpu_torch.transport.serialize import Rollout, serialize_rollout
+
+    frames = []
+    for k in range(n_batches):
+        b = make_train_batch(cfg, seed0 + k)
+        for i in range(cfg.batch_size):
+            frames.append(serialize_rollout(Rollout(
+                obs=F.Observation(*(x[i] for x in b.obs)), actions=Action(*(a[i] for a in b.actions)),
+                behavior_logp=b.behavior_logp[i], behavior_value=b.behavior_value[i], rewards=b.rewards[i],
+                dones=b.dones[i], initial_state=(b.initial_state[0][i], b.initial_state[1][i]),
+                version=0, actor_id=i % 64, episode_return=0.25 * (i % 8),
+            )))
+    return frames
+
+
+class Producer(threading.Thread):
+    """Publishes whole batches of frames from a pre-serialized pool, each
+    frame carrying (u32 version at header offset 4) the newest DTW2 version
+    the producer has polled, holding at most `max_depth` frames in the hub.
+
+    It stands in for actors, which run in other processes, so it takes as
+    little of this process's GIL as it can: every version's copy of the
+    pool is stamped before the run, and inside the run the thread reads a
+    weight frame's header per poll and calls publish_experience once per
+    frame, a batch at a time. Records the version, boot epoch and time of
+    every weight frame polled, its own CPU time, the part of it spent in
+    the publish calls, and its wake-ups."""
+
+    def __init__(self, broker, pool, versions: int, batch: int, max_depth: int):
+        super().__init__(daemon=True, name="chip-smoke-producer")
+        self.broker, self.pool, self.batch, self.max_depth = broker, pool, batch, max_depth
+        self.stamped = [[f[:4] + struct.pack("<I", v) + f[8:] for f in pool] for v in range(versions)]
+        self.stop_event = threading.Event()
+        self.version, self.published = 0, 0
+        self.polled = []  # (version, boot_epoch, perf_counter) per frame polled
+        self.last_frame = None
+        self.cpu_s = self.publish_cpu_s = 0.0
+        self.wakeups = 0
+
+    def poll(self):
+        frame = self.broker.poll_weights()
+        if frame is not None:
+            version, epoch = struct.unpack_from("<II", frame, 4)  # DTW2 header: magic, version, boot_epoch
+            self.polled.append((version, epoch, time.perf_counter()))
+            self.version, self.last_frame = version, frame
+
+    def run(self):
+        cpu0, i, n = time.thread_time(), 0, len(self.pool)
+        while not self.stop_event.is_set():
+            self.poll()
+            if self.broker.experience_depth() > self.max_depth - self.batch:
+                time.sleep(0.002)  # few wake-ups: each one takes the GIL from the loop thread
+                self.wakeups += 1
+                continue
+            frames, pub0 = self.stamped[self.version], time.thread_time()
+            for k in range(i, i + self.batch):
+                self.broker.publish_experience(frames[k % n])
+            self.publish_cpu_s += time.thread_time() - pub0
+            i += self.batch
+            self.published += self.batch
+        self.cpu_s = time.thread_time() - cpu0
+
+
+def _state_bits(state):
+    from dotaclient_tpu_torch.transport.params import named_adam_state, named_params
+
+    return [(n, a.tobytes()) for n, a in named_params(state.net) + named_adam_state(state.opt_state)]
+
+
+def pack_ms(cfg, frames, device):
+    """Staging's pack stage alone on the same B frames, median of 5: the
+    native packer (batched header parse + one C pack) against the Python
+    path (deserialize + numpy fill with the explicit bf16 rounding); the
+    two buffers must be byte-equal."""
+    from dotaclient_tpu_torch import native
+    from dotaclient_tpu_torch.parallel.train_step import build_single_train_step
+    from dotaclient_tpu_torch.runtime.staging import fill_rollouts
+    from dotaclient_tpu_torch.transport.serialize import deserialize_rollout
+
+    _, io = build_single_train_step(cfg, device)
+    lib = native.load_packer()
+    p = cfg.policy
+    obs_bf16 = cfg.stage_obs_compute_dtype and p.dtype == "bfloat16"
+
+    def run_native():
+        buf, out = io.alloc_transfer()
+        native.frame_headers(lib, frames)
+        native.pack_frames(lib, frames, cfg.seq_len, p.lstm_hidden, p.aux_heads, obs_bf16, out)
+        return buf
+
+    def run_python():
+        buf, out = io.alloc_transfer()
+        fill_rollouts(out, [deserialize_rollout(f) for f in frames], cfg.seq_len)
+        return buf
+
+    times = {}
+    for name, fn in (("native", run_native), ("python", run_python)):
+        samples = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            buf = fn()
+            samples.append((time.perf_counter() - t0) * 1e3)
+        times[name] = (statistics.median(samples), buf)
+    if not torch.equal(times["native"][1], times["python"][1]):
+        raise SystemExit("learner loop: the native and Python packers wrote different bytes")
+    return times["native"][0], times["python"][0]
+
+
+def staging_alone_ms(cfg, device, pool, batches: int = 5) -> float:
+    """ms per packed batch of the staging buffer (native packer) with no
+    train step beside it: frames pre-published, the consumer thread the
+    only busy one. Held against the same buffer's rate inside the loop."""
+    from dotaclient_tpu_torch.parallel.train_step import build_single_train_step
+    from dotaclient_tpu_torch.runtime.staging import StagingBuffer
+    from dotaclient_tpu_torch.transport import memory as tmem
+
+    _, io = build_single_train_step(cfg, device)
+    tmem.reset("chip_staging_alone")
+    for _ in range(-(-(batches + 2) * cfg.batch_size // len(pool))):
+        for f in pool:
+            tmem.MemoryBroker("chip_staging_alone").publish_experience(f)
+    staging = StagingBuffer(cfg, tmem.MemoryBroker("chip_staging_alone"), fused_io=io).start()
+    try:
+        if staging.get_batch_groups(timeout=60.0)[0] is None:
+            raise SystemExit("learner loop: the staging buffer alone produced no batch")
+        t0 = time.perf_counter()
+        for _ in range(batches):
+            if staging.get_batch_groups(timeout=60.0)[0] is None:
+                raise SystemExit("learner loop: the staging buffer alone produced no batch")
+        return (time.perf_counter() - t0) * 1e3 / batches
+    finally:
+        staging.stop()
+
+
+LOOP_KEYS = ("loss", "grad_norm", "env_steps_per_sec", "time_wait_batch_s", "time_device_put_s", "time_step_s",
+             "pipeline_overlap_ratio")
+
+
+def phase_learner_loop(device, card: str, bare_step_ms: float, base=None, steps: int = 20, parity_steps: int = 5):
+    """The port learner's main path at the flagship config (`base`, default
+    LearnerConfig(), with the cadences below): a producer
+    thread feeds DTR1 frames through the in-process broker, Learner.run
+    trains `steps` steps through the pipelined loop with a DTW2 publish
+    every step, a metrics window every 5 and a checkpoint every 10; then a
+    fresh learner restores the checkpoint, and a serial and a pipelined
+    run over one frame schedule must end bitwise equal."""
+    from dotaclient_tpu_torch.config import LearnerConfig
+    from dotaclient_tpu_torch.ops import lstm as L
+    from dotaclient_tpu_torch.runtime.learner import Learner
+    from dotaclient_tpu_torch.transport import memory as tmem
+    from dotaclient_tpu_torch.transport.params import named_params
+    from dotaclient_tpu_torch.transport.serialize import deserialize_weights
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_loop_")
+    try:
+        cfg = dataclasses.replace(LearnerConfig() if base is None else base, publish_every=1, metrics_every=5,
+                                  checkpoint_every=10, native_packer=True, log_dir=os.path.join(tmp, "logs"),
+                                  checkpoint_dir=os.path.join(tmp, "ck"))
+        B = cfg.batch_size
+        pool = rollout_frames(cfg, 2)
+        pack_native_ms, pack_python_ms = pack_ms(cfg, pool[:B], device)
+        staging_ms = staging_alone_ms(cfg, device, pool)
+
+        tmem.reset("chip_loop")
+        learner = Learner(cfg, tmem.MemoryBroker("chip_loop"), device)
+        hub = learner.broker._hub
+        submitted, visible = {}, {}
+        submit, publish = learner.publisher.submit, learner.broker.publish_weights
+
+        def timed_submit(payload, version):
+            submitted[version] = time.perf_counter()
+            submit(payload, version)
+
+        def timed_publish(frame):
+            publish(frame)
+            visible[struct.unpack_from("<I", frame, 4)[0]] = time.perf_counter()
+
+        learner.publisher.submit, learner.broker.publish_weights = timed_submit, timed_publish
+        producer = Producer(tmem.MemoryBroker("chip_loop"), pool, versions=steps + 1, batch=B, max_depth=2 * B)
+        scan_calls = [0]
+        scan = L.lstm_scan
+
+        def counting_scan(*a):
+            scan_calls[0] += 1
+            return scan(*a)
+
+        L.lstm_scan = counting_scan
+        producer.start()
+        torch.cuda.synchronize()
+        L.LAUNCHES = 0  # the learner loop's main path starts here
+        t0, cpu0, proc0 = time.perf_counter(), time.thread_time(), time.process_time()
+        try:
+            done = learner.run(num_steps=steps, batch_timeout=60.0, max_idle=3)
+        finally:
+            wall_s = time.perf_counter() - t0
+            loop_cpu_s, proc_cpu_s = time.thread_time() - cpu0, time.process_time() - proc0
+            launches = L.LAUNCHES
+            L.lstm_scan = scan
+            deadline = time.monotonic() + 30
+            while producer.version < steps and time.monotonic() < deadline:
+                time.sleep(0.01)
+            producer.stop_event.set()
+            producer.join(timeout=10)
+            learner.close()
+        stats = learner.staging.stats()
+        if done != steps or learner.version != steps:
+            raise SystemExit(f"learner loop: {done} steps done, version {learner.version}, expected {steps}")
+        if launches != steps or scan_calls[0]:
+            raise SystemExit(f"learner loop: {launches} kernel launches and {scan_calls[0]} plain scans in {steps} steps")
+        named, version, epoch = deserialize_weights(producer.last_frame)
+        versions = [v for v, _, _ in producer.polled]
+        if version != steps or {e for _, e, _ in producer.polled} != {learner.boot_epoch} or versions != sorted(versions):
+            raise SystemExit(f"learner loop: polled versions {versions} (last {version}), epochs "
+                             f"{ {e for _, e, _ in producer.polled} } vs boot_epoch {learner.boot_epoch}")
+        if not all(n == m and np.array_equal(a, b) for (n, a), (m, b) in zip(named, named_params(learner.state.net))):
+            raise SystemExit("learner loop: the last DTW2 frame polled is not bitwise the learner's params")
+        if hub.dropped or stats["consumer_errors"] or stats["dropped_bad"]:
+            raise SystemExit(f"learner loop: hub dropped {hub.dropped}, staging {stats}")
+        lines = [json.loads(x) for x in open(os.path.join(cfg.log_dir, "metrics.jsonl"))]
+        if [r["step"] for r in lines] != list(range(5, steps + 1, 5)):
+            raise SystemExit(f"learner loop: metric windows at {[r['step'] for r in lines]}")
+        for r in lines:
+            bad = [k for k in LOOP_KEYS if k not in r or not np.isfinite(r[k])]
+            if bad:
+                raise SystemExit(f"learner loop: window {r['step']} lacks finite {bad}")
+
+        restored = Learner(cfg, tmem.MemoryBroker("chip_loop_restore"), device)
+        if restored.version != steps or _state_bits(restored.state) != _state_bits(learner.state):
+            raise SystemExit(f"learner loop: the checkpoint restored version {restored.version}, or other bits")
+        restored.close()
+
+        # serial vs pipelined over one frame schedule, from the same seed
+        schedule = rollout_frames(cfg, parity_steps, seed0=100)
+        arms = {}
+        for prefetch in (False, True):
+            name = f"chip_loop_{'pipelined' if prefetch else 'serial'}"
+            pcfg = dataclasses.replace(cfg, log_dir="", checkpoint_dir="",
+                                       learner=dataclasses.replace(cfg.learner, prefetch=prefetch))
+            tmem.reset(name)
+            for f in schedule:
+                tmem.MemoryBroker(name).publish_experience(f)
+            arm = Learner(pcfg, tmem.MemoryBroker(name), device)
+            torch.cuda.synchronize()
+            L.LAUNCHES = 0
+            t1 = time.perf_counter()
+            arm.run(num_steps=parity_steps, batch_timeout=60.0, max_idle=3)
+            arms[name] = ((time.perf_counter() - t1) * 1e3 / parity_steps, L.LAUNCHES, _state_bits(arm.state),
+                          arm.metrics.latest())
+            arm.close()
+        (serial_ms, serial_launches, serial_bits, serial_win), (pipe_ms, pipe_launches, pipe_bits, pipe_win) = arms.values()
+        if serial_bits != pipe_bits or (serial_launches, pipe_launches) != (parity_steps, parity_steps):
+            raise SystemExit(f"learner loop: serial and pipelined runs differ (launches {serial_launches}, {pipe_launches})")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    med = lambda k: statistics.median(r[k] for r in lines)
+    window_ms = statistics.median(1e3 * (r["time_step_s"] + r["pipeline_device_idle_s"]) for r in lines)
+    latency = [1e3 * (visible[v] - submitted[v]) for v in visible if v in submitted]
+    out = dict(
+        launches=launches, steps=steps, loop_ms=wall_s * 1e3 / steps, window_ms=window_ms,
+        env_steps_per_sec=med("env_steps_per_sec"), wait_ms=1e3 * med("time_wait_batch_s"),
+        put_ms=1e3 * med("time_device_put_s"), step_ms=1e3 * med("time_step_s"),
+        overlap_ratio=med("pipeline_overlap_ratio"), device_idle_ms=1e3 * med("pipeline_device_idle_s"),
+        pack_native_ms=pack_native_ms, pack_python_ms=pack_python_ms,
+        publish_latency_ms=statistics.median(latency) if latency else None, published=learner.publisher.published,
+        coalesced=learner.publisher.coalesced, serial_ms=serial_ms, pipelined_ms=pipe_ms, bare_step_ms=bare_step_ms,
+        dropped_stale=stats["dropped_stale"], consumed=stats["consumed"], produced=producer.published,
+        loop_thread_cpu_ms=loop_cpu_s * 1e3 / steps, process_cpu_ms=proc_cpu_s * 1e3 / steps,
+        staging_alone_ms=staging_ms, serial_wait_ms=1e3 * serial_win["time_wait_batch_s"],
+        serial_step_ms=1e3 * serial_win["time_step_s"], pipelined_take_ms=1e3 * pipe_win["pipeline_device_idle_s"],
+        pipelined_step_ms=1e3 * pipe_win["time_step_s"], pipelined_put_ms=1e3 * pipe_win["time_device_put_s"],
+        producer_cpu_ms=producer.cpu_s * 1e3 / steps, producer_publish_cpu_ms=producer.publish_cpu_s * 1e3 / steps,
+        producer_wakeups=producer.wakeups / steps,
+    )
+    # the loop's own rate: the windows of the runs with no producer thread
+    # beside the loop (frames published before the run)
+    out["free_serial_ms"] = out["serial_wait_ms"] + out["serial_step_ms"]
+    out["free_pipelined_ms"] = out["pipelined_take_ms"] + out["pipelined_step_ms"]
+    print(f"learner loop: {steps} steps B={B} T={cfg.seq_len}, version {learner.version}, kernel launches {launches}, "
+          f"plain scans 0; last polled DTW2 v{version} bitwise the params; restore v{steps} bitwise; serial == "
+          f"pipelined bitwise over {parity_steps} steps | {card}", flush=True)
+    print(f"learner loop: without a producer thread (frames published before the run), per step in the window: "
+          f"pipelined {out['free_pipelined_ms']:.3f} ms (device-put {out['pipelined_put_ms']:.4f} ms), serial "
+          f"{out['free_serial_ms']:.3f} ms; bare train step (phase 6) {bare_step_ms:.3f} ms | {card}", flush=True)
+    print(f"learner loop: with the producer thread: {out['loop_ms']:.3f} ms per step (wall over {steps}), {window_ms:.3f} "
+          f"ms (median window); {out['env_steps_per_sec']:.0f} env steps/s; split wait {out['wait_ms']:.3f} / device-put "
+          f"{out['put_ms']:.4f} / step {out['step_ms']:.3f} ms; producer thread cpu {out['producer_cpu_ms']:.3f} ms per "
+          f"step ({out['producer_publish_cpu_ms']:.3f} in its publish calls, {out['producer_wakeups']:.1f} wake-ups) "
+          f"| {card}", flush=True)
+    print(f"learner loop: pipeline_overlap_ratio {out['overlap_ratio']:.4f}, pipeline_device_idle_s "
+          f"{out['device_idle_ms'] / 1e3:.6f}; staging pack per batch of {B}: native {pack_native_ms:.3f} ms, Python "
+          f"{pack_python_ms:.3f} ms | {card}", flush=True)
+    print(f"learner loop: publish latency (submit to visible in the hub) median {out['publish_latency_ms']:.3f} ms over "
+          f"{len(latency)} versions ({out['published']} published, {out['coalesced']} coalesced); serial "
+          f"{serial_ms:.3f} vs pipelined {pipe_ms:.3f} ms per step over their wall (start and stop included); "
+          f"consumed {out['consumed']} of {out['produced']} produced, {out['dropped_stale']} stale | {card}", flush=True)
+    print(f"learner loop, GIL: loop thread cpu {out['loop_thread_cpu_ms']:.2f} ms per step of {out['loop_ms']:.2f} ms wall, "
+          f"process cpu {out['process_cpu_ms']:.2f} ms per step; staging alone {staging_ms:.3f} ms per batch; serial "
+          f"window: wait for a batch {out['serial_wait_ms']:.3f} ms + step {out['serial_step_ms']:.3f} ms; pipelined "
+          f"window: take {out['pipelined_take_ms']:.3f} ms + step {out['pipelined_step_ms']:.3f} ms | {card}", flush=True)
+    return out
 
 
 def main() -> int:
@@ -655,6 +983,7 @@ def main() -> int:
     L.LAUNCHES = 0  # the learner forward starts here
     forward_launches, ms_k, ms_t = phase_learner(device, net, cfg)
     train = phase_train(device)  # zeroes the counters itself before its main path
+    loop = phase_learner_loop(device, card, train["ms"])  # zeroes the counters itself before its main path
 
     main_case = cases[0]
     kernels = [
@@ -667,6 +996,7 @@ def main() -> int:
             "launches_per_train_step": train["per_step"],
             "launches_train_3_steps": sum(train["per_step"]),
             "launches_reuse_step": train["reuse_launches"],
+            "launches_learner_loop": loop["launches"],
             "launches_learner_forward": forward_launches,
             "launches_serving": serving_launches,
             "max_abs_err": main_case["max_abs_err"],
@@ -682,6 +1012,7 @@ def main() -> int:
             "train": {k: train[k] for k in ("ms", "plain_ms", "turns", "device_ms", "plain_device_ms", "split", "bwd_ms",
                                             "bwd_device_ms", "busy_ms", "wall_ms", "device_kernels", "reuse_ms",
                                             "reuse_step_ms", "worst", "reuse_worst")},
+            "learner_loop": loop,
             "serving_ticks_per_s": ticks_per_s,
             "serving_ticks_per_s_one_forward": before_per_s,
         }

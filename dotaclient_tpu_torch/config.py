@@ -1,10 +1,20 @@
 """The slice of the reference configs the port needs, as plain dataclasses
-with the reference defaults (dotaclient_tpu/config.py: PolicyConfig,
-PPOConfig, ReplayConfig.enabled and the LearnerConfig fields the train
-step reads). No flag parsing yet."""
+with the reference defaults (dotaclient_tpu/config.py), and the same
+argparse bridge: `parse_config(LearnerConfig(), argv)` reads
+`--batch_size 8 --policy.lstm_hidden 16 --learner.prefetch false …` as the
+reference learner binary does.
+
+The switches of modes the port has not ported yet keep their reference
+names and defaults; the learner refuses a non-default value with
+NotImplementedError naming its ROADMAP item. Settings only those modes
+read are left out, so their flags fail to parse.
+"""
 
 from __future__ import annotations
 
+import argparse
+import copy
+import dataclasses
 from dataclasses import dataclass, field
 
 
@@ -40,6 +50,8 @@ class PPOConfig:
     lr: float = 1e-4
     adam_eps: float = 1e-5
     max_grad_norm: float = 0.5
+    # Experience older than this many learner versions is dropped on the
+    # host by the staging buffer.
     max_staleness: int = 4
     epochs: int = 1
     minibatches: int = 1
@@ -51,29 +63,184 @@ class PPOConfig:
 @dataclass
 class ReplayConfig:
     """Prioritized replay reservoir; only the switch is ported (the fused
-    train step refuses it, as the reference does)."""
+    train step and the learner refuse it)."""
+
+    enabled: bool = False
+
+
+@dataclass
+class StagingConfig:
+    """Host feed of the staging buffer. The port has the classic path:
+    one consumer thread pops, parses and packs (pack_workers=1)."""
+
+    # >1: the reference's parallel pack pool over a TransferRing (not
+    # ported; refused).
+    pack_workers: int = 1
+    # In-network batch assembly (DTB1 blocks; not ported; refused).
+    assemble: bool = False
+
+
+@dataclass
+class LearnerPipelineConfig:
+    """The learner loop's shape (runtime/learner.py PrefetchLane): True =
+    a prefetch thread stages batch N+1 while the device runs step N;
+    False = the serial fetch-after-step loop. Same batch order either way,
+    so the params come out bitwise equal."""
+
+    prefetch: bool = True
+    # Batches the lane may hold fetched ahead (1 = double buffering).
+    prefetch_depth: int = 1
+
+
+@dataclass
+class CkptConfig:
+    """Preemption tolerance of checkpoints. Every switch is off by default,
+    and the port has only that default: the plain params/Adam/step save."""
+
+    full_state: bool = False
+    async_save: bool = False
+    drain_on_sigterm: bool = False
+
+
+@dataclass
+class ObsConfig:
+    """Pipeline observability; only the master switch is ported (the
+    learner refuses it on)."""
+
+    enabled: bool = False
+
+
+@dataclass
+class ChaosConfig:
+    """Seeded fault injection around the broker; only the switch is
+    ported (the learner refuses it on)."""
 
     enabled: bool = False
 
 
 @dataclass
 class LearnerConfig:
-    """The learner fields the train step reads."""
+    """The learner binary's flags (reference: dotaclient_tpu/config.py
+    LearnerConfig), less the JAX-only `mesh_shape`: the port runs on one
+    device."""
 
     batch_size: int = 256  # sequences per train step
     seq_len: int = 16  # rollout chunk length = LSTM truncation window
     ppo: PPOConfig = field(default_factory=PPOConfig)
-    policy: PolicyConfig = field(default_factory=PolicyConfig)
     replay: ReplayConfig = field(default_factory=ReplayConfig)
+    obs: ObsConfig = field(default_factory=ObsConfig)
+    policy: PolicyConfig = field(default_factory=PolicyConfig)
+    chaos: ChaosConfig = field(default_factory=ChaosConfig)
+    broker_url: str = "mem://"
+    broker_shards: str = ""
+    checkpoint_dir: str = ""
+    checkpoint_remote_dir: str = ""
+    checkpoint_every: int = 100  # steps between durable checkpoints
+    ckpt: CkptConfig = field(default_factory=CkptConfig)
+    publish_every: int = 1  # steps between weight fanout publishes
+    # Emit legacy DTW1 weight frames (no boot_epoch) while a fleet of old
+    # subscribers rolls.
+    publish_legacy_dtw1: bool = False
+    # Steps between metric windows; a window is the loop's one routine
+    # device sync.
+    metrics_every: int = 10
+    log_dir: str = ""
     # Param init and the reuse step's per-step shuffle stream.
     seed: int = 0
+    # The C++ batch packer on the staging path (dotaclient_tpu_torch/native);
+    # False takes the Python path. A failed build raises.
+    native_packer: bool = True
+    staging: StagingConfig = field(default_factory=StagingConfig)
+    learner: LearnerPipelineConfig = field(default_factory=LearnerPipelineConfig)
     # Stage obs floats in the policy compute dtype (bf16) on the host
     # (runtime/staging.py cast_obs_to_compute_dtype): the policy's first
     # op is the same cast, and the host-to-device bytes halve.
     stage_obs_compute_dtype: bool = True
     # The batch crosses host-to-device as dtype-grouped buffers, and with
     # fused_single_h2d as ONE [B, row_bytes] u8 buffer
-    # (parallel/fused_io.py). The port has the single-buffer mode only:
-    # build_single_train_step refuses a config with either flag off.
+    # (parallel/fused_io.py). The port has the single-buffer mode only.
     fused_h2d: bool = True
     fused_single_h2d: bool = True
+    profile_port: int = 0
+    # "" = the CUDA device; "cpu" runs the learner on the host.
+    platform: str = ""
+    multihost: bool = False
+    # Stop after this many train steps (0 = run forever).
+    train_steps: int = 0
+
+
+# Modes of the reference learner that the port has not ported: the flag,
+# the test of its value that selects the mode, what the mode is, and its
+# ROADMAP item. The learner, the staging buffer and the single-buffer
+# train step refuse them from this one table.
+UNPORTED = {
+    "staging.pack_workers": (lambda v: v > 1, "the parallel pack pool over a TransferRing", "A.10e"),
+    "staging.assemble": (bool, "DTB1 in-network batch assembly", "A.10f"),
+    "replay.enabled": (bool, "the prioritized replay reservoir", "A.10g"),
+    "ckpt.full_state": (bool, "full-state checkpoints: aux manifest, version_hwm", "A.10h"),
+    "ckpt.async_save": (bool, "asynchronous checkpoint saves", "A.10h"),
+    "ckpt.drain_on_sigterm": (bool, "the SIGTERM drain", "A.10h"),
+    "checkpoint_remote_dir": (bool, "the remote checkpoint mirror", "A.10i"),
+    "fused_h2d": (lambda v: not v, "the per-leaf tree transfer", "A.10b"),
+    "fused_single_h2d": (lambda v: not v, "the grouped four-buffer transfer", "A.10b"),
+    "multihost": (bool, "multi-process data parallelism", "A.14"),
+    "obs.enabled": (bool, "tracing, flight recorder, /metrics", "A.13"),
+    "profile_port": (bool, "the profiler port", "A.13"),
+    "chaos.enabled": (bool, "the fault-injecting broker wrapper", "A.10j"),
+    "broker_shards": (bool, "the broker fabric's fan-in", "A.10d"),
+}
+
+
+def refuse_unported(cfg: LearnerConfig, flags=UNPORTED) -> None:
+    """NotImplementedError, naming the ROADMAP item, for the first of
+    `flags` (default: every one in UNPORTED) whose value in `cfg` selects
+    a mode the port does not have."""
+    for flag in flags:
+        selects, what, item = UNPORTED[flag]
+        value = cfg
+        for name in flag.split("."):
+            value = getattr(value, name)
+        if selects(value):
+            raise NotImplementedError(f"{flag}={value!r} ({what}) is not ported yet (ROADMAP {item})")
+
+
+def _parse_bool(s: str) -> bool:
+    low = s.lower()
+    if low in ("1", "true", "yes", "on"):
+        return True
+    if low in ("0", "false", "no", "off"):
+        return False
+    raise argparse.ArgumentTypeError(f"expected a boolean, got {s!r}")
+
+
+def add_flags(parser: argparse.ArgumentParser, cfg, prefix: str = "") -> None:
+    """Register one --flag per (possibly nested) dataclass field."""
+    for f in dataclasses.fields(cfg):
+        val = getattr(cfg, f.name)
+        name = f"{prefix}{f.name}"
+        if dataclasses.is_dataclass(val):
+            add_flags(parser, val, prefix=f"{name}.")
+        elif isinstance(val, bool):
+            parser.add_argument(f"--{name}", type=_parse_bool, default=val)
+        else:
+            parser.add_argument(f"--{name}", type=type(val), default=val)
+
+
+def parse_config(cfg, argv=None):
+    """Parse CLI flags into a fresh deep copy of `cfg` (returns the copy)."""
+    cfg = copy.deepcopy(cfg)
+    parser = argparse.ArgumentParser()
+    add_flags(parser, cfg)
+    args = parser.parse_args(argv)
+    _apply(cfg, vars(args))
+    return cfg
+
+
+def _apply(cfg, flat: dict, prefix: str = "") -> None:
+    for f in dataclasses.fields(cfg):
+        val = getattr(cfg, f.name)
+        name = f"{prefix}{f.name}"
+        if dataclasses.is_dataclass(val):
+            _apply(val, flat, prefix=f"{name}.")
+        elif name in flat:
+            setattr(cfg, f.name, flat[name])

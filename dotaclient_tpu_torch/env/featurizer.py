@@ -12,6 +12,10 @@ from typing import NamedTuple
 
 import numpy as np
 
+# Bumped whenever a feature's meaning, order or width changes; stamped
+# into checkpoints so a restore under another schema refuses loudly.
+FEATURE_SCHEMA_VERSION = 3
+
 MAX_UNITS = 16
 UNIT_FEATURES = 16
 N_ABILITY_SLOTS = 4

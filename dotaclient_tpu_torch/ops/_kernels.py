@@ -1,12 +1,14 @@
-"""Build and load the port's hand-written CUDA kernels.
+"""Build and load the port's hand-written native code.
 
-Each source under `dotaclient_tpu_torch/csrc/` compiles with `nvcc` for
-`sm_90a` into its own shared library with a plain C interface (no PyTorch
-headers, so a build takes seconds) and is loaded with ctypes. Libraries
-land in `build/torch_kernels/` at the repository root (git-ignored), named
-by a hash of the source and flags, so an edited source rebuilds. Nothing
-is built at import: the first call that needs a kernel builds it, and
-`build_all()` builds every source at once, one `nvcc` process each.
+Each source under `dotaclient_tpu_torch/csrc/` compiles into its own
+shared library with a plain C interface and is loaded with ctypes: the
+CUDA kernels (`*.cu`) with `nvcc` for `sm_90a` (no PyTorch headers, so a
+build takes seconds), the host C++ batch packer (`*.cc`) with `g++`.
+Libraries land in `build/torch_kernels/` at the repository root
+(git-ignored), named by a hash of the source and flags, so an edited
+source rebuilds. Nothing is built at import: the first call that needs a
+library builds it, and `build_all()` builds every source at once, one
+compiler process each. A failed build raises; nothing falls back.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -31,9 +33,12 @@ NVCC_FLAGS = [
     "-fPIC",
     "-Xptxas=-v",  # registers / shared memory / spills, printed by build_all's log
 ]
+# Host code: no -march=native, so a library built on one x86-64 host
+# loads on any other.
+GXX_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-# kernel name -> (source file, {C function: (argtypes, restype)})
+_P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+# library name -> (source file, {C function: (argtypes, restype)})
 KERNELS = {
     "lstm_recurrence": (
         "lstm_recurrence.cu",
@@ -41,6 +46,18 @@ KERNELS = {
             "lstm_recurrence_fwd": ([_P] * 8 + [_I] * 10 + [_P], _I),
             "lstm_recurrence_device_limits": ([ctypes.POINTER(_I)] * 3, _I),
             "lstm_recurrence_error_string": ([_I], ctypes.c_char_p),
+        },
+    ),
+    "packer": (
+        "packer.cc",
+        {
+            # frames, frame_lens, n, row_offset, T, H, want_aux, obs_bf16,
+            # 5 schema dims, row_strides, 20 outputs, 3 metadata outputs
+            "dt_pack_batch": ([_P, _P] + [_I64] * 11 + [_P] + [_P] * 20 + [_P] * 3, _I64),
+            # frames, frame_lens, n, 5 schema dims, 8 outputs
+            "dt_frame_headers": ([_P, _P] + [_I64] * 6 + [_P] * 8, _I64),
+            # frame, len, 5 schema dims, 7 outputs
+            "dt_frame_header": ([_P] + [_I64] * 6 + [_P] * 7, _I64),
         },
     ),
 }
@@ -59,16 +76,33 @@ def _nvcc() -> str:
     return found
 
 
+def _is_cuda(name: str) -> bool:
+    return KERNELS[name][0].endswith(".cu")
+
+
+def _flags(name: str) -> List[str]:
+    return NVCC_FLAGS if _is_cuda(name) else GXX_FLAGS
+
+
+def _compiler(name: str) -> str:
+    if _is_cuda(name):
+        return _nvcc()
+    found = shutil.which("g++")
+    if found is None:
+        raise RuntimeError("g++ not found: the native batch packer needs a C++17 compiler on PATH")
+    return found
+
+
 def lib_path(name: str) -> Path:
     src = CSRC / KERNELS[name][0]
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    digest = hashlib.sha256(src.read_bytes() + " ".join(_flags(name)).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{digest}.so"
 
 
 def build_all(names=None) -> Dict[str, str]:
-    """Compile every named kernel whose library is missing, all `nvcc`
-    processes started together; returns each build's compiler log.
-    Raises (after every process has ended) if any build failed."""
+    """Compile every named library that is missing, all compiler processes
+    started together; returns each build's compiler log. Raises (after
+    every process has ended) if any build failed."""
     names = list(KERNELS) if names is None else list(names)
     jobs = {}
     for name in names:
@@ -77,7 +111,7 @@ def build_all(names=None) -> Dict[str, str]:
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / KERNELS[name][0])]
+        cmd = [_compiler(name), *_flags(name), "-o", str(tmp), str(CSRC / KERNELS[name][0])]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         jobs[name] = (proc, tmp, out)
     logs, failed = {}, []
@@ -88,12 +122,12 @@ def build_all(names=None) -> Dict[str, str]:
         else:
             failed.append(name)
     if failed:
-        raise RuntimeError("nvcc failed for " + ", ".join(f"{n}:\n{logs[n]}" for n in failed))
+        raise RuntimeError("build failed for " + ", ".join(f"{n}:\n{logs[n]}" for n in failed))
     return logs
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The kernel's library, built on first use, with every C function's
+    """The library, built on first use, with every C function's
     argtypes/restype declared (pointers and the stream as c_void_p)."""
     lib = _loaded.get(name)
     if lib is None:

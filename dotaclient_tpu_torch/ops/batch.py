@@ -27,6 +27,12 @@ from dotaclient_tpu_torch.env.featurizer import Observation
 from dotaclient_tpu_torch.ops.action_dist import Action
 
 
+class BatchLayoutError(ValueError):
+    """A batch or transfer layout disagrees with its template or config
+    (shape, dtype, width): a builder/staging mismatch that would fail
+    every batch, unlike one malformed frame."""
+
+
 class AuxTargets(NamedTuple):
     """Targets for the auxiliary value heads."""
 

@@ -142,12 +142,17 @@ class FusedBatchIO:
         self.layout = RowLayout([(tuple(leaf.shape), leaf.dtype) for leaf in leaves])
         self.row_bytes = self.layout.row_bytes
         self.device = resolve_device(device)
+        # Host-to-device copies run on their own stream, so a copy issued
+        # by the learner's prefetch thread overlaps the train step's
+        # kernels on the loop thread's stream.
+        self._stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
 
-    def alloc_views_single(self):
+    def alloc_transfer(self):
         """(buf, batch): a zeroed [B, row_bytes] u8 host tensor (pinned when
         the device is a GPU) and a TrainBatch of numpy views into it, all
         zero but the NOOP-legal action mask of padding rows
-        (zeros_train_batch's contract)."""
+        (zeros_train_batch's contract). Staging packs straight into the
+        views; bf16 leaves are uint16 words."""
         buf = torch.zeros((self.batch, self.row_bytes), dtype=torch.uint8, pin_memory=self.device.type == "cuda")
         batch = tree_unflatten(self.structure, self.layout.views_into(buf.numpy(), self.batch))
         batch.obs.action_mask[:] = F.zeros_observation().action_mask
@@ -166,15 +171,38 @@ class FusedBatchIO:
         rows = leaves[0].shape[0]
         if rows != self.batch:
             raise ValueError(f"single pack: got {rows} rows, expected {self.batch}")
-        buf, views = self.alloc_views_single()
+        buf, views = self.alloc_transfer()
         for v, leaf in zip(tree_flatten(views)[0], leaves):
             v[...] = _host_array(leaf)
         return buf
 
-    def to_device(self, buf: torch.Tensor) -> torch.Tensor:
-        """One host-to-device copy, asynchronous from pinned memory: `buf`
-        must not be written again until the stream has passed the copy."""
-        return buf.to(self.device, non_blocking=True)
+    def transfer(self, buf: torch.Tensor):
+        """(payload, ready): the host-to-device copy of a pinned buffer
+        issued on this io's side stream, and the event recorded after it
+        (None on the CPU, where the caller asked for no stream). The host
+        does not wait; whoever uses the payload calls `consume` first. The
+        pinned buffer is released to the caching host allocator only once
+        the copy is done, so a fresh buffer per batch is never overwritten
+        mid-copy."""
+        if self._stream is None:
+            return buf.to(self.device), None
+        with torch.cuda.stream(self._stream):
+            payload = buf.to(self.device, non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record(self._stream)
+        return payload, ready
+
+    @staticmethod
+    def consume(payload: torch.Tensor, ready) -> torch.Tensor:
+        """Order the current stream after the copy (a device-side wait, the
+        host does not block) and mark the payload as used there, so the
+        allocator does not hand its memory to the side stream while the
+        step still reads it."""
+        if ready is not None:
+            stream = torch.cuda.current_stream(payload.device)
+            stream.wait_event(ready)
+            payload.record_stream(stream)
+        return payload
 
     def unpack_single(self, buf: torch.Tensor):
         """[B, row_bytes] u8 on the device → TrainBatch of views: each

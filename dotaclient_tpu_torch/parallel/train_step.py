@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from dotaclient_tpu_torch import resolve_device
-from dotaclient_tpu_torch.config import LearnerConfig
+from dotaclient_tpu_torch.config import LearnerConfig, refuse_unported
 from dotaclient_tpu_torch.models.policy import PolicyNet, check_arch, init_params
 from dotaclient_tpu_torch.ops.batch import TrainBatch, tree_map, zeros_train_batch
 from dotaclient_tpu_torch.ops.clip_adam import AdamState, ClipAdam
@@ -163,13 +163,14 @@ def build_single_train_step(cfg: LearnerConfig, device=None):
     """Returns (step, io): the train step over the batch as ONE
     [B, row_bytes] u8 buffer on the device, the reference's default
     learner path (fused_h2d and fused_single_h2d). Host side:
-    `payload = io.to_device(io.pack_transfer(cast_obs_to_compute_dtype(cfg,
-    batch)))`; then `step(state, payload)`, which unpacks with views
+    `payload = io.consume(*io.transfer(io.pack_transfer(
+    cast_obs_to_compute_dtype(cfg, batch))))`, the copy on the io's side
+    stream and the current stream ordered after it; then
+    `step(state, payload)`, which unpacks with views
     (FusedBatchIO.unpack_single) and runs build_train_step's step."""
     if not cfg.fused_h2d:
         raise ValueError("fused_h2d=False: the batch crosses as a tree of tensors; use build_train_step")
-    if not cfg.fused_single_h2d:
-        raise NotImplementedError("fused_single_h2d=False: the grouped four-buffer transfer is not ported")
+    refuse_unported(cfg, ("fused_single_h2d",))
     step_fn = build_train_step(cfg, device)
     if cfg.replay.enabled:
         raise ValueError(

@@ -174,7 +174,7 @@ def test_single_train_step_on_the_card_matches_the_plain_arm(cuda):
     out = []
     for c in (cfg, plain):
         step, io = ts.build_single_train_step(c, cuda)
-        payload = io.to_device(io.pack_transfer(cast_obs_to_compute_dtype(c, make_train_batch(c, 0))))
+        payload = io.consume(*io.transfer(io.pack_transfer(cast_obs_to_compute_dtype(c, make_train_batch(c, 0)))))
         before = L.LAUNCHES
         state, metrics = step(ts.init_train_state(c, cuda), payload)
         out.append((state, metrics, L.LAUNCHES - before))
@@ -199,3 +199,102 @@ def test_kernel_rejects_bad_inputs(cuda):
             L.lstm_kernel(x_proj.transpose(0, 1).contiguous().transpose(0, 1), w_h, c0, h0)
         with pytest.raises(ValueError, match="float32 or bfloat16"):
             L.lstm_kernel(x_proj.half(), w_h.half(), c0, h0)
+
+
+# ------------------------------------------------------------ learner loop
+
+
+def _loop_cfg(**kw):
+    from dotaclient_tpu_torch.config import LearnerConfig, PolicyConfig
+
+    return LearnerConfig(batch_size=16, seq_len=8, policy=PolicyConfig(unit_embed_dim=64, lstm_hidden=128, mlp_hidden=64), **kw)
+
+
+def _frames(cfg, n_batches, seed0=0):
+    """DTR1 frames of each row's real length, every third one cast to a
+    bf16 DTR3 frame at the source."""
+    from dotaclient_tpu_torch.env import featurizer as F
+    from dotaclient_tpu_torch.ops.action_dist import Action
+    from dotaclient_tpu_torch.ops.batch import make_train_batch
+    from dotaclient_tpu_torch.transport import serialize as S
+
+    out = []
+    for k in range(n_batches):
+        b = make_train_batch(cfg, seed0 + k)
+        for i in range(cfg.batch_size):
+            L = int(b.mask[i].sum())
+            r = S.Rollout(obs=F.Observation(*(x[i, : L + 1] for x in b.obs)), actions=Action(*(a[i, :L] for a in b.actions)),
+                          behavior_logp=b.behavior_logp[i, :L], behavior_value=b.behavior_value[i, :L],
+                          rewards=b.rewards[i, :L], dones=b.dones[i, :L],
+                          initial_state=(b.initial_state[0][i], b.initial_state[1][i]), version=0, actor_id=i)
+            out.append(S.serialize_rollout(S.cast_rollout_obs_bf16(r) if i % 3 == 2 else r))
+    return out
+
+
+def _ios(cfg, cuda):
+    from dotaclient_tpu_torch.ops.batch import zeros_train_batch
+    from dotaclient_tpu_torch.parallel.fused_io import FusedBatchIO
+    from dotaclient_tpu_torch.runtime.staging import cast_obs_to_compute_dtype
+
+    p = cfg.policy
+    template = cast_obs_to_compute_dtype(cfg, zeros_train_batch(cfg.batch_size, cfg.seq_len, p.lstm_hidden, p.aux_heads))
+    return FusedBatchIO(template, cuda), FusedBatchIO(template, "cpu")
+
+
+def test_native_packer_equals_the_python_packer(cuda):
+    from dotaclient_tpu_torch import native
+    from dotaclient_tpu_torch.runtime.staging import fill_rollouts
+    from dotaclient_tpu_torch.transport.serialize import deserialize_rollout
+
+    cfg = _loop_cfg()
+    io, _ = _ios(cfg, cuda)
+    frames = _frames(cfg, 1)
+    (buf_n, out_n), (buf_p, out_p) = io.alloc_transfer(), io.alloc_transfer()
+    assert buf_n.is_pinned() and buf_p.is_pinned()
+    native.pack_frames(native.load_packer(), frames, cfg.seq_len, cfg.policy.lstm_hidden, False, True, out_n)
+    fill_rollouts(out_p, [deserialize_rollout(f) for f in frames], cfg.seq_len)
+    assert torch.equal(buf_n, buf_p)
+
+
+def test_side_stream_transfer_unpacks_to_the_cpu_batch(cuda):
+    """Packed into pinned memory, copied on the io's side stream, waited
+    for by the current stream and unpacked on the card: every leaf equals
+    the same buffer unpacked on the CPU."""
+    from dotaclient_tpu_torch import native
+    from dotaclient_tpu_torch.ops.batch import tree_flatten
+
+    cfg = _loop_cfg()
+    io, io_cpu = _ios(cfg, cuda)
+    buf, out = io.alloc_transfer()
+    native.pack_frames(native.load_packer(), _frames(cfg, 1, seed0=3), cfg.seq_len, cfg.policy.lstm_hidden, False, True, out)
+    payload, ready = io.transfer(buf)
+    assert isinstance(ready, torch.cuda.Event) and payload.device.type == "cuda"
+    got = tree_flatten(io.unpack_single(io.consume(payload, ready)))[0]
+    want = tree_flatten(io_cpu.unpack_single(buf))[0]
+    torch.cuda.synchronize()
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g.cpu(), w)
+
+
+def test_learner_loop_launches_the_kernel_once_per_step(cuda, tmp_path):
+    from dotaclient_tpu_torch.runtime.learner import Learner
+    from dotaclient_tpu_torch.transport import memory as M
+    from dotaclient_tpu_torch.transport.params import named_params
+    from dotaclient_tpu_torch.transport.serialize import deserialize_weights
+
+    cfg = _loop_cfg(log_dir=str(tmp_path), metrics_every=3)
+    M.reset("cuda_loop")
+    for f in _frames(cfg, 3):
+        M.MemoryBroker("cuda_loop").publish_experience(f)
+    watcher = M.MemoryBroker("cuda_loop")
+    learner = Learner(cfg, M.MemoryBroker("cuda_loop"), cuda)
+    before = L.LAUNCHES
+    try:
+        assert learner.run(num_steps=3, batch_timeout=30.0, max_idle=3) == 3
+    finally:
+        learner.close()
+    assert L.LAUNCHES - before == 3
+    named, version, _ = deserialize_weights(watcher.poll_weights())
+    assert version == 3 and all(a.tobytes() == b.tobytes() for (_, a), (_, b) in zip(named, named_params(learner.state.net)))
+    assert learner.staging.stats()["consumer_errors"] == 0

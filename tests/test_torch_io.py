@@ -93,7 +93,7 @@ def test_pack_transfer_bytes_equal_the_reference_and_unpack_returns_the_batch(st
     assert buf.dtype == torch.uint8 and tuple(buf.shape) == want.shape == (6, io.row_bytes)
     assert np.array_equal(buf.numpy(), want)
     # device side (here the CPU): views, leaf for leaf
-    out = io.unpack_single(io.to_device(buf))
+    out = io.unpack_single(io.consume(*io.transfer(buf)))
     cast = cast_obs_to_compute_dtype(tcfg, tb)
     got_leaves, want_leaves = tbatch.tree_flatten(out)[0], tbatch.tree_flatten(cast)[0]
     assert len(got_leaves) == len(want_leaves) == len(jax.tree.leaves(jb))
@@ -113,7 +113,7 @@ def test_pack_transfer_refuses_another_layout():
         io.pack_transfer(tbatch.make_train_batch(tcfg, 0))  # obs still f32
     with pytest.raises(ValueError, match="structure"):
         io.pack_transfer(tb._replace(behavior_staleness=np.zeros(6, np.float32)))
-    buf, views = io.alloc_views_single()
+    buf, views = io.alloc_transfer()
     assert not buf.is_pinned() and not buf.numpy()[:, : io.layout.seg_off["u8"]].any()
     assert views.obs.action_mask.all(-1).sum() == 0 and views.obs.action_mask[..., 0].all()  # NOOP-legal padding
 
@@ -127,7 +127,7 @@ def test_single_buffer_step_equals_the_tree_step():
     tree_step = ts.build_train_step(tcfg, "cpu")
     tb = tbatch.make_train_batch(tcfg, 9)
     s1, s2 = ts.init_train_state(tcfg, "cpu"), ts.init_train_state(tcfg, "cpu")
-    s1, m1 = step(s1, io.to_device(io.pack_transfer(cast_obs_to_compute_dtype(tcfg, tb))))
+    s1, m1 = step(s1, io.consume(*io.transfer(io.pack_transfer(cast_obs_to_compute_dtype(tcfg, tb)))))
     s2, m2 = tree_step(s2, tbatch.as_tensors(tb, "cpu"))
     assert s1.step == s2.step == 1 and set(m1) == set(m2)
     assert all(torch.equal(m1[k], m2[k]) for k in m1)

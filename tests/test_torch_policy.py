@@ -219,7 +219,7 @@ def test_batched_actor_step_rows_match_single_step():
         step(net, prev, obs, gens[:2])
 
 
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "dotaclient_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "etils", "ml_dtypes", "dotaclient_tpu")
 
 
 def _imported_roots(path: Path):

@@ -1,0 +1,234 @@
+"""The port's staging buffer against the reference's: the same frame list
+(DTR1/DTR2/DTR3, short rollouts, frames with and without aux, stale
+versions, corrupt and misconfigured frames) goes through the reference
+StagingBuffer (Python and native packer, single transfer buffer) and the
+port's (Python and native). The packed [B, row_bytes] bytes, the drop /
+quarantine / wire-meter counts and the quarantine evidence must be equal,
+in f32 and bf16 configs, with and without aux."""
+
+import dataclasses
+import time
+
+import jax
+import numpy as np
+import pytest
+
+from dotaclient_tpu.config import LearnerConfig as JLearnerConfig
+from dotaclient_tpu.config import PolicyConfig as JPolicyConfig
+from dotaclient_tpu.config import PPOConfig as JPPOConfig
+from dotaclient_tpu.parallel import mesh as jmesh
+from dotaclient_tpu.parallel import train_step as jts
+from dotaclient_tpu.parallel.fused_io import FusedBatchIO as JFusedBatchIO
+from dotaclient_tpu.runtime.staging import StagingBuffer as JStagingBuffer
+from dotaclient_tpu.runtime.staging import cast_obs_to_compute_dtype as j_cast
+from dotaclient_tpu.transport import memory as jmem
+from dotaclient_tpu.transport import serialize as jser
+from dotaclient_tpu_torch.config import LearnerConfig, PolicyConfig, PPOConfig
+from dotaclient_tpu_torch.native import frame_header, frame_headers, load_packer
+from dotaclient_tpu_torch.ops import batch as tbatch
+from dotaclient_tpu_torch.parallel.fused_io import FusedBatchIO
+from dotaclient_tpu_torch.runtime import staging as tstaging
+from dotaclient_tpu_torch.transport import memory as tmem
+from dotaclient_tpu_torch.transport import serialize as tser
+from test_transport import make_rollout
+
+B, T, H = 8, 4, 8
+VERSION_NOW, MAX_STALE = 10, 4  # frames stamped below 6 are stale
+POL = dict(unit_embed_dim=16, lstm_hidden=H, mlp_hidden=16)
+COUNTS = ("consumed", "dropped_stale", "dropped_bad", "quarantined", "batches", "rows_packed", "episodes",
+          "episode_return_sum", "wire_bytes", "wire_frames_obs_bf16", "wire_frames_obs_f32", "consumer_errors")
+
+
+def frame_schedule(aux: bool):
+    """27 admissible frames (3 full batches + 3 left pending) interleaved
+    with 5 stale and 7 bad ones, in a fixed order."""
+    good, n = [], 0
+    for i in range(27):
+        L = (T, 2, 1, T - 1)[i % 4]
+        r = make_rollout(L=L, H=H, version=VERSION_NOW - (i % 5), actor_id=i % 6, aux=aux if i % 3 else not aux, seed=100 + i)
+        if i % 7 == 3:
+            r = r._replace(dones=np.zeros(L, np.float32))  # no episode end
+        kind = i % 4
+        if kind == 1:
+            r = r._replace(trace_id=1000 + i, birth_time=1.5 * i)  # DTR2
+        elif kind == 2:
+            r = jser.cast_rollout_obs_bf16(r)  # DTR3
+        elif kind == 3 and i % 8 == 7:
+            r = jser.cast_rollout_obs_bf16(r)._replace(trace_id=i, birth_time=0.5)  # traced DTR3
+        good.append(jser.serialize_rollout(r))
+        n += 1
+    stale = [jser.serialize_rollout(make_rollout(L=T, H=H, version=v, seed=200 + v)) for v in (0, 3, 5, 1, 2)]
+    q = bytearray(jser.serialize_rollout(jser.cast_rollout_obs_bf16(make_rollout(L=2, H=H, seed=300))))
+    q[38] = 7
+    d1 = jser.serialize_rollout(make_rollout(L=T, H=H, version=VERSION_NOW, seed=301))
+    bad = [
+        bytes(q),  # dtype_map
+        d1[:100],  # parse: truncated
+        b"DTRX" + d1[4:],  # parse: magic
+        d1 + b"\0",  # parse: trailing byte
+        jser.serialize_rollout(make_rollout(L=T, H=H + 8, version=VERSION_NOW, seed=302)),  # layout: H
+        jser.serialize_rollout(make_rollout(L=T + 2, H=H, version=VERSION_NOW, seed=303)),  # layout: L > T
+        b"",  # parse: empty
+    ]
+    out = []
+    for i, f in enumerate(good):
+        out.append(f)
+        if i % 4 == 1 and stale:
+            out.append(stale.pop())
+        if i % 3 == 2 and bad:
+            out.append(bad.pop())
+    return out + stale + bad
+
+
+def _cfgs(dtype, aux):
+    j = JLearnerConfig(batch_size=B, seq_len=T, policy=JPolicyConfig(**POL, dtype=dtype, aux_heads=aux),
+                       ppo=JPPOConfig(max_staleness=MAX_STALE))
+    t = LearnerConfig(batch_size=B, seq_len=T, policy=PolicyConfig(**POL, dtype=dtype, aux_heads=aux),
+                      ppo=PPOConfig(max_staleness=MAX_STALE))
+    return j, t
+
+
+def _io_pair(jcfg, tcfg):
+    jt = j_cast(jcfg, jax.tree.map(np.asarray, jts._batch_template(jcfg)))
+    jio = JFusedBatchIO(jt, jmesh.make_mesh("dp=1", devices=jax.devices()[:1]))
+    jio.single_mode = True
+    p = tcfg.policy
+    tio = FusedBatchIO(tstaging.cast_obs_to_compute_dtype(tcfg, tbatch.zeros_train_batch(B, T, p.lstm_hidden, p.aux_heads)), "cpu")
+    assert jio.row_bytes == tio.row_bytes
+    return jio, tio
+
+
+def _drain(staging, broker, frames, n_batches):
+    """Publish every frame, run the consumer, collect n_batches packed
+    buffers and wait until the consumer has seen every frame."""
+    for f in frames:
+        broker.publish_experience(f)
+    staging.start()
+    try:
+        bufs = []
+        for _ in range(n_batches):
+            batch, buf = staging.get_batch_groups(timeout=20.0)
+            assert batch is not None, "staging produced no batch"
+            bufs.append(np.asarray(buf).copy())
+        deadline = time.monotonic() + 20
+        while staging.stats()["consumed"] < len(frames) and time.monotonic() < deadline:
+            time.sleep(0.01)
+        assert staging.get_batch_groups(timeout=0.3)[0] is None  # nothing more to pack
+        return bufs, staging.stats(), staging.quarantine()
+    finally:
+        staging.stop()
+
+
+def _run_reference(jcfg, jio, frames, native, name):
+    jmem.reset(name)
+    s = JStagingBuffer(dataclasses.replace(jcfg, native_packer=native), jmem.MemoryBroker(name),
+                       version_fn=lambda: VERSION_NOW, fused_io=jio)
+    assert s.native == native
+    return _drain(s, jmem.MemoryBroker(name), frames, 3)
+
+
+def _run_port(tcfg, tio, frames, native, name):
+    tmem.reset(name)
+    s = tstaging.StagingBuffer(dataclasses.replace(tcfg, native_packer=native), tmem.MemoryBroker(name),
+                               version_fn=lambda: VERSION_NOW, fused_io=tio)
+    assert s.native == native
+    return _drain(s, tmem.MemoryBroker(name), frames, 3)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("aux", [False, True])
+def test_packed_buffers_and_counts_equal_the_reference(dtype, aux):
+    jcfg, tcfg = _cfgs(dtype, aux)
+    jio, tio = _io_pair(jcfg, tcfg)
+    frames = frame_schedule(aux)
+    tag = f"{dtype}_{aux}"
+    arms = {
+        "ref_python": _run_reference(jcfg, jio, list(frames), False, f"st_rp_{tag}"),
+        "ref_native": _run_reference(jcfg, jio, list(frames), True, f"st_rn_{tag}"),
+        "port_python": _run_port(tcfg, tio, list(frames), False, f"st_pp_{tag}"),
+        "port_native": _run_port(tcfg, tio, list(frames), True, f"st_pn_{tag}"),
+    }
+    want_bufs, want_stats, want_q = arms["ref_native"]
+    # the schedule exercises every path
+    assert want_stats["dropped_stale"] == 5 and want_stats["quarantined"] == 7 and want_stats["batches"] == 3
+    assert want_stats["wire_frames_obs_bf16"] > 0 and want_stats["wire_frames_obs_f32"] > 0
+    assert sorted(e["reason"] for e in want_q) == ["dtype_map", "layout", "layout", "parse", "parse", "parse", "parse"]
+    for arm, (bufs, stats, q) in arms.items():
+        for i, (got, want) in enumerate(zip(bufs, want_bufs)):
+            assert got.shape == want.shape == (B, tio.row_bytes) and np.array_equal(got, want), f"{arm}: batch {i} bytes"
+        assert {k: stats[k] for k in COUNTS} == {k: want_stats[k] for k in COUNTS}, arm
+        assert stats["pending_rollouts"] == 3 and stats["active_actors"] == want_stats["active_actors"]
+        assert [(e["reason"], e["bytes"], e["head"]) for e in q] == [(e["reason"], e["bytes"], e["head"]) for e in want_q], arm
+
+
+def test_native_header_parse_matches_the_reference_packer():
+    from dotaclient_tpu import native as jnative
+
+    lib, jlib = load_packer(), jnative.load_packer()
+    assert jlib is not None
+    frames = [tser.strip_rollout_trace(f) for f in frame_schedule(True)]
+    assert frame_headers(lib, frames) == tuple(jnative.frame_headers(jlib, frames))
+    for f in frames[:12]:
+        assert frame_header(lib, f) == jnative.frame_header(jlib, f)
+
+
+def test_fill_rollouts_writes_bf16_words_into_the_transfer_views():
+    """The Python packer casts f32 obs to bf16 words by the explicit
+    rounding and widens bf16 obs exactly into f32 views."""
+    _, tcfg = _cfgs("bfloat16", False)
+    tio = _io_pair(*_cfgs("bfloat16", False))[1]
+    rs = [make_rollout(L=1 + i % T, H=H, seed=i) for i in range(B)]
+    rs = [tser.deserialize_rollout(jser.serialize_rollout(jser.cast_rollout_obs_bf16(r) if i % 2 else r)) for i, r in enumerate(rs)]
+    buf, views = tio.alloc_transfer()
+    tstaging.fill_rollouts(views, rs, T)
+    assert views.obs.unit_feats.dtype == np.uint16
+    r0 = rs[0]
+    L = r0.length
+    want = r0.obs.unit_feats
+    want = tser.bf16_bits(want) if tser.is_bf16(want) else tser.f32_to_bf16_bits(want)
+    assert np.array_equal(views.obs.unit_feats[0, : L + 1], want)
+    dense = tstaging.pack_rollouts(rs, T, with_aux=False)
+    assert dense.obs.unit_feats.dtype == np.float32 and dense.mask.sum() == sum(r.length for r in rs)
+    assert tstaging.shard_rows(10, 4) == [(0, 3), (3, 3), (6, 2), (8, 2)] and tstaging.shard_rows(2, 4) == [(0, 1), (1, 1)]
+    with pytest.raises(ValueError, match="exceeds learner seq_len"):
+        tstaging.fill_rollouts(views, [tser.deserialize_rollout(jser.serialize_rollout(make_rollout(L=T + 1, H=H)))], T)
+
+
+def test_a_layout_mismatch_kills_the_consumer_and_the_getter_reraises():
+    """A bf16 config over an io built for f32 obs: the native packer's
+    layout check fails every batch, so the consumer dies and the getter
+    raises within one wait slice instead of starving the learner."""
+    _, bf16cfg = _cfgs("bfloat16", False)
+    tio = _io_pair(*_cfgs("float32", False))[1]
+    tmem.reset("st_fatal")
+    s = tstaging.StagingBuffer(bf16cfg, tmem.MemoryBroker("st_fatal"), version_fn=lambda: VERSION_NOW, fused_io=tio)
+    for f in frame_schedule(False)[:20]:
+        tmem.MemoryBroker("st_fatal").publish_experience(f)
+    s.start()
+    try:
+        t0 = time.monotonic()
+        with pytest.raises(RuntimeError, match="layout/config mismatch"):
+            s.get_batch_groups(timeout=30.0)
+        with pytest.raises(RuntimeError, match="layout/config mismatch"):
+            s.get_batch(timeout=30.0)
+        assert time.monotonic() - t0 < 10
+        s._thread.join(timeout=5)
+        assert not s._thread.is_alive()
+    finally:
+        s.stop()
+
+
+def test_staging_refuses_what_is_not_ported():
+    _, tcfg = _cfgs("float32", False)
+    tio = _io_pair(*_cfgs("float32", False))[1]
+    b = tmem.MemoryBroker("st_refuse")
+    cases = [
+        (dataclasses.replace(tcfg, staging=dataclasses.replace(tcfg.staging, pack_workers=2)), "A.10e"),
+        (dataclasses.replace(tcfg, staging=dataclasses.replace(tcfg.staging, assemble=True)), "A.10f"),
+        (dataclasses.replace(tcfg, replay=dataclasses.replace(tcfg.replay, enabled=True)), "A.10g"),
+    ]
+    for cfg, item in cases:
+        with pytest.raises(NotImplementedError, match=item):
+            tstaging.StagingBuffer(cfg, b, fused_io=tio)
+    with pytest.raises(ValueError, match="single transfer buffer"):
+        tstaging.StagingBuffer(tcfg, b)
