@@ -57,6 +57,7 @@ import dataclasses
 import json
 import os
 import shutil
+import socket
 import statistics
 import struct
 import subprocess
@@ -952,6 +953,391 @@ def phase_learner_loop(device, card: str, bare_step_ms: float, base=None, steps:
     return out
 
 
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+
+def start_tcp_broker():
+    """The port's broker binary in a subprocess; its one ready line names
+    the bound port. Returns (process, port)."""
+    proc = subprocess.Popen([sys.executable, "-m", "dotaclient_tpu_torch.transport.tcp_server", "--host", "127.0.0.1",
+                             "--port", "0"], cwd=ROOT, stdout=subprocess.PIPE, text=True)
+    line = proc.stdout.readline().strip()
+    if not line.startswith("broker listening on 127.0.0.1:"):
+        proc.kill()
+        raise SystemExit(f"tcp broker: unexpected ready line {line!r}")
+    return proc, int(line.split(":")[1].split()[0])
+
+
+def stop_process(proc) -> None:
+    if proc.poll() is None:
+        proc.terminate()
+        try:
+            proc.wait(timeout=10)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=10)
+
+
+def tcp_producer_main(argv) -> int:
+    """`chip_smoke.py --tcp-producer PORT STEPS SHARE SEED [learner flags]`:
+    the Producer of phase 7 in its own process, publishing SHARE frames at
+    a time from a pool (seeded by SEED) of the learner config the flags
+    give (default: the flagship) through the port's tcp:// client, until it
+    has polled DTW2 version STEPS; prints one JSON line of its counters."""
+    from dotaclient_tpu_torch.config import LearnerConfig, parse_config
+    from dotaclient_tpu_torch.transport.tcp import TcpBroker
+
+    port, steps, share, seed = (int(a) for a in argv[:4])
+    cfg = parse_config(LearnerConfig(), argv[4:])
+    producer = Producer(TcpBroker("127.0.0.1", port), rollout_frames(cfg, 2, seed0=seed), versions=steps + 1,
+                        batch=share, max_depth=2 * cfg.batch_size)
+    producer.start()
+    deadline = time.monotonic() + 600
+    while producer.version < steps and producer.is_alive() and time.monotonic() < deadline:
+        time.sleep(0.05)
+    producer.stop_event.set()
+    producer.join(timeout=30)
+    print(json.dumps({"published": producer.published, "version": producer.version, "cpu_s": producer.cpu_s,
+                      "wakeups": producer.wakeups}), flush=True)
+    return 0 if producer.version >= steps else 1
+
+
+def phase_learner_tcp(device, card: str, free_pipelined_ms: float, steps: int = 20, producers: int = 1, flags=()):
+    """Learner.run over tcp://: the broker (the port's tcp_server) and
+    `producers` producer processes apart from the learner's, as deployed
+    actors are, each publishing its share of every batch. Loop ms per step
+    beside the producer-free mem:// window of phase 7. `flags` are learner
+    flags for every process (default: the flagship config)."""
+    from dotaclient_tpu_torch.config import LearnerConfig, parse_config
+    from dotaclient_tpu_torch.ops import lstm as L
+    from dotaclient_tpu_torch.runtime.learner import Learner
+    from dotaclient_tpu_torch.transport.tcp import TcpBroker
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tcp_")
+    broker, port = start_tcp_broker()
+    cfg = dataclasses.replace(parse_config(LearnerConfig(), list(flags)), publish_every=1, metrics_every=5,
+                              native_packer=True, log_dir=os.path.join(tmp, "logs"))
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--tcp-producer", str(port), str(steps),
+                               str(cfg.batch_size // producers), str(10 * i), *flags], cwd=ROOT,
+                              stdout=subprocess.PIPE, text=True) for i in range(producers)]
+    try:
+        client = TcpBroker("127.0.0.1", port)
+        learner = Learner(cfg, client, device)
+        deadline = time.monotonic() + 120
+        while client.experience_depth() < cfg.batch_size and time.monotonic() < deadline:
+            time.sleep(0.05)  # the producer builds its pool first
+        torch.cuda.synchronize()
+        L.LAUNCHES = 0  # this path starts here
+        t0 = time.perf_counter()
+        try:
+            done = learner.run(num_steps=steps, batch_timeout=60.0, max_idle=3)
+        finally:
+            wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+            launches = L.LAUNCHES
+            learner.close()
+        produced = [json.loads(p.communicate(timeout=120)[0].strip().splitlines()[-1]) for p in procs]
+        stats = learner.staging.stats()
+        client.close()
+    finally:
+        for p in procs:
+            stop_process(p)
+        stop_process(broker)
+    if done != steps or launches != steps or stats["dropped_bad"] or stats["consumer_errors"]:
+        raise SystemExit(f"learner over tcp: {done} steps, {launches} kernel launches, staging {stats}")
+    lines = [json.loads(x) for x in open(os.path.join(cfg.log_dir, "metrics.jsonl"))]
+    shutil.rmtree(tmp, ignore_errors=True)
+    window_ms = statistics.median(1e3 * (r["time_step_s"] + r["pipeline_device_idle_s"]) for r in lines)
+    out = dict(steps=steps, launches=launches, window_ms=window_ms, wall_ms=wall_ms,
+               env_steps_per_sec=statistics.median(r["env_steps_per_sec"] for r in lines),
+               wait_ms=1e3 * statistics.median(r["time_wait_batch_s"] for r in lines),
+               put_ms=1e3 * statistics.median(r["time_device_put_s"] for r in lines),
+               dropped_stale=stats["dropped_stale"], producers=producers,
+               produced=sum(p["published"] for p in produced),
+               producer_cpu_ms=sum(p["cpu_s"] for p in produced) * 1e3 / steps / producers,
+               mem_free_pipelined_ms=free_pipelined_ms)
+    print(f"learner loop over tcp:// (the broker and {producers} producer process(es) apart from the learner's): "
+          f"{steps} steps, {launches} kernel launches; {window_ms:.3f} ms per step (median window; wait "
+          f"{out['wait_ms']:.3f}, device-put {out['put_ms']:.4f}), {wall_ms:.3f} ms over the wall, "
+          f"{out['env_steps_per_sec']:.0f} env steps/s; producer cpu {out['producer_cpu_ms']:.1f} ms per step each; "
+          f"mem:// without a producer (phase 7): {free_pipelined_ms:.3f} ms; {stats['dropped_stale']} stale of "
+          f"{out['produced']} produced | {card}", flush=True)
+    return out
+
+
+SERVE_SAMPLED = (0, 1, 17, 18, 34, 35, 51, 52)  # sessions replayed on the card: both obs codes, every client
+
+
+def serve_obs(session: int, step: int):
+    """The seeded observation a phase-8 session sends at `step` (legal
+    masks: NOOP always allowed)."""
+    from dotaclient_tpu_torch.env import featurizer as F
+
+    rs = np.random.RandomState([session, step])
+    action_mask = rs.rand(F.N_ACTION_TYPES) > 0.3
+    action_mask[F.ACT_NOOP] = True
+    return F.Observation(
+        global_feats=rs.randn(F.GLOBAL_FEATURES).astype(np.float32),
+        hero_feats=rs.randn(F.HERO_FEATURES).astype(np.float32),
+        unit_feats=rs.randn(F.MAX_UNITS, F.UNIT_FEATURES).astype(np.float32),
+        unit_mask=rs.rand(F.MAX_UNITS) > 0.3,
+        target_mask=rs.rand(F.MAX_UNITS) > 0.3,
+        action_mask=action_mask,
+    )
+
+
+def serve_flags(session: int, t: int, carry_every: int):
+    """(episode_start, want_carry, obs_bf16) of a session's step t in its episode."""
+    return t == 0, (t + 1) % carry_every == 0, session % 2 == 1
+
+
+def serve_client_main(argv) -> int:
+    """`chip_smoke.py --serve-client PORT FIRST N EPISODES EP_LEN CARRY_EVERY OUT GO`:
+    sessions FIRST..FIRST+N-1 over one connection, using only the port's
+    serve/wire.py. After the S_INFO handshake it writes OUT.ready and waits
+    for the file GO, so every client starts together; then each session
+    runs EPISODES episodes of EP_LEN steps with its own
+    jax key (PRNGKey(session) = [0, session]), sends its next request as
+    soon as the last reply arrived, and asks for the carry every
+    CARRY_EVERY steps; odd sessions send bf16 obs. Writes per-request
+    latencies, (tick, version) pairs, each session's versions, and every
+    reply of the sessions in SERVE_SAMPLED to OUT (JSON)."""
+    import asyncio
+
+    from dotaclient_tpu_torch.serve import wire as W
+
+    port, first, n, episodes, ep_len, carry_every = (int(a) for a in argv[:6])
+    out_path, go_path = argv[6], argv[7]
+
+    async def run():
+        loop = asyncio.get_running_loop()
+        reader, writer = await asyncio.open_connection("127.0.0.1", port)
+        writer.write(W.frame(W.S_INFO, b""))
+        await writer.drain()
+        mtype, payload = await W.read_frame(reader)
+        hidden = json.loads(payload)["lstm_hidden"]
+        pending, latency, ticks, versions, sampled = {}, [], [], {}, {}
+        open(out_path + ".ready", "w").close()
+        while not os.path.exists(go_path):
+            await asyncio.sleep(0.002)
+
+        async def read_loop():
+            while True:
+                _, payload = await W.read_frame(reader)
+                pending.pop(struct.unpack_from("<Q", payload)[0]).set_result(payload)
+
+        async def session(k):
+            key, seen, rows = np.array([0, k], np.uint32), [], []
+            for i in range(episodes * ep_len):
+                start, carry, bf16 = serve_flags(k, i % ep_len, carry_every)
+                req = W.encode_step_request(k, serve_obs(k, i), key, episode_start=start, want_carry=carry,
+                                            obs_bf16=bf16)
+                fut = loop.create_future()
+                pending[k] = fut
+                t0 = time.perf_counter()
+                writer.write(W.frame(W.S_STEP, req))
+                await writer.drain()
+                r = W.decode_step_response(await asyncio.wait_for(fut, 300), hidden)
+                latency.append((time.perf_counter() - t0) * 1e3)
+                if r.status != W.OK:
+                    raise RuntimeError(f"session {k} step {i}: status {r.status}")
+                ticks.append((r.tick, r.version))
+                seen.append(r.version)
+                if k in SERVE_SAMPLED:
+                    rows.append({"version": r.version, "key": r.rng.tolist(), "action": r.action.tolist(),
+                                 "logp": int(np.float32(r.logp).view(np.uint32)),
+                                 "value": int(np.float32(r.value).view(np.uint32)),
+                                 "carry": None if r.carry is None else [x.tobytes().hex() for x in r.carry]})
+                key = r.rng
+            versions[k] = seen
+            if rows:
+                sampled[k] = rows
+
+        reader_task = asyncio.ensure_future(read_loop())
+        await asyncio.gather(*(session(k) for k in range(first, first + n)))
+        reader_task.cancel()
+        writer.close()
+        return {"latency_ms": latency, "ticks": ticks, "versions": versions, "sampled": sampled}
+
+    result = asyncio.run(run())
+    with open(out_path, "w") as f:
+        json.dump(result, f)
+    return 0
+
+
+def _probe(port: int, frames):
+    """Send S_INFO then `frames` on one fresh connection; the replies."""
+    from dotaclient_tpu_torch.serve import wire as W
+
+    replies = []
+    with socket.create_connection(("127.0.0.1", port), timeout=30) as s:
+        buf = s.makefile("rb")
+        for mtype, payload in [(W.S_INFO, b"")] + frames:
+            s.sendall(W.frame(mtype, payload))
+            n, rtype = struct.unpack("<IB", buf.read(5))
+            replies.append((rtype, buf.read(n)))
+    return replies[1:]
+
+
+def phase_serve(device, card: str, policy=None, clients: int = 4, per_client: int = 16, episodes: int = 2,
+                ep_len: int = 48, carry_every: int = 16, max_batch: int = 16):
+    """The port's inference server on the card, driven as deployed: the
+    port's tcp_server in a subprocess holds the weight fanout (DTW2 v1 from
+    seeded params before the run, v2 published mid-run), InferenceServer
+    polls it, and `clients` client processes run `per_client` sessions
+    each over the serve wire. Checks every reply of the sampled sessions
+    bitwise against the standalone key step replayed on the card, no tick
+    serving two versions, v2 served after the swap, and the
+    UNKNOWN_CLIENT / BAD_REQUEST / S_RESUME probes; prints rows/s, ticks/s,
+    occupancy, client-side latency, server ms per tick and the device's
+    busy share of a tick."""
+    from dotaclient_tpu_torch.config import InferenceConfig, PolicyConfig, ServeConfig
+    from dotaclient_tpu_torch.env import featurizer as F
+    from dotaclient_tpu_torch.models import policy as P
+    from dotaclient_tpu_torch.ops import lstm as L
+    from dotaclient_tpu_torch.ops.batch import as_tensors
+    from dotaclient_tpu_torch.runtime.actor import make_batched_key_actor_step, make_key_actor_step, net_like
+    from dotaclient_tpu_torch.serve import wire as W
+    from dotaclient_tpu_torch.serve.server import InferenceServer
+    from dotaclient_tpu_torch.transport.params import named_params
+    from dotaclient_tpu_torch.transport.serialize import deserialize_weights, serialize_weights
+    from dotaclient_tpu_torch.transport.tcp import TcpBroker
+
+    cfg = PolicyConfig() if policy is None else policy
+    sessions = clients * per_client
+    steps = episodes * ep_len
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    broker, bport = start_tcp_broker()
+    procs, server = [], None
+    try:
+        pub = TcpBroker("127.0.0.1", bport)
+        weights = {v: serialize_weights(named_params(P.init_params(cfg, torch.Generator().manual_seed(100 + v), "cpu")),
+                                        v, boot_epoch=7) for v in (1, 2)}
+        pub.publish_weights(weights[1])
+        icfg = InferenceConfig(serve=ServeConfig(port=0, max_batch=max_batch, gather_window_s=0.005, weight_poll_s=0.05),
+                               policy=cfg, seed=0)
+        server = InferenceServer(icfg, TcpBroker("127.0.0.1", bport), device=device).start()
+        deadline = time.monotonic() + 60
+        while server.version != 1 and time.monotonic() < deadline:
+            time.sleep(0.01)
+        if server.version != 1:
+            raise SystemExit("serve: v1 never arrived from the broker")
+        nets = {v: net_like(server.params, deserialize_weights(f)[0]) for v, f in weights.items()}
+        go = os.path.join(tmp, "go")
+        for c in range(clients):
+            out = os.path.join(tmp, f"client{c}.json")
+            procs.append((subprocess.Popen([sys.executable, os.path.abspath(__file__), "--serve-client", str(server.port),
+                                            str(c * per_client), str(per_client), str(episodes), str(ep_len),
+                                            str(carry_every), out, go], cwd=ROOT), out))
+        deadline = time.monotonic() + 120
+        while not all(os.path.exists(out + ".ready") for _, out in procs):  # all connected: start together
+            if time.monotonic() > deadline or any(p.poll() is not None for p, _ in procs):
+                raise SystemExit("serve: the clients did not connect")
+            time.sleep(0.01)
+        server.batcher.reset_meters()
+        torch.cuda.synchronize()
+        L.LAUNCHES = 0  # the serving path starts here
+        t0 = time.perf_counter()
+        open(go, "w").close()
+        total = sessions * steps
+        swap_at, swapped_t = total // 3, None
+        while any(p.poll() is None for p, _ in procs):
+            if swapped_t is None and server.requests_total >= swap_at:
+                pub.publish_weights(weights[2])  # v2 mid-run
+                server.poke()
+                swapped_t = time.perf_counter()
+            if time.perf_counter() - t0 > 600:
+                raise SystemExit("serve: clients did not finish in 600 s")
+            time.sleep(0.01)
+        wall_s = time.perf_counter() - t0
+        launches = L.LAUNCHES
+        if any(p.returncode for p, _ in procs):
+            raise SystemExit(f"serve: client exit codes {[p.returncode for p, _ in procs]}")
+        stats = server.stats()
+        results = [json.load(open(out)) for _, out in procs]
+
+        # probes: a key with no carry, a truncated frame, a resume
+        obs = serve_obs(999, 0)
+        good = W.encode_step_request(0xC0FFEE, obs, np.array([0, 999], np.uint32))
+        replies = _probe(server.port, [(W.S_STEP, good), (W.S_STEP, good[:-5]),
+                                       (W.S_RESUME, W.encode_resume_request(0xC0FFEE, 16, 1))])
+        want = [(W.R_STEP, struct.pack("<QB", 0xC0FFEE, W.UNKNOWN_CLIENT)),
+                (W.R_STEP, struct.pack("<QB", 0xC0FFEE, W.BAD_REQUEST)),
+                (W.R_RESUME, W.encode_resume_response(W.ResumeResponse(0xC0FFEE, W.UNKNOWN_CLIENT)))]
+        if replies != want:
+            raise SystemExit(f"serve: probes answered {replies}")
+    finally:
+        if server is not None:
+            server.stop()
+        for p, _ in procs:
+            stop_process(p)
+        stop_process(broker)
+
+    # no tick serves two versions; v2 served after the swap; versions never go back
+    by_tick = {}
+    for r in results:
+        for tick, version in r["ticks"]:
+            by_tick.setdefault(tick, set()).add(version)
+    mixed = {t: v for t, v in by_tick.items() if len(v) > 1}
+    versions = {int(k): v for r in results for k, v in r["versions"].items()}
+    if mixed or len(versions) != sessions or any(len(v) != steps for v in versions.values()):
+        raise SystemExit(f"serve: ticks serving two versions {sorted(mixed.items())[:5]}, or sessions missing")
+    sampled = {int(k): rows for r in results for k, rows in r["sampled"].items()}
+    if any(a > b for v in versions.values() for a, b in zip(v, v[1:])) or {v[-1] for v in versions.values()} != {2} \
+            or len(sampled) != len([k for k in SERVE_SAMPLED if k < sessions]):
+        raise SystemExit("serve: a session's version went back, or v2 was not served after the swap")
+
+    # the sampled sessions, replayed through the standalone key step on the card
+    step = make_key_actor_step(cfg)
+    checked = 0
+    for k in sorted(sampled):
+        rows, key = sampled[k], np.array([0, k], np.uint32)
+        for i, row in enumerate(rows):
+            start, _, bf16 = serve_flags(k, i % ep_len, carry_every)
+            if start:
+                state = P.initial_state(cfg, (1,), device)
+            req = W.decode_step_request(W.encode_step_request(k, serve_obs(k, i), key, obs_bf16=bf16))
+            obs = as_tensors(F.stack([InferenceServer._canon_obs(req.obs)]), device)
+            state, action, logp, value, key = step(nets[row["version"]], state, obs, key)
+            got = (row["key"], row["action"], row["logp"], row["value"])
+            mine = (key.tolist(), [int(a.item()) for a in action], int(logp.cpu().numpy().view(np.uint32)[0]),
+                    int(value.cpu().numpy().view(np.uint32)[0]))
+            carry_ok = row["carry"] is None or row["carry"] == [x[0].cpu().numpy().tobytes().hex() for x in state]
+            if got != mine or not carry_ok:
+                raise SystemExit(f"serve: session {k} step {i} is not bitwise the standalone key step")
+            checked += 1
+
+    # the device's busy share of one full tick, and its parts
+    tick_step = make_batched_key_actor_step(cfg)
+    obs16 = as_tensors(F.stack([serve_obs(k, 0) for k in range(max_batch)]), device)
+    state16 = P.initial_state(cfg, (max_batch,), device)
+    keys16 = np.stack([np.array([0, k], np.uint32) for k in range(max_batch)])
+    busy_ms, prof_wall_ms, tick_kernels = profile_device(lambda: tick_step(nets[2], state16, obs16, keys16),
+                                                         f"serve tick ({max_batch} rows)")
+    lat = np.concatenate([r["latency_ms"] for r in results])
+    hist = {k: int(stats[f"actor_tick_rows_{k}"]) for k in range(1, max_batch + 1) if stats[f"actor_tick_rows_{k}"]}
+    ticks, rows_per_s = sum(hist.values()), stats["actor_offered_steps_per_sec"]
+    out = dict(sessions=sessions, steps_per_session=steps, rows=sessions * steps, launches=launches,
+               rows_per_s=rows_per_s, ticks_per_s=rows_per_s * ticks / (sessions * steps), ticks=ticks,
+               occupancy=stats["actor_batch_occupancy"],
+               tick_rows=hist, latency_p50_ms=float(np.percentile(lat, 50)), latency_p99_ms=float(np.percentile(lat, 99)),
+               tick_ms=1e3 * stats["actor_jit_step_s"], gather_wait_ms=1e3 * stats["actor_gather_wait_s"],
+               tick_device_busy_ms=busy_ms, tick_profiled_wall_ms=prof_wall_ms, tick_device_kernels=tick_kernels,
+               client_wall_s=wall_s, swaps=stats["serve_weight_swaps_total"], checked_rows=checked,
+               swap_after_s=None if swapped_t is None else swapped_t - t0)
+    print(f"serve: {sessions} sessions x {steps} steps ({clients} client processes, half bf16 obs), max_batch "
+          f"{max_batch}: {rows_per_s:.1f} rows/s, {out['ticks_per_s']:.2f} ticks/s, occupancy "
+          f"{out['occupancy']:.3f}, ticks by rows {hist}; client latency p50 {out['latency_p50_ms']:.2f} ms, p99 "
+          f"{out['latency_p99_ms']:.2f} ms; server {out['tick_ms']:.2f} ms per tick (gather wait "
+          f"{out['gather_wait_ms']:.2f} ms); device busy {busy_ms:.3f} of {prof_wall_ms:.3f} ms in a profiled "
+          f"{max_batch}-row tick ({100 * busy_ms / prof_wall_ms:.1f}%) | {card}", flush=True)
+    print(f"serve: {checked} replies of {len(sampled)} sessions bitwise the standalone key step on the card "
+          f"(action, logp, value, key, carry); {len(by_tick)} ticks, none serving two versions; v2 served after "
+          f"the mid-run swap ({int(out['swaps'])} swaps); UNKNOWN_CLIENT, BAD_REQUEST (key echoed) and S_RESUME "
+          f"probes as specified; recurrence kernel launches {launches} | {card}", flush=True)
+    shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke needs an NVIDIA GPU", file=sys.stderr)
@@ -984,6 +1370,10 @@ def main() -> int:
     forward_launches, ms_k, ms_t = phase_learner(device, net, cfg)
     train = phase_train(device)  # zeroes the counters itself before its main path
     loop = phase_learner_loop(device, card, train["ms"])  # zeroes the counters itself before its main path
+    # zero the counters themselves; one producer process, then four
+    loop["tcp"] = phase_learner_tcp(device, card, loop["free_pipelined_ms"])
+    loop["tcp4"] = phase_learner_tcp(device, card, loop["free_pipelined_ms"], producers=4)
+    serve = phase_serve(device, card)  # zeroes the counters itself before its main path
 
     main_case = cases[0]
     kernels = [
@@ -1015,6 +1405,8 @@ def main() -> int:
             "learner_loop": loop,
             "serving_ticks_per_s": ticks_per_s,
             "serving_ticks_per_s_one_forward": before_per_s,
+            "launches_serve_server": serve["launches"],
+            "serve_server": serve,
         }
     ]
     print(json.dumps({"kernels": kernels}))
@@ -1025,4 +1417,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--serve-client"]:
+        sys.exit(serve_client_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--tcp-producer"]:
+        sys.exit(tcp_producer_main(sys.argv[2:]))
     sys.exit(main())

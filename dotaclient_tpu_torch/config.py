@@ -8,6 +8,9 @@ The switches of modes the port has not ported yet keep their reference
 names and defaults; the learner refuses a non-default value with
 NotImplementedError naming its ROADMAP item. Settings only those modes
 read are left out, so their flags fail to parse.
+
+Binaries: the learner (`LearnerConfig`) and the inference server
+(`InferenceConfig`).
 """
 
 from __future__ import annotations
@@ -105,7 +108,7 @@ class CkptConfig:
 @dataclass
 class ObsConfig:
     """Pipeline observability; only the master switch is ported (the
-    learner refuses it on)."""
+    binaries refuse it on)."""
 
     enabled: bool = False
 
@@ -113,9 +116,77 @@ class ObsConfig:
 @dataclass
 class ChaosConfig:
     """Seeded fault injection around the broker; only the switch is
-    ported (the learner refuses it on)."""
+    ported (the binaries refuse it on)."""
 
     enabled: bool = False
+
+
+@dataclass
+class RetryConfig:
+    """Broker-client retry policy (transport/base.py RetryPolicy): the tcp
+    client's reconnect loop reads it. Jitter keeps a fleet whose broker
+    restarted from reconnecting in lockstep."""
+
+    # Seconds a failed broker request keeps reconnect-retrying before it
+    # gives up and raises.
+    window_s: float = 60.0
+    # First backoff sleep; doubles per attempt up to the cap.
+    backoff_base_s: float = 0.1
+    backoff_cap_s: float = 2.0
+    # Uniform jitter fraction: each sleep is drawn from
+    # [b*(1-jitter), b*(1+jitter)]. 0 = deterministic.
+    jitter: float = 0.5
+
+
+@dataclass
+class ServeConfig:
+    """Server-side knobs of the inference service
+    (`python -m dotaclient_tpu_torch.serve.server`): one param tree,
+    per-client LSTM carries resident, continuous batching over a bounded
+    gather window (fire at capacity or gather_window_s after the tick's
+    first request)."""
+
+    # TCP port the service listens on (0 = pick a free port).
+    port: int = 13380
+    # Rows in one inference tick at most.
+    max_batch: int = 16
+    # A tick fires at capacity or this long after its first request.
+    gather_window_s: float = 0.005
+    # Cadence of the weight-fanout poll (poke() wakes it early).
+    weight_poll_s: float = 0.5
+    # Session continuity through a shared carry store (not ported; refused).
+    handoff_endpoint: str = ""
+    # Resident model slots: slot 0 is the live hot-swapped tree, slots
+    # 1..N-1 hold frozen trees installed with swap_model().
+    models: int = 1
+    # League service to sync frozen slots from (not ported; refused).
+    league_endpoint: str = ""
+
+
+@dataclass
+class InferenceConfig:
+    """The inference-service binary's flags (reference:
+    dotaclient_tpu/config.py InferenceConfig). The service owns one param
+    tree, initialised from `seed` and hot-swapped from the broker's weight
+    fanout, and serves batched policy steps to remote actors.
+
+    `platform` differs from the reference: "" (the default) serves on the
+    CUDA device and "cpu" on the host, where the reference defaults to
+    "cpu". The port's entry points run on the card unless asked otherwise.
+    """
+
+    serve: ServeConfig = field(default_factory=ServeConfig)
+    policy: PolicyConfig = field(default_factory=PolicyConfig)
+    obs: ObsConfig = field(default_factory=ObsConfig)
+    retry: RetryConfig = field(default_factory=RetryConfig)
+    chaos: ChaosConfig = field(default_factory=ChaosConfig)
+    # Weight-fanout source (the URL the actors use); the service only
+    # subscribes to weights.
+    broker_url: str = "mem://"
+    # Param-init seed: the learner fleet's seed, so the service answers
+    # from step zero.
+    seed: int = 0
+    platform: str = ""
 
 
 @dataclass
@@ -131,6 +202,7 @@ class LearnerConfig:
     obs: ObsConfig = field(default_factory=ObsConfig)
     policy: PolicyConfig = field(default_factory=PolicyConfig)
     chaos: ChaosConfig = field(default_factory=ChaosConfig)
+    retry: RetryConfig = field(default_factory=RetryConfig)
     broker_url: str = "mem://"
     broker_shards: str = ""
     checkpoint_dir: str = ""
@@ -169,10 +241,11 @@ class LearnerConfig:
     train_steps: int = 0
 
 
-# Modes of the reference learner that the port has not ported: the flag,
+# Modes of the reference binaries that the port has not ported: the flag,
 # the test of its value that selects the mode, what the mode is, and its
-# ROADMAP item. The learner, the staging buffer and the single-buffer
-# train step refuse them from this one table.
+# ROADMAP item. The learner, the staging buffer, the single-buffer train
+# step and the inference server refuse them from this one table; a flag
+# applies to the configs that have it.
 UNPORTED = {
     "staging.pack_workers": (lambda v: v > 1, "the parallel pack pool over a TransferRing", "A.10e"),
     "staging.assemble": (bool, "DTB1 in-network batch assembly", "A.10f"),
@@ -187,19 +260,38 @@ UNPORTED = {
     "obs.enabled": (bool, "tracing, flight recorder, /metrics", "A.13"),
     "profile_port": (bool, "the profiler port", "A.13"),
     "chaos.enabled": (bool, "the fault-injecting broker wrapper", "A.10j"),
-    "broker_shards": (bool, "the broker fabric's fan-in", "A.10d"),
+    "broker_shards": (bool, "the broker fabric's fan-in", "A.10d2"),
+    "serve.handoff_endpoint": (bool, "the carry store and S_RESUME session continuity", "A.12b"),
+    "serve.league_endpoint": (bool, "league sync of the frozen serve slots", "A.12c"),
 }
 
 
-def refuse_unported(cfg: LearnerConfig, flags=UNPORTED) -> None:
+_ABSENT = object()
+
+
+def flag_value(cfg, flag: str):
+    """The value of a dotted flag in `cfg`, or `_ABSENT` when `cfg` has no
+    such field."""
+    value = cfg
+    for name in flag.split("."):
+        value = getattr(value, name, _ABSENT)
+        if value is _ABSENT:
+            break
+    return value
+
+
+def unported_flags(cfg) -> list:
+    """The UNPORTED flags that `cfg`'s binary has."""
+    return [f for f in UNPORTED if flag_value(cfg, f) is not _ABSENT]
+
+
+def refuse_unported(cfg, flags=None) -> None:
     """NotImplementedError, naming the ROADMAP item, for the first of
-    `flags` (default: every one in UNPORTED) whose value in `cfg` selects
-    a mode the port does not have."""
-    for flag in flags:
+    `flags` (default: every UNPORTED flag `cfg` has) whose value selects a
+    mode the port does not have."""
+    for flag in unported_flags(cfg) if flags is None else flags:
         selects, what, item = UNPORTED[flag]
-        value = cfg
-        for name in flag.split("."):
-            value = getattr(value, name)
+        value = flag_value(cfg, flag)
         if selects(value):
             raise NotImplementedError(f"{flag}={value!r} ({what}) is not ported yet (ROADMAP {item})")
 

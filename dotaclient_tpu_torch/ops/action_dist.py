@@ -6,16 +6,19 @@ broadcasts over leading axes ([B] actor step, [B, T] learner unroll).
 Masking uses a large finite negative so an all-masked head is uniform,
 never NaN. Sampling is Gumbel-max, as JAX's `categorical`: `sample` draws
 the noise from a torch.Generator, `sample_gumbel` takes it as an argument
-so a test can feed both frameworks the same noise.
+so a test can feed both frameworks the same noise, and `sample_key` takes
+a jax PRNGKey and draws the reference's own stream (ops/threefry.py).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Sequence
 
+import numpy as np
 import torch
 
 from dotaclient_tpu_torch.env.featurizer import ACT_ATTACK, ACT_CAST, ACT_MOVE
+from dotaclient_tpu_torch.ops import threefry
 
 BIG_NEG = -1e9
 
@@ -74,6 +77,34 @@ def sample(generator: torch.Generator, dist: Dist) -> Action:
     """Sample each head independently; unselected heads' samples are valid
     indices but contribute nothing to log_prob (factorized semantics)."""
     return sample_gumbel(dist, gumbel_noise(generator, dist))
+
+
+def key_uniforms(keys, lead: Sequence[int], sizes: Sequence[int]) -> np.ndarray:
+    """The uniforms behind the reference's `sample(key, dist)` for heads of
+    shape [*lead, size]: the key split in one per head, each head's
+    `jax.random.gumbel` uniforms over its shape; concatenated along the
+    last axis. keys [..., 2] → f32 [..., *lead, sum(sizes)]."""
+    k = threefry.split(keys, len(sizes))
+    return np.concatenate(
+        [threefry.gumbel_uniform(k[..., h, :], (*lead, n)) for h, n in enumerate(sizes)], axis=-1
+    )
+
+
+def sample_uniform(dist: Dist, u: torch.Tensor) -> Action:
+    """Gumbel-max sample given `key_uniforms` on the dist's device: the
+    noise -log(-log(u)) is taken over the whole [..., sum(sizes)] tensor,
+    then split by head."""
+    noise = -torch.log(-torch.log(u))
+    return sample_gumbel(dist, Dist(*torch.split(noise, [x.shape[-1] for x in dist], dim=-1)))
+
+
+def sample_key(key, dist: Dist) -> Action:
+    """The reference's `sample(key, dist)`: `jax.random.split(key, 4)`, one
+    `jax.random.categorical` per head. Indices equal jax's except where two
+    perturbed logits lie within the noise transform's last-ulp difference."""
+    lead = tuple(dist.type_logp.shape[:-1])
+    u = key_uniforms(np.asarray(key, np.uint32), lead, [x.shape[-1] for x in dist])
+    return sample_uniform(dist, torch.from_numpy(u).to(dist.type_logp.device))
 
 
 def mode(dist: Dist) -> Action:

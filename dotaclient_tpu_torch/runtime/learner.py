@@ -574,11 +574,12 @@ class Learner:
 
 def main(argv=None):
     from dotaclient_tpu_torch.config import parse_config
+    from dotaclient_tpu_torch.transport.base import RetryPolicy
     from dotaclient_tpu_torch.transport.base import connect as broker_connect
 
     logging.basicConfig(level=logging.INFO)
     cfg = parse_config(LearnerConfig(), argv)
-    broker = broker_connect(cfg.broker_url)
+    broker = broker_connect(cfg.broker_url, retry=RetryPolicy.from_config(cfg.retry))
     learner = Learner(cfg, broker, device="cpu" if cfg.platform == "cpu" else None)
     _log.info("learner up: device=%s batch=%dx%d", learner.device, cfg.batch_size, cfg.seq_len)
     try:

@@ -7,7 +7,9 @@ Semantics every implementation honours:
 - weights: fanout with latest-wins; subscribers poll and only ever see
   the newest frame, never a backlog.
 
-The port has the in-process `mem://<name>` broker. The learner also
+Two schemes are ported: `mem://<name>` (in-process) and `tcp://host:port`
+(the framework's own broker, transport/tcp.py; its server is
+`python -m dotaclient_tpu_torch.transport.tcp_server`). The learner also
 accepts any object with the `Broker` surface, so a test can hand it the
 reference package's broker and a JAX actor fleet can feed it.
 """
@@ -15,6 +17,8 @@ reference package's broker and a JAX actor fleet can feed it.
 from __future__ import annotations
 
 import abc
+import random
+from dataclasses import dataclass
 from typing import List, Optional
 
 
@@ -22,6 +26,44 @@ class BrokerShedError(RuntimeError):
     """A publish was refused at admission by an overloaded broker (the
     watermark load-shed). Not a ConnectionError: the connection is
     healthy, and the producer should drop or delay the frame and back off."""
+
+
+@dataclass
+class RetryPolicy:
+    """Capped exponential backoff with uniform jitter: the tcp client's
+    reconnect loop (config.py RetryConfig is its flag surface). `rng` is
+    an explicit `random.Random` for deterministic tests; None draws from
+    the module's shared stream."""
+
+    window_s: float = 60.0
+    backoff_base_s: float = 0.1
+    backoff_cap_s: float = 2.0
+    jitter: float = 0.5
+    rng: Optional[random.Random] = None
+
+    @classmethod
+    def from_config(cls, cfg, rng: Optional[random.Random] = None) -> "RetryPolicy":
+        """From a RetryConfig (any object with the four fields)."""
+        return cls(
+            window_s=cfg.window_s,
+            backoff_base_s=cfg.backoff_base_s,
+            backoff_cap_s=cfg.backoff_cap_s,
+            jitter=cfg.jitter,
+            rng=rng,
+        )
+
+    def sleep_for(self, backoff: float) -> float:
+        """The sleep for a nominal backoff: uniform in
+        [b*(1-jitter), b*(1+jitter)], floored at 0."""
+        if self.jitter <= 0:
+            return backoff
+        rng = self.rng if self.rng is not None else random
+        lo = backoff * (1.0 - self.jitter)
+        hi = backoff * (1.0 + self.jitter)
+        return max(0.0, lo + (hi - lo) * rng.random())
+
+    def next_backoff(self, backoff: float) -> float:
+        return min(backoff * 2.0, self.backoff_cap_s)
 
 
 class Broker(abc.ABC):
@@ -49,17 +91,24 @@ class Broker(abc.ABC):
         pass
 
 
-def connect(url: str, **kw) -> Broker:
-    """A broker for `url`. Only `mem://<name>` is ported; the network
-    clients and the retry policy their reconnect loops share come with
-    ROADMAP A.10d."""
-    if url.startswith("mem://") and "," not in url:
+def connect(url: str, retry: Optional[RetryPolicy] = None, **kw) -> Broker:
+    """A broker for `url`. `retry` is the reconnect policy of tcp://;
+    mem:// has no connection to retry and ignores it. The fabric (a
+    comma-separated shard list) and amqp:// are ROADMAP A.10d2."""
+    if "," in url or url.startswith("amqp://"):
+        raise NotImplementedError(
+            f"broker url {url!r}: the broker fabric (comma-separated shard list) and amqp:// "
+            f"are not ported yet (ROADMAP A.10d2)"
+        )
+    if url.startswith("mem://"):
         from dotaclient_tpu_torch.transport.memory import MemoryBroker
 
         return MemoryBroker(url[len("mem://") :] or "default", **kw)
-    if "," in url or url.startswith(("tcp://", "amqp://")):
-        raise NotImplementedError(
-            f"broker url {url!r}: only mem:// is ported; the tcp://, amqp:// and fabric "
-            f"(comma-separated shard list) clients are ROADMAP A.10d"
-        )
+    if url.startswith("tcp://"):
+        from dotaclient_tpu_torch.transport.tcp import TcpBroker
+
+        host, _, port = url[len("tcp://") :].partition(":")
+        if retry is not None:
+            kw["retry"] = retry
+        return TcpBroker(host or "127.0.0.1", int(port or 13370), **kw)
     raise ValueError(f"unknown broker url scheme: {url!r}")

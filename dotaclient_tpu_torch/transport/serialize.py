@@ -2,7 +2,8 @@
 dotaclient_tpu/transport/serialize.py): experience rollouts that actors
 publish, and the weight frames the learner fans out. A frame the port
 writes is byte for byte the reference's, so a JAX fleet and the torch
-learner speak to each other.
+learner speak to each other. The single-observation frame of the serve
+wire lives here too.
 
 Rollout frame (little-endian):
   DTR1: magic b'DTR1' | u32 version | u16 L | u16 H | u8 flags (bit0: aux
@@ -333,6 +334,60 @@ def deserialize_rollout(data: bytes) -> Rollout:
         trace_id=trace_id,
         birth_time=birth_time,
     )
+
+
+# ------------------------------------------------------ single observation
+#
+# The serve wire's request body (serve/wire.py): one unbatched Observation
+# as raw arrays in the rollout obs block's order (minus the time axis), the
+# float leaves uniformly f32 or bf16 (the DTR3 codes).
+
+
+def obs_wire_layout(obs_bf16: bool = False):
+    """(shape, numpy dtype) per array of a single-observation frame, in
+    serialization order; bf16 leaves as uint16 words."""
+    fdt = np.uint16 if obs_bf16 else np.float32
+    return [
+        ((F.GLOBAL_FEATURES,), fdt),
+        ((F.HERO_FEATURES,), fdt),
+        ((F.MAX_UNITS, F.UNIT_FEATURES), fdt),
+        ((F.MAX_UNITS,), np.uint8),
+        ((F.MAX_UNITS,), np.uint8),
+        ((F.N_ACTION_TYPES,), np.uint8),
+    ]
+
+
+def obs_wire_nbytes(obs_bf16: bool = False) -> int:
+    return sum(int(np.prod(shape)) * np.dtype(dt).itemsize for shape, dt in obs_wire_layout(obs_bf16))
+
+
+def serialize_obs(obs: F.Observation, obs_bf16: bool = False) -> bytes:
+    """One unbatched Observation → wire bytes; with `obs_bf16` the f32
+    leaves are rounded as `f32_to_bf16_bits` rounds (the reference's RNE)."""
+    return b"".join(a.tobytes() for a in _obs_arrays(obs, obs_bf16))
+
+
+def deserialize_obs(data: bytes, offset: int = 0, obs_bf16: bool = False) -> Tuple[F.Observation, int]:
+    """(Observation, next offset). Float leaves come back in their wire
+    dtype: numpy f32, or CPU `torch.bfloat16` tensors for bf16."""
+    arrays = []
+    for shape, dtype in obs_wire_layout(obs_bf16):
+        count = int(np.prod(shape))
+        n = count * np.dtype(dtype).itemsize
+        if offset + n > len(data):
+            raise ValueError("truncated observation frame")
+        arrays.append(np.frombuffer(data, dtype, count=count, offset=offset).reshape(shape))
+        offset += n
+    floats = [bf16_tensor(a) for a in arrays[:3]] if obs_bf16 else arrays[:3]
+    obs = F.Observation(
+        global_feats=floats[0],
+        hero_feats=floats[1],
+        unit_feats=floats[2],
+        unit_mask=arrays[3].astype(bool),
+        target_mask=arrays[4].astype(bool),
+        action_mask=arrays[5].astype(bool),
+    )
+    return obs, offset
 
 
 # ----------------------------------------------------------------- weights

@@ -298,3 +298,141 @@ def test_learner_loop_launches_the_kernel_once_per_step(cuda, tmp_path):
     named, version, _ = deserialize_weights(watcher.poll_weights())
     assert version == 3 and all(a.tobytes() == b.tobytes() for (_, a), (_, b) in zip(named, named_params(learner.state.net)))
     assert learner.staging.stats()["consumer_errors"] == 0
+
+
+def _serve_obs(rs):
+    from dotaclient_tpu_torch.env import featurizer as F
+
+    mask = rs.rand(F.N_ACTION_TYPES) > 0.3
+    mask[0] = True
+    return F.Observation(rs.randn(F.GLOBAL_FEATURES).astype("float32"), rs.randn(F.HERO_FEATURES).astype("float32"),
+                         rs.randn(F.MAX_UNITS, F.UNIT_FEATURES).astype("float32"), rs.rand(F.MAX_UNITS) > 0.3,
+                         rs.rand(F.MAX_UNITS) > 0.3, mask)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_batched_key_step_rows_are_bitwise_the_single_key_step(cuda, dtype):
+    """The serve tick at the flagship width on the card: every row of 16 is
+    its standalone key step, bit for bit."""
+    import numpy as np
+
+    from dotaclient_tpu_torch.config import PolicyConfig
+    from dotaclient_tpu_torch.env import featurizer as F
+    from dotaclient_tpu_torch.models import policy as P
+    from dotaclient_tpu_torch.ops.batch import as_tensors
+    from dotaclient_tpu_torch.runtime.actor import make_batched_key_actor_step, make_key_actor_step
+
+    cfg = PolicyConfig(dtype=dtype)
+    net = P.init_params(cfg, torch.Generator().manual_seed(1), cuda)
+    rs = np.random.RandomState(0)
+    obs = as_tensors(F.stack([_serve_obs(rs) for _ in range(16)]), cuda)
+    state = tuple(torch.randn(16, cfg.lstm_hidden, generator=torch.Generator().manual_seed(2)).to(cuda) for _ in range(2))
+    keys = np.stack([np.array([0, k], np.uint32) for k in range(16)])
+    before = L.LAUNCHES
+    (c, h), action, logp, value, keys2 = make_batched_key_actor_step(cfg)(net, state, obs, keys)
+    single = make_key_actor_step(cfg)
+    for i in (0, 7, 15):
+        row = lambda x: x[i : i + 1].clone()  # noqa: E731
+        (c1, h1), a1, lp1, v1, k1 = single(net, tuple(map(row, state)), F.Observation(*map(row, obs)), keys[i])
+        assert (k1 == keys2[i]).all()
+        for x1, xb in zip((c1, h1, *a1, lp1, v1), (c, h, *action, logp, value)):
+            assert torch.equal(x1, xb[i : i + 1])
+    assert L.LAUNCHES == before  # the T=1 cell runs no recurrence kernel
+
+
+def test_served_rows_are_bitwise_the_standalone_key_step(cuda):
+    """The port's InferenceServer on the card, stepped over the port's serve
+    wire by 3 concurrent sessions (one tick): each reply is the standalone
+    key step replayed on the card, and the carries stay on the card."""
+    import asyncio
+    import struct
+
+    import numpy as np
+
+    from dotaclient_tpu_torch.config import InferenceConfig, PolicyConfig, ServeConfig
+    from dotaclient_tpu_torch.env import featurizer as F
+    from dotaclient_tpu_torch.models import policy as P
+    from dotaclient_tpu_torch.ops.batch import as_tensors
+    from dotaclient_tpu_torch.runtime.actor import make_key_actor_step
+    from dotaclient_tpu_torch.serve import wire as W
+    from dotaclient_tpu_torch.serve.server import InferenceServer
+
+    cfg = PolicyConfig(unit_embed_dim=32, lstm_hidden=32, mlp_hidden=32)
+    server = InferenceServer(InferenceConfig(serve=ServeConfig(port=0, max_batch=4, gather_window_s=0.2), policy=cfg),
+                             device=cuda).start()
+
+    async def go():
+        reader, writer = await asyncio.open_connection("127.0.0.1", server.port)
+        writer.write(W.frame(W.S_INFO, b""))
+        await W.read_frame(reader)
+        out = {}
+        for t in range(3):
+            for k in range(3):
+                obs = _serve_obs(np.random.RandomState([k, t]))
+                key = np.array([0, k], np.uint32) if t == 0 else out[k][-1][1].rng
+                writer.write(W.frame(W.S_STEP, W.encode_step_request(k, obs, key, episode_start=t == 0, want_carry=True)))
+                out.setdefault(k, []).append((obs, None, key))
+            await writer.drain()
+            for _ in range(3):
+                _, payload = await W.read_frame(reader)
+                r = W.decode_step_response(payload, cfg.lstm_hidden)
+                obs, _, key = out[r.client_key][-1]
+                out[r.client_key][-1] = (obs, r, key)
+        carries = [dict(c.carries) for c in list(server._conns)]
+        writer.close()
+        return out, carries
+
+    try:
+        out, conn_carries = asyncio.run(asyncio.wait_for(go(), 120))
+        net = server.params
+    finally:
+        server.stop()
+    step = make_key_actor_step(cfg)
+    for k, rows in out.items():
+        state = P.initial_state(cfg, (1,), cuda)
+        for obs, r, key in rows:
+            assert r.status == W.OK
+            state, action, logp, value, key2 = step(net, state, as_tensors(F.stack([obs]), cuda), key)
+            assert (r.rng == key2).all() and list(r.action) == [int(a.item()) for a in action]
+            assert struct.pack("<ff", r.logp, r.value) == struct.pack("<ff", logp.item(), value.item())
+            assert r.carry[0].tobytes() == state[0][0].cpu().numpy().tobytes()
+            assert r.carry[1].tobytes() == state[1][0].cpu().numpy().tobytes()
+    assert sum(len(c) for c in conn_carries) == 3
+    assert all(c.device == cuda for carries in conn_carries for pair in carries.values() for c in pair)
+
+
+def test_server_binary_serves_on_the_card_by_default(cuda):
+    """`python -m dotaclient_tpu_torch.serve.server --serve.port 0
+    --broker_url tcp://…` with no --platform: the card; its one stdout line
+    is the ready line with the bound port, and it answers S_INFO."""
+    import json
+    import socket
+    import struct
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from dotaclient_tpu_torch.serve import wire as W
+
+    root = Path(__file__).resolve().parents[1]
+    broker = subprocess.Popen([sys.executable, "-m", "dotaclient_tpu_torch.transport.tcp_server", "--port", "0",
+                               "--host", "127.0.0.1"], cwd=root, stdout=subprocess.PIPE, text=True)
+    server = None
+    try:
+        port = int(broker.stdout.readline().split(":")[1].split()[0])
+        server = subprocess.Popen([sys.executable, "-m", "dotaclient_tpu_torch.serve.server", "--serve.port", "0",
+                                   "--broker_url", f"tcp://127.0.0.1:{port}"], cwd=root, stdout=subprocess.PIPE,
+                                  text=True)
+        ready = json.loads(server.stdout.readline())
+        assert ready["serving"] is True and ready["port"] > 0
+        with socket.create_connection(("127.0.0.1", ready["port"]), timeout=30) as s:
+            s.sendall(W.frame(W.S_INFO, b""))
+            buf = s.makefile("rb")
+            n, mtype = struct.unpack("<IB", buf.read(5))
+            info = json.loads(buf.read(n))
+        assert mtype == W.R_INFO and info["lstm_hidden"] == 128 and info["max_batch"] == 16
+    finally:
+        for p in (server, broker):
+            if p is not None:
+                p.terminate()
+                p.wait(timeout=30)

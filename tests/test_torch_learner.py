@@ -30,7 +30,7 @@ from dotaclient_tpu.runtime.learner import Learner as JLearner
 from dotaclient_tpu.transport import memory as jmem
 from dotaclient_tpu.transport.serialize import deserialize_weights as j_deserialize_weights
 from dotaclient_tpu.transport.serialize import flatten_params
-from dotaclient_tpu_torch.config import UNPORTED, LearnerConfig, PolicyConfig, PPOConfig, parse_config
+from dotaclient_tpu_torch.config import UNPORTED, LearnerConfig, PolicyConfig, PPOConfig, parse_config, unported_flags
 from dotaclient_tpu_torch.env import featurizer as F
 from dotaclient_tpu_torch.models import policy as P
 from dotaclient_tpu_torch.ops import batch as tbatch
@@ -310,7 +310,7 @@ REFUSED = [
     ("obs.enabled", True, "A.13"),
     ("profile_port", 9999, "A.13"),
     ("chaos.enabled", True, "A.10j"),
-    ("broker_shards", "0,1", "A.10d"),
+    ("broker_shards", "0,1", "A.10d2"),
 ]
 
 
@@ -326,11 +326,13 @@ def test_unported_modes_are_refused(tmp_path, field, value, item):
 
 
 def test_every_unported_mode_is_tested_and_their_settings_do_not_parse():
-    """The refusal table is config.UNPORTED, one entry per mode; settings
-    that only unported modes read (the broker clients' retry policy) are
-    not flags, so they fail to parse instead of doing nothing."""
-    assert {r[0] for r in REFUSED} == set(UNPORTED)
-    for argv in (["--retry.window_s", "5"], ["--ckpt.drain_budget_s", "10"], ["--staging.transfer_depth", "3"]):
+    """The refusal table is config.UNPORTED, one entry per mode (the
+    learner has every flag but the serve ones); settings that only
+    unported modes read are not flags, so they fail to parse instead of
+    doing nothing."""
+    assert {r[0] for r in REFUSED} == set(unported_flags(LearnerConfig()))
+    assert set(UNPORTED) - set(unported_flags(LearnerConfig())) == {"serve.handoff_endpoint", "serve.league_endpoint"}
+    for argv in (["--ckpt.drain_budget_s", "10"], ["--staging.transfer_depth", "3"]):
         with pytest.raises(SystemExit):
             parse_config(LearnerConfig(), argv)
 
@@ -355,8 +357,8 @@ def test_main_parses_the_reference_flags_and_trains(tmp_path):
     frame = watcher.poll_weights()
     assert frame[:4] == b"DTW1" and tser.deserialize_weights(frame)[1] == 2
     assert [r["step"] for r in _metric_lines(tmp_path / "main" / "metrics.jsonl")] == [2]
-    with pytest.raises(NotImplementedError, match="A.10d"):
-        tlearner.main(["--broker_url", "tcp://127.0.0.1:1", "--platform", "cpu"])
+    with pytest.raises(NotImplementedError, match="A.10d2"):
+        tlearner.main(["--broker_url", "amqp://guest@localhost/", "--platform", "cpu"])
 
 
 # ------------------------------------------------------------ interop loop
