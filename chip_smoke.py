@@ -15,10 +15,12 @@ Phases, in order; any failure exits non-zero:
               design each case ran; bitwise row invariance (a row of a
               B=256 launch vs the same row alone and inside B=37); the
               T=1 vs T=17 split into fixed prologue and per-step cost;
-4. serving  — the flagship policy's batched actor step over 64 rows for 12
-              ticks with resident carries, one episode reset and a last
-              tick with the rows reversed; every checked row bitwise its
-              B=1 step; ticks/s beside the one-forward tick it replaced;
+4. serving  — the flagship policy's batched key step (the inference
+              server's row step, each row on its own jax key) over 64 rows
+              for 12 ticks with resident carries, one episode reset and a
+              last tick with the rows reversed; every checked row bitwise
+              its B=1 key step; ticks/s beside the one-forward tick it
+              replaced;
 5. learner  — the PPO loss forward (teacher-forced unroll through the LSTM
               kernel, GAE, clipped surrogate) at batch 256 x seq_len 16,
               held against the same forward through the plain recurrence;
@@ -45,9 +47,25 @@ Phases, in order; any failure exits non-zero:
               producer thread) end bitwise equal; loop ms per step
               without the producer and with it, the split, overlap,
               pack ms (native vs Python), publish latency.
+8. serve    — the inference server over tcp:// with client processes
+              (see phase_serve);
+9. learner manifest — the port's learner with k8s/learner.yaml's args
+              (one broker endpoint, a local remote dir, local /ckpt and
+              /logs, an ephemeral metrics port, checkpoint every 10):
+              4-worker sharded pack vs one call (bytes equal, ms); one
+              stamped schedule through the manifest flags, obs off, the
+              serial loop and phase 7's plain flags, params bitwise equal;
+              40 steps fed by a producer thread, one kernel launch each,
+              with /metrics, /healthz and a 1 s POST /profile mid-run
+              (its trace names the recurrence kernel); the learner binary
+              over tcp:// drained by SIGTERM (exit 0, step durable and
+              mirrored), restored locally and from the mirror (version
+              at least the high-water mark); a drained learner's restart
+              bitwise an uninterrupted run; then the tcp:// loop with 4
+              producer processes at pack_workers 1 and 4.
 Each path of the main path (serving, learner forward, each train step,
-the reuse step, the learner loop) is driven with the kernels' launch
-counters zeroed just before it and read just after. The last lines are one JSON object per kernel, the card line, and
+the reuse step, the learner loop, the manifest learner) is driven with
+the kernels' launch counters zeroed just before it and read just after. The last lines are one JSON object per kernel, the card line, and
 {"ok": true, "device": {...}}.
 """
 
@@ -57,6 +75,7 @@ import dataclasses
 import json
 import os
 import shutil
+import signal
 import socket
 import statistics
 import struct
@@ -289,12 +308,6 @@ def phase_step_split(device, B=256, H=128, T=17):
     return split
 
 
-def _copy_generator(gen):
-    g = torch.Generator(device=gen.device)
-    g.set_state(gen.get_state())
-    return g
-
-
 def _one_forward_tick(net, state, obs, gen):
     """The batched tick before each row became its own B=1 step (all rows
     in one forward, one generator): timed here beside its replacement,
@@ -308,19 +321,22 @@ def _one_forward_tick(net, state, obs, gen):
 
 
 def phase_serving(device, ticks: int = 12, rows: int = 64):
+    """The serve path's row step: make_batched_key_actor_step over `rows`
+    rows with resident carries, each row on its own jax key (what the
+    inference server runs); one row per tick against make_key_actor_step."""
     from dotaclient_tpu_torch.config import LearnerConfig, PolicyConfig
     from dotaclient_tpu_torch.env import featurizer as F
     from dotaclient_tpu_torch.models import policy as P
     from dotaclient_tpu_torch.ops.batch import as_tensors, make_train_batch
-    from dotaclient_tpu_torch.runtime.actor import make_actor_step, make_batched_actor_step
+    from dotaclient_tpu_torch.runtime.actor import make_batched_key_actor_step, make_key_actor_step
 
     cfg = PolicyConfig()
     net = P.init_params(cfg, torch.Generator().manual_seed(0), device)
     # valid observation streams: one [rows, ticks+1] slab of the random batch
     obs_seq = as_tensors(make_train_batch(LearnerConfig(batch_size=rows, seq_len=ticks, policy=cfg), 1).obs, device)
-    step = make_batched_actor_step(cfg)
-    single = make_actor_step(cfg)
-    gens = [torch.Generator(device=device).manual_seed(1000 + i) for i in range(rows)]
+    step = make_batched_key_actor_step(cfg)
+    single = make_key_actor_step(cfg)
+    keys = np.stack([np.array([0, 1000 + i], np.uint32) for i in range(rows)])
     state = P.initial_state(cfg, (rows,), device)
     reset_at, reset_rows = ticks // 2, torch.arange(rows, device=device) % 3 == 0
     step_s, checked = 0.0, 0
@@ -331,12 +347,11 @@ def phase_serving(device, ticks: int = 12, rows: int = 64):
         order = torch.arange(rows - 1, -1, -1, device=device) if t == ticks - 1 else torch.arange(rows, device=device)
         obs = F.Observation(*(x[:, t][order] for x in obs_seq))
         prev = tuple(s[order] for s in state)
-        tick_gens = [gens[i] for i in order.tolist()]
+        tick_keys = keys[order.cpu().numpy()]
         i = (7 * t) % rows  # one row per tick against its own B=1 step
-        before = _copy_generator(tick_gens[i])
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        new, action, logp, value = step(net, prev, obs, tick_gens)
+        new, action, logp, value, keys2 = step(net, prev, obs, tick_keys)
         torch.cuda.synchronize()
         if t >= 2:
             step_s += time.perf_counter() - t0
@@ -352,13 +367,16 @@ def phase_serving(device, ticks: int = 12, rows: int = 64):
         if not obs.target_mask[ar, action.target][targeted].all():
             raise SystemExit(f"serving tick {t}: a masked target was sampled")
         one = lambda tree: tuple(x[i : i + 1].clone() for x in tree)
-        (c1, h1), a1, lp1, v1 = single(net, one(prev), F.Observation(*one(obs)), before)
+        (c1, h1), a1, lp1, v1, k1 = single(net, one(prev), F.Observation(*one(obs)), tick_keys[i])
         for name, x1, xb in zip(("c", "h", "type", "move_x", "move_y", "target", "logp", "value"),
                                 (c1, h1, *a1, lp1, v1), (*new, *action, logp, value)):
             if not torch.equal(x1, xb[i : i + 1]):
                 raise SystemExit(f"serving tick {t}: row {i} {name} is not bitwise its B=1 step")
+        if not np.array_equal(k1, keys2[i]):
+            raise SystemExit(f"serving tick {t}: row {i} key is not its B=1 step's")
         checked += 1
         state = tuple(s[order] for s in new)  # reversing twice restores env order
+        keys = keys2[order.cpu().numpy()]
     ticks_per_s = (ticks - 2) / step_s
     # the one-forward tick on the same streams, for the rate only
     gen = torch.Generator(device=device).manual_seed(2)
@@ -371,9 +389,9 @@ def phase_serving(device, ticks: int = 12, rows: int = 64):
     torch.cuda.synchronize()
     before_per_s = (ticks - 2) / (time.perf_counter() - t0)
     print(f"serving: {rows} rows x {ticks} ticks, {ticks_per_s:.2f} ticks/s ({ticks_per_s * rows:.0f} row-steps/s) "
-          f"with every row its own B=1 step; {checked} rows (one per tick, the last among reversed neighbours) "
-          f"bitwise their B=1 step; the one-forward tick it replaced: {before_per_s:.1f} ticks/s "
-          f"({before_per_s * rows:.0f} row-steps/s)", flush=True)
+          f"with every row its own B=1 key step (the server's row step); {checked} rows (one per tick, the last "
+          f"among reversed neighbours) bitwise their B=1 key step, keys included; the one-forward tick it "
+          f"replaced: {before_per_s:.1f} ticks/s ({before_per_s * rows:.0f} row-steps/s)", flush=True)
     return net, cfg, ticks_per_s, before_per_s
 
 
@@ -1064,6 +1082,439 @@ def phase_learner_tcp(device, card: str, free_pipelined_ms: float, steps: int = 
     return out
 
 
+MANIFEST = os.path.join(ROOT, "k8s", "learner.yaml")
+
+
+def manifest_args(path: str = MANIFEST) -> list:
+    """The learner container's args in k8s/learner.yaml, read without a
+    YAML parser: every `- "..."` item of its `args:` list, in order."""
+    out, inside = [], False
+    for line in open(path):
+        s = line.strip()
+        if s == "args:":
+            inside = True
+        elif inside and s.startswith("- "):
+            out.append(s[2:].strip('"'))
+        elif inside and s and not s.startswith("#"):
+            break
+    return out
+
+
+def _free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def local_manifest(args, tmp: str, broker_url: str, metrics_port: int, checkpoint_every: int = 10, extra=()) -> list:
+    """The manifest's args for a run here: one broker endpoint (not the
+    shard list), a local directory as the remote mirror (not gs://), the
+    pod's /ckpt and /logs as local directories, an ephemeral metrics port
+    and a shorter checkpoint cadence; `extra` flags are appended."""
+    swaps = {"--broker_url": broker_url, "--checkpoint_remote_dir": os.path.join(tmp, "remote"),
+             "--checkpoint_dir": os.path.join(tmp, "ck"), "--log_dir": os.path.join(tmp, "logs"),
+             "--obs.dump_dir": os.path.join(tmp, "logs"), "--obs.profile_dir": os.path.join(tmp, "logs"),
+             "--obs.metrics_port": str(metrics_port), "--checkpoint_every": str(checkpoint_every)}
+    out = list(args)
+    for flag, value in swaps.items():
+        out[out.index(flag) + 1] = value
+    return out + list(extra)
+
+
+def _stamped(frames, batch: int, first_version: int = 0):
+    """Batch k of `frames` stamped with version first_version + k (header
+    offset 4), so no batch of a fixed schedule ages past ppo.max_staleness."""
+    return [f[:4] + struct.pack("<I", first_version + i // batch) + f[8:] for i, f in enumerate(frames)]
+
+
+def pack_workers_ms(cfg, frames, device, workers: int = 4, samples: int = 5):
+    """Native pack of one batch, equal work in every arm: one call into a
+    fresh zeroed pinned buffer; `workers` packer threads on disjoint row
+    shards of a re-zeroed ring slot (the staging pool itself); and the
+    same shards called one after another on this thread. Each arm is
+    timed as buffer preparation (fresh zeroed + NOOP-masked buffer, or the
+    slot's acquire and reset) then pack; the bytes compared are copied
+    after the clock stops. Medians of `samples` per arm, arms in turns;
+    the bytes must match."""
+    from dotaclient_tpu_torch import native
+    from dotaclient_tpu_torch.parallel.train_step import build_single_train_step
+    from dotaclient_tpu_torch.runtime.staging import _PackPool, shard_rows
+
+    _, io = build_single_train_step(cfg, device)
+    lib, p, B = native.load_packer(), cfg.policy, len(frames)
+    obs_bf16 = cfg.stage_obs_compute_dtype and p.dtype == "bfloat16"
+    ring, pool, stop = io.make_ring(1), _PackPool(workers), threading.Event()
+
+    def one():
+        t0 = time.perf_counter()
+        buf, out = io.alloc_transfer()
+        t1 = time.perf_counter()
+        native.pack_frames(lib, frames, cfg.seq_len, p.lstm_hidden, p.aux_heads, obs_bf16, out)
+        return buf, t1 - t0, time.perf_counter() - t1
+
+    def sharded(threads: bool):
+        t0 = time.perf_counter()
+        slot = ring.acquire(timeout=10)
+        t1 = time.perf_counter()
+        tasks = [(lambda o=o, c=c: native.pack_frames(lib, frames[o : o + c], cfg.seq_len, p.lstm_hidden, p.aux_heads,
+                                                      obs_bf16, slot.batch, row_offset=o, total_rows=B))
+                 for o, c in shard_rows(B, workers)]
+        err = None
+        if threads:
+            err = pool.run_tasks(tasks, stop)
+        else:
+            for task in tasks:
+                task()
+        t2 = time.perf_counter()
+        if err is not None:
+            raise err
+        buf = slot.payload.clone()  # after the clock: the comparison's copy, not the arm's work
+        slot.release()
+        return buf, t1 - t0, t2 - t1
+
+    arms = (("1", one), (str(workers), lambda: sharded(True)), (f"{workers}_serial", lambda: sharded(False)))
+    times = {}
+    try:
+        for name, fn in arms + arms:
+            for _ in range(samples):
+                buf, prep_s, pack_s = fn()
+                rec = times.setdefault(name, {"prep": [], "pack": [], "total": [], "buf": buf})
+                rec["prep"].append(prep_s * 1e3)
+                rec["pack"].append(pack_s * 1e3)
+                rec["total"].append((prep_s + pack_s) * 1e3)
+    finally:
+        pool.stop()
+    if not all(torch.equal(times["1"]["buf"], rec["buf"]) for rec in times.values()):
+        raise SystemExit(f"learner manifest: the {workers}-shard pack wrote other bytes than the one-call pack")
+    return {f"{name}_{k}": statistics.median(rec[k]) for name, rec in times.items() for k in ("prep", "pack", "total")}
+
+
+def _http(method: str, url: str, timeout: float = 60.0):
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, data=b"" if method == "POST" else None, method=method)
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def _manifest_learner(cfg, name, frames, device):
+    from dotaclient_tpu_torch.runtime.learner import Learner
+    from dotaclient_tpu_torch.transport import memory as tmem
+
+    tmem.reset(name)
+    hub = tmem.MemoryBroker(name)
+    for f in frames:
+        hub.publish_experience(f)
+    return Learner(cfg, tmem.MemoryBroker(name), device)
+
+
+def _window_ms(line) -> float:
+    """A pipelined window's loop ms per step (exposed take + residual);
+    a serial window's wait + step."""
+    if "pipeline_device_idle_s" in line:
+        return 1e3 * (line["time_step_s"] + line["pipeline_device_idle_s"])
+    return 1e3 * (line["time_wait_batch_s"] + line["time_step_s"])
+
+
+def phase_learner_manifest(device, card: str, steps: int = 40, parity_steps: int = 10, extra=(), tcp=True):
+    """Phase 9: the port's learner with k8s/learner.yaml's arguments
+    (local_manifest's substitutions), on the card: sharded pack parity and
+    ms; manifest vs obs off vs serial vs phase 7's plain flags over one
+    stamped schedule, bitwise; a 40-step run fed by a producer thread with
+    /metrics, /healthz and POST /profile checked mid-run; the learner
+    binary drained by SIGTERM over tcp://, restored from its step and from
+    the mirror; a drained learner's restart bitwise an uninterrupted run.
+    `extra` flags go after the manifest's (the CPU rehearsal's small shapes)."""
+    from dotaclient_tpu_torch.config import LearnerConfig, parse_config
+    from dotaclient_tpu_torch.obs.compute import trace_kernel_names
+    from dotaclient_tpu_torch.ops import lstm as L
+    from dotaclient_tpu_torch.ops.flops import PEAK_BF16_FLOPS, train_step_flops
+    from dotaclient_tpu_torch.runtime.checkpoint import Checkpointer
+    from dotaclient_tpu_torch.runtime.learner import Learner
+    from dotaclient_tpu_torch.transport import memory as tmem
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_manifest_")
+    args = manifest_args()
+    if "--mesh_shape" not in args or "--staging.pack_workers" not in args:
+        raise SystemExit(f"learner manifest: unexpected args {args}")
+
+    def cfg_for(sub: str, port: int = 0, **over):
+        c = parse_config(LearnerConfig(), local_manifest(args, os.path.join(tmp, sub), f"mem://{sub}", port, extra=extra))
+        for k, v in over.items():
+            obj, *path = [c] + k.split(".")
+            for n in path[:-1]:
+                obj = getattr(obj, n)
+            setattr(obj, path[-1], v)
+        return c
+
+    try:
+        base = cfg_for("base")
+        B = base.batch_size
+        pool = rollout_frames(base, 2)
+        pack_ms = pack_workers_ms(base, pool[:B], device)
+
+        # 1. one stamped schedule, four learners: bitwise the same params
+        schedule = _stamped(rollout_frames(base, parity_steps, seed0=200), B)
+        # windows of 5 steps: the second one is the timed one, past each learner's first steps
+        plain = dataclasses.replace(parse_config(LearnerConfig(), list(extra)), log_dir=os.path.join(tmp, "plain"),
+                                    native_packer=True, metrics_every=5)
+        arms = {"manifest": lambda: cfg_for("m_on", _free_port(), metrics_every=5),
+                "obs_off": lambda: cfg_for("m_off", metrics_every=5, **{"obs.enabled": False}),
+                "serial": lambda: cfg_for("m_serial", metrics_every=5, **{"learner.prefetch": False}),
+                "plain": lambda: plain}
+        runs = {}
+        # in turns, so no flag set owns the first or the last slot of the phase
+        for turn, name in enumerate(("manifest", "plain", "obs_off", "serial", "obs_off", "plain", "manifest")):
+            cfg = arms[name]()
+            for d in (cfg.checkpoint_dir, cfg.checkpoint_remote_dir, cfg.log_dir):
+                if d:  # an earlier turn's step would be restored (or pulled from its mirror)
+                    shutil.rmtree(d, ignore_errors=True)
+            learner = _manifest_learner(cfg, f"chip_manifest_{name}_{turn}", schedule, device)
+            try:
+                torch.cuda.synchronize()
+                L.LAUNCHES = 0
+                done = learner.run(num_steps=parity_steps, batch_timeout=60.0, max_idle=3)
+                launches = L.LAUNCHES
+            finally:
+                learner.close()
+            if done != parity_steps or launches != parity_steps:
+                raise SystemExit(f"learner manifest ({name}): {done} steps, {launches} kernel launches")
+            line = [json.loads(x) for x in open(os.path.join(cfg.log_dir, "metrics.jsonl"))][-1]
+            runs.setdefault(name, []).append((_state_bits(learner.state), line))
+        bits = {f"{name} {i}": r[0] for name, rs in runs.items() for i, r in enumerate(rs)}
+        if any(b != bits["manifest 0"] for b in bits.values()):
+            raise SystemExit(f"learner manifest: params differ between {[n for n, b in bits.items() if b != bits['manifest 0']]}"
+                             f" and the manifest run over one schedule")
+        free = {name: [_window_ms(r[1]) for r in rs] for name, rs in runs.items()}
+        serial_line = runs["serial"][0][1]
+        split = {k[len("compute_phase_"):-2]: 1e3 * v for k, v in serial_line.items()
+                 if k.startswith("compute_phase_") and k.endswith("_s")}
+
+        # 2. forty steps fed by a producer thread; the scrape surface mid-run
+        port = _free_port()
+        cfg = cfg_for("main", port)
+        tmem.reset("chip_manifest_main")
+        learner = _manifest_learner(cfg, "chip_manifest_main", [], device)
+        producer = Producer(tmem.MemoryBroker("chip_manifest_main"), pool, versions=steps + 1, batch=B, max_depth=2 * B)
+        marks, ckpt_s = [], []
+        after, checkpoint = learner._after_step, learner.checkpoint
+
+        def timed_after():
+            marks.append((learner.version, time.perf_counter()))
+            after()
+
+        def timed_checkpoint():
+            t0 = time.perf_counter()
+            checkpoint()
+            ckpt_s.append(time.perf_counter() - t0)
+
+        learner._after_step, learner.checkpoint = timed_after, timed_checkpoint
+        out, errors = {}, []
+        runner = threading.Thread(target=lambda: out.update(done=learner.run(num_steps=steps, batch_timeout=60.0,
+                                                                               max_idle=3)), daemon=True)
+        producer.start()
+        torch.cuda.synchronize()
+        L.LAUNCHES = 0  # the manifest learner's main path starts here
+        t0 = time.perf_counter()
+        runner.start()
+        try:
+            deadline = time.monotonic() + 120
+            while learner.version < 12 and runner.is_alive() and time.monotonic() < deadline:
+                time.sleep(0.01)
+            code, body = _http("POST", f"http://127.0.0.1:{port}/profile?seconds=1")
+            profile = json.loads(body) if code == 200 else {"error": body}
+            if code != 200:
+                errors.append(f"POST /profile: {code} {body}")
+            metrics_code, _ = _http("GET", f"http://127.0.0.1:{port}/metrics")
+            health_code, health = _http("GET", f"http://127.0.0.1:{port}/healthz")
+            runner.join(timeout=300)
+            wall_s = time.perf_counter() - t0
+            launches = L.LAUNCHES
+            _, metrics_end = _http("GET", f"http://127.0.0.1:{port}/metrics")
+        finally:
+            producer.stop_event.set()
+            producer.join(timeout=10)
+            learner.close()
+        if runner.is_alive() or out.get("done") != steps or launches != steps:
+            raise SystemExit(f"learner manifest: {out.get('done')} of {steps} steps, {launches} kernel launches")
+        if errors or metrics_code != 200 or health_code != 200:
+            raise SystemExit(f"learner manifest: {errors}, /metrics {metrics_code}, /healthz {health_code} {health}")
+        kernels = trace_kernel_names(os.path.join(profile["trace_dir"], "trace.json"))
+        lstm_in_trace = sum(1 for k in kernels if "lstm_" in k)
+        if device.type == "cuda" and not lstm_in_trace:
+            raise SystemExit(f"learner manifest: the profile of 1 s mid-run names no recurrence kernel "
+                             f"({len(kernels)} kernels)")
+        scraped = {ln.split()[0]: float(ln.split()[1]) for ln in metrics_end.splitlines() if ln and not ln.startswith("#")}
+        want = ["compute_flops_per_sec", "compute_phase_fetch_s", "compute_phase_device_step_s", "pipeline_overlap_ratio",
+                "staging_pack_ring_occupancy"] + (["compute_mfu"] if device.type == "cuda" else [])
+        missing = [k for k in want if f"dotaclient_{k}" not in scraped]
+        if missing:
+            raise SystemExit(f"learner manifest: /metrics lacks {missing}")
+        lines = [json.loads(x) for x in open(os.path.join(cfg.log_dir, "metrics.jsonl"))]
+        stats = learner.staging.stats()
+        worker = learner._ckpt_worker
+        loop_ms = wall_s * 1e3 / steps
+        gaps = {v: 1e3 * (t - tp) for (vp, tp), (v, t) in zip(marks, marks[1:])}
+        ck_gaps = [g for v, g in gaps.items() if v % cfg.checkpoint_every == 0]
+        plain_gaps = [g for v, g in gaps.items() if v % cfg.checkpoint_every and v > 2]
+        mfu = lines[-1].get("compute_mfu")
+        # the meter divides the steps by the metric windows' summed wall, so read it against the windows'
+        # mean ms per step (every window holds metrics_every steps)
+        window_ms = statistics.mean(_window_ms(r) for r in lines)
+        expect_mfu = train_step_flops(cfg) / (window_ms / 1e3) / PEAK_BF16_FLOPS.get(torch.cuda.get_device_name(device), 1.0) \
+            if device.type == "cuda" else None
+        if mfu is not None and not 0.8 < mfu / expect_mfu < 1.25:
+            raise SystemExit(f"learner manifest: compute_mfu {mfu} is far from {expect_mfu} (flops / window time / peak)")
+        ck_steps = Checkpointer(cfg.checkpoint_dir).all_steps()
+        if ck_steps[-1] != steps or not os.path.exists(os.path.join(cfg.checkpoint_dir, f"aux_{steps}.bin")):
+            raise SystemExit(f"learner manifest: checkpoints {ck_steps} (expected the last at {steps}, with its aux)")
+
+        # 3. the binary over tcp://, drained by SIGTERM; restores
+        sub = drain_binary(card, args, os.path.join(tmp, "sub"), extra)
+        hwm = int(open(os.path.join(sub["ck"], "version_hwm")).read())
+        for where in ("local", "mirror"):
+            if where == "mirror":
+                shutil.rmtree(sub["ck"])
+            r = _manifest_learner(sub["cfg"], f"chip_manifest_restore_{where}", [], device)
+            restored = (r.version, r.state.step, dict(r.resume_info))
+            r.close()
+            if restored[0] < hwm or restored[1] != sub["version"]:
+                raise SystemExit(f"learner manifest: restore from the {where} step gives version {restored[0]}, step "
+                                 f"{restored[1]}; the drain saved step {sub['version']}, high-water {hwm}")
+            sub[f"restore_{where}"] = restored
+
+        # 4. drain after 2 batches with half a batch popped; restart; bitwise
+        frames = _stamped(rollout_frames(base, 6, seed0=300), B)
+        ref = _manifest_learner(cfg_for("d_ref"), "chip_manifest_d_ref", frames, device)
+        ref.run(num_steps=6, batch_timeout=60.0, max_idle=3)
+        ref.close()
+        cut = 2 * B + B // 2
+        dcfg = cfg_for("d")
+        first = _manifest_learner(dcfg, "chip_manifest_d", frames[:cut], device)
+        runner = threading.Thread(target=lambda: first.run(num_steps=None, batch_timeout=60.0, max_idle=5), daemon=True)
+        runner.start()
+        deadline = time.monotonic() + 120
+        while first.version < 2 and runner.is_alive() and time.monotonic() < deadline:
+            time.sleep(0.005)
+        first.request_drain()
+        runner.join(timeout=120)
+        first.drain_save()
+        first.close()
+        for f in frames[cut:]:
+            tmem.MemoryBroker("chip_manifest_d").publish_experience(f)
+        second = Learner(cfg_for("d"), tmem.MemoryBroker("chip_manifest_d"), device)
+        resumed_at, pending = second.version, second.resume_info.get("resume_pending_frames")
+        second.run(num_steps=6 - resumed_at, batch_timeout=60.0, max_idle=3)
+        second.close()
+        if runner.is_alive() or resumed_at != 2 or pending != B // 2 or _state_bits(second.state) != _state_bits(ref.state):
+            raise SystemExit(f"learner manifest: the drained restart (at v{resumed_at}, {pending} pending) did not "
+                             f"end bitwise the uninterrupted run")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    res = dict(
+        steps=steps, launches=launches, loop_ms=loop_ms, window_ms=window_ms,
+        pack_ms=pack_ms, ring_wait_ms_per_batch=1e3 * stats["pack_ring_wait_s"] / max(stats["batches"], 1),
+        pool_pack_ms_per_batch=1e3 * (stats["pack_wall_s"] - stats["pack_ring_wait_s"]) / max(stats["batches"], 1),
+        free_manifest_ms=statistics.mean(free["manifest"]), free_plain_ms=statistics.mean(free["plain"]),
+        free_obs_off_ms=statistics.mean(free["obs_off"]), free_turns_ms=free, serial_ms=_window_ms(serial_line),
+        serial_split_ms=split,
+        compute_mfu=mfu, compute_flops_per_sec=lines[-1]["compute_flops_per_sec"], expected_mfu=expect_mfu,
+        ckpt_step_ms=statistics.median(ck_gaps) if ck_gaps else None,
+        normal_step_ms=statistics.median(plain_gaps) if plain_gaps else None,
+        ckpt_call_ms=1e3 * statistics.median(ckpt_s) if ckpt_s else None, worker_save_s=worker.last_save_s,
+        async_saves=worker.saved, async_coalesced=worker.coalesced, profile_kernels=len(kernels),
+        profile_lstm_kernels=lstm_in_trace, overlap_ratio=lines[-1]["pipeline_overlap_ratio"],
+        ring_occupancy=lines[-1]["staging_pack_ring_occupancy"], sigterm=sub["summary"],
+        restore_local=sub["restore_local"], restore_mirror=sub["restore_mirror"],
+    )
+    print(f"learner manifest: k8s/learner.yaml's args (one broker endpoint, local remote dir, checkpoint every "
+          f"{cfg.checkpoint_every}): {steps} steps, {launches} kernel launches; params bitwise equal across manifest / "
+          f"obs off / serial / plain flags over {parity_steps} stamped steps; /metrics carries compute_mfu, "
+          f"compute_phase_*, pipeline_overlap_ratio, staging_pack_ring_occupancy; /healthz 200; POST /profile 1 s: "
+          f"{len(kernels)} device kernels, {lstm_in_trace} of them the recurrence kernel; SIGTERM exit 0 at "
+          f"v{sub['version']}, restored v{sub['restore_local'][0]} local and v{sub['restore_mirror'][0]} from the "
+          f"mirror (high-water {hwm}); drained restart bitwise | {card}", flush=True)
+    print(f"learner manifest: native pack per batch of {B} (median ms, buffer preparation + pack): 1 worker "
+          f"{pack_ms['1_total']:.3f} ({pack_ms['1_prep']:.3f} + {pack_ms['1_pack']:.3f}), 4 workers "
+          f"{pack_ms['4_total']:.3f} ({pack_ms['4_prep']:.3f} + {pack_ms['4_pack']:.3f}), the 4 shards on one thread "
+          f"{pack_ms['4_serial_total']:.3f} ({pack_ms['4_serial_prep']:.3f} + {pack_ms['4_serial_pack']:.3f}); the running pool's pack "
+          f"{res['pool_pack_ms_per_batch']:.3f} ms per batch past its acquire wait; ring acquire wait "
+          f"{res['ring_wait_ms_per_batch']:.3f} ms per batch (occupancy {res['ring_occupancy']:.0f} of 2) | {card}",
+          flush=True)
+    print(f"learner manifest: producer-free window per step (mean of 2 turns): manifest flags "
+          f"{res['free_manifest_ms']:.3f} ms {free['manifest']}, obs off {res['free_obs_off_ms']:.3f} ms {free['obs_off']}, "
+          f"phase 7's plain flags {res['free_plain_ms']:.3f} ms {free['plain']}; serial (fenced) "
+          f"{res['serial_ms']:.3f} ms split {', '.join(f'{k} {v:.3f}' for k, v in split.items())} ms, fetch share "
+          f"{serial_line.get('compute_phase_fetch_frac', float('nan')):.4f} | {card}", flush=True)
+    print(f"learner manifest: with a producer thread {loop_ms:.3f} ms per step over the wall, {res['window_ms']:.3f} "
+          f"mean window; compute_mfu {mfu} (flops / window time / peak: {expect_mfu}), compute_flops_per_sec "
+          f"{res['compute_flops_per_sec']:.4g} (expected from the mean window); loop ms on a checkpoint step {res['ckpt_step_ms']} vs a normal step "
+          f"{res['normal_step_ms']} (checkpoint call {res['ckpt_call_ms']} ms on the loop thread), worker save "
+          f"{worker.last_save_s:.3f} s ({worker.saved} saved, {worker.coalesced} coalesced) | {card}", flush=True)
+    if tcp:
+        res["tcp4_pack1"] = phase_learner_tcp(device, card, res["free_manifest_ms"], producers=4, flags=list(extra))
+        res["tcp4_pack4"] = phase_learner_tcp(device, card, res["free_manifest_ms"], producers=4,
+                                              flags=list(extra) + ["--staging.pack_workers", "4"])
+    res["phase_s"] = time.perf_counter() - t_phase
+    print(f"learner manifest: phase {res['phase_s']:.1f} s | {card}", flush=True)
+    return res
+
+
+def drain_binary(card: str, args, tmp: str, extra=()):
+    """The learner binary with the manifest's args over tcp:// (the port's
+    broker and one producer process apart), SIGTERM once it has saved a
+    step: exit 0, and the drained step durable with its aux manifest and
+    mirrored. Returns the run's facts and a config that restores from it."""
+    from dotaclient_tpu_torch.config import LearnerConfig, parse_config
+    from dotaclient_tpu_torch.runtime.checkpoint import Checkpointer
+    from dotaclient_tpu_torch.runtime.learner import decode_aux
+
+    broker, bport = start_tcp_broker()
+    flags = local_manifest(args, tmp, f"tcp://127.0.0.1:{bport}", _free_port(), extra=extra)
+    cfg = parse_config(LearnerConfig(), flags)
+    ck = cfg.checkpoint_dir
+    prod = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--tcp-producer", str(bport), "1000",
+                             str(cfg.batch_size), "7", *extra], cwd=ROOT, stdout=subprocess.PIPE, text=True)
+    proc = subprocess.Popen([sys.executable, "-m", "dotaclient_tpu_torch.runtime.learner", *flags], cwd=ROOT,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        t0 = time.monotonic()
+        while not (os.path.isdir(ck) and Checkpointer(ck).all_steps()):
+            if proc.poll() is not None or time.monotonic() - t0 > 180:
+                raise SystemExit(f"learner binary: no checkpoint within {time.monotonic() - t0:.0f} s (rc "
+                                 f"{proc.poll()}): {proc.stdout.read() if proc.poll() is not None else ''}")
+            time.sleep(0.05)
+        t_term = time.monotonic()
+        proc.send_signal(signal.SIGTERM)
+        log, _ = proc.communicate(timeout=60)
+        drain_s = time.monotonic() - t_term
+    finally:
+        stop_process(proc)
+        stop_process(prod)
+        stop_process(broker)
+    if proc.returncode != 0 or "SIGTERM drain complete at version " not in log:
+        raise SystemExit(f"learner binary: SIGTERM gave rc {proc.returncode}:\n{log[-3000:]}")
+    version = int(log.split("SIGTERM drain complete at version ")[1].split(";")[0])
+    steps = Checkpointer(ck).all_steps()
+    aux_path = os.path.join(ck, f"aux_{version}.bin")
+    remote = os.path.join(cfg.checkpoint_remote_dir, str(version), "MIRROR_COMPLETE")
+    if steps[-1] != version or not os.path.exists(aux_path) or not os.path.exists(remote):
+        raise SystemExit(f"learner binary: drained at v{version} but steps {steps}, aux {os.path.exists(aux_path)}, "
+                         f"mirror {os.path.exists(remote)}")
+    pending = len(decode_aux(open(aux_path, "rb").read())["staging"]["pending"])
+    restore_cfg = parse_config(LearnerConfig(), local_manifest(args, tmp, "mem://chip_manifest_restore", 0, extra=extra))
+    summary = dict(version=version, drain_s=drain_s, pending=pending, steps_on_disk=steps)
+    print(f"learner binary: SIGTERM after a first checkpoint: exit 0 in {drain_s:.2f} s at v{version}, {pending} "
+          f"frames pending in the aux manifest, step mirrored | {card}", flush=True)
+    return dict(version=version, ck=ck, cfg=restore_cfg, summary=summary)
+
+
 SERVE_SAMPLED = (0, 1, 17, 18, 34, 35, 51, 52)  # sessions replayed on the card: both obs codes, every client
 
 
@@ -1374,6 +1825,7 @@ def main() -> int:
     loop["tcp"] = phase_learner_tcp(device, card, loop["free_pipelined_ms"])
     loop["tcp4"] = phase_learner_tcp(device, card, loop["free_pipelined_ms"], producers=4)
     serve = phase_serve(device, card)  # zeroes the counters itself before its main path
+    manifest = phase_learner_manifest(device, card)  # zeroes the counters itself before each path
 
     main_case = cases[0]
     kernels = [
@@ -1407,6 +1859,8 @@ def main() -> int:
             "serving_ticks_per_s_one_forward": before_per_s,
             "launches_serve_server": serve["launches"],
             "serve_server": serve,
+            "launches_learner_manifest": manifest["launches"],
+            "learner_manifest": manifest,
         }
     ]
     print(json.dumps({"kernels": kernels}))

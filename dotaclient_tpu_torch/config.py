@@ -73,12 +73,16 @@ class ReplayConfig:
 
 @dataclass
 class StagingConfig:
-    """Host feed of the staging buffer. The port has the classic path:
-    one consumer thread pops, parses and packs (pack_workers=1)."""
+    """Host feed of the staging buffer (runtime/staging.py)."""
 
-    # >1: the reference's parallel pack pool over a TransferRing (not
-    # ported; refused).
+    # 1 = the classic path: one consumer thread pops, parses and packs.
+    # N>1 = the parallel feed: a pop thread, an assembler thread, and N
+    # packer threads that each fill a disjoint row shard of one ring slot
+    # (the C packer releases the GIL). Bitwise the same buffer for any N.
     pack_workers: int = 1
+    # Pinned transfer-buffer ring depth (pack_workers > 1 only): a slot
+    # goes back to the packers once its host-to-device copy has retired.
+    transfer_depth: int = 2
     # In-network batch assembly (DTB1 blocks; not ported; refused).
     assemble: bool = False
 
@@ -97,18 +101,71 @@ class LearnerPipelineConfig:
 
 @dataclass
 class CkptConfig:
-    """Preemption tolerance of checkpoints. Every switch is off by default,
-    and the port has only that default: the plain params/Adam/step save."""
+    """Preemption tolerance of checkpoints (runtime/checkpoint.py,
+    runtime/learner.py). Every switch is off by default: then a
+    checkpoint is the plain synchronous params/Adam/step save."""
 
+    # An aux manifest beside each step (pending frames in order, the
+    # publish high-water mark, env steps), written after the step, and the
+    # version_hwm side file; restore bumps the version counter to it.
     full_state: bool = False
+    # The loop thread pays one on-device clone of the state; a worker
+    # thread copies it to the host and writes it (latest wins).
     async_save: bool = False
+    # Learner main only: SIGTERM stops fetching, trains out what staging
+    # holds, saves full state and exits 0.
     drain_on_sigterm: bool = False
+    # Wall-clock budget of that drain; past it the process exits 1.
+    drain_budget_s: float = 45.0
+
+
+@dataclass
+class WatchdogConfig:
+    """Learner liveness watchdog (obs/watchdog.py): stall, input
+    starvation, NaN loss and steps/s regression escalate log →
+    flight-recorder dump → /healthz 503. Needs obs.enabled."""
+
+    enabled: bool = False
+    interval_s: float = 5.0  # seconds between checks
+    stall_s: float = 120.0  # no version advance for this long
+    # Stall threshold until the first advance: boot, restore and the
+    # first batch wait must not read as a stall.
+    boot_grace_s: float = 600.0
+    # compute_phase_fetch_frac above this for consecutive windows (0 = off).
+    starvation_frac: float = 0.0
+    nan_check: bool = True  # latest logged loss not finite
+    # env_steps_per_sec below this fraction of the trailing median (0 = off).
+    regression_frac: float = 0.0
+    window: int = 12  # metric windows in that median
+    dump_after: int = 2  # strikes before the flight-recorder dump
+    trip_after: int = 3  # strikes before /healthz turns 503
 
 
 @dataclass
 class ObsConfig:
-    """Pipeline observability; only the master switch is ported (the
-    binaries refuse it on)."""
+    """Learner observability (obs/): trace hops, flight recorder, compute
+    phases and MFU, the /metrics + /healthz + POST /profile surface and the
+    watchdog. Off by default; nothing is built then."""
+
+    enabled: bool = False
+    metrics_port: int = 0  # HTTP port of /metrics (0 = no server)
+    ring_size: int = 2048  # flight-recorder events kept
+    dump_dir: str = ""  # flight-recorder dumps ("" = cwd)
+    # Process-wide SIGTERM and excepthook dump triggers.
+    install_handlers: bool = True
+    # compute_phase_* split: the serial loop fences each step with a CUDA
+    # event; the pipelined loop records the lane's phases with no fence.
+    step_phases: bool = True
+    # POST /profile captures land here ("" = dump_dir, then cwd).
+    profile_dir: str = ""
+    profile_max_seconds: float = 60.0  # a capture is clamped to this
+    watchdog: WatchdogConfig = field(default_factory=WatchdogConfig)
+
+
+@dataclass
+class InferenceObsConfig:
+    """The inference server's obs switch; its obs runtime is not ported
+    (refused through SERVE_UNPORTED)."""
 
     enabled: bool = False
 
@@ -177,7 +234,7 @@ class InferenceConfig:
 
     serve: ServeConfig = field(default_factory=ServeConfig)
     policy: PolicyConfig = field(default_factory=PolicyConfig)
-    obs: ObsConfig = field(default_factory=ObsConfig)
+    obs: InferenceObsConfig = field(default_factory=InferenceObsConfig)
     retry: RetryConfig = field(default_factory=RetryConfig)
     chaos: ChaosConfig = field(default_factory=ChaosConfig)
     # Weight-fanout source (the URL the actors use); the service only
@@ -192,8 +249,8 @@ class InferenceConfig:
 @dataclass
 class LearnerConfig:
     """The learner binary's flags (reference: dotaclient_tpu/config.py
-    LearnerConfig), less the JAX-only `mesh_shape`: the port runs on one
-    device."""
+    LearnerConfig). The port runs on one device: `mesh_shape` takes the
+    specs that resolve to one (parallel/mesh.py)."""
 
     batch_size: int = 256  # sequences per train step
     seq_len: int = 16  # rollout chunk length = LSTM truncation window
@@ -219,6 +276,7 @@ class LearnerConfig:
     log_dir: str = ""
     # Param init and the reuse step's per-step shuffle stream.
     seed: int = 0
+    mesh_shape: str = "dp=-1"  # "dp=-1", "dp=1", "dp=1,tp=1": one device
     # The C++ batch packer on the staging path (dotaclient_tpu_torch/native);
     # False takes the Python path. A failed build raises.
     native_packer: bool = True
@@ -247,18 +305,12 @@ class LearnerConfig:
 # step and the inference server refuse them from this one table; a flag
 # applies to the configs that have it.
 UNPORTED = {
-    "staging.pack_workers": (lambda v: v > 1, "the parallel pack pool over a TransferRing", "A.10e"),
     "staging.assemble": (bool, "DTB1 in-network batch assembly", "A.10f"),
     "replay.enabled": (bool, "the prioritized replay reservoir", "A.10g"),
-    "ckpt.full_state": (bool, "full-state checkpoints: aux manifest, version_hwm", "A.10h"),
-    "ckpt.async_save": (bool, "asynchronous checkpoint saves", "A.10h"),
-    "ckpt.drain_on_sigterm": (bool, "the SIGTERM drain", "A.10h"),
-    "checkpoint_remote_dir": (bool, "the remote checkpoint mirror", "A.10i"),
     "fused_h2d": (lambda v: not v, "the per-leaf tree transfer", "A.10b"),
     "fused_single_h2d": (lambda v: not v, "the grouped four-buffer transfer", "A.10b"),
     "multihost": (bool, "multi-process data parallelism", "A.14"),
-    "obs.enabled": (bool, "tracing, flight recorder, /metrics", "A.13"),
-    "profile_port": (bool, "the profiler port", "A.13"),
+    "profile_port": (bool, "the deprecated always-on profiler server (use POST /profile)", "A.13b"),
     "chaos.enabled": (bool, "the fault-injecting broker wrapper", "A.10j"),
     "broker_shards": (bool, "the broker fabric's fan-in", "A.10d2"),
     "serve.handoff_endpoint": (bool, "the carry store and S_RESUME session continuity", "A.12b"),
@@ -267,6 +319,13 @@ UNPORTED = {
 
 
 _ABSENT = object()
+
+
+# The inference server's modes the port has not ported (its flag is shared
+# with the learner, which has that mode).
+SERVE_UNPORTED = {
+    "obs.enabled": (bool, "the inference server's obs runtime: /metrics, flight recorder", "A.13c"),
+}
 
 
 def flag_value(cfg, flag: str):
@@ -280,17 +339,17 @@ def flag_value(cfg, flag: str):
     return value
 
 
-def unported_flags(cfg) -> list:
-    """The UNPORTED flags that `cfg`'s binary has."""
-    return [f for f in UNPORTED if flag_value(cfg, f) is not _ABSENT]
+def unported_flags(cfg, table=UNPORTED) -> list:
+    """The flags of `table` that `cfg`'s binary has."""
+    return [f for f in table if flag_value(cfg, f) is not _ABSENT]
 
 
-def refuse_unported(cfg, flags=None) -> None:
+def refuse_unported(cfg, flags=None, table=UNPORTED) -> None:
     """NotImplementedError, naming the ROADMAP item, for the first of
-    `flags` (default: every UNPORTED flag `cfg` has) whose value selects a
-    mode the port does not have."""
-    for flag in unported_flags(cfg) if flags is None else flags:
-        selects, what, item = UNPORTED[flag]
+    `flags` (default: every flag of `table` that `cfg` has) whose value
+    selects a mode the port does not have."""
+    for flag in unported_flags(cfg, table) if flags is None else flags:
+        selects, what, item = table[flag]
         value = flag_value(cfg, flag)
         if selects(value):
             raise NotImplementedError(f"{flag}={value!r} ({what}) is not ported yet (ROADMAP {item})")

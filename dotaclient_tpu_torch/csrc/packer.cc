@@ -233,7 +233,8 @@ extern "C" {
 // `row_offset`: first batch row this call writes; frame b lands at
 // output row (row_offset + b). Each row's bytes depend only on its own
 // frame, so disjoint row ranges may be packed by concurrent calls (the
-// port's staging makes one call per batch, row_offset 0). The per-frame
+// sharded pack of staging.pack_workers > 1: one call per row shard of a
+// ring slot, any split bitwise one row_offset 0 call). The per-frame
 // metadata outputs (versions/actor_ids/ep_returns) are indexed by b.
 int64_t dt_pack_batch(
     const uint8_t** frames, const int64_t* frame_lens, int64_t n,

@@ -105,9 +105,9 @@ def _expect_dtypes(obs_bf16: bool):
 
 def _validate_out_strides(batch, obs_bf16: bool, rows: int) -> np.ndarray:
     """Check an `out` batch of numpy views against the C writer's fixed
-    widths; returns the 20 per-output row strides in elements. Raises
-    BatchLayoutError (fatal to staging: a template/config mismatch fails
-    every batch) on any disagreement."""
+    widths and its `rows` rows; returns the 20 per-output row strides in
+    elements. Raises BatchLayoutError (fatal to staging: a template/config
+    mismatch fails every batch) on any disagreement."""
     strides = []
     for arr, want in zip(_ordered_out_leaves(batch), _expect_dtypes(obs_bf16)):
         if arr is None:
@@ -116,7 +116,7 @@ def _validate_out_strides(batch, obs_bf16: bool, rows: int) -> np.ndarray:
         if arr.dtype != want:
             raise BatchLayoutError(f"out leaf dtype {arr.dtype} != {want} (obs_bf16={obs_bf16}; template/flag mismatch)")
         if arr.shape[0] != rows:
-            raise BatchLayoutError(f"out batch rows {arr.shape[0]} != {rows} frames")
+            raise BatchLayoutError(f"out batch rows {arr.shape[0]} != {rows}")
         stride, rem = divmod(arr.strides[0], arr.itemsize)
         if rem:
             raise BatchLayoutError("out leaf row stride not a multiple of itemsize")
@@ -145,15 +145,22 @@ def _pack_batch_args(frames, batch, seq_len, lstm_hidden, with_aux, obs_bf16, st
 
 
 def pack_frames(lib: ctypes.CDLL, frames: List[bytes], seq_len: int, lstm_hidden: int, with_aux: bool,
-                obs_bf16: bool, out) -> None:
-    """Pack len(frames) wire frames into the pre-zeroed `out` batch of
-    numpy views (FusedBatchIO.alloc_transfer's views: float obs as uint16
-    words when `obs_bf16`, then f32 wire frames are rounded to bf16 in the
-    copy). A malformed frame raises ValueError naming its row; an `out`
-    layout mismatch raises BatchLayoutError."""
-    strides = _validate_out_strides(out, obs_bf16, len(frames))
-    args, keep = _pack_batch_args(frames, out, seq_len, lstm_hidden, with_aux, obs_bf16, strides)
+                obs_bf16: bool, out, row_offset: int = 0, total_rows: Optional[int] = None) -> None:
+    """Pack len(frames) wire frames into rows [row_offset, row_offset + n)
+    of the pre-zeroed `out` batch of numpy views (FusedBatchIO's views:
+    float obs as uint16 words when `obs_bf16`, then f32 wire frames are
+    rounded to bf16 in the copy). `out` holds `total_rows` rows (default:
+    exactly row_offset + n). Each row depends only on its own frame, so
+    concurrent calls on disjoint row ranges of one `out` write the bytes
+    one call would (the sharded pack). A malformed frame raises ValueError
+    naming its row; an `out` layout mismatch raises BatchLayoutError."""
+    n = len(frames)
+    rows = n + row_offset if total_rows is None else total_rows
+    if row_offset < 0 or row_offset + n > rows:
+        raise BatchLayoutError(f"rows [{row_offset}, {row_offset + n}) do not fit an out batch of {rows}")
+    strides = _validate_out_strides(out, obs_bf16, rows)
+    args, keep = _pack_batch_args(frames, out, seq_len, lstm_hidden, with_aux, obs_bf16, strides, row_offset)
     rc = lib.dt_pack_batch(*args)
     del keep
     if rc != 0:
-        raise ValueError(f"native packer rejected frame {-rc - 1}")
+        raise ValueError(f"native packer rejected frame {row_offset - rc - 1}")

@@ -1,0 +1,103 @@
+"""Learner observability (torch twin of dotaclient_tpu/obs/, the learner's
+part):
+
+- obs/trace.py            per-hop latency histograms of trace-stamped
+                          rollout frames (DTR2/DTR3) + the e2e actor→apply
+                          scalar;
+- obs/flight_recorder.py  bounded ring of recent pipeline events, dumped to
+                          JSON on a crash, a staging layout error or SIGTERM;
+- obs/http.py             stdlib /metrics, /healthz (503 once the watchdog
+                          trips) and POST /profile;
+- obs/compute.py          step-phase timer with CUDA-event fences, recompile
+                          sentinel, MFU, torch.profiler capture;
+- obs/watchdog.py         liveness thread (stall/starvation/NaN/regression
+                          → log → dump → 503);
+- obs/registry.py         the documented scalar names.
+
+Everything is off by default (`--obs.enabled`): with it off no obs object
+exists and the staging and learner paths are the plain ones.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, List, Optional
+
+from dotaclient_tpu_torch.config import ObsConfig
+from dotaclient_tpu_torch.obs.compute import ComputeObserver, ProfileCapture
+from dotaclient_tpu_torch.obs.flight_recorder import FlightRecorder
+from dotaclient_tpu_torch.obs.http import MetricsHTTPServer
+from dotaclient_tpu_torch.obs.trace import PipelineTracer
+from dotaclient_tpu_torch.obs.watchdog import Watchdog
+
+
+class ObsRuntime:
+    """One learner process's observability bundle: recorder + tracer, then
+    the compute observer, the watchdog and the scrape server as attached."""
+
+    def __init__(self, cfg: ObsConfig, role: str):
+        self.cfg = cfg
+        self.role = role
+        self.recorder = FlightRecorder(role, ring_size=cfg.ring_size, dump_dir=cfg.dump_dir)
+        self.tracer = PipelineTracer(recorder=self.recorder)
+        self.server: Optional[MetricsHTTPServer] = None
+        self.compute: Optional[ComputeObserver] = None
+        self.watchdog: Optional[Watchdog] = None
+        self.profiler: Optional[ProfileCapture] = None
+
+    @classmethod
+    def create(cls, cfg: ObsConfig, role: str) -> Optional["ObsRuntime"]:
+        """None when obs is disabled: the disabled path constructs nothing."""
+        if not cfg.enabled:
+            return None
+        rt = cls(cfg, role)
+        if cfg.install_handlers:
+            rt.recorder.install_handlers()
+        return rt
+
+    def attach_compute(self, flops_per_step: float, peak_flops: Optional[float], overlap: bool = False) -> ComputeObserver:
+        """The learner's compute bundle: phase timer (cfg.step_phases; in
+        overlap mode under the pipelined loop), recompile sentinel factory,
+        MFU accounting."""
+        self.compute = ComputeObserver(flops_per_step, peak_flops, recorder=self.recorder,
+                                       step_phases=self.cfg.step_phases, overlap=overlap)
+        return self.compute
+
+    def attach_watchdog(self, latest_fn, version_fn, latest_seq_fn=None) -> Optional[Watchdog]:
+        """Build and start the watchdog when cfg.watchdog.enabled. Call it
+        after the checkpoint restore: the restore's version write must be
+        the baseline, not the first heartbeat."""
+        if not self.cfg.watchdog.enabled:
+            return None
+        self.watchdog = Watchdog(self.cfg.watchdog, latest_fn, version_fn, recorder=self.recorder,
+                                 latest_seq_fn=latest_seq_fn).start()
+        return self.watchdog
+
+    def serve_metrics(self, sources: List[Callable[[], Dict[str, float]]],
+                      health_provider: Optional[Callable[[], Dict]] = None, device="cpu") -> Optional[MetricsHTTPServer]:
+        """Start /metrics when cfg.metrics_port > 0, with the tracer's and
+        the watchdog's scalars added to `sources`, /healthz and POST
+        /profile (captures land in profile_dir, else dump_dir, else cwd)."""
+        if self.cfg.metrics_port <= 0:
+            return None
+
+        def _watchdog_scalars() -> Dict[str, float]:
+            wd = self.watchdog  # one read: close() may null it meanwhile
+            return wd.scalars() if wd is not None else {}
+
+        self.profiler = ProfileCapture(self.cfg.profile_dir or self.cfg.dump_dir,
+                                       max_seconds=self.cfg.profile_max_seconds, device=device)
+        self.server = MetricsHTTPServer(
+            self.cfg.metrics_port,
+            list(sources) + [self.tracer.scalars, _watchdog_scalars],
+            health_provider=health_provider,
+            profile_handler=self.profiler.capture,
+        ).start()
+        return self.server
+
+    def close(self) -> None:
+        if self.watchdog is not None:
+            self.watchdog.stop()
+            self.watchdog = None
+        if self.server is not None:
+            self.server.stop()
+            self.server = None

@@ -13,12 +13,17 @@ dtype views: no copy but the bool leaves' `!= 0`.
 `RowLayout` is byte for byte the reference's, `layout_crc` included, so
 blocks assembled for the reference learner land here unchanged. The
 reference's four-buffer grouped mode is not ported.
+
+`TransferRing` (staging.pack_workers > 1) replaces the fresh buffer per
+batch with `transfer_depth` pinned buffers allocated once, each leased to
+one host-to-device copy and released once that copy's event has completed.
 """
 
 from __future__ import annotations
 
+import queue
 import zlib
-from typing import Any, Dict, List, NamedTuple, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -176,16 +181,20 @@ class FusedBatchIO:
             v[...] = _host_array(leaf)
         return buf
 
+    def make_ring(self, depth: int) -> "TransferRing":
+        """A TransferRing of `depth` buffers of this io's layout."""
+        return TransferRing(self, depth)
+
     def transfer(self, buf: torch.Tensor):
         """(payload, ready): the host-to-device copy of a pinned buffer
         issued on this io's side stream, and the event recorded after it
-        (None on the CPU, where the caller asked for no stream). The host
-        does not wait; whoever uses the payload calls `consume` first. The
-        pinned buffer is released to the caching host allocator only once
-        the copy is done, so a fresh buffer per batch is never overwritten
-        mid-copy."""
+        (None on the CPU, where the caller asked for no stream: the payload
+        is then a copy made before this returns). The host does not wait;
+        whoever uses the payload calls `consume` first. A fresh buffer goes
+        back to the caching host allocator only once the copy is done; a
+        ring slot must not be released before `ready` has completed."""
         if self._stream is None:
-            return buf.to(self.device), None
+            return buf.to(self.device, copy=True), None
         with torch.cuda.stream(self._stream):
             payload = buf.to(self.device, non_blocking=True)
             ready = torch.cuda.Event()
@@ -221,3 +230,72 @@ class FusedBatchIO:
                 x = seg[:, s.start : s.start + s.cols].reshape((B,) + s.shape[1:])
                 leaves[s.index] = x != 0 if s.dtype == "bool" else x
         return tree_unflatten(self.structure, leaves)
+
+
+class RingSlot:
+    """One preallocated pinned transfer buffer with explicit ownership
+    (TransferRing). `acquire` hands it to the packer re-zeroed to
+    alloc_transfer's contract (all zeros, NOOP-legal action-mask padding),
+    so a reused slot never leaks the previous batch into padding rows.
+    `release` is idempotent: a double release must not put the slot in the
+    free queue twice (two packers would then write one buffer)."""
+
+    __slots__ = ("_ring", "index", "payload", "batch", "_held")
+
+    def __init__(self, ring: "TransferRing", index: int, payload: torch.Tensor, batch):
+        self._ring = ring
+        self.index = index
+        self.payload = payload  # the [B, row_bytes] u8 host buffer
+        self.batch = batch  # TrainBatch of numpy views into payload
+        self._held = False
+
+    def _reset(self) -> None:
+        self.payload.zero_()
+        self.batch.obs.action_mask[:] = F.zeros_observation().action_mask
+
+    def release(self) -> None:
+        """Back to the free queue. Call only once the host-to-device copy
+        of `payload` has completed (its `ready` event): the slot is
+        re-zeroed and repacked at once, and a copy still reading it would
+        ship the next batch's bytes, or zeros."""
+        if self._held:
+            self._held = False
+            self._ring._free.put(self)
+
+
+class TransferRing:
+    """`depth` pinned transfer buffers with ownership handed along:
+    free → packing (acquire, the staging assembler) → ready → in transfer
+    (the learner's fetch) → free (release, once the copy's event has
+    completed). Packing batch N+1 overlaps the copy of N and the step of
+    N-1; an acquire with every slot out blocks, which is the ring's
+    backpressure."""
+
+    def __init__(self, io: FusedBatchIO, depth: int):
+        if depth < 1:
+            raise ValueError(f"transfer ring depth must be >= 1, got {depth}")
+        self.io = io
+        self.depth = depth
+        self._free: "queue.Queue[RingSlot]" = queue.Queue()
+        self.slots = []
+        for i in range(depth):
+            payload, batch = io.alloc_transfer()
+            slot = RingSlot(self, i, payload, batch)
+            self.slots.append(slot)
+            self._free.put(slot)
+
+    def acquire(self, timeout: Optional[float] = None) -> Optional[RingSlot]:
+        """The next free slot, re-zeroed; None on timeout."""
+        try:
+            slot = self._free.get(timeout=timeout)
+        except queue.Empty:
+            return None
+        slot._held = True
+        slot._reset()
+        return slot
+
+    @property
+    def occupancy(self) -> int:
+        """Slots out of the free queue (packing, ready or in transfer): the
+        staging_pack_ring_occupancy gauge."""
+        return self.depth - self._free.qsize()

@@ -2,13 +2,11 @@
 inference half of dotaclient_tpu/runtime/actor.py): policy forward +
 masked Gumbel-max sample + joint log-prob in one call, gradients off.
 
-Two samplers. `make_actor_step` / `make_batched_actor_step` draw the
-noise from a torch.Generator. `make_key_actor_step` /
-`make_batched_key_actor_step` carry the reference's jax PRNGKey, as its
-jit step does: `rng, key = split(rng)`, sample with `key`, return `rng`
-(ops/threefry.py computes the stream on the host, bitwise jax's). The
-key step is what the serve wire needs: a client owns its key and the
-server hands it back advanced.
+`make_key_actor_step` / `make_batched_key_actor_step` carry the
+reference's jax PRNGKey, as its jit step does: `rng, key = split(rng)`,
+sample with `key`, return `rng` (ops/threefry.py computes the stream on
+the host, bitwise jax's). A client owns its key and the server hands it
+back advanced.
 
 The batched steps keep the reference's `lax.map` contract: each row runs
 as its own B=1 step, in sequence, so a row's state, action, logp and
@@ -27,7 +25,7 @@ from __future__ import annotations
 import asyncio
 import logging
 import time
-from typing import Optional, Sequence
+from typing import Optional
 
 import numpy as np
 import torch
@@ -91,23 +89,7 @@ def apply_weight_frame(agent, frame: bytes, log_name: str, on_applied=None) -> b
     return True
 
 
-# ---------------------------------------------------------- generator steps
-
-
-def _actor_step_row(net, state, obs, generator: torch.Generator):
-    with torch.no_grad():
-        new_state, out = net(state, obs)
-        action = ad.sample(generator, out.dist)
-        logp = ad.log_prob(out.dist, action)
-    return new_state, action, logp, out.value
-
-
-def make_actor_step(cfg: PolicyConfig):
-    """Single-env step: `step(net, state, obs, generator)` with obs leaves
-    [1, ...] → (state', action, logp, value). The generator lives on the
-    net's device and advances with every draw."""
-    check_arch(cfg)
-    return _actor_step_row
+# ----------------------------------------------------------------- key steps
 
 
 def _stack_rows(rows):
@@ -118,25 +100,6 @@ def _stack_rows(rows):
 
 def _row(tree, i: int):
     return tree_map(lambda x: x[i : i + 1].clone(), tree)
-
-
-def make_batched_actor_step(cfg: PolicyConfig):
-    """M-row tick: `step(net, state, obs, generators)` with stacked per-env
-    (state, obs) rows ([M, ...] leaves) and one generator per row → per-row
-    (state', action, logp, value), stacked. Row i is `make_actor_step`'s
-    result on (state[i:i+1], obs[i:i+1], generators[i]), bit for bit."""
-    check_arch(cfg)
-
-    def step(net, state, obs, generators: Sequence[torch.Generator]):
-        M = obs.unit_feats.shape[0]
-        if len(generators) != M:
-            raise ValueError(f"batched actor step: {M} rows but {len(generators)} generators")
-        return _stack_rows([_actor_step_row(net, *_row((state, obs), i), generators[i]) for i in range(M)])
-
-    return step
-
-
-# ----------------------------------------------------------------- key steps
 
 
 def key_row_inputs(cfg: PolicyConfig, keys):

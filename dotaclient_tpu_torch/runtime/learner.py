@@ -28,6 +28,23 @@ Stream ordering in place of JAX's donation semantics:
 Outside a metrics window (and a checkpoint, which reads the state) the
 loop thread makes no synchronising device call.
 
+Checkpoints (`ckpt.*`): the plain save is synchronous on the loop
+thread. With `ckpt.async_save` the loop thread enqueues one on-device
+clone of the state (StateCopier) on its own stream, so the next in-place
+Adam update is ordered after it, and a CheckpointWorker thread copies the
+clone to pinned host memory on a stream of its own and writes it. With
+`ckpt.full_state` each step gets an aux manifest (pending frames in order,
+publish high-water, env steps) and every publish refreshes the
+`version_hwm` file; a restore re-injects the frames and bumps the version
+counter to the high-water mark. `ckpt.drain_on_sigterm` (main only): SIGTERM
+stops fetching, trains out what staging and the lane hold, saves full
+state and exits 0 inside `ckpt.drain_budget_s`.
+
+Observability (`obs.enabled`): trace hops, a flight recorder, compute
+phases (the serial loop fences each step with a CUDA event), MFU, /metrics,
+/healthz, POST /profile and the watchdog, under the reference's meter
+names (obs/registry.py).
+
 Modes the port does not have yet are refused at construction with
 NotImplementedError naming their ROADMAP item (config.UNPORTED), never
 substituted.
@@ -35,20 +52,27 @@ substituted.
 
 from __future__ import annotations
 
+import json
 import logging
 import os
 import queue
+import signal
+import struct
 import threading
 import time
-from typing import NamedTuple, Optional
+from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from dotaclient_tpu_torch import resolve_device
 from dotaclient_tpu_torch.config import LearnerConfig, refuse_unported
+from dotaclient_tpu_torch.obs import ObsRuntime
+from dotaclient_tpu_torch.obs.compute import fence
+from dotaclient_tpu_torch.ops.flops import device_peak_flops, train_step_flops
+from dotaclient_tpu_torch.parallel.mesh import one_device_mesh
 from dotaclient_tpu_torch.parallel.train_step import TrainState, build_single_train_step, init_train_state
-from dotaclient_tpu_torch.runtime.checkpoint import Checkpointer
+from dotaclient_tpu_torch.runtime.checkpoint import Checkpointer, state_arrays
 from dotaclient_tpu_torch.runtime.metrics import MetricsLogger
 from dotaclient_tpu_torch.runtime.staging import StagingBuffer
 from dotaclient_tpu_torch.transport.base import Broker
@@ -172,6 +196,197 @@ class WeightPublisher:
             t.join(timeout=10)
 
 
+class StateCopier:
+    """The async checkpoint's device side. `clone_on_device` runs on the
+    loop thread: one concatenation of the params and Adam moments (all
+    f32) and a copy of the Adam count, enqueued on the loop's stream, so
+    the next train step's in-place Adam update is ordered after the read;
+    then an event. `to_host` runs on the CheckpointWorker thread: its own
+    stream waits for that event (nothing else), copies into pinned host
+    memory, and the thread waits for that copy alone, never behind queued
+    train steps. The arrays equal checkpoint.state_arrays' bitwise."""
+
+    def __init__(self, state: TrainState):
+        self._slots = []  # (name, shape, start, size): params, then mu, then nu
+        off = 0
+        for name, t in self._tensors(state).items():
+            self._slots.append((name, tuple(t.shape), off, t.numel()))
+            off += t.numel()
+        self._stream = None
+
+    @staticmethod
+    def _tensors(state: TrainState) -> Dict[str, torch.Tensor]:
+        opt = state.opt_state
+        return {**named_tensors(state.net), **{f"mu/{n}": t for n, t in opt.mu.items()},
+                **{f"nu/{n}": t for n, t in opt.nu.items()}}
+
+    def clone_on_device(self, state: TrainState):
+        """(flat clone, count clone, step, event or None); no host wait."""
+        with torch.no_grad():
+            flat = torch.cat([t.detach().reshape(-1).float() for t in self._tensors(state).values()])
+            count = state.opt_state.count.detach().clone()
+        done = None
+        if flat.device.type == "cuda":
+            done = torch.cuda.Event()
+            done.record()
+        return flat, count, int(state.step), done
+
+    def to_host(self, snap) -> Dict[str, np.ndarray]:
+        """Blocking: the clone as state_arrays' name → array dict."""
+        flat, count, step, done = snap
+        if done is not None:
+            if self._stream is None:
+                self._stream = torch.cuda.Stream(flat.device)
+            host = torch.empty(flat.shape, dtype=torch.float32, pin_memory=True)
+            host_count = torch.empty(count.shape, dtype=count.dtype, pin_memory=True)
+            self._stream.wait_event(done)
+            with torch.cuda.stream(self._stream):
+                host.copy_(flat, non_blocking=True)
+                host_count.copy_(count, non_blocking=True)
+                copied = torch.cuda.Event()
+                copied.record(self._stream)
+            copied.synchronize()
+            flat, count = host, host_count
+        values = flat.numpy()
+        arrays = {name: values[start : start + size].reshape(shape) for name, shape, start, size in self._slots}
+        arrays["count"] = np.asarray(int(count), np.int32)
+        arrays["step"] = np.asarray(step, np.int64)
+        return arrays
+
+
+class CheckpointWorker:
+    """Off-critical-path saver (`ckpt.async_save`): the loop thread submits
+    a StateCopier clone; this thread copies it to the host and calls
+    `save_fn(arrays, version)`. Latest wins: a clone submitted while an
+    older one waits supersedes it (counted), since durability only needs
+    the newest state."""
+
+    def __init__(self, materialize, save_fn):
+        self._materialize = materialize  # clone -> arrays, on this thread
+        self._save_fn = save_fn  # (arrays, version) -> None
+        self._cond = threading.Condition()
+        self._slot = None  # (clone, version), latest pending
+        self._stop = False
+        self._thread: Optional[threading.Thread] = None
+        self.saved = 0  # checkpoints written
+        self.coalesced = 0  # checkpoints superseded before writing
+        self.last_save_s = 0.0  # seconds of the newest save: host copy + write
+
+    def start(self) -> "CheckpointWorker":
+        with self._cond:
+            self._stop = False
+            if self._thread is not None and self._thread.is_alive():
+                self._cond.notify()
+                return self
+            t = threading.Thread(target=self._run, daemon=True, name="ckpt-saver")
+            self._thread = t
+            t.start()
+        return self
+
+    def submit(self, clone, version: int) -> None:
+        with self._cond:
+            if self._slot is not None:
+                self.coalesced += 1
+            self._slot = (clone, version)
+            self._cond.notify()
+
+    def _run(self) -> None:
+        while True:
+            with self._cond:
+                while self._slot is None and not self._stop:
+                    self._cond.wait()
+                if self._stop and self._slot is None:
+                    self._thread = None
+                    return
+                clone, version = self._slot
+                self._slot = None
+            try:
+                t0 = time.perf_counter()
+                arrays = self._materialize(clone)
+                del clone  # release the device copy before the slow write
+                self._save_fn(arrays, version)
+                self.last_save_s = time.perf_counter() - t0
+                self.saved += 1
+            except Exception:
+                _log.exception("async checkpoint of step %d failed; continuing", version)
+
+    def stop(self, flush: bool = True) -> None:
+        """Stop the thread; by default a pending clone is saved first."""
+        with self._cond:
+            if not flush:
+                self._slot = None
+            self._stop = True
+            self._cond.notify()
+            t = self._thread
+        if t is not None:
+            t.join(timeout=60)
+
+
+_AUX_MAGIC = b"DTA1"
+
+
+def encode_aux(manifest: dict) -> bytes:
+    """The aux manifest on disk: magic, u32 header length, a JSON header
+    (every field but the staging snapshot's pending frames, plus their
+    lengths), then the frames back to back. No pickle: a manifest is data."""
+    pending = [bytes(f) for f in manifest.get("staging", {}).get("pending", [])]
+    header = {k: v for k, v in manifest.items() if k != "staging"}
+    header["pending_lens"] = [len(f) for f in pending]
+    head = json.dumps(header, sort_keys=True).encode()
+    return b"".join([_AUX_MAGIC, struct.pack("<I", len(head)), head, *pending])
+
+
+def decode_aux(data: bytes) -> dict:
+    """encode_aux's inverse; ValueError on anything else."""
+    if data[:4] != _AUX_MAGIC or len(data) < 8:
+        raise ValueError("not an aux manifest")
+    (n,) = struct.unpack_from("<I", data, 4)
+    header = json.loads(data[8 : 8 + n])
+    off, pending = 8 + n, []
+    for size in header.pop("pending_lens"):
+        pending.append(data[off : off + size])
+        off += size
+    if off != len(data):
+        raise ValueError("aux manifest length mismatch")
+    header["staging"] = {"pending": pending}
+    return header
+
+
+class _LeaseReaper:
+    """Ring leases of fetched batches, released to the packers only once
+    their copy's event has completed. `reap` runs on the thread that
+    fetches (the loop thread or the prefetch lane) before each fetch: it
+    releases every lease whose event has completed and, when every ring
+    slot is held here (no batch could be packed otherwise), waits for the
+    oldest copy first. The loop thread never waits on a copy it could
+    leave running, and never releases a slot whose copy may still read it."""
+
+    def __init__(self):
+        self._held: List = []  # (lease, ready event or None), oldest first
+
+    def hold(self, lease, ready) -> None:
+        self._held.append((lease, ready))
+
+    def reap(self, depth: int) -> None:
+        if len(self._held) >= depth:
+            ready = self._held[0][1]
+            if ready is not None:
+                ready.synchronize()
+        keep = []
+        for lease, ready in self._held:
+            if ready is None or ready.query():
+                lease.release()
+            else:
+                keep.append((lease, ready))
+        self._held = keep
+
+    def release_all(self) -> None:
+        """After the device is idle (run() teardown): every copy is done."""
+        for lease, _ in self._held:
+            lease.release()
+        self._held = []
+
+
 class _LaneItem(NamedTuple):
     """One prefetch-lane handoff: kind ∈ {"batch", "idle", "exhausted",
     "error"}. `wait_s`/`put_s` are the lane's fetch wait and H2D dispatch
@@ -183,6 +398,7 @@ class _LaneItem(NamedTuple):
     wait_s: float
     put_s: float
     error: Optional[BaseException]
+    trace: object = None  # the batch's obs trace refs, or None
 
 
 class PrefetchLane:
@@ -202,7 +418,7 @@ class PrefetchLane:
 
     def __init__(self, fetch_fn, depth: int = 1, limit: Optional[int] = None, drain: Optional[threading.Event] = None,
                  abort: Optional[threading.Event] = None, upstream_drained=None, stop_event: Optional[threading.Event] = None):
-        self._fetch = fetch_fn  # () -> (batch, env_steps, wait_s, put_s)
+        self._fetch = fetch_fn  # () -> (batch, env_steps, wait_s, put_s, trace)
         self._out: "queue.Queue[_LaneItem]" = queue.Queue(maxsize=max(int(depth), 1))
         self._limit = limit
         self._drain = drain
@@ -247,7 +463,7 @@ class PrefetchLane:
             self._inflight = True
             try:
                 try:
-                    batch, env_steps, wait_s, put_s = self._fetch()
+                    batch, env_steps, wait_s, put_s, trace = self._fetch()
                 except BaseException as e:  # re-raised on the loop thread
                     self._put(_LaneItem("error", None, 0, 0.0, 0.0, e))
                     return
@@ -262,7 +478,7 @@ class PrefetchLane:
                     self._put(_LaneItem("idle", None, 0, wait_s, 0.0, None))
                     continue
                 self.fetched += 1
-                self._put(_LaneItem("batch", batch, env_steps, wait_s, put_s, None))
+                self._put(_LaneItem("batch", batch, env_steps, wait_s, put_s, None, trace))
             finally:
                 # cleared after the put: from there the queue covers the item
                 self._inflight = False
@@ -277,6 +493,7 @@ class PrefetchLane:
 class Learner:
     def __init__(self, cfg: LearnerConfig, broker: Broker, device=None):
         refuse_unported(cfg)
+        one_device_mesh(cfg.mesh_shape)
         self.cfg = cfg
         self.broker = broker
         self.device = resolve_device(device)
@@ -289,33 +506,91 @@ class Learner:
         # frame: subscribers detect a restart by the epoch changing.
         self.boot_epoch = (int(time.time()) << 8 ^ os.getpid()) & 0xFFFFFFFF
         self.state: TrainState = init_train_state(cfg, self.device)
-        self.staging = StagingBuffer(cfg, broker, version_fn=lambda: self.version, fused_io=self.io)
+        # None when obs is off: every obs touchpoint is one `is not None`.
+        self.obs = ObsRuntime.create(cfg.obs, role="learner")
+        self.staging = StagingBuffer(
+            cfg, broker, version_fn=lambda: self.version, fused_io=self.io,
+            tracer=self.obs.tracer if self.obs is not None else None,
+            recorder=self.obs.recorder if self.obs is not None else None,
+        )
         if self._prefetch_enabled:
             self.staging.attach_prefetch_probe(self._prefetch_holding)
+        self._leases = _LeaseReaper()
         self.flattener = ParamFlattener(self.state.net)
+        on_pub = None
+        if cfg.ckpt.full_state and cfg.checkpoint_dir:
+            # every version fanned out raises the high-water file, so a
+            # kill between checkpoints never rolls the counter below it
+            def on_pub(version):
+                ck = self.checkpointer
+                if ck is not None:
+                    ck.record_published_version(version)
+
         self.publisher = WeightPublisher(
-            broker, materialize=self.flattener.to_named, boot_epoch=self.boot_epoch, legacy_dtw1=cfg.publish_legacy_dtw1
+            broker, materialize=self.flattener.to_named, boot_epoch=self.boot_epoch,
+            legacy_dtw1=cfg.publish_legacy_dtw1, on_published=on_pub,
         )
         self.metrics = MetricsLogger(cfg.log_dir)
+        self._boot_monotonic = time.monotonic()
+        if self.obs is not None:
+            compute = self.obs.attach_compute(train_step_flops(cfg), device_peak_flops(self.device),
+                                              overlap=self._prefetch_enabled)
+            self.train_step = compute.wrap_train_step(self.train_step)
+            self.obs.serve_metrics([self.metrics.latest, self._obs_gauges], health_provider=self._health,
+                                   device=self.device)
         self.env_steps_done = 0  # real (unmasked) env steps trained on
         # `_drain`: run() stops fetching, trains out what staging holds and
         # returns; `_abort`: run() returns at once, staged work dropped.
         self._drain = threading.Event()
         self._abort = threading.Event()
+        self._drain_timer: Optional[threading.Timer] = None
+        # resume_* scalars, merged into the first metrics window after a
+        # restore, then cleared
+        self._resume_scalars: Dict[str, float] = {}
+        self._ckpt_worker: Optional[CheckpointWorker] = None
+        self._copier: Optional[StateCopier] = None
+        if cfg.ckpt.async_save and cfg.checkpoint_dir:
+            self._copier = StateCopier(self.state)
+            self._ckpt_worker = CheckpointWorker(self._copier.to_host, self._save_full)
         self.checkpointer = None
         if cfg.checkpoint_dir:
-            self.checkpointer = Checkpointer(cfg.checkpoint_dir)
+            self.checkpointer = Checkpointer(cfg.checkpoint_dir, remote_dir=cfg.checkpoint_remote_dir)
+            t_restore = time.monotonic()
             restored = self.checkpointer.restore_latest(self.state)
             if restored is not None:
                 self.state = restored
                 self.version = int(restored.step)
                 _log.info("restored checkpoint at step %d", self.version)
+                if cfg.ckpt.full_state:
+                    self._restore_full_state(t_restore)
+        if self.obs is not None:
+            # last: the restore's version write is the watchdog's baseline,
+            # not its first heartbeat
+            self.obs.attach_watchdog(self.metrics.latest, lambda: self.version, self.metrics.latest_step)
 
     # ---------------------------------------------------------------- ops
 
     def _prefetch_holding(self) -> bool:
         lane = self._prefetch_lane
         return lane is not None and lane.holding()
+
+    def _obs_gauges(self) -> Dict[str, float]:
+        """Live gauges for the /metrics scrape (the obs_ family)."""
+        out = {"obs_learner_version": float(self.version)}
+        depth = self.broker.experience_depth()
+        if depth >= 0:  # -1: this transport cannot know it cheaply
+            out["obs_broker_experience_depth"] = float(depth)
+        for k, v in self.staging.stats().items():
+            out[f"obs_staging_{k}"] = float(v)
+        return out
+
+    def _health(self) -> dict:
+        """The /healthz body: healthy by serving, or the watchdog's verdict."""
+        obs = self.obs
+        watchdog = obs.watchdog if obs is not None else None
+        wd = watchdog.verdict() if watchdog is not None else {"enabled": False, "ok": True}
+        return {"ok": bool(wd.get("ok", True)), "role": "learner", "version": int(self.version),
+                "uptime_s": round(time.monotonic() - self._boot_monotonic, 1), "watchdog": wd}
 
     def publish_weights(self) -> None:
         """Publish the current params synchronously (version 0 before the
@@ -327,8 +602,89 @@ class Learner:
         self.broker.publish_weights(frame)
 
     def checkpoint(self) -> None:
-        if self.checkpointer is not None:
+        """Save the state as step `version`: synchronously by default; with
+        ckpt.async_save the loop thread only enqueues the device clone and
+        the worker does the rest."""
+        if self.checkpointer is None:
+            return
+        ck = self.cfg.ckpt
+        if not ck.full_state and not ck.async_save:
             self.checkpointer.save(self.state, step=self.version)
+            return
+        if self._ckpt_worker is not None:
+            self._ckpt_worker.start()
+            self._ckpt_worker.submit(self._copier.clone_on_device(self.state), self.version)
+            return
+        self._save_full(state_arrays(self.state), self.version)
+
+    def _save_full(self, arrays, version: int, wait: bool = False) -> None:
+        """One step, with its aux manifest in full-state mode. Runs on the
+        CheckpointWorker in async mode, on the caller otherwise."""
+        aux = self._build_aux(version) if self.cfg.ckpt.full_state else None
+        self.checkpointer.save_arrays(arrays, version, wait=wait, aux=aux)
+
+    def _build_aux(self, version: int) -> bytes:
+        """The aux manifest (encode_aux): the staging snapshot (pending
+        frames in arrival order), the publish high-water as of this step,
+        and the metrics/env-step marks, so a restored learner continues
+        them instead of rewinding."""
+        staging_snap = self.staging.snapshot_state() or {}
+        return encode_aux({
+            "manifest_version": 1,
+            "step": int(version),
+            "version_hwm": int(version),
+            "boot_epoch": int(self.boot_epoch),
+            "staging": staging_snap,
+            "metrics_last_step": int(self.metrics.latest_step()),
+            "env_steps_done": int(self.env_steps_done),
+        })
+
+    def _restore_full_state(self, t_restore: float) -> None:
+        """Re-inject the aux manifest's pending frames and bump the version
+        counter to the published high-water mark (max of the step, the
+        manifest's and the side file's), so staleness stamps the fleet has
+        seen never read as from the future."""
+        step = self.checkpointer.latest_step()
+        aux = None
+        raw = self.checkpointer.load_aux(step)
+        if raw is not None:
+            try:
+                aux = decode_aux(raw)
+            except ValueError:
+                _log.exception("aux manifest for step %s unreadable; state-only restore", step)
+        counts = {"pending": 0}
+        hwm = max(self.version, int(step))
+        if aux is not None:
+            counts = self.staging.restore_state(aux.get("staging", {}))
+            hwm = max(hwm, int(aux.get("version_hwm", 0)))
+            self.env_steps_done = int(aux.get("env_steps_done", 0))
+        file_hwm = self.checkpointer.published_hwm()
+        if file_hwm is not None:
+            hwm = max(hwm, file_hwm)
+        bump = hwm - self.version
+        if bump > 0:
+            _log.info("resume: version counter %d -> %d (published high-water)", self.version, hwm)
+            self.version = hwm
+        self._resume_scalars = {
+            "resume_restored_step": float(step),
+            "resume_version_hwm_bump": float(bump),
+            "resume_pending_frames": float(counts["pending"]),
+            "resume_restore_wall_s": round(time.monotonic() - t_restore, 3),
+        }
+
+    @property
+    def resume_info(self) -> dict:
+        """This boot's resume_* scalars (empty for a fresh start, or once
+        the first metrics window has carried them)."""
+        return dict(self._resume_scalars)
+
+    @property
+    def drain_requested(self) -> bool:
+        return self._drain.is_set()
+
+    @property
+    def aborted(self) -> bool:
+        return self._abort.is_set()
 
     def request_drain(self) -> None:
         """run() stops fetching new broker frames, trains out the batches
@@ -341,21 +697,84 @@ class Learner:
         self._abort.set()
         self.staging.quiesce()
 
+    def drain_save(self) -> None:
+        """The drain's last act, after run() returned: a full-state save,
+        with the leftover (< B) pending frames in its manifest, durable
+        (mirror included) before this returns. Disarms the budget timer."""
+        if self.checkpointer is None:
+            return
+        if self._ckpt_worker is not None:
+            self._ckpt_worker.stop(flush=False)  # superseded by this save
+        self._save_full(state_arrays(self.state), self.version, wait=True)
+        timer = self._drain_timer
+        if timer is not None:
+            timer.cancel()
+
+    def install_drain_handler(self, budget_s: Optional[float] = None) -> None:
+        """Learner main with ckpt.drain_on_sigterm: SIGTERM → request_drain
+        and a budget timer that exits 1 if the drain wedges. Installed after
+        the obs runtime, it replaces the flight recorder's SIGTERM dump (a
+        drain is a clean exit)."""
+        budget = self.cfg.ckpt.drain_budget_s if budget_s is None else budget_s
+
+        def _on_term(signum, frame):
+            _log.warning("SIGTERM: draining (budget %.0fs)", budget)
+            self.request_drain()
+            if self._drain_timer is None:  # repeated SIGTERMs arm one timer
+                t = threading.Timer(budget, self._drain_budget_blown)
+                t.daemon = True
+                t.start()
+                self._drain_timer = t
+
+        signal.signal(signal.SIGTERM, _on_term)
+
+    def _drain_budget_blown(self) -> None:
+        _log.critical("SIGTERM drain exceeded its budget; forcing exit(1)")
+        if self.obs is not None:
+            self.obs.recorder.record("drain_budget_blown")
+            self.obs.recorder.dump("drain_budget_blown")
+        os._exit(1)
+
     # --------------------------------------------------------------- loop
 
-    def _fetch_next(self, batch_timeout: float, cancel=None):
+    def _fetch_next(self, batch_timeout: float, lane: bool = False, cancel=None):
         """Pull one packed batch off staging and dispatch its H2D copy on
-        the side stream (no host wait). Returns ((payload, ready),
-        env_steps, wait_s, put_s) or (None, 0, wait_s, 0.0). Called after
-        the current step's dispatch (serial loop) or on the lane thread."""
+        the side stream. Returns ((payload, ready), env_steps, wait_s,
+        put_s, trace) or (None, 0, wait_s, 0.0, None). Called after the
+        current step's dispatch (serial loop) or on the lane thread
+        (`lane`: phases go to the timer's overlap sums). With the obs phase
+        timer the copy is fenced on its own event (the real transfer time);
+        ring leases of earlier batches are released once their copies have
+        completed."""
+        timer = self.obs.compute.timer if self.obs is not None and self.obs.compute else None
+        add = None
+        if timer is not None:
+            add = timer.add_overlap if lane else timer.add
+        ring = self.staging._ring
+        if ring is not None:
+            self._leases.reap(ring.depth)
         t0 = time.perf_counter()
         batch, buf = self.staging.get_batch_groups(timeout=batch_timeout, cancel=cancel)
         t1 = time.perf_counter()
+        if add is not None:
+            add("fetch", t1 - t0)
         if batch is None:
-            return None, 0, t1 - t0, 0.0
-        env_steps = int(np.sum(batch.mask))
+            return None, 0, t1 - t0, 0.0, None
+        trace, lease = self.staging.last_batch_trace, self.staging.last_batch_lease
+        env_steps = int(np.sum(batch.mask))  # before the lease can go back
+        t2 = time.perf_counter()
+        if add is not None:
+            add("pack", t2 - t1)  # staging packed already: the host read above
         payload = self.io.transfer(buf)
-        return payload, env_steps, t1 - t0, time.perf_counter() - t1
+        if add is not None:
+            if payload[1] is not None:
+                payload[1].synchronize()  # blocks only this thread
+            add("h2d", time.perf_counter() - t2)
+        if lease is not None:
+            self._leases.hold(lease, payload[1])
+        if self.obs is not None and trace is not None:
+            self.obs.tracer.hop_batch("h2d", trace)
+        return payload, env_steps, t2 - t0, time.perf_counter() - t2, trace
 
     def _step(self, payload) -> dict:
         """Dispatch one train step on the loop thread's stream."""
@@ -371,6 +790,12 @@ class Learner:
         if self.checkpointer is not None and self.version % cfg.checkpoint_every == 0:
             self.checkpoint()
 
+    def _trace_apply(self, trace) -> None:
+        """Terminal hops at dispatch: apply, and the e2e actor→apply time."""
+        if self.obs is not None and trace is not None:
+            self.obs.tracer.hop_batch("apply", trace)
+            self.obs.tracer.e2e(trace)
+
     def run(self, num_steps: Optional[int] = None, batch_timeout: float = 60.0, max_idle: Optional[int] = None,
             max_seconds: Optional[float] = None) -> int:
         """Train until num_steps (None = forever); returns steps done.
@@ -379,6 +804,8 @@ class Learner:
         batch waits (None = wait forever). `max_seconds`: stop cleanly
         once this much wall clock has passed (checked between steps)."""
         self.staging.start()
+        if self._drain.is_set() or self._abort.is_set():
+            self.staging.quiesce()  # asked before this run started: start() cleared it
         self.publisher.start()
         done_steps = 0
         try:
@@ -400,20 +827,24 @@ class Learner:
                 # an exception mid-loop still lets the in-flight step finish
                 # before teardown
                 torch.cuda.synchronize(self.device)
+            self._leases.release_all()
             self.staging.stop()
             self.publisher.stop()
             self.metrics.flush()
         return done_steps
 
     def _run_serial(self, num_steps, batch_timeout, max_idle, deadline, _bt) -> int:
-        """The serial fetch-after-step loop (learner.prefetch false)."""
+        """The serial fetch-after-step loop (learner.prefetch false). With
+        the obs phase timer each step is fenced by a CUDA event on the
+        loop's stream, so every phase is causally attributed."""
         cfg = self.cfg
+        timer = self.obs.compute.timer if self.obs is not None else None
         done_steps = 0
         win_wait = win_put = 0.0
         win_env_steps = win_steps = 0
         t_win = time.perf_counter()
         idle = 0
-        next_batch, next_env_steps, w, p = self._fetch_next(_bt())
+        next_batch, next_env_steps, w, p, next_trace = self._fetch_next(_bt())
         win_wait += w
         win_put += p
         while num_steps is None or done_steps < num_steps:
@@ -430,12 +861,17 @@ class Learner:
                     if max_idle is not None and idle >= max_idle:
                         raise TimeoutError(f"no batch for {idle} consecutive {batch_timeout:.0f}s waits — producers dead or stalled")
                     _log.warning("no batch within %.0fs; waiting", batch_timeout)
-                next_batch, next_env_steps, w, p = self._fetch_next(_bt())
+                next_batch, next_env_steps, w, p, next_trace = self._fetch_next(_bt())
                 win_wait += w
                 win_put += p
                 continue
             idle = 0
+            t_pass = time.perf_counter()
             metrics = self._step(next_batch)
+            if timer is not None:
+                fence(self.device)
+                timer.add("device_step", time.perf_counter() - t_pass)
+            self._trace_apply(next_trace)
             self.version += 1
             done_steps += 1
             self.env_steps_done += next_env_steps
@@ -445,12 +881,19 @@ class Learner:
             if not last:
                 # host work overlapping the in-flight device step; never a
                 # trailing fetch that would eat a batch the run will not train
-                next_batch, next_env_steps, w, p = self._fetch_next(_bt())
+                next_batch, next_env_steps, w, p, next_trace = self._fetch_next(_bt())
                 win_wait += w
                 win_put += p
             else:
-                next_batch, next_env_steps = None, 0
+                next_batch, next_env_steps, next_trace = None, 0, None
+            t_host = time.perf_counter()
             self._after_step()
+            if timer is not None:
+                # close the pass before a metrics window: a window only
+                # aggregates whole passes
+                t_end = time.perf_counter()
+                timer.add("host", t_end - t_host)
+                timer.step(t_end - t_pass)
             if self.version % cfg.metrics_every == 0 or last:
                 now = time.perf_counter()
                 self._log_window(metrics, now, t_win, win_steps, win_env_steps, win_wait, win_put)
@@ -461,11 +904,14 @@ class Learner:
 
     def _run_pipelined(self, num_steps, batch_timeout, max_idle, deadline, _bt) -> int:
         """The overlapped loop (learner.prefetch, default): a PrefetchLane
-        stages batch N+1 while the device runs step N."""
+        stages batch N+1 while the device runs step N. With the obs phase
+        timer in overlap mode the lane records its own fetch/pack/h2d, and
+        the loop's device_step is the unfenced residual."""
         cfg = self.cfg
+        timer = self.obs.compute.timer if self.obs is not None else None
         cancel = threading.Event()
         lane = PrefetchLane(
-            lambda: self._fetch_next(_bt(), cancel=cancel),
+            lambda: self._fetch_next(_bt(), lane=True, cancel=cancel),
             depth=self._prefetch_depth,
             limit=num_steps,
             drain=self._drain,
@@ -502,6 +948,10 @@ class Learner:
                     break  # drain complete: every batch the lane held is trained
                 win_take += take_s
                 win_wait += item.wait_s
+                if timer is not None:
+                    # the exposed wait for a prefetched batch (starvation
+                    # reads loud here, idle items included)
+                    timer.add("fetch", take_s)
                 if item.kind == "idle":
                     if self._drain.is_set():
                         continue
@@ -513,13 +963,22 @@ class Learner:
                 idle = 0
                 win_put += item.put_s
                 metrics = self._step(item.batch)
+                self._trace_apply(item.trace)
                 self.version += 1
                 done_steps += 1
                 self.env_steps_done += item.env_steps
                 win_env_steps += item.env_steps
                 win_steps += 1
                 last = num_steps is not None and done_steps >= num_steps
+                t_host = time.perf_counter()
                 self._after_step()
+                if timer is not None:
+                    t_end = time.perf_counter()
+                    host_s = t_end - t_host
+                    timer.add("host", host_s)
+                    wall = t_end - t_take0
+                    timer.add("device_step", max(wall - take_s - host_s, 0.0))
+                    timer.step(wall)
                 if self.version % cfg.metrics_every == 0 or last:
                     now = time.perf_counter()
                     self._log_window(metrics, now, t_win, win_steps, win_env_steps, win_wait, win_put, win_take=win_take)
@@ -546,7 +1005,8 @@ class Learner:
             scalars["time_step_s"] = max(dt - win_wait - win_put, 0.0) / n
         else:
             # pipelined: wait/put were paid on the lane beside the device
-            # step; only the loop's take-wait is exposed
+            # step; only the loop's take-wait is exposed (the obs overlap
+            # timer refines the pipeline_* keys below with its lane sums)
             lane_s = win_wait + win_put
             scalars["time_step_s"] = max(dt - win_take, 0.0) / n
             scalars["pipeline_prefetch_s"] = lane_s / n
@@ -560,15 +1020,39 @@ class Learner:
         scalars["wire_bytes_consumed_total"] = stats["wire_bytes"]
         scalars["wire_frames_obs_bf16_total"] = stats["wire_frames_obs_bf16"]
         scalars["wire_frames_obs_f32_total"] = stats["wire_frames_obs_f32"]
+        for k, v in stats.items():
+            if k.startswith("pack_"):  # the parallel feed (pack_workers > 1)
+                scalars[f"staging_{k}"] = float(v)
         scalars["weights_published"] = self.publisher.published
         scalars["weights_coalesced"] = self.publisher.coalesced
+        if self.checkpointer is not None:
+            for k, v in self.checkpointer.mirror_stats().items():
+                if isinstance(v, (int, float)):
+                    scalars[f"ckpt_mirror_{k}"] = v
+            for k, v in self.checkpointer.save_stats().items():
+                scalars[f"ckpt_{k}"] = float(v)
+            if self._ckpt_worker is not None:
+                scalars["ckpt_async_saves_total"] = float(self._ckpt_worker.saved)
+                scalars["ckpt_async_coalesced_total"] = float(self._ckpt_worker.coalesced)
+        if self._resume_scalars:
+            scalars.update(self._resume_scalars)
+            self._resume_scalars = {}
         if stats["episodes"] > 0:
             scalars["mean_episode_return"] = stats["episode_return_sum"] / stats["episodes"]
+        if self.obs is not None:
+            scalars.update(self.obs.tracer.scalars())
+            if self.obs.compute is not None:
+                scalars.update(self.obs.compute.window_scalars(win_steps, dt))
         self.metrics.log(self.version, scalars)
 
     def close(self) -> None:
+        if self._ckpt_worker is not None:
+            # drain, not discard: the newest submitted step ends durable
+            self._ckpt_worker.stop(flush=True)
         if self.checkpointer is not None:
             self.checkpointer.close()
+        if self.obs is not None:
+            self.obs.close()
         self.metrics.close()
 
 
@@ -581,9 +1065,15 @@ def main(argv=None):
     cfg = parse_config(LearnerConfig(), argv)
     broker = broker_connect(cfg.broker_url, retry=RetryPolicy.from_config(cfg.retry))
     learner = Learner(cfg, broker, device="cpu" if cfg.platform == "cpu" else None)
-    _log.info("learner up: device=%s batch=%dx%d", learner.device, cfg.batch_size, cfg.seq_len)
+    if cfg.ckpt.drain_on_sigterm:
+        # after the Learner (and its obs runtime's SIGTERM dump trigger)
+        learner.install_drain_handler()
+    _log.info("learner up: device=%s mesh=%s batch=%dx%d", learner.device, cfg.mesh_shape, cfg.batch_size, cfg.seq_len)
     try:
         learner.run(num_steps=cfg.train_steps or None)
+        if learner.drain_requested and not learner.aborted:
+            learner.drain_save()
+            _log.info("SIGTERM drain complete at version %d; exiting 0", learner.version)
     finally:
         learner.close()
 

@@ -1,19 +1,27 @@
 """Host-side staging buffer: broker frames → packed transfer buffers (torch
-twin of dotaclient_tpu/runtime/staging.py, classic single-consumer path).
+twin of dotaclient_tpu/runtime/staging.py).
 
 - One consumer thread drains the broker and parses frames: the native
   packer's batched header parse (`native_packer`, the default) or a full
-  Python deserialize.
+  Python deserialize. With `staging.pack_workers` N > 1 the work splits:
+  a pop thread drains the broker into a bounded intake queue, an
+  assembler thread parses and forms batches, and N packer threads each
+  fill a disjoint row shard of one pinned TransferRing slot (the native
+  packer releases the GIL; the Python packer holds it, so with it the
+  pool gives byte parity and no speed). Any N packs the same bytes.
 - Rollouts older than `ppo.max_staleness` learner versions are dropped
   here, before they cost device time.
 - Frames that fail parse or the per-frame layout check are dropped and
   filed, with evidence, in a bounded quarantine ring.
-- Each batch of B rollouts is packed straight into the views of a fresh
-  pinned [B, row_bytes] u8 buffer (parallel/fused_io.py), so the learner
-  ships it in one host-to-device copy; a bounded ready queue (depth 2)
-  lets packing overlap the device step.
-- Only the consumer thread touches the pending list; only the learner's
-  getters pop ready batches.
+- Each batch of B rollouts is packed straight into the views of a pinned
+  [B, row_bytes] u8 buffer (parallel/fused_io.py), fresh per batch on the
+  classic path and a leased ring slot with the pool, so the learner ships
+  it in one host-to-device copy; a bounded ready queue (depth 2) lets
+  packing overlap the device step.
+- Only the consumer (assembler) thread touches the pending list; only the
+  learner's getters pop ready batches.
+- `snapshot_state` / `restore_state` carry the pending frames through a
+  full-state checkpoint, in order.
 
 A malformed frame costs its own batch at worst (`dropped_bad`). A layout
 or config mismatch (BatchLayoutError) would fail every batch: the consumer
@@ -36,6 +44,7 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 
 from dotaclient_tpu_torch.config import LearnerConfig, refuse_unported
+from dotaclient_tpu_torch.obs.trace import TraceRef
 from dotaclient_tpu_torch.ops.batch import BatchLayoutError, TrainBatch, zeros_train_batch
 from dotaclient_tpu_torch.transport.base import Broker
 from dotaclient_tpu_torch.transport.serialize import (
@@ -48,7 +57,9 @@ from dotaclient_tpu_torch.transport.serialize import (
     deserialize_rollout,
     f32_to_bf16_bits,
     is_bf16,
+    peek_rollout_trace,
     rollout_obs_bf16,
+    serialize_rollout,
     strip_rollout_trace,
     wire_obs_is_bf16,
 )
@@ -141,17 +152,121 @@ def cast_obs_to_compute_dtype(cfg: LearnerConfig, batch: TrainBatch) -> TrainBat
     return batch._replace(obs=obs)
 
 
+class _StagingStopped(Exception):
+    """A sharded pack abandoned because stop() landed mid-batch (ring
+    acquire or pool wait interrupted); not a frame error."""
+
+
+class _ShardJob:
+    """Countdown latch for one sharded batch: the last of N tasks sets the
+    event, so the dispatcher pays one wait."""
+
+    __slots__ = ("event", "errors", "_remaining", "_lock")
+
+    def __init__(self, n: int):
+        self.event = threading.Event()
+        self.errors: List[BaseException] = []
+        self._remaining = n
+        self._lock = threading.Lock()
+
+    def done_one(self, error: Optional[BaseException]) -> None:
+        with self._lock:
+            if error is not None:
+                self.errors.append(error)
+            self._remaining -= 1
+            last = self._remaining == 0
+        if last:
+            self.event.set()
+
+
+class _PackPool:
+    """`staging.pack_workers` packer threads running row-shard tasks, each
+    packing a disjoint row range of one shared buffer. Meters (under one
+    lock, touched twice per task): per-worker busy seconds (running a
+    shard) and stall seconds (waiting for one)."""
+
+    def __init__(self, workers: int, name: str = "staging-pack"):
+        self.n = workers
+        self._tasks: "queue.Queue" = queue.Queue()
+        self._stop = threading.Event()
+        self._meters_lock = threading.Lock()
+        self._busy_s = [0.0] * workers
+        self._stall_s = [0.0] * workers
+        self._threads = [threading.Thread(target=self._run, args=(i,), daemon=True, name=f"{name}-{i}")
+                         for i in range(workers)]
+        for t in self._threads:
+            t.start()
+
+    def _run(self, i: int) -> None:
+        while True:
+            t0 = time.perf_counter()
+            try:
+                fn, job = self._tasks.get(timeout=0.2)
+            except queue.Empty:
+                with self._meters_lock:
+                    self._stall_s[i] += time.perf_counter() - t0
+                if self._stop.is_set():
+                    return
+                continue
+            t1 = time.perf_counter()
+            with self._meters_lock:
+                self._stall_s[i] += t1 - t0
+            error = None
+            try:
+                fn()
+            except BaseException as e:  # re-raised, typed, by the dispatcher
+                error = e
+            finally:
+                with self._meters_lock:
+                    self._busy_s[i] += time.perf_counter() - t1
+                job.done_one(error)
+
+    def run_tasks(self, thunks, stop: threading.Event):
+        """Dispatch the thunks and wait for all. Returns None on success,
+        else the most severe error (BatchLayoutError before any other), or
+        _StagingStopped when teardown interrupted the batch."""
+        job = _ShardJob(len(thunks))
+        for fn in thunks:
+            self._tasks.put((fn, job))
+        while not job.event.wait(timeout=0.2):
+            if stop.is_set() and not any(t.is_alive() for t in self._threads):
+                return _StagingStopped()
+        layout = other = None
+        for e in job.errors:
+            if isinstance(e, BatchLayoutError):
+                layout = layout or e
+            else:
+                other = other or e
+        return layout or other
+
+    def meters(self):
+        """(busy_s list, stall_s list), one locked snapshot."""
+        with self._meters_lock:
+            return list(self._busy_s), list(self._stall_s)
+
+    def stop(self) -> None:
+        self._stop.set()
+        for t in self._threads:
+            t.join(timeout=5)
+
+
 class StagingBuffer:
     """Consume → filter → pack pipeline feeding the train loop, into the
     single transfer buffer of `fused_io` (the FusedBatchIO the train step
     was built with). Two packing paths, identical bytes:
     - native (`cfg.native_packer`, default): frames are header-validated in
-      C and kept as raw bytes; a whole batch packs in one C call with the
-      GIL released;
+      C and kept as raw bytes; a batch (or a row shard of one) packs in one
+      C call with the GIL released;
     - Python: full deserialize + per-field numpy copies.
+
+    `tracer` / `recorder` (obs, both optional): per-hop latency of
+    trace-stamped frames, and the flight recorder that gets the quarantine
+    ring as a dump section and a dump on the fatal layout error. None keeps
+    the plain path.
     """
 
-    def __init__(self, cfg: LearnerConfig, broker: Broker, version_fn: Callable[[], int] = lambda: 0, fused_io=None):
+    def __init__(self, cfg: LearnerConfig, broker: Broker, version_fn: Callable[[], int] = lambda: 0, fused_io=None,
+                 tracer=None, recorder=None):
         if fused_io is None:
             raise ValueError(
                 "the port stages into the single transfer buffer only: pass the FusedBatchIO from "
@@ -164,10 +279,19 @@ class StagingBuffer:
         self.broker = broker
         self.version_fn = version_fn
         self._fused_io = fused_io
+        self._tracer = tracer
+        self._recorder = recorder
         self._obs_bf16 = cfg.stage_obs_compute_dtype and cfg.policy.dtype == "bfloat16"
         # native path: raw frame bytes; python path: Rollout objects
         self._pending: List = []
-        self._ready: "queue.Queue" = queue.Queue(maxsize=2)  # (TrainBatch views, buf)
+        # TraceRef (or None) per pending item; kept only with a tracer
+        self._pending_traces: List = []
+        # (TrainBatch views, buf, trace refs or None, ring lease or None)
+        self._ready: "queue.Queue" = queue.Queue(maxsize=2)
+        # Trace refs and ring lease of the batch a getter returned last
+        # (only the learner's fetch pops batches, so these reads are its own).
+        self.last_batch_trace = None
+        self.last_batch_lease = None
         self._stop = threading.Event()
         # Drain: the consumer stops popping the broker and keeps packing
         # what is pending into full batches. Cleared by start().
@@ -176,23 +300,40 @@ class StagingBuffer:
         # in its locals (set under _mutate_lock with the pop): drained()
         # must see that batch.
         self._packing = False
+        # Pool mode: the pop thread's locals hold a drain between its pop
+        # and the intake put (the _packing pattern, one station upstream).
+        self._popping = False
         # The pipelined learner's prefetch lane holds batches it popped
         # until the loop trains them; drained() asks it last.
         self._prefetch_probe: Optional[Callable[[], bool]] = None
+        # Held around the consumer's two mutation sites (ingest, take), and
+        # by snapshot_state, so a snapshot is never a half-formed batch.
         self._mutate_lock = threading.Lock()
         self._thread: Optional[threading.Thread] = None
+        self._assembler: Optional[threading.Thread] = None
+        self._intake: Optional["queue.Queue"] = None
+        self._pool: Optional[_PackPool] = None
+        self._ring = None
         self._fatal: Optional[BaseException] = None
         self._lib = None
         if cfg.native_packer:
             from dotaclient_tpu_torch import native
 
             self._lib = native.load_packer()
+        # Pending items as wire bytes for a snapshot, and back on restore:
+        # the native path stages raw frames, the Python path Rollouts.
+        if self._lib is not None:
+            self._item_encode = self._item_decode = lambda item: item
+        else:
+            self._item_encode, self._item_decode = serialize_rollout, deserialize_rollout
         # actor heartbeats: actor_id → monotonic time of its last frame
         # (written only by the consumer thread)
         self._actor_seen: Dict[int, float] = {}
         self.heartbeat_window_s = 60.0
         # Dead-letter ring of poison frames: reason + size + header hex.
         self._quarantine: collections.deque = collections.deque(maxlen=64)
+        if recorder is not None:
+            recorder.add_section("staging_quarantine", self.quarantine)
         self._stats_lock = threading.Lock()
         self._stats = {
             "consumed": 0,
@@ -210,23 +351,49 @@ class StagingBuffer:
             "wire_frames_obs_bf16": 0,
             "wire_frames_obs_f32": 0,
         }
+        if cfg.staging.pack_workers > 1:
+            # the parallel feed's meters exist only in pool mode
+            self._stats["pack_wall_s"] = 0.0
+            self._stats["pack_ring_wait_s"] = 0.0
 
     @property
     def native(self) -> bool:
         return self._lib is not None
 
-    # -- consumer thread -------------------------------------------------
+    # -- consumer threads ------------------------------------------------
 
     def start(self) -> "StagingBuffer":
         """Start the consumer; restartable after stop() (phased drivers
-        call run() repeatedly on one learner)."""
+        call run() repeatedly on one learner). Pool mode builds a fresh
+        intake, pool and ring each time: a finished loop may still hold a
+        lease on an old slot."""
         self._stop.clear()
         self._quiesce.clear()
-        self._thread = threading.Thread(target=self._run, daemon=True, name="staging-consumer")
+        workers = self.cfg.staging.pack_workers
+        if workers > 1:
+            self._intake = queue.Queue(maxsize=4)
+            self._pool = _PackPool(workers)
+            self._ring = self._fused_io.make_ring(self.cfg.staging.transfer_depth)
+            self._assembler = threading.Thread(target=self._run_assembler, daemon=True, name="staging-assembler")
+            self._assembler.start()
+            self._thread = threading.Thread(target=self._run_pop, daemon=True, name="staging-consumer")
+        else:
+            self._thread = threading.Thread(target=self._run, daemon=True, name="staging-consumer")
         self._thread.start()
         return self
 
+    def _die_on_layout(self, e: BaseException) -> None:
+        """A builder/staging config disagreement fails every batch: the
+        consumer dies loudly and the getters re-raise."""
+        _log.critical("staging layout/config mismatch; consumer dying: %s", e)
+        if self._recorder is not None:
+            self._recorder.record("batch_layout_error", error=str(e))
+            self._recorder.dump("batch_layout_error")
+        self._fatal = e
+        self._stop.set()
+
     def _run(self) -> None:
+        """The classic consumer (pack_workers=1): pop, parse and pack here."""
         B = self.cfg.batch_size
         while not self._stop.is_set():
             try:
@@ -240,9 +407,7 @@ class StagingBuffer:
                         self._ingest(frames)
                 self._pack_pending_loop(B)
             except BatchLayoutError as e:
-                _log.critical("staging layout/config mismatch; consumer dying: %s", e)
-                self._fatal = e
-                self._stop.set()
+                self._die_on_layout(e)
                 return
             except Exception:
                 # The consumer must never die silently: a dead consumer
@@ -251,19 +416,80 @@ class StagingBuffer:
                 with self._stats_lock:
                     self._stats["consumer_errors"] += 1
 
+    def _run_pop(self) -> None:
+        """Pool mode: drain the broker into the intake queue and nothing
+        else. The intake bound (4 drains) keeps an outrun learner from
+        buffering the broker in its own memory."""
+        B = self.cfg.batch_size
+        while not self._stop.is_set():
+            try:
+                if self._quiesce.is_set():
+                    time.sleep(0.02)
+                    continue
+                with self._mutate_lock:
+                    self._popping = True
+                try:
+                    frames = self.broker.consume_experience(max_items=B, timeout=0.2)
+                    while frames and not self._stop.is_set():
+                        try:
+                            self._intake.put(frames, timeout=0.2)
+                            break
+                        except queue.Full:
+                            continue
+                finally:
+                    with self._mutate_lock:
+                        self._popping = False
+            except Exception:
+                _log.exception("staging pop error; continuing")
+                with self._stats_lock:
+                    self._stats["consumer_errors"] += 1
+
+    def _run_assembler(self) -> None:
+        """Pool mode: the single owner of the pending list, heartbeats and
+        quarantine (the consumer's role less the broker pop). Parses each
+        intake drain, forms batches and hands row shards to the pool."""
+        B = self.cfg.batch_size
+        while not self._stop.is_set():
+            try:
+                try:
+                    frames = self._intake.get(timeout=0.2)
+                except queue.Empty:
+                    frames = None
+                if frames is not None:
+                    try:
+                        with self._mutate_lock:
+                            self._ingest(frames)
+                    finally:
+                        # unfinished_tasks reaches 0 only once the frames
+                        # are visible in _pending (drained() reads it)
+                        self._intake.task_done()
+                self._pack_pending_loop(B)
+            except BatchLayoutError as e:
+                self._die_on_layout(e)
+                return
+            except Exception:
+                _log.exception("staging assembler error; continuing")
+                with self._stats_lock:
+                    self._stats["consumer_errors"] += 1
+
     def _pack_pending_loop(self, B: int) -> None:
         """Pack as many full batches as _pending affords into the ready
-        queue."""
+        queue, on the thread that owns _pending."""
         while not self._stop.is_set():
             with self._mutate_lock:
-                items = self._take_pending(B) if len(self._pending) >= B else None
-                self._packing = items is not None
-            if items is None:
+                taken = self._take_pending(B) if len(self._pending) >= B else None
+                self._packing = taken is not None
+            if taken is None:
                 break
+            items, traces = taken
+            t_pack = time.perf_counter()
             try:
-                batch, buf = self._pack(items)
+                batch, buf, lease = self._pack(items)
             except BatchLayoutError:
                 raise
+            except _StagingStopped:
+                self._packing = False
+                break
             except ValueError:
                 # a frame passed ingest validation but failed the packer:
                 # drop the batch, never livelock on it
@@ -272,25 +498,38 @@ class StagingBuffer:
                     self._stats["dropped_bad"] += len(items)
                 self._packing = False
                 continue
+            if self._tracer is not None:
+                self._tracer.hop_batch("pack", traces)
             with self._stats_lock:
                 self._stats["batches"] += 1
                 self._stats["rows_packed"] += len(items)
+                if "pack_wall_s" in self._stats:
+                    self._stats["pack_wall_s"] += time.perf_counter() - t_pack
             while not self._stop.is_set():
                 try:
-                    self._ready.put((batch, buf), timeout=0.2)
+                    self._ready.put((batch, buf, traces, lease), timeout=0.2)
                     break
                 except queue.Full:
                     continue
             self._packing = False  # visible in _ready (or dead with _stop)
 
-    def _take_pending(self, n: int) -> List:
+    def _take_pending(self, n: int):
+        """(the first n pending items, their trace refs or None)."""
         items = self._pending[:n]
         del self._pending[:n]
-        return items
+        traces = None
+        if self._tracer is not None:
+            traces = self._pending_traces[:n]
+            del self._pending_traces[:n]
+        return items, traces
 
     def _pack(self, items: List):
-        """(TrainBatch of views, buf): the items packed into a fresh pinned
-        transfer buffer; the views write straight into it."""
+        """(TrainBatch of views, buf, lease): the items packed into a fresh
+        pinned transfer buffer (lease None), or row-sharded over the pool
+        into a ring slot (the lease the learner releases once the slot's
+        copy has completed)."""
+        if self._pool is not None:
+            return self._pack_sharded(items)
         buf, out = self._fused_io.alloc_transfer()
         if self._lib is not None:
             from dotaclient_tpu_torch import native
@@ -299,7 +538,40 @@ class StagingBuffer:
             native.pack_frames(self._lib, items, self.cfg.seq_len, p.lstm_hidden, p.aux_heads, self._obs_bf16, out)
         else:
             fill_rollouts(out, items, self.cfg.seq_len)
-        return out, buf
+        return out, buf, None
+
+    def _pack_sharded(self, items: List):
+        """N workers each fill a disjoint contiguous row range of one
+        re-zeroed ring slot; any split is bitwise the single-call pack."""
+        B, T = len(items), self.cfg.seq_len
+        t0 = time.perf_counter()
+        slot = None
+        while slot is None:
+            if self._stop.is_set():
+                raise _StagingStopped()
+            slot = self._ring.acquire(timeout=0.2)  # backpressure: every slot out
+        with self._stats_lock:
+            self._stats["pack_ring_wait_s"] += time.perf_counter() - t0
+        out = slot.batch
+        if self._lib is not None:
+            from dotaclient_tpu_torch import native
+
+            lib, p, obs_bf16 = self._lib, self.cfg.policy, self._obs_bf16
+
+            def task(off, cnt):
+                native.pack_frames(lib, items[off : off + cnt], T, p.lstm_hidden, p.aux_heads, obs_bf16, out,
+                                   row_offset=off, total_rows=B)
+        else:
+
+            def task(off, cnt):
+                fill_rollouts(out, items[off : off + cnt], T, row_offset=off)
+
+        thunks = [(lambda o=off, c=cnt: task(o, c)) for off, cnt in shard_rows(B, self._pool.n)]
+        err = self._pool.run_tasks(thunks, self._stop)
+        if err is not None:
+            slot.release()  # nothing downstream will release a failed batch's slot
+            raise err
+        return out, slot.payload, slot
 
     def _parse(self, frame: bytes):
         """Python-path parse → ((Rollout, version, L, H, actor_id,
@@ -330,23 +602,35 @@ class StagingBuffer:
         dropped_stale = dropped_bad = quarantined = episodes = 0
         ep_ret = 0.0
         now = time.monotonic()
+        tr = self._tracer
         wire_bytes = sum(len(f) for f in frames)
         wire_bf16 = wire_f32 = 0
         bad_maps: Dict[int, bytes] = {}
+        frame_traces: Optional[List] = None
         if self._lib is not None:
             from dotaclient_tpu_torch import native
 
             # The C packer speaks DTR1 and DTR3: traced DTR2 frames are
-            # normalized to the byte-identical DTR1 here; a DTR3 frame's
-            # dtype-map is pre-checked so a bad one is quarantined under
-            # its own reason (its emptied slot fails the native parse).
+            # normalized to the byte-identical DTR1 here (their trace read
+            # first when tracing); a DTR3 frame's dtype-map is pre-checked
+            # so a bad one is quarantined under its own reason (its emptied
+            # slot fails the native parse).
             for i, f in enumerate(frames):
                 pfx = f[:4]
-                if pfx == b"DTR2":
-                    frames[i] = strip_rollout_trace(f)
-                elif pfx == b"DTR3" and check_dtr3_dtype_map(f) is not None:
+                if pfx not in (b"DTR2", b"DTR3"):
+                    continue
+                if pfx == b"DTR3" and check_dtr3_dtype_map(f) is not None:
                     bad_maps[i] = f
                     frames[i] = b""
+                    continue
+                if tr is not None:
+                    tid, birth = peek_rollout_trace(f)
+                    if tid or birth:
+                        if frame_traces is None:
+                            frame_traces = [None] * consumed
+                        frame_traces[i] = TraceRef(tid, birth)
+                if pfx == b"DTR2":
+                    frames[i] = strip_rollout_trace(f)
             h = native.frame_headers(self._lib, frames)
             parsed_iter = (
                 (
@@ -381,6 +665,14 @@ class StagingBuffer:
                 quarantined += 1
                 self._quarantine_put(frames[i], "layout")
                 continue
+            ref = None
+            if tr is not None:
+                if frame_traces is not None:
+                    ref = frame_traces[i]
+                elif isinstance(item, Rollout) and item.traced:
+                    ref = TraceRef(item.trace_id, item.birth_time)
+                if ref is not None:
+                    tr.hop("consume", ref)  # from birth: serialize + broker + wire
             if version < min_version:
                 dropped_stale += 1
                 continue
@@ -388,6 +680,10 @@ class StagingBuffer:
                 episodes += 1
                 ep_ret += frame_ret
             self._pending.append(item)
+            if tr is not None:
+                if ref is not None:
+                    tr.hop("staging_admit", ref)
+                self._pending_traces.append(ref)
         with self._stats_lock:
             self._stats["consumed"] += consumed
             self._stats["dropped_stale"] += dropped_stale
@@ -430,19 +726,51 @@ class StagingBuffer:
 
     def get_batch(self, timeout: Optional[float] = None, cancel=None) -> Optional[TrainBatch]:
         """One packed batch as numpy views of its transfer buffer, or None
-        on timeout."""
+        on timeout (the lease contract of get_batch_groups holds)."""
         return self.get_batch_groups(timeout, cancel)[0]
 
     def get_batch_groups(self, timeout: Optional[float] = None, cancel=None):
         """(TrainBatch views, buf): the packed batch and the pinned
         [B, row_bytes] u8 buffer its leaves view, ready to ship; (None,
-        None) on timeout. Every batch has its own fresh buffer."""
+        None) on timeout. `last_batch_trace` is set to the batch's trace
+        refs and `last_batch_lease` to its ring slot (None on the classic
+        path, where every batch has its own fresh buffer). The caller
+        releases a lease only once the buffer's copy has completed;
+        holding leases is the ring's backpressure."""
         try:
-            return self._get_ready(timeout, cancel=cancel)
+            batch, buf, traces, lease = self._get_ready(timeout, cancel=cancel)
         except queue.Empty:
+            self.last_batch_trace = self.last_batch_lease = None
             return None, None
+        self.last_batch_trace, self.last_batch_lease = traces, lease
+        return batch, buf
 
-    # -- drain support ---------------------------------------------------
+    # -- checkpoint / drain support ---------------------------------------
+
+    def snapshot_state(self, timeout: float = 10.0) -> Optional[dict]:
+        """A consistent image of the host state for the full-state aux
+        manifest: the pending (popped, not yet packed) frames as wire
+        bytes, in order. The mutate lock excludes the consumer's mutation
+        sites, so the cut is never a half-formed batch. None when the lock
+        is not had within `timeout` (the checkpoint then goes state-only).
+        Pool mode: frames in the intake queue are not in the cut (at most 4
+        drains); a SIGTERM drain trains them out before its final save."""
+        if not self._mutate_lock.acquire(timeout=timeout):
+            return None
+        try:
+            return {"pending": [bytes(self._item_encode(it)) for it in self._pending]}
+        finally:
+            self._mutate_lock.release()
+
+    def restore_state(self, snap: dict) -> Dict[str, int]:
+        """Before start() only: re-inject checkpointed pending frames ahead
+        of anything the broker will deliver, so batches form in the
+        pre-kill order. Returns counts for the resume_* scalars."""
+        restored = [self._item_decode(b) for b in snap.get("pending", [])]
+        self._pending = restored
+        if self._tracer is not None:
+            self._pending_traces = [None] * len(restored)  # trace refs are process-local
+        return {"pending": len(restored)}
 
     def quiesce(self) -> None:
         """Stop popping the broker; keep packing already-pending frames."""
@@ -455,10 +783,16 @@ class StagingBuffer:
 
     def drained(self, include_prefetch: bool = True) -> bool:
         """True once a quiesced buffer can produce no further batch: no
-        batch mid-pack, fewer than B frames pending, the ready queue
-        empty, and (by default) the prefetch lane holding nothing.
-        Stations are checked upstream first, the direction frames move."""
+        drain held by the pop thread or the intake queue, no batch mid-pack,
+        fewer than B frames pending, the ready queue empty, and (by
+        default) the prefetch lane holding nothing. Stations are checked
+        upstream first, the direction frames move."""
         if not self._quiesce.is_set():
+            return False
+        with self._mutate_lock:
+            if self._popping:
+                return False
+        if self._intake is not None and self._intake.unfinished_tasks:
             return False
         with self._mutate_lock:
             if self._packing or len(self._pending) >= self.cfg.batch_size:
@@ -479,9 +813,25 @@ class StagingBuffer:
         cutoff = time.monotonic() - self.heartbeat_window_s
         seen = dict(self._actor_seen)
         out["active_actors"] = sum(1 for t in seen.values() if t >= cutoff)
+        if self._pool is not None:
+            # the parallel feed's scoreboard (staging_pack_* once the
+            # learner logs them)
+            busy, stall = self._pool.meters()
+            out["pack_workers"] = float(self._pool.n)
+            for i in range(self._pool.n):
+                out[f"pack_worker_busy_s_{i}"] = round(busy[i], 4)
+                out[f"pack_worker_stall_s_{i}"] = round(stall[i], 4)
+            out["pack_ring_depth"] = float(self._ring.depth)
+            out["pack_ring_occupancy"] = float(self._ring.occupancy)
+            out["pack_rows_per_s"] = out["rows_packed"] / max(out["pack_wall_s"], 1e-9)
         return out
 
     def stop(self) -> None:
         self._stop.set()
         if self._thread:
             self._thread.join(timeout=5)
+        if self._assembler is not None:
+            self._assembler.join(timeout=5)
+            self._assembler = None
+        if self._pool is not None:
+            self._pool.stop()

@@ -36,8 +36,9 @@ over the serve wire (serve/wire.py), byte for byte the reference's:
 Not ported, refused through config.UNPORTED: the carry store behind
 S_RESUME (`--serve.handoff_endpoint`, ROADMAP A.12b; S_RESUME is answered
 UNKNOWN_CLIENT, the reference's answer without a store), league sync of
-the frozen slots (`--serve.league_endpoint`, A.12c), the obs runtime
-(`--obs.enabled`, A.13) and the chaos broker (`--chaos.enabled`, A.10j).
+the frozen slots (`--serve.league_endpoint`, A.12c) and the chaos broker
+(`--chaos.enabled`, A.10j); through config.SERVE_UNPORTED, the server's
+obs runtime (`--obs.enabled`, A.13c).
 """
 
 from __future__ import annotations
@@ -54,7 +55,7 @@ import numpy as np
 import torch
 
 from dotaclient_tpu_torch import resolve_device
-from dotaclient_tpu_torch.config import InferenceConfig, refuse_unported
+from dotaclient_tpu_torch.config import SERVE_UNPORTED, InferenceConfig, refuse_unported
 from dotaclient_tpu_torch.env import featurizer as F
 from dotaclient_tpu_torch.models import policy as P
 from dotaclient_tpu_torch.ops.batch import as_tensors
@@ -100,6 +101,7 @@ class InferenceServer:
 
     def __init__(self, cfg: InferenceConfig, broker=None, device=None):
         refuse_unported(cfg)
+        refuse_unported(cfg, table=SERVE_UNPORTED)
         if cfg.policy.arch != "lstm":
             raise ValueError(f"inference service requires policy.arch='lstm', got {cfg.policy.arch!r}")
         self.cfg = cfg
@@ -472,6 +474,7 @@ def main(argv=None):
     logging.basicConfig(level=logging.INFO)
     cfg = parse_config(InferenceConfig(), argv)
     refuse_unported(cfg)
+    refuse_unported(cfg, table=SERVE_UNPORTED)
     device = serve_device(cfg)
     broker = broker_connect(cfg.broker_url, retry=RetryPolicy.from_config(cfg.retry))
     server = InferenceServer(cfg, broker, device=device).start()

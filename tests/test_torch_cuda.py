@@ -6,6 +6,8 @@ on a GPU machine without JAX it runs as
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 """
 
+import time
+
 import pytest
 import torch
 
@@ -298,6 +300,120 @@ def test_learner_loop_launches_the_kernel_once_per_step(cuda, tmp_path):
     named, version, _ = deserialize_weights(watcher.poll_weights())
     assert version == 3 and all(a.tobytes() == b.tobytes() for (_, a), (_, b) in zip(named, named_params(learner.state.net)))
     assert learner.staging.stats()["consumer_errors"] == 0
+
+
+def test_a_ring_slot_goes_back_only_after_its_copy_retired(cuda):
+    """A one-slot ring while the side stream is held up: the copy of
+    batch A has not run when the next fetch wants the slot, so the lease
+    reaper waits for A's copy event before the slot is re-zeroed and
+    packed with batch B. The device batch is A's bytes, not B's or zeros."""
+    from dotaclient_tpu_torch import native
+    from dotaclient_tpu_torch.runtime.learner import _LeaseReaper
+
+    cfg = _loop_cfg()
+    io, _ = _ios(cfg, cuda)
+    ring, reaper, lib = io.make_ring(1), _LeaseReaper(), native.load_packer()
+    pack = lambda slot, seed: native.pack_frames(lib, _frames(cfg, 1, seed0=seed), cfg.seq_len, cfg.policy.lstm_hidden,
+                                                 False, True, slot.batch)
+    slot = ring.acquire(timeout=1)
+    pack(slot, 11)
+    want_a = slot.payload.clone()
+    with torch.cuda.stream(io._stream):
+        torch.cuda._sleep(int(3e8))  # the side stream is busy for a while: A's copy waits behind it
+    payload, ready = io.transfer(slot.payload)
+    reaper.hold(slot, ready)
+    assert not ready.query()  # the copy has not retired yet
+    reaper.reap(ring.depth)  # every slot is held: waits for A's copy, then releases
+    assert ready.query()
+    again = ring.acquire(timeout=1)
+    assert again is slot
+    pack(again, 12)
+    assert not torch.equal(again.payload, want_a)
+    got = io.consume(payload, ready).cpu()
+    assert torch.equal(got, want_a)
+
+
+def test_the_ring_learner_trains_bitwise_the_classic_one(cuda, tmp_path):
+    """pack_workers 4 over a one-slot ring vs the classic fresh buffer per
+    batch, both loops: the same params, one kernel launch per step."""
+    import dataclasses
+
+    from dotaclient_tpu_torch.runtime.learner import Learner
+    from dotaclient_tpu_torch.transport import memory as M
+    from dotaclient_tpu_torch.transport.params import named_params
+
+    frames = _frames(_loop_cfg(), 4, seed0=20)
+    out = {}
+    for workers, prefetch in ((1, True), (4, True), (4, False)):
+        cfg = _loop_cfg()
+        cfg.staging = dataclasses.replace(cfg.staging, pack_workers=workers, transfer_depth=1)
+        cfg.learner.prefetch = prefetch
+        name = f"cuda_ring_{workers}_{prefetch}"
+        M.reset(name)
+        for f in frames:
+            M.MemoryBroker(name).publish_experience(f)
+        learner = Learner(cfg, M.MemoryBroker(name), cuda)
+        before = L.LAUNCHES
+        try:
+            assert learner.run(num_steps=4, batch_timeout=30.0, max_idle=3) == 4
+        finally:
+            learner.close()
+        assert L.LAUNCHES - before == 4
+        out[(workers, prefetch)] = [a.tobytes() for _, a in named_params(learner.state.net)]
+    assert out[(1, True)] == out[(4, True)] == out[(4, False)]
+
+
+def test_the_phase_fence_waits_for_the_loop_stream_only(cuda):
+    """fence() returns once the work on the current stream is done, not
+    behind a side stream's (the prefetch copy's) queue."""
+    from dotaclient_tpu_torch.obs.compute import fence
+
+    side = torch.cuda.Stream(cuda)
+    torch.cuda.synchronize()
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(int(2e9))  # long: the side stream stays busy
+    busy = torch.cuda.Event()
+    busy.record(side)
+    torch.cuda._sleep(int(5e7))  # short, on the current stream
+    step = torch.cuda.Event()
+    step.record()
+    fence(cuda)
+    assert step.query()  # the loop stream's work is done
+    assert not busy.query()  # and the side stream's was not waited for
+    torch.cuda.synchronize()
+
+
+def test_a_profile_capture_names_the_recurrence_kernel(cuda, tmp_path):
+    """torch.profiler started on another thread than the one launching:
+    the trace holds that thread's device kernels, the recurrence kernel by
+    name; a window with no device work is an error, not an empty trace."""
+    import threading
+
+    from dotaclient_tpu_torch.obs.compute import ProfileCapture, trace_kernel_names
+
+    ins = inputs(256, 17, 128, torch.bfloat16, cuda)
+    stop = threading.Event()
+
+    def loop():
+        while not stop.is_set():
+            with torch.no_grad():
+                L.lstm_kernel(*ins)
+            torch.cuda.synchronize()
+
+    cap = ProfileCapture(str(tmp_path), max_seconds=2.0, device=cuda)
+    t = threading.Thread(target=loop)
+    t.start()
+    try:
+        time.sleep(0.2)
+        path, seconds = cap.capture(0.5)
+    finally:
+        stop.set()
+        t.join(timeout=10)
+    names = trace_kernel_names(f"{path}/trace.json")
+    assert seconds == 0.5 and any("lstm_" in n for n in names)
+    torch.cuda.synchronize()
+    with pytest.raises(RuntimeError, match="no device kernel"):
+        cap.capture(0.2)
 
 
 def _serve_obs(rs):

@@ -297,18 +297,12 @@ def test_metrics_logger_and_histogram_scalars_match_the_reference(tmp_path):
 
 
 REFUSED = [
-    ("staging.pack_workers", 2, "A.10e"),
     ("staging.assemble", True, "A.10f"),
     ("replay.enabled", True, "A.10g"),
-    ("ckpt.full_state", True, "A.10h"),
-    ("ckpt.async_save", True, "A.10h"),
-    ("ckpt.drain_on_sigterm", True, "A.10h"),
-    ("checkpoint_remote_dir", "gs://bucket/ck", "A.10i"),
     ("fused_h2d", False, "A.10b"),
     ("fused_single_h2d", False, "A.10b"),
     ("multihost", True, "A.14"),
-    ("obs.enabled", True, "A.13"),
-    ("profile_port", 9999, "A.13"),
+    ("profile_port", 9999, "A.13b"),
     ("chaos.enabled", True, "A.10j"),
     ("broker_shards", "0,1", "A.10d2"),
 ]
@@ -332,9 +326,20 @@ def test_every_unported_mode_is_tested_and_their_settings_do_not_parse():
     doing nothing."""
     assert {r[0] for r in REFUSED} == set(unported_flags(LearnerConfig()))
     assert set(UNPORTED) - set(unported_flags(LearnerConfig())) == {"serve.handoff_endpoint", "serve.league_endpoint"}
-    for argv in (["--ckpt.drain_budget_s", "10"], ["--staging.transfer_depth", "3"]):
+    for argv in (["--replay.ratio", "0.5"], ["--chaos.spec", "dup:0.1"], ["--coordinator", "h:1"]):
         with pytest.raises(SystemExit):
             parse_config(LearnerConfig(), argv)
+
+
+def _assert_same_fields(ours, ref, path=""):
+    """Every field of the port's config equals the reference's, nested
+    dataclasses field by field."""
+    for f in dataclasses.fields(ours):
+        a, b = getattr(ours, f.name), getattr(ref, f.name)
+        if dataclasses.is_dataclass(a):
+            _assert_same_fields(a, b, f"{path}{f.name}.")
+        else:
+            assert a == b, f"{path}{f.name}"
 
 
 def test_main_parses_the_reference_flags_and_trains(tmp_path):
@@ -343,12 +348,7 @@ def test_main_parses_the_reference_flags_and_trains(tmp_path):
             "--policy.dtype", "float32", "--learner.prefetch", "false", "--native_packer", "true",
             "--ppo.max_staleness", "1000", "--log_dir", str(tmp_path / "main"), "--publish_legacy_dtw1", "true"]
     tcfg, jcfg = parse_config(LearnerConfig(), argv), j_parse_config(JLearnerConfig(), argv)
-    for f in dataclasses.fields(tcfg):
-        a, b = getattr(tcfg, f.name), getattr(jcfg, f.name)
-        if dataclasses.is_dataclass(a):
-            assert all(getattr(a, g.name) == getattr(b, g.name) for g in dataclasses.fields(a)), f.name
-        else:
-            assert a == b, f.name
+    _assert_same_fields(tcfg, jcfg)
     tmem.reset("ln_main")
     for fr in frames_for(tcfg, 2):
         tmem.MemoryBroker("ln_main").publish_experience(fr)
@@ -416,3 +416,84 @@ def test_jax_actor_trains_the_port_learner_and_runs_its_weights(env_addr, tmp_pa
     assert stats["consumer_errors"] == 0 and stats["dropped_bad"] == 0 and stats["batches"] >= 3
     lines = _metric_lines(tmp_path / "interop" / "metrics.jsonl")
     assert [r["step"] for r in lines] == [1, 2, 3] and all(np.isfinite(r["loss"]) for r in lines)
+
+
+# ------------------------------------------------------ production manifest
+
+def _manifest_args():
+    import yaml
+
+    from pathlib import Path
+
+    doc = next(d for d in yaml.safe_load_all((Path(__file__).resolve().parents[1] / "k8s" / "learner.yaml").read_text())
+               if d and d.get("kind") == "StatefulSet")
+    (container,) = doc["spec"]["template"]["spec"]["containers"]
+    return list(container["args"])
+
+
+def _swap(args, flag, value):
+    out = list(args)
+    out[out.index(flag) + 1] = value
+    return out
+
+
+def test_the_learner_manifest_parses_and_builds_a_port_learner(tmp_path):
+    """k8s/learner.yaml's args: every flag parses in the port as in the
+    reference; the comma-list broker_url refuses naming A.10d2; with one
+    endpoint, local paths and --platform cpu they build a Learner whose
+    obs, pool, ring, checkpoint and drain settings are the manifest's; a
+    gs:// remote refuses with its message. chip_smoke.py reads the same
+    args without yaml."""
+    import signal
+    import sys
+
+    import chip_smoke
+
+    args = _manifest_args()
+    assert chip_smoke.manifest_args() == args
+    tcfg, jcfg = parse_config(LearnerConfig(), args), j_parse_config(JLearnerConfig(), args)
+    _assert_same_fields(tcfg, jcfg)
+    assert tcfg.staging.pack_workers == 4 and tcfg.ckpt.drain_budget_s == 45.0 and tcfg.mesh_shape == "dp=-1"
+    with pytest.raises(NotImplementedError, match="A.10d2"):
+        tlearner.main(args + ["--platform", "cpu"])
+    local = _swap(_swap(args, "--broker_url", "mem://ln_manifest"), "--checkpoint_remote_dir", str(tmp_path / "remote"))
+    for flag, sub in (("--checkpoint_dir", "ck"), ("--log_dir", "logs"), ("--obs.dump_dir", "logs"),
+                      ("--obs.profile_dir", "logs")):
+        local = _swap(local, flag, str(tmp_path / sub))
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    local = _swap(local, "--obs.metrics_port", str(port)) + ["--platform", "cpu"]
+    cfg = parse_config(LearnerConfig(), local)
+    saved = sys.excepthook, threading.excepthook, signal.getsignal(signal.SIGTERM)
+    tmem.reset("ln_manifest")
+    learner = tlearner.Learner(cfg, tmem.MemoryBroker("ln_manifest"), device="cpu")
+    try:
+        assert learner.obs is not None and learner.obs.server.port == port and learner.obs.watchdog is not None
+        assert learner.obs.compute.timer is not None and learner.obs.compute.timer.overlap
+        assert learner.obs.watchdog.cfg.starvation_frac == 0.95
+        assert learner._ckpt_worker is not None and learner.checkpointer.mirror_stats() is not None
+        learner.staging.start()
+        assert learner.staging._pool.n == 4 and learner.staging._ring.depth == 2
+        learner.staging.stop()
+        learner.install_drain_handler()
+        signal.getsignal(signal.SIGTERM)(signal.SIGTERM, None)
+        assert learner.drain_requested and learner._drain_timer.interval == 45.0
+        learner._drain_timer.cancel()
+    finally:
+        learner.close()
+        sys.excepthook, threading.excepthook = saved[0], saved[1]
+        signal.signal(signal.SIGTERM, saved[2])
+    with pytest.raises(ValueError, match="URL scheme"):
+        tlearner.Learner(parse_config(LearnerConfig(), _swap(local, "--checkpoint_remote_dir", "gs://b/ck")),
+                         tmem.MemoryBroker("ln_manifest"), device="cpu")
+
+
+def test_a_mesh_beyond_one_device_is_refused(tmp_path):
+    cfg = _tcfg("ln_mesh", tmp_path, mesh_shape="dp=2")
+    with pytest.raises(NotImplementedError, match="ROADMAP A.14"):
+        tlearner.Learner(cfg, tmem.MemoryBroker("ln_mesh"), device="cpu")
+    assert tlearner.Learner(_tcfg("ln_mesh", tmp_path, mesh_shape="dp=1,tp=1"), tmem.MemoryBroker("ln_mesh"),
+                            device="cpu").version == 0

@@ -25,7 +25,7 @@ from dotaclient_tpu_torch.env import featurizer as F
 from dotaclient_tpu_torch.models import policy as P
 from dotaclient_tpu_torch.ops import action_dist as ad
 from dotaclient_tpu_torch.ops.batch import as_tensors
-from dotaclient_tpu_torch.runtime.actor import make_actor_step, make_batched_actor_step
+from dotaclient_tpu_torch.runtime.actor import make_batched_key_actor_step, make_key_actor_step
 from dotaclient_tpu_torch.transport.params import load_named, named_params
 
 REPO = Path(__file__).resolve().parents[1]
@@ -176,22 +176,17 @@ def test_state_helpers_and_device_rule(monkeypatch):
         P.PolicyNet(dataclasses.replace(cfg, arch="transformer"), device="cpu")
 
 
-def _copy(gen: torch.Generator) -> torch.Generator:
-    g = torch.Generator(device=gen.device)
-    g.set_state(gen.get_state())
-    return g
-
-
 def test_batched_actor_step_rows_match_single_step():
-    """Each row of a batched tick is bitwise the B=1 step of that row with
-    that row's generator (the reference's lax.map contract), also when the
-    row sits among other neighbours; sampling respects the masks."""
+    """Each row of a batched key-step tick is bitwise the B=1 key step of
+    that row with that row's key (the reference's lax.map contract), also
+    when the row sits among other neighbours; every key advances as its
+    own split; sampling respects the masks."""
     cfg = PolicyConfig(**SMALL)
     net = P.init_params(cfg, torch.Generator().manual_seed(1), "cpu")
     M = 6
     obs_seq = as_tensors(j_make_train_batch(JLearnerConfig(batch_size=M, seq_len=3, policy=JPolicyConfig(**SMALL)), 2).obs, "cpu")
-    step, single = make_batched_actor_step(cfg), make_actor_step(cfg)
-    gens = [torch.Generator().manual_seed(100 + i) for i in range(M)]
+    step, single = make_batched_key_actor_step(cfg), make_key_actor_step(cfg)
+    keys = np.stack([np.array([0, 100 + i], np.uint32) for i in range(M)])
     state = P.initial_state(cfg, (M,), "cpu")
     row = lambda tree, i: tuple(x[i : i + 1].clone() for x in tree)
     for t in range(4):
@@ -199,24 +194,24 @@ def test_batched_actor_step_rows_match_single_step():
         order = list(range(M)) if t < 3 else list(reversed(range(M)))
         obs = F.Observation(*(x[:, min(t, 2)][order] for x in obs_seq))
         prev = tuple(s[order] for s in state)
-        tick_gens = [gens[i] for i in order]
-        before = [_copy(g) for g in tick_gens]
-        new, action, logp, value = step(net, prev, obs, tick_gens)
+        tick_keys = keys[order]
+        new, action, logp, value, keys2 = step(net, prev, obs, tick_keys)
         assert (logp <= 0).all() and torch.isfinite(value).all()
         rows = torch.arange(M)
         assert obs.action_mask[rows, action.type].all()
         targeted = (action.type == F.ACT_ATTACK) | (action.type == F.ACT_CAST)
         assert obs.target_mask[rows, action.target][targeted].all()
         for j in range(M):
-            (c1, h1), a1, lp1, v1 = single(net, row(prev, j), F.Observation(*row(obs, j)), before[j])
+            (c1, h1), a1, lp1, v1, k1 = single(net, row(prev, j), F.Observation(*row(obs, j)), tick_keys[j])
             assert c1.shape == (1, 32) and a1.type.shape == lp1.shape == v1.shape == (1,)
             for x1, xb in zip((c1, h1, *a1, lp1, v1), (new[0], new[1], *action, logp, value)):
                 assert torch.equal(x1, xb[j : j + 1])
-            assert torch.equal(before[j].get_state(), tick_gens[j].get_state())  # each advanced its own stream
+            assert np.array_equal(k1, keys2[j]) and not np.array_equal(k1, tick_keys[j])  # each advanced its own key
         inverse = [order.index(i) for i in range(M)]
         state = tuple(s[inverse] for s in new)
-    with pytest.raises(ValueError, match="generators"):
-        step(net, prev, obs, gens[:2])
+        keys = keys2[inverse]
+    with pytest.raises(ValueError, match="keys"):
+        step(net, prev, obs, keys[:2])
 
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "etils", "ml_dtypes", "dotaclient_tpu")

@@ -51,6 +51,7 @@ from dotaclient_tpu.serve.server import InferenceServer as JInferenceServer
 from dotaclient_tpu.transport import serialize as jser
 from dotaclient_tpu.transport import tcp as jtcp
 from dotaclient_tpu_torch.config import (
+    SERVE_UNPORTED,
     InferenceConfig,
     LearnerConfig,
     PolicyConfig,
@@ -811,7 +812,7 @@ def test_batcher_resumes_a_ticks_requesters_before_the_next_tick():
 REFUSED_SERVE = [
     ("serve.handoff_endpoint", "127.0.0.1:13390", "A.12b"),
     ("serve.league_endpoint", "127.0.0.1:13400", "A.12c"),
-    ("obs.enabled", True, "A.13"),
+    ("obs.enabled", True, "A.13c"),
     ("chaos.enabled", True, "A.10j"),
 ]
 
@@ -830,7 +831,8 @@ def test_unported_serve_modes_are_refused(field, value, item):
 
 
 def test_every_unported_serve_mode_is_tested_and_the_defaults():
-    assert {r[0] for r in REFUSED_SERVE} == set(unported_flags(InferenceConfig()))
+    assert {r[0] for r in REFUSED_SERVE} == set(unported_flags(InferenceConfig())) | set(
+        unported_flags(InferenceConfig(), SERVE_UNPORTED))
     with pytest.raises(NotImplementedError, match="ROADMAP A.10d2"):
         tserver.main(["--platform", "cpu", "--broker_url", "amqp://guest@localhost/"])
     cfg = parse_config(InferenceConfig(), ["--serve.max_batch", "8", "--retry.window_s", "3"])

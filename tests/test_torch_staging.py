@@ -110,6 +110,8 @@ def _drain(staging, broker, frames, n_batches):
             batch, buf = staging.get_batch_groups(timeout=20.0)
             assert batch is not None, "staging produced no batch"
             bufs.append(np.asarray(buf).copy())
+            if staging.last_batch_lease is not None:  # a ring slot: back to the packers
+                staging.last_batch_lease.release()
         deadline = time.monotonic() + 20
         while staging.stats()["consumed"] < len(frames) and time.monotonic() < deadline:
             time.sleep(0.01)
@@ -119,17 +121,18 @@ def _drain(staging, broker, frames, n_batches):
         staging.stop()
 
 
-def _run_reference(jcfg, jio, frames, native, name):
+def _run_reference(jcfg, jio, frames, native, name, workers=1):
     jmem.reset(name)
-    s = JStagingBuffer(dataclasses.replace(jcfg, native_packer=native), jmem.MemoryBroker(name),
-                       version_fn=lambda: VERSION_NOW, fused_io=jio)
+    cfg = dataclasses.replace(jcfg, native_packer=native, staging=dataclasses.replace(jcfg.staging, pack_workers=workers))
+    s = JStagingBuffer(cfg, jmem.MemoryBroker(name), version_fn=lambda: VERSION_NOW, fused_io=jio)
     assert s.native == native
     return _drain(s, jmem.MemoryBroker(name), frames, 3)
 
 
-def _run_port(tcfg, tio, frames, native, name):
+def _run_port(tcfg, tio, frames, native, name, workers=1, depth=2):
     tmem.reset(name)
-    s = tstaging.StagingBuffer(dataclasses.replace(tcfg, native_packer=native), tmem.MemoryBroker(name),
+    staging = dataclasses.replace(tcfg.staging, pack_workers=workers, transfer_depth=depth)
+    s = tstaging.StagingBuffer(dataclasses.replace(tcfg, native_packer=native, staging=staging), tmem.MemoryBroker(name),
                                version_fn=lambda: VERSION_NOW, fused_io=tio)
     assert s.native == native
     return _drain(s, tmem.MemoryBroker(name), frames, 3)
@@ -159,6 +162,79 @@ def test_packed_buffers_and_counts_equal_the_reference(dtype, aux):
         assert {k: stats[k] for k in COUNTS} == {k: want_stats[k] for k in COUNTS}, arm
         assert stats["pending_rollouts"] == 3 and stats["active_actors"] == want_stats["active_actors"]
         assert [(e["reason"], e["bytes"], e["head"]) for e in q] == [(e["reason"], e["bytes"], e["head"]) for e in want_q], arm
+
+
+@pytest.mark.parametrize("native", [True, False], ids=["native", "python"])
+@pytest.mark.parametrize("workers", [2, 4])
+def test_sharded_pack_equals_the_single_pack_and_the_reference(native, workers):
+    """pack_workers N: the packed bytes equal pack_workers=1's and the
+    reference's N-worker pack (mixed DTR1/2/3, short rows, bad and stale
+    frames), the counts and quarantine too; the pool's scoreboard exists.
+    With a one-slot ring every batch reuses the slot the last one left."""
+    jcfg, tcfg = _cfgs("bfloat16", True)
+    jio, tio = _io_pair(jcfg, tcfg)
+    frames = frame_schedule(True)
+    tag = f"{native}_{workers}"
+    single = _run_port(tcfg, tio, list(frames), native, f"st_sh1_{tag}")
+    ref = _run_reference(jcfg, jio, list(frames), native, f"st_shr_{tag}", workers)
+    for depth in (1, 2):
+        bufs, stats, q = _run_port(tcfg, tio, list(frames), native, f"st_sh{depth}_{tag}", workers, depth)
+        for want_bufs, want_stats, want_q in (single, ref):
+            assert len(bufs) == len(want_bufs) == 3
+            for got, want in zip(bufs, want_bufs):
+                assert np.array_equal(got, want)
+            assert {k: stats[k] for k in COUNTS} == {k: want_stats[k] for k in COUNTS}
+            assert [(e["reason"], e["head"]) for e in q] == [(e["reason"], e["head"]) for e in want_q]
+        assert stats["pack_workers"] == workers and stats["pack_ring_depth"] == depth
+        assert stats["pack_rows_per_s"] > 0 and f"pack_worker_busy_s_{workers - 1}" in stats
+        assert {k for k in stats if k.startswith("pack_")} == {k for k in ref[1] if k.startswith("pack_")}
+    assert not any(k.startswith("pack_") for k in single[1])  # the classic path adds no meters
+
+
+def test_a_reused_ring_slot_packs_like_a_fresh_buffer():
+    """A slot packed with a full batch, released, then packed with short
+    rollouts: padding rows are zeros with the NOOP action mask again, and
+    the bytes equal a fresh alloc_transfer's."""
+    _, tcfg = _cfgs("float32", False)
+    tio = _io_pair(*_cfgs("float32", False))[1]
+    ring = tio.make_ring(1)
+    lib = load_packer()
+    full = [jser.serialize_rollout(make_rollout(L=T, H=H, version=VERSION_NOW, seed=400 + i)) for i in range(B)]
+    short = [jser.serialize_rollout(make_rollout(L=1, H=H, version=VERSION_NOW, seed=500 + i)) for i in range(B // 2)]
+    from dotaclient_tpu_torch import native
+
+    slot = ring.acquire(timeout=1)
+    native.pack_frames(lib, full, T, H, False, False, slot.batch, total_rows=B)
+    assert ring.acquire(timeout=0.05) is None and ring.occupancy == 1
+    slot.release()
+    slot.release()  # idempotent: the slot is in the free queue once
+    again = ring.acquire(timeout=1)
+    assert again is slot and ring._free.qsize() == 0
+    native.pack_frames(lib, short, T, H, False, False, again.batch, total_rows=B)
+    fresh_buf, fresh = tio.alloc_transfer()
+    native.pack_frames(lib, short, T, H, False, False, fresh, total_rows=B)
+    assert np.array_equal(again.payload.numpy(), fresh_buf.numpy())
+    with pytest.raises(ValueError, match="depth"):
+        tio.make_ring(0)
+
+
+def test_snapshot_and_restore_keep_pending_frames_in_order():
+    _, tcfg = _cfgs("float32", False)
+    tio = _io_pair(*_cfgs("float32", False))[1]
+    frames = [jser.serialize_rollout(make_rollout(L=2, H=H, version=VERSION_NOW, seed=600 + i)) for i in range(B - 1)]
+    for native in (True, False):
+        name = f"st_snap_{native}"
+        tmem.reset(name)
+        s = tstaging.StagingBuffer(dataclasses.replace(tcfg, native_packer=native), tmem.MemoryBroker(name),
+                                   version_fn=lambda: VERSION_NOW, fused_io=tio)
+        with s._mutate_lock:
+            s._ingest(list(frames))
+        snap = s.snapshot_state()
+        assert snap["pending"] == frames  # wire bytes, arrival order
+        fresh = tstaging.StagingBuffer(dataclasses.replace(tcfg, native_packer=native), tmem.MemoryBroker(name),
+                                       version_fn=lambda: VERSION_NOW, fused_io=tio)
+        assert fresh.restore_state(snap) == {"pending": B - 1}
+        assert fresh.snapshot_state() == snap
 
 
 def test_native_header_parse_matches_the_reference_packer():
@@ -223,7 +299,6 @@ def test_staging_refuses_what_is_not_ported():
     tio = _io_pair(*_cfgs("float32", False))[1]
     b = tmem.MemoryBroker("st_refuse")
     cases = [
-        (dataclasses.replace(tcfg, staging=dataclasses.replace(tcfg.staging, pack_workers=2)), "A.10e"),
         (dataclasses.replace(tcfg, staging=dataclasses.replace(tcfg.staging, assemble=True)), "A.10f"),
         (dataclasses.replace(tcfg, replay=dataclasses.replace(tcfg.replay, enabled=True)), "A.10g"),
     ]
@@ -232,3 +307,6 @@ def test_staging_refuses_what_is_not_ported():
             tstaging.StagingBuffer(cfg, b, fused_io=tio)
     with pytest.raises(ValueError, match="single transfer buffer"):
         tstaging.StagingBuffer(tcfg, b)
+    with pytest.raises(ValueError, match="pack_workers must be >= 1"):
+        tstaging.StagingBuffer(dataclasses.replace(tcfg, staging=dataclasses.replace(tcfg.staging, pack_workers=0)), b,
+                               fused_io=tio)
