@@ -62,10 +62,26 @@ Phases, in order; any failure exits non-zero:
               mirrored), restored locally and from the mirror (version
               at least the high-water mark); a drained learner's restart
               bitwise an uninterrupted run; then the tcp:// loop with 4
-              producer processes at pack_workers 1 and 4.
+              producer processes at pack_workers 1 and 4;
+10. learner fabric — the learner binary's main with k8s/learner.yaml's
+              args and its three-endpoint --broker_url (three port shard
+              processes with k8s/broker.yaml's args), fed by 4 producer
+              processes through the port's FabricBroker: 40 steps with
+              shard 1 SIGSTOPped until every producer has failed over and
+              SIGCONTed so its stale-epoch copies reach the fan-in; SIGTERM
+              drain, then a restart (see phase_learner_fabric); loop ms
+              over the fabric and over one endpoint in turns;
+11. serve manifest — the server binary with k8s/inference.yaml's args
+              (--platform the card), the port carry-store binary, a league
+              stand-in and phase 10's shards; 64 sessions on slots 0-3, the
+              server SIGKILLed halfway and a second one resuming every
+              session (see phase_serve_manifest).
 Each path of the main path (serving, learner forward, each train step,
-the reuse step, the learner loop, the manifest learner) is driven with
-the kernels' launch counters zeroed just before it and read just after. The last lines are one JSON object per kernel, the card line, and
+the reuse step, the learner loop, the manifest learner, the fabric
+learner, the serve manifest) is driven with the kernels' launch counters
+zeroed just before it and read just after (the serve manifest's servers
+are processes of their own, which start at 0 and report their count).
+The last lines are one JSON object per kernel, the card line, and
 {"ok": true, "device": {...}}.
 """
 
@@ -1083,21 +1099,38 @@ def phase_learner_tcp(device, card: str, free_pipelined_ms: float, steps: int = 
 
 
 MANIFEST = os.path.join(ROOT, "k8s", "learner.yaml")
+INFERENCE_MANIFEST = os.path.join(ROOT, "k8s", "inference.yaml")
+BROKER_MANIFEST = os.path.join(ROOT, "k8s", "broker.yaml")
 
 
-def manifest_args(path: str = MANIFEST) -> list:
-    """The learner container's args in k8s/learner.yaml, read without a
-    YAML parser: every `- "..."` item of its `args:` list, in order."""
-    out, inside = [], False
+def manifest_args(path: str = MANIFEST, container: int = 0) -> list:
+    """The args of the `container`-th `args:` list in a manifest, read
+    without a YAML parser: a block list of `- "..."` items, or a flow list
+    `["...", ...]` over one or more lines."""
+    lists, cur, flow = [], None, False
     for line in open(path):
         s = line.strip()
-        if s == "args:":
-            inside = True
-        elif inside and s.startswith("- "):
-            out.append(s[2:].strip('"'))
-        elif inside and s and not s.startswith("#"):
-            break
-    return out
+        if cur is None:
+            if s.startswith("args:"):
+                rest = s[len("args:"):].strip()
+                cur, flow = [], rest.startswith("[")
+                if flow:
+                    cur += [x.strip().strip('"') for x in rest.strip("[]").split(",") if x.strip()]
+                    if rest.endswith("]"):
+                        lists.append(cur)
+                        cur = None
+            continue
+        if flow:
+            cur += [x.strip().strip('"') for x in s.strip("[]").split(",") if x.strip()]
+            if s.endswith("]"):
+                lists.append(cur)
+                cur = None
+        elif s.startswith("- "):
+            cur.append(s[2:].strip('"'))
+        elif s and not s.startswith("#"):
+            lists.append(cur)
+            cur = None
+    return lists[container]
 
 
 def _free_port() -> int:
@@ -1789,6 +1822,1059 @@ def phase_serve(device, card: str, policy=None, clients: int = 4, per_client: in
     return out
 
 
+# ---------------------------------------------------------------- phase 10
+
+
+def _write_json(path: str, obj) -> None:
+    # a temporary name of this thread's own: two writers of one path never
+    # move each other's half-written file
+    tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
+    with open(tmp, "w") as f:
+        json.dump(obj, f)
+    os.replace(tmp, path)
+
+
+def _read_json(path: str):
+    try:
+        with open(path) as f:
+            return json.load(f)
+    except (OSError, ValueError):
+        return None
+
+
+def _scrape(port: int) -> dict:
+    code, body = _http("GET", f"http://127.0.0.1:{port}/metrics", timeout=30)
+    if code != 200:
+        raise SystemExit(f"/metrics on :{port} answered {code}")
+    return {ln.split()[0][len("dotaclient_"):]: float(ln.split()[1]) for ln in body.splitlines()
+            if ln and not ln.startswith("#")}
+
+
+def start_fabric_shards(n: int = 3):
+    """n port shard processes with k8s/broker.yaml's args, the host, port
+    and metrics port made local and ephemeral. Returns [(process, port,
+    metrics port)]."""
+    args = manifest_args(BROKER_MANIFEST)
+    out = []
+    for _ in range(n):
+        mport = _free_port()
+        flags = list(args)
+        for flag, value in (("--host", "127.0.0.1"), ("--port", "0"), ("--metrics_port", str(mport))):
+            flags[flags.index(flag) + 1] = value
+        proc = subprocess.Popen([sys.executable, "-m", "dotaclient_tpu_torch.transport.fabric", *flags], cwd=ROOT,
+                                stdout=subprocess.PIPE, text=True)
+        line = proc.stdout.readline().strip()
+        if not line.startswith("fabric shard listening on 127.0.0.1:") or "priority admission" not in line:
+            proc.kill()
+            raise SystemExit(f"fabric shard: unexpected ready line {line!r}")
+        out.append((proc, int(line.split(":")[1].split()[0]), mport))
+    return out
+
+
+def fabric_producer_main(argv) -> int:
+    """`chip_smoke.py --fabric-producer URL INDEX TOTAL SHARE LEAD DIR [learner flags]`:
+    an actor stand-in. Publishes TOTAL seeded DTR1 frames of the learner
+    config the flags give, SHARE at a time, through the port's broker
+    client for URL (a shard list builds the FabricBroker: rendezvous
+    routing, PUB_EXPP priorities, failover with epoch bumps), each frame
+    stamped with the newest DTW2 version polled and an actor_id unique to
+    this producer (INDEX * 64 + row % 64). Chunk k waits for version
+    k - LEAD. While the file DIR/hold exists it publishes nothing. Writes
+    DIR/producerINDEX.json with its counters every 0.1 s."""
+    from dotaclient_tpu_torch.config import LearnerConfig, parse_config
+    from dotaclient_tpu_torch.transport.base import BrokerShedError, connect
+
+    url, (index, total, share, lead), d = argv[0], (int(a) for a in argv[1:5]), argv[5]
+    cfg = parse_config(LearnerConfig(), argv[6:])
+    pool = [f[:13] + struct.pack("<I", index * 64 + i % 64) + f[17:]
+            for i, f in enumerate(rollout_frames(cfg, 1, seed0=1000 + index))]
+    broker = connect(url)
+    publish = broker.publish_experience_prioritized
+    rng = np.random.RandomState(index)
+    status, hold = os.path.join(d, f"producer{index}.json"), os.path.join(d, "hold")
+    st = dict(published=0, version=0, sheds=0, retries=0, held=False, done=False, failovers=0, down1=False)
+    last = 0.0
+
+    def report(force=False):
+        nonlocal last
+        if force or time.monotonic() - last > 0.1:
+            st["failovers"] = getattr(broker, "failovers_total", 0)
+            st["down1"] = bool(hasattr(broker, "_shard_up") and not broker._shard_up(1))
+            _write_json(status, st)
+            last = time.monotonic()
+
+    def poll():
+        try:
+            frame = broker.poll_weights()
+        except ConnectionError:
+            return
+        if frame is not None:
+            st["version"] = struct.unpack_from("<I", frame, 4)[0]
+
+    chunk = 0
+    while st["published"] < total:
+        poll()
+        st["held"] = os.path.exists(hold)
+        if st["held"] or st["version"] < chunk - lead:
+            report()
+            time.sleep(0.005)
+            continue
+        for _ in range(min(share, total - st["published"])):
+            f = pool[st["published"] % len(pool)]
+            frame = f[:4] + struct.pack("<I", st["version"]) + f[8:]
+            while True:
+                try:
+                    publish(frame, float(rng.rand()))
+                    break
+                except BrokerShedError:
+                    st["sheds"] += 1
+                    time.sleep(0.01)
+                except ConnectionError:
+                    st["retries"] += 1
+                    time.sleep(0.05)
+            st["published"] += 1
+            report()
+        chunk += 1
+    st["done"] = True
+    report(force=True)
+    broker.close()
+    return 0
+
+
+def _start_producers(url: str, d: str, n: int, total: int, share: int, lead: int = 1, extra=()):
+    os.makedirs(d, exist_ok=True)
+    return [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--fabric-producer", url, str(i), str(total),
+                              str(share), str(lead), d, *extra], cwd=ROOT) for i in range(n)]
+
+
+def _producer_status(d: str, n: int):
+    return [_read_json(os.path.join(d, f"producer{i}.json")) or {} for i in range(n)]
+
+
+def _wait(cond, timeout: float, what: str, procs=()):
+    deadline = time.monotonic() + timeout
+    while not cond():
+        if time.monotonic() > deadline:
+            raise SystemExit(f"learner fabric: timed out waiting for {what}")
+        if any(p.poll() not in (None, 0) for p in procs):
+            raise SystemExit(f"learner fabric: a producer exited {[p.poll() for p in procs]} waiting for {what}")
+        time.sleep(0.02)
+
+
+def _drain_shards(shards) -> None:
+    from dotaclient_tpu_torch.transport.tcp import TcpBroker
+
+    for _, port, _ in shards:
+        b = TcpBroker("127.0.0.1", port)
+        while b.consume_experience(1024, timeout=0.05):
+            pass
+        b.close()
+
+
+def _fabric_turn(kind: str, shards, args, tmp: str, extra, steps: int = 10, producers: int = 4):
+    """One timed arm: the manifest's learner over the fabric (`kind`
+    "fabric", the three shards) or over shard 0 alone as one tcp://
+    endpoint ("single"), fed by `producers` producer processes; the loop ms
+    per step of the second metrics window of 5 steps."""
+    from dotaclient_tpu_torch.config import LearnerConfig, parse_config
+    from dotaclient_tpu_torch.ops import lstm as L
+    from dotaclient_tpu_torch.runtime.learner import Learner
+    from dotaclient_tpu_torch.transport.base import connect
+
+    _drain_shards(shards)
+    urls = [f"tcp://127.0.0.1:{p}" for _, p, _ in shards]
+    url = ",".join(urls) if kind == "fabric" else urls[0]
+    flags = local_manifest(args, tmp, url, 0, extra=list(extra) + ["--metrics_every", "5"])
+    cfg = parse_config(LearnerConfig(), flags)
+    B = cfg.batch_size
+    procs = _start_producers(url, os.path.join(tmp, "prod"), producers, (steps + 1) * B // producers,
+                             B // producers, extra=extra)
+    learner = Learner(cfg, connect(url), device="cpu" if cfg.platform == "cpu" else None)
+    try:
+        L.LAUNCHES = 0
+        done = learner.run(num_steps=steps, batch_timeout=60.0, max_idle=3)
+        launches = L.LAUNCHES
+    finally:
+        learner.close()
+        learner.broker.close()
+        for p in procs:
+            stop_process(p)
+    if done != steps or launches != steps:
+        raise SystemExit(f"learner fabric turn ({kind}): {done} steps, {launches} kernel launches")
+    line = [json.loads(x) for x in open(os.path.join(cfg.log_dir, "metrics.jsonl"))][-1]
+    return _window_ms(line)
+
+
+def _fabric_backlog_turn(shards, args, tmp: str, extra, steps: int = 40, producers: int = 4, lead: int = 3):
+    """Shard 1 stopped while it holds frames it acknowledged. A learner
+    with the manifest's args over the three shards publishes v0 and does
+    not consume yet, so the lead + 1 batches the producer processes publish
+    first stay in the shards; shard 1 is SIGSTOPped with its part of them,
+    the run starts, and shard 1 is SIGCONTed once the fan-in has delivered
+    a republished (epoch-bumped) frame of every producer. A backlog frame
+    of a key whose epoch moved on is fenced: an acknowledged frame lost at
+    most once, and counted. The producers publish steps + 3 batches in all,
+    so the run still reaches `steps`. Checks the launches, the backlog's
+    size, the fan-in ledger (popped = delivered + fenced + dup), no (key,
+    seq) delivered twice, fence drops among the backlog's frames (each of a
+    key whose new epoch was delivered before), every backlog frame fenced,
+    delivered late or popped into a consume reply that never arrived (shard
+    1's pops less the fan-in's), and shard 1's own ledger."""
+    from dotaclient_tpu_torch.config import LearnerConfig, parse_config
+    from dotaclient_tpu_torch.ops import lstm as L
+    from dotaclient_tpu_torch.runtime.learner import Learner
+    from dotaclient_tpu_torch.transport import fabric as tfab
+    from dotaclient_tpu_torch.transport.base import connect
+    from dotaclient_tpu_torch.transport.tcp import TcpBroker
+
+    _drain_shards(shards)
+    urls = [f"tcp://127.0.0.1:{p}" for _, p, _ in shards]
+    url = ",".join(urls)
+    cfg = parse_config(LearnerConfig(), local_manifest(args, tmp, url, 0, extra=extra))
+    share = cfg.batch_size // producers
+    # producer p publishes its j-th frame with actor id (route key) p * 64 + (j % B) % 64, seqs in order per key
+    backlog, seqs = set(), {}
+    for p in range(producers):
+        for j in range((lead + 1) * share):
+            key = p * 64 + (j % cfg.batch_size) % 64
+            seq = seqs[key] = seqs.get(key, -1) + 1
+            if tfab.rendezvous_order(key, urls)[0] == 1:
+                backlog.add((key, seq))
+    pdir = os.path.join(tmp, "prod")
+    status = lambda: _producer_status(pdir, producers)  # noqa: E731
+    records, rec_lock, admit = [], threading.Lock(), tfab.ShardFence.admit
+
+    def recording(fence, key, boot, epoch, seq):
+        with rec_lock:  # the records keep the fence's own order
+            ok_ = admit(fence, key, boot, epoch, seq)
+            records.append((key, boot, epoch, seq, ok_))
+        return ok_
+
+    def republished_all():
+        with rec_lock:
+            return {k // 64 for k, _, e, _, ok_ in records if ok_ and e >= 1} >= set(range(producers))
+
+    led_before = _scrape(shards[1][2])
+    learner = Learner(cfg, connect(url), device="cpu" if cfg.platform == "cpu" else None)
+    fb, procs, errors, marks = learner.broker, [], [], {}
+    stopped = threading.Event()
+
+    def orchestrate():
+        try:
+            _wait(republished_all, 180, "a republished frame of every producer", procs)
+            marks["failovers"] = [s.get("failovers") for s in status()]
+        except BaseException as e:
+            errors.append(e)
+        finally:
+            os.kill(shards[1][0].pid, signal.SIGCONT)
+            marks["t_cont"] = time.perf_counter()
+
+    runner = threading.Thread(target=orchestrate, daemon=True, name="chip-smoke-backlog")
+    try:
+        learner.publish_weights()  # v0: the producers pace on it
+        procs = _start_producers(url, pdir, producers, (steps + 3) * share, share, lead=lead, extra=extra)
+        _wait(lambda: all(s.get("published", 0) >= (lead + 1) * share for s in status()), 120, "the backlog", procs)
+        probe = TcpBroker("127.0.0.1", shards[1][1])
+        depth = probe.experience_depth()
+        probe.close()
+        tfab.ShardFence.admit = recording
+        os.kill(shards[1][0].pid, signal.SIGSTOP)
+        stopped.set()
+        marks["t_stop"] = time.perf_counter()
+        runner.start()
+        L.LAUNCHES = 0
+        done = learner.run(num_steps=steps, batch_timeout=60.0, max_idle=3)
+        launches = L.LAUNCHES
+        runner.join(timeout=240)
+        _wait(lambda: all(s.get("done") for s in status()), 300, "the producers to finish", procs)
+
+        def emptied():
+            for _, port, _ in shards:
+                b = TcpBroker("127.0.0.1", port)
+                n = b.experience_depth()
+                b.close()
+                if n:
+                    return False
+            return True
+
+        _wait(emptied, 120, "the fan-in to pop every shard empty")
+        fb.quiesce()
+        _wait(lambda: fb.fanin_residual() == fb._fanin.qsize(), 30, "the pop threads to settle")
+        fst = fb.fabric_stats()
+        led = _scrape(shards[1][2])
+    finally:
+        tfab.ShardFence.admit = admit
+        if stopped.is_set() and "t_cont" not in marks:
+            os.kill(shards[1][0].pid, signal.SIGCONT)
+        learner.close()
+        fb.close()
+        for p in procs:
+            stop_process(p)
+    if errors:
+        raise SystemExit(f"learner fabric backlog: {errors[0]!r}")
+    popped = [fst[f"broker_shard_{i}_popped_total"] for i in range(3)]
+    delivered, fenced, dups = (fst["fanin_delivered_total"], fst["fanin_fence_dropped_total"],
+                               fst["fanin_dup_dropped_total"])
+    first_bump = {}
+    for n, (k, _, e, _, ok_) in enumerate(records):
+        if ok_ and e >= 1:
+            first_bump.setdefault(k, n)
+    admitted = [(k, b, q) for k, b, _, q, ok_ in records if ok_]
+    fenced_late = [(n, k) for n, (k, _, e, q, ok_) in enumerate(records) if not ok_ and e == 0 and (k, q) in backlog]
+    delivered_late = sum(1 for k, _, e, q, ok_ in records if ok_ and e == 0 and (k, q) in backlog)
+    # pops of shard 1 the fan-in never received: consumes that timed out while it was stopped, answered after
+    lost = int(led["broker_shard_popped_total"] - led_before["broker_shard_popped_total"] - popped[1])
+    unseen = len(backlog) - len(fenced_late) - delivered_late
+    problems = []
+    if done != steps or launches != steps:
+        problems.append(f"{done} steps, {launches} kernel launches (expected {steps})")
+    if depth != len(backlog):
+        problems.append(f"shard 1 held {depth} frames at the stop, the producers' acknowledged backlog there is "
+                        f"{len(backlog)}")
+    if sum(popped) != delivered + fenced + dups:
+        problems.append(f"popped {popped} vs delivered {delivered} + fenced {fenced} + dups {dups}")
+    if len(set(admitted)) != len(admitted) or len(admitted) != delivered:
+        problems.append(f"{len(admitted) - len(set(admitted))} (key, seq) delivered twice")
+    if not fenced_late or any(first_bump.get(k, n) >= n for n, k in fenced_late):
+        problems.append(f"{len(fenced_late)} backlog frames fenced, not each after its key's new epoch")
+    if not 0 <= unseen <= lost:
+        problems.append(f"backlog {len(backlog)}: fenced {len(fenced_late)}, delivered late {delivered_late}, "
+                        f"popped by shard 1 into replies that never arrived {lost}")
+    if led["broker_shard_enqueued_total"] != led["broker_shard_popped_total"] + led["broker_shard_dropped_total"] + \
+            led["broker_shard_evicted_low_total"] + led["broker_shard_resident"]:
+        problems.append(f"shard 1 ledger {led}")
+    if problems:
+        raise SystemExit(f"learner fabric backlog: {problems}")
+    return dict(steps=steps, launches=launches, backlog=len(backlog), stopped_s=marks["t_cont"] - marks["t_stop"],
+                failovers=marks["failovers"], popped=popped, delivered=delivered, fence_dropped=fenced,
+                dup_dropped=dups, backlog_fenced=len(fenced_late), backlog_delivered_late=delivered_late,
+                backlog_reply_lost=unseen, shard1_reply_lost=lost)
+
+
+def phase_learner_fabric(card: str, single_window_ms, steps: int = 40, producers: int = 4, extra=()):
+    """Phase 10: the port learner binary's main with k8s/learner.yaml's
+    args, its three-endpoint --broker_url kept (three port shard processes
+    with k8s/broker.yaml's args), fed by `producers` producer processes
+    through the port's FabricBroker. Mid-run shard 1 is SIGSTOPped (once
+    the producers are held and it holds nothing) until every producer has
+    failed over and has it cooling down, then SIGCONTed, so the copies it
+    took while stopped reach the fan-in with stale epochs. The producers
+    supply exactly `steps` batches and half a batch; then SIGTERM drains
+    the learner. Checks the launches, the fan-in ledger (popped =
+    delivered + fence_dropped + dup_dropped, drops > 0), no (key, seq)
+    delivered twice, an empty fan-in residual, every delivered frame
+    trained or in the aux manifest, each shard's ledger, /metrics and
+    /healthz; restarts the learner (restore at the high-water mark, the
+    pending half batch plus half a batch published after: one step). Then
+    the loop ms per step over the fabric and over shard 0 as one endpoint,
+    in turns. Returns (result, shards): phase 11 reuses the shards."""
+    from dotaclient_tpu_torch.config import LearnerConfig, parse_config
+    from dotaclient_tpu_torch.ops import lstm as L
+    from dotaclient_tpu_torch.runtime import learner as tlearner
+    from dotaclient_tpu_torch.runtime.learner import decode_aux
+    from dotaclient_tpu_torch.transport import fabric as tfab
+    from dotaclient_tpu_torch.transport.tcp import TcpBroker
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fabric_")
+    args = manifest_args()
+    shards = start_fabric_shards(3)
+    ok = False
+    try:
+        urls = [f"tcp://127.0.0.1:{p}" for _, p, _ in shards]
+        url = ",".join(urls)
+        mport = _free_port()
+        flags = local_manifest(args, tmp, url, mport, extra=extra)
+        cfg = parse_config(LearnerConfig(), flags)
+        B = cfg.batch_size
+        share = B // producers
+        pdir = os.path.join(tmp, "prod")
+        total = steps * share + share // 2  # per producer: steps batches and half a batch in all
+        admitted, dropped, republished = [], [0], []
+        admit = tfab.ShardFence.admit
+
+        def recording(fence, key, boot, epoch, seq):
+            ok_ = admit(fence, key, boot, epoch, seq)
+            if ok_:
+                admitted.append((key, boot, seq))
+                if epoch:
+                    republished.append((key, boot, epoch, seq))
+            else:
+                dropped[0] += 1
+            return ok_
+
+        procs = _start_producers(url, pdir, producers, total, share, extra=extra)
+        errors, marks, main_done = [], {}, threading.Event()
+
+        def orchestrate():
+            try:
+                status = lambda: _producer_status(pdir, producers)  # noqa: E731
+                _wait(lambda: all(s.get("published", 0) >= 8 * share for s in status()), 300, "8 batches", procs)
+                marks["metrics_mid"] = _scrape(mport)
+                marks["healthz"] = _http("GET", f"http://127.0.0.1:{mport}/healthz")[0]
+                open(os.path.join(pdir, "hold"), "w").close()
+                _wait(lambda: all(s.get("held") for s in status()), 60, "the producers to hold", procs)
+                probe = TcpBroker("127.0.0.1", shards[1][1])
+                _wait(lambda: probe.experience_depth() == 0, 60, "shard 1 to empty")
+                probe.close()
+                os.kill(shards[1][0].pid, signal.SIGSTOP)
+                marks["t_stop"] = time.perf_counter()
+                os.remove(os.path.join(pdir, "hold"))
+                _wait(lambda: all(s.get("failovers", 0) >= 1 and s.get("down1") for s in status()), 180,
+                      "every producer to fail over", procs)
+                os.kill(shards[1][0].pid, signal.SIGCONT)
+                marks["t_cont"] = time.perf_counter()
+                marks["failovers_at_cont"] = [s.get("failovers") for s in status()]
+                # The copies shard 1 took in while stopped reach the fan-in only if no consume the learner
+                # timed out on is still queued there (its reply goes to a closed socket). As the reference's
+                # resurrection test does, also hand shard 1 a stale-epoch copy of frames that were delivered
+                # after a failover: the fence must drop each.
+                marks["natural_drops"] = dropped[0]
+                stale = [(k, b, e - 1, q) for k, b, e, q in republished[:8]]
+                if not stale:
+                    raise SystemExit("learner fabric: no frame was delivered after a failover")
+                payload = rollout_frames(cfg, 1, seed0=99)[0]
+                direct = TcpBroker("127.0.0.1", shards[1][1])
+                for k, b, e, q in stale:
+                    direct.publish_experience(tfab.wrap_fabric(payload, k, b, e, q))
+                direct.close()
+                marks["injected"] = len(stale)
+                _wait(lambda: dropped[0] >= marks["natural_drops"] + len(stale), 120,
+                      "the fence to drop the stale copies")
+                marks["t_fenced"] = time.perf_counter()
+                _wait(lambda: all(s.get("done") for s in status()), 300, "the producers to finish", procs)
+                seen = {"v": -1, "t": time.monotonic()}
+
+                def settled():
+                    v = _scrape(mport)["obs_learner_version"]
+                    if v != seen["v"]:
+                        seen.update(v=v, t=time.monotonic())
+                    return v >= steps or time.monotonic() - seen["t"] > 30
+
+                _wait(settled, 300, f"the learner to reach v{steps}")
+                marks["metrics_end"] = _scrape(mport)
+            except BaseException as e:  # the learner must stop either way
+                errors.append(e)
+            finally:
+                if not main_done.is_set():
+                    os.kill(os.getpid(), signal.SIGTERM)
+
+        saved = sys.excepthook, threading.excepthook, signal.getsignal(signal.SIGTERM)
+        tfab.ShardFence.admit = recording
+        runner = threading.Thread(target=orchestrate, daemon=True, name="chip-smoke-fabric")
+        try:
+            torch.cuda.synchronize()
+            L.LAUNCHES = 0  # the fabric learner's main path starts here
+            t0 = time.perf_counter()
+            runner.start()
+            learner = tlearner.main(flags)  # SIGTERM from the orchestrator drains it
+            wall_s = time.perf_counter() - t0
+            launches = L.LAUNCHES
+        finally:
+            main_done.set()
+            tfab.ShardFence.admit = admit
+            sys.excepthook, threading.excepthook = saved[:2]
+            signal.signal(signal.SIGTERM, saved[2])
+            runner.join(timeout=60)
+            for p in procs:
+                stop_process(p)
+        if errors:
+            raise SystemExit(f"learner fabric: {errors[0]!r}")
+        fb = learner.broker
+        fst = fb.fabric_stats()
+        popped = [fst[f"broker_shard_{i}_popped_total"] for i in range(3)]
+        delivered, fenced, dups = (fst["fanin_delivered_total"], fst["fanin_fence_dropped_total"],
+                                   fst["fanin_dup_dropped_total"])
+        stats = learner.staging.stats()
+        aux = decode_aux(open(os.path.join(cfg.checkpoint_dir, f"aux_{learner.version}.bin"), "rb").read())
+        pending = len(aux["staging"]["pending"])
+        hwm = int(open(os.path.join(cfg.checkpoint_dir, "version_hwm")).read())
+        shard_led = [_scrape(m) for _, _, m in shards]
+        problems = []
+        if launches != steps or learner.version != steps:
+            problems.append(f"{launches} kernel launches, version {learner.version} (expected {steps})")
+        if sum(popped) != delivered + fenced + dups or fenced + dups < marks["injected"]:
+            problems.append(f"popped {popped} vs delivered {delivered} + fenced {fenced} + dups {dups}")
+        if len(set(admitted)) != len(admitted) or len(admitted) != delivered:
+            problems.append(f"{len(admitted) - len(set(admitted))} (key, seq) delivered twice")
+        if fb.fanin_residual() != 0:
+            problems.append(f"fan-in residual {fb.fanin_residual()} after the drain")
+        if stats["consumed"] != delivered or stats["rows_packed"] != steps * B or \
+                delivered != stats["rows_packed"] + pending + stats["dropped_stale"] + stats["dropped_bad"]:
+            problems.append(f"delivered {delivered}, staging {stats}, {pending} in the aux manifest")
+        for i, led in enumerate(shard_led):
+            # a shard may pop into a reply its consumer no longer reads (a consume that timed out while
+            # it was stopped): never fewer than the fan-in received
+            if led["broker_shard_popped_total"] - led["broker_shard_reply_lost_total"] < popped[i]:
+                problems.append(f"shard {i} popped {led['broker_shard_popped_total']}, the fan-in got {popped[i]}")
+            if led["broker_shard_enqueued_total"] != led["broker_shard_popped_total"] + \
+                    led["broker_shard_dropped_total"] + led["broker_shard_evicted_low_total"] + \
+                    led["broker_shard_resident"]:
+                problems.append(f"shard {i} ledger {led}")
+        names = set(marks["metrics_end"])
+        if not any(n.startswith("fanin_") for n in names) or not any(n.startswith("broker_shard_") for n in names):
+            problems.append("the learner's /metrics lacks fanin_* or broker_shard_*")
+        if marks["healthz"] != 200:
+            problems.append(f"/healthz {marks['healthz']}")
+        if problems:
+            raise SystemExit(f"learner fabric: {problems}")
+
+        # the restart: restores at the high-water mark with the pending half batch
+        rdir = os.path.join(tmp, "restart_prod")
+        rprocs = _start_producers(url, rdir, 1, B - pending, B - pending, lead=10**6, extra=extra)
+        _wait(lambda: _producer_status(rdir, 1)[0].get("done"), 120, "the restart's frames", rprocs)
+        L.LAUNCHES = 0
+        restarted = tlearner.main(local_manifest(args, tmp, url, _free_port(), extra=list(extra) + [
+            "--train_steps", "1"]))
+        sys.excepthook, threading.excepthook = saved[:2]
+        signal.signal(signal.SIGTERM, saved[2])
+        last = [json.loads(x) for x in open(os.path.join(cfg.log_dir, "metrics.jsonl"))][-1]  # the restart's window
+        restart = dict(resume={k: v for k, v in last.items() if k.startswith("resume_")}, version=restarted.version,
+                       launches=L.LAUNCHES)
+        restarted.broker.close()
+        if restart["resume"].get("resume_pending_frames") != pending or restart["version"] != steps + 1 or \
+                restart["launches"] != 1 or restart["resume"].get("resume_restored_step") != steps or steps < hwm:
+            raise SystemExit(f"learner fabric: the restart {restart} (aux pending {pending}, high-water {hwm})")
+
+        probe = TcpBroker("127.0.0.1", shards[0][1])
+        final_weights = probe.poll_weights()  # the restart's last publish
+        probe.close()
+        backlog = _fabric_backlog_turn(shards, args, os.path.join(tmp, "backlog"), extra, steps, producers)
+        lines = [json.loads(x) for x in open(os.path.join(cfg.log_dir, "metrics.jsonl"))]
+        run_window_ms = statistics.median(_window_ms(r) for r in lines)
+        turns = {}
+        for i, kind in enumerate(("fabric", "single", "single", "fabric")):
+            turns.setdefault(kind, []).append(_fabric_turn(kind, shards, args, os.path.join(tmp, f"turn{i}"), extra))
+        # the turns' learners published their own versions: the shards get the restart's frame back for phase 11
+        pub = tfab.FabricBroker(urls)
+        pub.publish_weights(final_weights)
+        pub.close()
+        ok = True
+    finally:
+        if not ok:
+            for proc, _, _ in shards:
+                proc.kill()
+        shutil.rmtree(tmp, ignore_errors=True)
+    res = dict(
+        steps=steps, launches=launches, wall_ms=wall_s * 1e3 / steps, run_window_ms=run_window_ms,
+        stopped_s=marks["t_cont"] - marks["t_stop"], fenced_after_cont_s=marks["t_fenced"] - marks["t_cont"],
+        natural_drops=marks["natural_drops"], injected_stale=marks["injected"],
+        popped=popped, delivered=delivered, fence_dropped=fenced, dup_dropped=dups,
+        server_popped=[led["broker_shard_popped_total"] for led in shard_led],
+        server_reply_lost=[led["broker_shard_reply_lost_total"] for led in shard_led],
+        producer_failovers=marks["failovers_at_cont"], trained_rows=stats["rows_packed"], aux_pending=pending,
+        dropped_stale=stats["dropped_stale"], hwm=hwm, restart=restart,
+        weights_version=struct.unpack_from("<I", final_weights, 4)[0],
+        fabric_window_ms=turns["fabric"], single_window_ms=turns["single"],
+        manifest_phase9_window_ms=single_window_ms, backlog=backlog,
+    )
+    res["phase_s"] = time.perf_counter() - t_phase
+    lost = [int(a - b) for a, b in zip(res["server_popped"], popped)]
+    print(f"learner fabric: k8s/learner.yaml's args with its three-endpoint --broker_url (three port shards with "
+          f"k8s/broker.yaml's args, {producers} producer processes with priorities): {steps} steps, {launches} kernel "
+          f"launches; shard 1 stopped {res['stopped_s']:.1f} s until every producer failed over "
+          f"({marks['failovers_at_cont']}); fan-in popped {[int(x) for x in popped]} = delivered {int(delivered)} + "
+          f"fenced {int(fenced)} + dup {int(dups)} ({marks['natural_drops']} of the copies shard 1 took in while "
+          f"stopped dropped before {marks['injected']} stale-epoch copies were handed to it); no (key, seq) twice; residual 0 after the SIGTERM drain; "
+          f"trained {stats['rows_packed']} + aux {pending} + stale {stats['dropped_stale']} = delivered; frames the "
+          f"shards popped into replies that never arrived (consumes that timed out while shard 1 was stopped): "
+          f"{lost}; restart at v{steps} (high-water {hwm}) with {pending} pending, trained to v{steps + 1} "
+          f"| {card}", flush=True)
+    print(f"learner fabric: shard 1 stopped holding {backlog['backlog']} acknowledged frames for "
+          f"{backlog['stopped_s']:.1f} s (producer failovers {backlog['failovers']}), then {steps} more steps from "
+          f"producers publishing {steps + 3} batches: fan-in popped {[int(x) for x in backlog['popped']]} = delivered "
+          f"{int(backlog['delivered'])} + fenced {int(backlog['fence_dropped'])} + dup {int(backlog['dup_dropped'])}; "
+          f"of the backlog {backlog['backlog_fenced']} fenced (lost, each after its key's new epoch was delivered), "
+          f"{backlog['backlog_delivered_late']} delivered late, {backlog['backlog_reply_lost']} popped into replies "
+          f"that never arrived (shard 1 lost {backlog['shard1_reply_lost']}); {backlog['launches']} kernel launches "
+          f"| {card}", flush=True)
+    print(f"learner fabric: loop ms per step (second 5-step window, 4 producer processes, in turns F S S F): over the "
+          f"fabric {turns['fabric']}, over shard 0 as one tcp:// endpoint {turns['single']}; the 40-step run's median "
+          f"window {run_window_ms:.3f} ms (shard 1 stopped inside it); phase 9's single-endpoint mem:// window "
+          f"{single_window_ms} ms | {card}", flush=True)
+    print(f"learner fabric: phase {res['phase_s']:.1f} s | {card}", flush=True)
+    return res, shards
+
+
+# ---------------------------------------------------------------- phase 11
+
+
+class LeagueStandIn:
+    """The league service's serve-facing wire, standing in for the JAX
+    package's league/server.py (the card's machine has no JAX): GET
+    /assignments → {"assignments": {slot: {"name", "version"}}} and GET
+    /snapshot?name= → {"name", "version", "params": {flax name: {"dtype",
+    "shape", "b64"}}}, over `members` = {slot: (name, version, named
+    arrays)}."""
+
+    def __init__(self, members):
+        import base64
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+        from urllib.parse import parse_qs, urlparse
+
+        assignments = {"ok": True, "assignments": {str(m): {"name": n, "version": v}
+                                                   for m, (n, v, _) in members.items()}}
+        snapshots = {n: {"ok": True, "name": n, "version": v, "params": {
+            name: {"dtype": a.dtype.name, "shape": list(a.shape), "b64": base64.b64encode(a.tobytes()).decode("ascii")}
+            for name, a in named}} for n, v, named in members.values()}
+        self.requests = {"/assignments": 0, "/snapshot": 0}
+        outer = self
+
+        class Handler(BaseHTTPRequestHandler):
+            def do_GET(self):
+                url = urlparse(self.path)
+                if url.path == "/assignments":
+                    body = assignments
+                elif url.path == "/snapshot" and parse_qs(url.query).get("name", [""])[0] in snapshots:
+                    body = snapshots[parse_qs(url.query)["name"][0]]
+                else:
+                    self.send_error(404)
+                    return
+                outer.requests[url.path] += 1
+                data = json.dumps(body).encode()
+                self.send_response(200)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(data)))
+                self.end_headers()
+                self.wfile.write(data)
+
+            def log_message(self, fmt, *a):
+                pass
+
+        self.httpd = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.port = self.httpd.server_address[1]
+        threading.Thread(target=self.httpd.serve_forever, daemon=True, name="league-stand-in").start()
+
+    def stop(self):
+        self.httpd.shutdown()
+        self.httpd.server_close()
+
+
+def serve_binary_main(argv) -> int:
+    """`chip_smoke.py --serve-binary STATUS [server flags]`: the port
+    server binary's main with the flags, and a thread that writes the
+    recurrence kernel's launch count of this process to STATUS every 0.1 s
+    (a SIGKILLed server leaves its last count). SIGINT stops it cleanly."""
+    from dotaclient_tpu_torch.ops import lstm as L
+    from dotaclient_tpu_torch.serve import server as tserver
+
+    status, stop = argv[0], threading.Event()
+
+    def report():
+        while not stop.wait(0.1):
+            _write_json(status, {"launches": L.LAUNCHES})
+
+    reporter = threading.Thread(target=report, daemon=True)
+    reporter.start()
+    try:
+        tserver.main(argv[1:])
+    finally:
+        stop.set()
+        reporter.join()
+        _write_json(status, {"launches": L.LAUNCHES, "stopped": True})
+    return 0
+
+
+def resume_client_main(argv) -> int:
+    """`chip_smoke.py --serve-resume-client PORTFILE MODEL FIRST N EPISODES EP_LEN CARRY_EVERY OUT GO`:
+    sessions FIRST..FIRST+N-1 bound to serve slot MODEL over one
+    connection to the server PORTFILE names ({"port", "incarnation"}),
+    phase 8's seeded observations, keys and flags. When the connection
+    dies, every session waits for the next incarnation in PORTFILE and
+    takes the reference client's resume path: S_RESUME at its last
+    observed boundary with the carry's fingerprint (none before its
+    episode's first boundary, which is the episode start), the steps since
+    that boundary replayed (FLAG_REPLAY, outputs discarded, the current
+    key), then the failed step re-issued. Writes every real reply's (tick,
+    version), latencies by incarnation, the resume counts and every reply
+    of the sampled sessions to OUT."""
+    import asyncio
+
+    from dotaclient_tpu_torch.serve import wire as W
+    from dotaclient_tpu_torch.serve.handoff import carry_fingerprint
+
+    portfile, (model, first, n, episodes, ep_len, carry_every), out_path, go_path = (
+        argv[0], (int(a) for a in argv[1:7]), argv[7], argv[8])
+
+    async def run():
+        state = {"inc": 0}
+        pending = {}
+        live = asyncio.Event()
+        lock = asyncio.Lock()
+
+        async def connect(after: int):
+            while True:
+                info = _read_json(portfile)
+                if info and info["incarnation"] > after:
+                    break
+                await asyncio.sleep(0.01)
+            reader, writer = await asyncio.open_connection("127.0.0.1", info["port"])
+            writer.write(W.frame(W.S_INFO, W.encode_info_request(model)))
+            await writer.drain()
+            _, payload = await W.read_frame(reader)
+            reply = json.loads(payload)
+            if reply.get("model") != model:
+                raise RuntimeError(f"S_INFO bound model {reply.get('model')}, asked {model}")
+            state.update(inc=info["incarnation"], writer=writer, hidden=reply["lstm_hidden"])
+            asyncio.ensure_future(read_loop(reader, info["incarnation"]))
+            live.set()
+
+        async def read_loop(reader, inc):
+            try:
+                while True:
+                    mtype, payload = await W.read_frame(reader)
+                    fut = pending.pop(struct.unpack_from("<Q", payload)[0], None)
+                    if fut is not None and not fut.done():
+                        fut.set_result((mtype, payload))
+            except (asyncio.IncompleteReadError, ConnectionError, OSError):
+                pass
+            async with lock:
+                if state["inc"] == inc:  # the first to see this loss reconnects
+                    live.clear()
+                    for fut in list(pending.values()):
+                        if not fut.done():
+                            fut.set_exception(ConnectionError("server lost"))
+                    pending.clear()
+                    asyncio.ensure_future(connect(inc))
+
+        async def call(k, mtype, payload, inc):
+            """One request on connection `inc`; ConnectionError when that
+            connection is gone, even if a newer one is up (the session must
+            resume there first)."""
+            if not live.is_set() or state["inc"] != inc:
+                raise ConnectionError("server lost")
+            fut = asyncio.get_running_loop().create_future()
+            pending[k] = fut
+            try:
+                state["writer"].write(W.frame(mtype, payload))
+                await state["writer"].drain()
+            except (ConnectionError, OSError):
+                pass  # the read loop fails the future
+            return await asyncio.wait_for(fut, 300)
+
+        latency, ticks, sampled, counts = [], [], {}, dict(resumes=0, replayed=0, pre_boundary=0, at_start=0,
+                                                           carries={})
+
+        async def session(k):
+            key, rows, inc = np.array([0, k], np.uint32), [], state["inc"]
+            boundary, bcarry, chunk, on_server = 0, None, [], 0
+            for t in range(episodes * ep_len):
+                start, carry, bf16 = serve_flags(k, t % ep_len, carry_every)
+                if start:
+                    boundary, bcarry, chunk = 0, None, []
+                req = W.encode_step_request(k, serve_obs(k, t), key, episode_start=start, want_carry=carry,
+                                            obs_bf16=bf16)
+                t0 = time.perf_counter()
+                try:
+                    _, payload = await call(k, W.S_STEP, req, inc)
+                except ConnectionError:
+                    # resume on the next server: the boundary, the replay,
+                    # the failed step again
+                    while state["inc"] == inc or not live.is_set():
+                        await asyncio.sleep(0.005)
+                    inc = state["inc"]
+                    if start:
+                        counts["at_start"] += 1
+                    elif boundary:
+                        _, rp = await call(k, W.S_RESUME, W.encode_resume_request(
+                            k, boundary, carry_fingerprint(*bcarry)), inc)
+                        if W.decode_resume_response(rp).status != W.OK:
+                            raise RuntimeError(f"session {k}: S_RESUME at boundary {boundary} refused")
+                        counts["resumes"] += 1
+                    else:
+                        counts["pre_boundary"] += 1
+                    for j, tt in enumerate(chunk):
+                        _, rep = await call(k, W.S_STEP, W.encode_step_request(
+                            k, serve_obs(k, tt), key, episode_start=boundary == 0 and j == 0, obs_bf16=bf16,
+                            replay=True), inc)
+                        if W.decode_step_response(rep, state["hidden"]).status != W.OK:
+                            raise RuntimeError(f"session {k}: replay of step {tt} refused")
+                        counts["replayed"] += 1
+                    t0 = time.perf_counter()
+                    _, payload = await call(k, W.S_STEP, req, inc)
+                    on_server = 0
+                r = W.decode_step_response(payload, state["hidden"])
+                # (server, this session's step count on that server, ms, carry asked)
+                latency.append((inc, on_server, (time.perf_counter() - t0) * 1e3, carry))
+                on_server += 1
+                if r.status != W.OK:
+                    raise RuntimeError(f"session {k} step {t}: status {r.status}")
+                ticks.append((state["inc"], r.tick, r.version))
+                if carry:
+                    boundary, bcarry, chunk = t % ep_len + 1, r.carry, []
+                    counts["carries"][state["inc"]] = counts["carries"].get(state["inc"], 0) + 1
+                else:
+                    chunk.append(t)
+                if k in SERVE_SAMPLED_MANIFEST:
+                    rows.append({"version": r.version, "key": r.rng.tolist(), "action": r.action.tolist(),
+                                 "logp": int(np.float32(r.logp).view(np.uint32)),
+                                 "value": int(np.float32(r.value).view(np.uint32)),
+                                 "carry": None if r.carry is None else [x.tobytes().hex() for x in r.carry]})
+                key = r.rng
+            if rows:
+                sampled[k] = rows
+
+        await connect(0)
+        open(out_path + ".ready", "w").close()
+        while not os.path.exists(go_path):
+            await asyncio.sleep(0.002)
+        await asyncio.gather(*(session(k) for k in range(first, first + n)))
+        state["writer"].close()
+        return {"latency_ms": latency, "ticks": ticks, "sampled": sampled, "counts": counts}
+
+    result = asyncio.run(run())
+    with open(out_path, "w") as f:
+        json.dump(result, f)
+    return 0
+
+
+# two sessions of every client (one f32, one bf16 obs), replayed on the card
+SERVE_SAMPLED_MANIFEST = (0, 1, 16, 17, 32, 33, 48, 49)
+
+
+def _start_server(tmp: str, flags, name: str):
+    """The serve binary (through --serve-binary) with `flags`, in `tmp` (its
+    flight-recorder dumps land there). Returns (process, port, metrics
+    port, status file, seconds to the ready line)."""
+    status = os.path.join(tmp, f"{name}.status")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--serve-binary", status, *flags], cwd=tmp,
+                            stdout=subprocess.PIPE, text=True)
+    line = proc.stdout.readline()
+    try:
+        ready = json.loads(line)
+    except ValueError:
+        proc.kill()
+        raise SystemExit(f"serve manifest: {name} printed {line!r}")
+    return proc, ready["port"], int(flags[flags.index("--obs.metrics_port") + 1]), status, time.perf_counter() - t0
+
+
+def phase_serve_manifest(device, card: str, shards, phase8, weights_version: int, policy=None, clients: int = 4,
+                         per_client: int = 16, episodes: int = 2, ep_len: int = 48, carry_every: int = 16,
+                         extra=(), platform: str = ""):
+    """Phase 11: the port server binary with k8s/inference.yaml's args, its
+    endpoints local: the three fabric shards of phase 10 (slot 0's weights
+    are the learner's last publish there), the port carry-store binary
+    with the manifest's args, a league stand-in serving three seeded trees
+    for slots 1-3; `--platform ""` (the card) is the one changed value.
+    `clients` processes run `per_client` sessions each, client c on slot
+    c % 4, odd sessions with bf16 obs, the carry every `carry_every` steps.
+    Once half of the rows are served the server is SIGKILLed and a second
+    one started on the same store; the clients resume there. Checks the
+    league install time, every sampled reply bitwise the standalone key
+    step of its slot's net, no tick with two versions, resumes = sessions
+    cut after a boundary with 0 misses, the store's writes, the launch
+    counts, /metrics, /healthz and /debug/flight."""
+    from dotaclient_tpu_torch.config import PolicyConfig
+    from dotaclient_tpu_torch.env import featurizer as F
+    from dotaclient_tpu_torch.models import policy as P
+    from dotaclient_tpu_torch.ops.batch import as_tensors
+    from dotaclient_tpu_torch.runtime.actor import make_key_actor_step, net_like
+    from dotaclient_tpu_torch.serve import wire as W
+    from dotaclient_tpu_torch.serve.server import InferenceServer
+    from dotaclient_tpu_torch.transport.params import named_params
+    from dotaclient_tpu_torch.transport.serialize import deserialize_weights
+    from dotaclient_tpu_torch.transport.tcp import TcpBroker
+
+    t_phase = time.perf_counter()
+    cfg = PolicyConfig() if policy is None else policy
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_serve_manifest_")
+    sessions, steps = clients * per_client, episodes * ep_len
+    total = sessions * steps
+    args = manifest_args(INFERENCE_MANIFEST)
+    store_args = manifest_args(INFERENCE_MANIFEST, 1)
+    members = {m: (f"league_m{m}", 100 + m, named_params(P.init_params(cfg, torch.Generator().manual_seed(300 + m), "cpu")))
+               for m in (1, 2, 3)}
+    league = LeagueStandIn(members)
+    procs, servers = [], []
+    store_proc = None
+    try:
+        smport = _free_port()
+        sflags = list(store_args)
+        for flag, value in (("--port", "0"), ("--obs.metrics_port", str(smport))):
+            sflags[sflags.index(flag) + 1] = value
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join([ROOT] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+        store_proc = subprocess.Popen([sys.executable, "-m", "dotaclient_tpu_torch.serve.handoff", *sflags], cwd=tmp,
+                                      stdout=subprocess.PIPE, text=True, env=env)  # its flight dumps land in tmp
+        store_port = json.loads(store_proc.stdout.readline())["port"]
+        sync_s = float(args[args.index("--serve.league_sync_s") + 1])
+
+        def server_flags():
+            out = list(args)
+            for flag, value in (("--serve.port", "0"), ("--platform", platform),
+                                ("--broker_url", ",".join(f"tcp://127.0.0.1:{p}" for _, p, _ in shards)),
+                                ("--serve.handoff_endpoint", f"127.0.0.1:{store_port}"),
+                                ("--serve.league_endpoint", f"127.0.0.1:{league.port}"),
+                                ("--obs.metrics_port", str(_free_port()))):
+                out[out.index(flag) + 1] = value
+            return out + list(extra)
+
+        def boot(name):
+            srv = _start_server(tmp, server_flags(), name)
+            servers.append(srv)
+            t0 = time.perf_counter()
+            _wait(lambda: (lambda m: m["serve_league_syncs_total"] >= 3 and m["serve_version"] == weights_version)(
+                _scrape(srv[2])), 120, f"{name} to sync its league slots and weights", [srv[0]])
+            return srv, time.perf_counter() - t0  # ready line to installed
+
+        (proc1, port1, mport1, status1, _), install1 = boot("server1")
+        portfile, go = os.path.join(tmp, "server.json"), os.path.join(tmp, "go")
+        _write_json(portfile, {"port": port1, "incarnation": 1})
+        outs = []
+        for c in range(clients):
+            out = os.path.join(tmp, f"client{c}.json")
+            outs.append(out)
+            procs.append(subprocess.Popen([sys.executable, os.path.abspath(__file__), "--serve-resume-client", portfile,
+                                           str(c % 4), str(c * per_client), str(per_client), str(episodes), str(ep_len),
+                                           str(carry_every), out, go], cwd=ROOT))
+        _wait(lambda: all(os.path.exists(o + ".ready") for o in outs), 120, "the clients to connect", procs)
+        t0 = time.perf_counter()
+        open(go, "w").close()
+        _wait(lambda: _scrape(mport1)["serve_requests_total"] >= total // 2, 600, "half of the rows", procs)
+        before_kill = _scrape(mport1)
+        proc1.kill()  # SIGKILL
+        t_kill = time.perf_counter()
+        proc1.wait(timeout=30)
+        (proc2, port2, mport2, status2, _), install2 = boot("server2")
+        _write_json(portfile, {"port": port2, "incarnation": 2})
+        t_resume = time.perf_counter()
+        _wait(lambda: all(p.poll() is not None for p in procs), 900, "the clients to finish")
+        wall_s = time.perf_counter() - t0
+        if any(p.returncode for p in procs):
+            raise SystemExit(f"serve manifest: client exit codes {[p.returncode for p in procs]}")
+        stats2 = _scrape(mport2)
+        health = _http("GET", f"http://127.0.0.1:{mport2}/healthz")
+        flight = _http("GET", f"http://127.0.0.1:{mport2}/debug/flight")
+        store_stats = _scrape(smport)
+        proc2.send_signal(signal.SIGINT)
+        proc2.wait(timeout=60)
+        final2 = _read_json(status2) or {}
+        if proc2.returncode != 0 or not final2.get("stopped"):
+            raise SystemExit(f"serve manifest: server 2 did not stop cleanly on SIGINT (exit code {proc2.returncode}, "
+                             f"status {final2})")
+        launches = [(_read_json(status1) or {}).get("launches"), final2.get("launches")]
+        results = [json.load(open(o)) for o in outs]
+        probe = TcpBroker("127.0.0.1", shards[0][1])
+        weights = probe.poll_weights()
+        probe.close()
+    finally:
+        for p in procs:
+            stop_process(p)
+        for srv in servers:
+            if srv[0].poll() is None:
+                srv[0].kill()
+                srv[0].wait(timeout=30)
+        if store_proc is not None:
+            stop_process(store_proc)
+        league.stop()
+
+    problems = []
+    if max(install1, install2) > 2 * sync_s:
+        problems.append(f"league slots installed {install1:.2f} / {install2:.2f} s after the ready lines "
+                        f"(limit {2 * sync_s} s)")
+    # one batcher per slot, so a tick is (server, slot, tick); each client is one slot
+    by_tick = {}
+    for c, r in enumerate(results):
+        for inc, tick, version in r["ticks"]:
+            by_tick.setdefault((inc, c % 4, tick), set()).add(version)
+    mixed = {t: v for t, v in by_tick.items() if len(v) > 1}
+    rows = sum(len(r["ticks"]) for r in results)
+    if mixed or rows != total:
+        problems.append(f"{len(mixed)} ticks with two versions, {rows} of {total} rows")
+    counts = {k: sum(r["counts"][k] for r in results) for k in ("resumes", "replayed", "pre_boundary", "at_start")}
+    carries = [sum(r["counts"]["carries"].get(str(i), 0) for r in results) for i in (1, 2)]
+    cut = counts["resumes"] + counts["pre_boundary"] + counts["at_start"]
+    if stats2["serve_handoff_resumes_total"] != counts["resumes"] or stats2["serve_handoff_resume_misses_total"] != 0 \
+            or cut != sessions or stats2["serve_handoff_replayed_steps_total"] != counts["replayed"]:
+        problems.append(f"resumes: server {stats2['serve_handoff_resumes_total']} (misses "
+                        f"{stats2['serve_handoff_resume_misses_total']}, replayed "
+                        f"{stats2['serve_handoff_replayed_steps_total']}), clients {counts}")
+    lost_acks = store_stats["serve_handoff_store_puts_total"] - stats2["serve_handoff_store_writes_total"] - carries[0]
+    if stats2["serve_handoff_store_writes_total"] != carries[1] or not 0 <= lost_acks <= sessions:
+        problems.append(f"store writes: server 2 {stats2['serve_handoff_store_writes_total']} for {carries[1]} carry "
+                        f"replies; the store's puts {store_stats['serve_handoff_store_puts_total']}, server 1's carry "
+                        f"replies {carries[0]}")
+    if launches != [0, 0]:
+        problems.append(f"recurrence kernel launches {launches} (the T=1 cell is torch ops)")
+    names = set(stats2)
+    if not any(n.startswith("serve_") for n in names) or not any(n.startswith("actor_") for n in names) or \
+            health[0] != 200 or flight[0] != 200 or json.loads(flight[1]).get("role") != "serve":
+        problems.append(f"obs: /healthz {health[0]}, /debug/flight {flight[0]}")
+    if problems:
+        raise SystemExit(f"serve manifest: {problems}")
+
+    # the sampled sessions, replayed through the standalone key step on the card
+    template = P.init_params(cfg, torch.Generator().manual_seed(0), device)
+    nets = {(0, weights_version): net_like(template, deserialize_weights(weights)[0])}
+    for m, (_, v, named) in members.items():
+        nets[(m, v)] = net_like(template, named)
+    step = make_key_actor_step(cfg)
+    sampled = {int(k): rows_ for r in results for k, rows_ in r["sampled"].items()}
+    checked = 0
+    for k in sorted(sampled):
+        m, key = (k // per_client) % 4, np.array([0, k], np.uint32)
+        for i, row in enumerate(sampled[k]):
+            start, _, bf16 = serve_flags(k, i % ep_len, carry_every)
+            if start:
+                state = P.initial_state(cfg, (1,), device)
+            req = W.decode_step_request(W.encode_step_request(k, serve_obs(k, i), key, obs_bf16=bf16))
+            obs = as_tensors(F.stack([InferenceServer._canon_obs(req.obs)]), device)
+            state, action, logp, value, key = step(nets[(m, row["version"])], state, obs, key)
+            mine = (key.tolist(), [int(a.item()) for a in action], int(logp.cpu().numpy().view(np.uint32)[0]),
+                    int(value.cpu().numpy().view(np.uint32)[0]))
+            carry_ok = row["carry"] is None or row["carry"] == [x[0].cpu().numpy().tobytes().hex() for x in state]
+            if (row["key"], row["action"], row["logp"], row["value"]) != mine or not carry_ok:
+                raise SystemExit(f"serve manifest: session {k} (slot {m}) step {i} is not bitwise the standalone key "
+                                 f"step")
+            checked += 1
+    lat = {inc: np.array([ms for r in results for i, _, ms, _ in r["latency_ms"] if i == inc]) for inc in (1, 2)}
+    # past each session's first two steps on a server (a fresh process's first ticks load its kernels), and
+    # split by whether the step asked for the carry (its reply waits for the store's put)
+    warm = {(inc, c): np.array([ms for r in results for i, n, ms, cc in r["latency_ms"] if i == inc and n >= 2 and cc == c])
+            for inc in (1, 2) for c in (False, True)}
+    out = dict(sessions=sessions, rows=total, launches=launches, checked_rows=checked,
+               install_s=[install1, install2], resumes=counts["resumes"], pre_boundary=counts["pre_boundary"],
+               at_start=counts["at_start"], replayed=counts["replayed"], store_writes=[carries[0],
+                                                                                         stats2["serve_handoff_store_writes_total"]],
+               store_puts=store_stats["serve_handoff_store_puts_total"], lost_acks=lost_acks,
+               rows_per_s_server1=before_kill["actor_offered_steps_per_sec"],
+               rows_per_s_server2=stats2["actor_offered_steps_per_sec"],
+               occupancy=[before_kill["actor_batch_occupancy"] / 4, stats2["actor_batch_occupancy"] / 4],
+               p50_ms=[float(np.percentile(lat[i], 50)) for i in (1, 2)],
+               p99_ms=[float(np.percentile(lat[i], 99)) for i in (1, 2)],
+               step_p50_ms=[float(np.percentile(warm[(i, False)], 50)) for i in (1, 2)],
+               step_p99_ms=[float(np.percentile(warm[(i, False)], 99)) for i in (1, 2)],
+               carry_p50_ms=[float(np.percentile(warm[(i, True)], 50)) for i in (1, 2)],
+               carry_p99_ms=[float(np.percentile(warm[(i, True)], 99)) for i in (1, 2)],
+               first_steps_max_ms=[float(max(ms for r in results for i, n, ms, _ in r["latency_ms"] if i == inc and n < 2))
+                                   for inc in (1, 2)], wall_s=wall_s,
+               kill_to_resume_s=t_resume - t_kill, phase8_rows_per_s=phase8.get("rows_per_s"),
+               phase8_p50_ms=phase8.get("latency_p50_ms"), phase8_p99_ms=phase8.get("latency_p99_ms"))
+    out["phase_s"] = time.perf_counter() - t_phase
+    shutil.rmtree(tmp, ignore_errors=True)
+    print(f"serve manifest: k8s/inference.yaml's args (--platform the card; shards, carry store, league local): "
+          f"{sessions} sessions x {steps} steps on slots 0-3 ({clients} client processes); league slots installed "
+          f"{install1:.2f} / {install2:.2f} s after each server's ready line (limit {2 * sync_s:.0f}); SIGKILL at "
+          f"{int(before_kill['serve_requests_total'])} rows, the second server serving {out['kill_to_resume_s']:.2f} s "
+          f"later; {counts['resumes']} S_RESUME (0 misses), {counts['pre_boundary']} replays from the episode start, "
+          f"{counts['at_start']} cut at an episode start, {counts['replayed']} replayed steps; {checked} replies of "
+          f"{len(sampled)} sessions bitwise the standalone key step; no tick with two versions; store puts "
+          f"{int(out['store_puts'])} = {carries[0]} + {int(stats2['serve_handoff_store_writes_total'])} carry replies + "
+          f"{int(lost_acks)} lost at the kill; recurrence launches {launches}; /metrics, /healthz 200, /debug/flight "
+          f"| {card}", flush=True)
+    print(f"serve manifest: max_batch 8, gather 0.001 s, store on: server 1 {out['rows_per_s_server1']:.1f} rows/s "
+          f"(mean occupancy of the 4 slots {out['occupancy'][0]:.3f}), p50 {out['p50_ms'][0]:.2f} ms, p99 "
+          f"{out['p99_ms'][0]:.2f} ms (past each session's first two steps on it, steps without / with the carry: p50 "
+          f"{out['step_p50_ms'][0]:.2f} / {out['carry_p50_ms'][0]:.2f}, p99 {out['step_p99_ms'][0]:.2f} / "
+          f"{out['carry_p99_ms'][0]:.2f}; those first steps up to {out['first_steps_max_ms'][0]:.1f} ms); server 2 "
+          f"{out['rows_per_s_server2']:.1f} rows/s, p50 {out['p50_ms'][1]:.2f} ms, p99 {out['p99_ms'][1]:.2f} ms (without / "
+          f"with the carry: p50 {out['step_p50_ms'][1]:.2f} / {out['carry_p50_ms'][1]:.2f}, p99 {out['step_p99_ms'][1]:.2f} / "
+          f"{out['carry_p99_ms'][1]:.2f}; the first two up to {out['first_steps_max_ms'][1]:.1f} ms); phase 8 "
+          f"(max_batch 16, gather 0.005 s, no store) {out['phase8_rows_per_s']} rows/s, p50 {out['phase8_p50_ms']} ms, "
+          f"p99 {out['phase8_p99_ms']} ms; phase {out['phase_s']:.1f} s | {card}", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke needs an NVIDIA GPU", file=sys.stderr)
@@ -1796,6 +2882,7 @@ def main() -> int:
     from dotaclient_tpu_torch.ops import _kernels
     from dotaclient_tpu_torch.ops import lstm as L
 
+    t_smoke = time.perf_counter()
     device = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1826,6 +2913,12 @@ def main() -> int:
     loop["tcp4"] = phase_learner_tcp(device, card, loop["free_pipelined_ms"], producers=4)
     serve = phase_serve(device, card)  # zeroes the counters itself before its main path
     manifest = phase_learner_manifest(device, card)  # zeroes the counters itself before each path
+    fabric, shards = phase_learner_fabric(card, manifest["window_ms"])  # zeroes the counters itself
+    try:
+        serve_manifest = phase_serve_manifest(device, card, shards, serve, weights_version=fabric["weights_version"])
+    finally:
+        for proc, _, _ in shards:
+            stop_process(proc)
 
     main_case = cases[0]
     kernels = [
@@ -1861,8 +2954,13 @@ def main() -> int:
             "serve_server": serve,
             "launches_learner_manifest": manifest["launches"],
             "learner_manifest": manifest,
+            "launches_learner_fabric": fabric["launches"],
+            "learner_fabric": fabric,
+            "launches_serve_manifest": sum(serve_manifest["launches"]),
+            "serve_manifest": serve_manifest,
         }
     ]
+    print(f"smoke: {time.perf_counter() - t_smoke:.1f} s | {card}", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1875,4 +2973,10 @@ if __name__ == "__main__":
         sys.exit(serve_client_main(sys.argv[2:]))
     if sys.argv[1:2] == ["--tcp-producer"]:
         sys.exit(tcp_producer_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--fabric-producer"]:
+        sys.exit(fabric_producer_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--serve-binary"]:
+        sys.exit(serve_binary_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--serve-resume-client"]:
+        sys.exit(resume_client_main(sys.argv[2:]))
     sys.exit(main())

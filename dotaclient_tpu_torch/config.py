@@ -9,8 +9,8 @@ names and defaults; the learner refuses a non-default value with
 NotImplementedError naming its ROADMAP item. Settings only those modes
 read are left out, so their flags fail to parse.
 
-Binaries: the learner (`LearnerConfig`) and the inference server
-(`InferenceConfig`).
+Binaries: the learner (`LearnerConfig`), the inference server
+(`InferenceConfig`) and the carry store (`HandoffConfig`).
 """
 
 from __future__ import annotations
@@ -163,14 +163,6 @@ class ObsConfig:
 
 
 @dataclass
-class InferenceObsConfig:
-    """The inference server's obs switch; its obs runtime is not ported
-    (refused through SERVE_UNPORTED)."""
-
-    enabled: bool = False
-
-
-@dataclass
 class ChaosConfig:
     """Seeded fault injection around the broker; only the switch is
     ported (the binaries refuse it on)."""
@@ -211,13 +203,24 @@ class ServeConfig:
     gather_window_s: float = 0.005
     # Cadence of the weight-fanout poll (poke() wakes it early).
     weight_poll_s: float = 0.5
-    # Session continuity through a shared carry store (not ported; refused).
+    # Session continuity (serve/handoff.py): "host:port" of the shared
+    # carry store this replica writes each chunk-boundary carry to before
+    # the chunk-fill reply, and reads on S_RESUME. A comma list shards the
+    # store by rendezvous hash of the client key. "" = no store: S_RESUME
+    # is answered UNKNOWN_CLIENT.
     handoff_endpoint: str = ""
+    # Per-RPC budget against the carry store; a failed RPC is counted
+    # (serve_handoff_store_errors_total) and serving goes on.
+    handoff_timeout_s: float = 2.0
     # Resident model slots: slot 0 is the live hot-swapped tree, slots
-    # 1..N-1 hold frozen trees installed with swap_model().
+    # 1..N-1 hold frozen trees installed with swap_model() or the league
+    # sync.
     models: int = 1
-    # League service to sync frozen slots from (not ported; refused).
+    # League service "host:port" whose GET /assignments and GET /snapshot
+    # fill the frozen slots ("" = no sync; ignored with models 1).
     league_endpoint: str = ""
+    # Cadence of the league assignment poll, seconds.
+    league_sync_s: float = 5.0
 
 
 @dataclass
@@ -234,7 +237,9 @@ class InferenceConfig:
 
     serve: ServeConfig = field(default_factory=ServeConfig)
     policy: PolicyConfig = field(default_factory=PolicyConfig)
-    obs: InferenceObsConfig = field(default_factory=InferenceObsConfig)
+    # /metrics (serve_*, actor_*), /healthz, /debug/flight; the watchdog
+    # and the compute observer are the learner's and stay off here.
+    obs: ObsConfig = field(default_factory=ObsConfig)
     retry: RetryConfig = field(default_factory=RetryConfig)
     chaos: ChaosConfig = field(default_factory=ChaosConfig)
     # Weight-fanout source (the URL the actors use); the service only
@@ -244,6 +249,25 @@ class InferenceConfig:
     # from step zero.
     seed: int = 0
     platform: str = ""
+
+
+@dataclass
+class HandoffConfig:
+    """The carry-store binary's flags (`python -m
+    dotaclient_tpu_torch.serve.handoff`; reference: dotaclient_tpu/config.py
+    HandoffConfig): the session-continuity store the inference replicas
+    write chunk-boundary carries to. Stdlib and numpy only."""
+
+    # TCP port the store listens on (0 = pick a free port).
+    port: int = 13390
+    # Entries kept per session key; at least 2, so the previous boundary
+    # stays readable for a client whose chunk-fill reply a kill ate.
+    keep: int = 2
+    # The store shard ring this process belongs to, the same comma list
+    # the replicas get in --serve.handoff_endpoint ("" = one store); the
+    # ready line names it.
+    stores: str = ""
+    obs: ObsConfig = field(default_factory=ObsConfig)
 
 
 @dataclass
@@ -312,20 +336,10 @@ UNPORTED = {
     "multihost": (bool, "multi-process data parallelism", "A.14"),
     "profile_port": (bool, "the deprecated always-on profiler server (use POST /profile)", "A.13b"),
     "chaos.enabled": (bool, "the fault-injecting broker wrapper", "A.10j"),
-    "broker_shards": (bool, "the broker fabric's fan-in", "A.10d2"),
-    "serve.handoff_endpoint": (bool, "the carry store and S_RESUME session continuity", "A.12b"),
-    "serve.league_endpoint": (bool, "league sync of the frozen serve slots", "A.12c"),
 }
 
 
 _ABSENT = object()
-
-
-# The inference server's modes the port has not ported (its flag is shared
-# with the learner, which has that mode).
-SERVE_UNPORTED = {
-    "obs.enabled": (bool, "the inference server's obs runtime: /metrics, flight recorder", "A.13c"),
-}
 
 
 def flag_value(cfg, flag: str):

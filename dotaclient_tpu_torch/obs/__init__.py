@@ -1,21 +1,25 @@
-"""Learner observability (torch twin of dotaclient_tpu/obs/, the learner's
-part):
+"""Observability (torch twin of dotaclient_tpu/obs/) for the learner, the
+inference server, the carry store and the fabric shards:
 
 - obs/trace.py            per-hop latency histograms of trace-stamped
                           rollout frames (DTR2/DTR3) + the e2e actor→apply
                           scalar;
 - obs/flight_recorder.py  bounded ring of recent pipeline events, dumped to
-                          JSON on a crash, a staging layout error or SIGTERM;
+                          JSON on a crash, a staging layout error or SIGTERM,
+                          and served live on GET /debug/flight;
 - obs/http.py             stdlib /metrics, /healthz (503 once the watchdog
-                          trips) and POST /profile;
+                          trips), GET /debug/flight and POST /profile;
 - obs/compute.py          step-phase timer with CUDA-event fences, recompile
-                          sentinel, MFU, torch.profiler capture;
+                          sentinel, MFU, torch.profiler capture (learner);
 - obs/watchdog.py         liveness thread (stall/starvation/NaN/regression
-                          → log → dump → 503);
+                          → log → dump → 503; learner);
 - obs/registry.py         the documented scalar names.
 
 Everything is off by default (`--obs.enabled`): with it off no obs object
-exists and the staging and learner paths are the plain ones.
+exists and the staging, learner and serve paths are the plain ones. The
+inference server's runtime (role "serve") serves /metrics from its stats,
+/healthz and the flight recorder; the compute observer and the watchdog
+are attached by the learner only.
 """
 
 from __future__ import annotations
@@ -31,8 +35,8 @@ from dotaclient_tpu_torch.obs.watchdog import Watchdog
 
 
 class ObsRuntime:
-    """One learner process's observability bundle: recorder + tracer, then
-    the compute observer, the watchdog and the scrape server as attached."""
+    """One process's observability bundle: recorder + tracer, then the
+    compute observer, the watchdog and the scrape server as attached."""
 
     def __init__(self, cfg: ObsConfig, role: str):
         self.cfg = cfg
@@ -75,8 +79,9 @@ class ObsRuntime:
     def serve_metrics(self, sources: List[Callable[[], Dict[str, float]]],
                       health_provider: Optional[Callable[[], Dict]] = None, device="cpu") -> Optional[MetricsHTTPServer]:
         """Start /metrics when cfg.metrics_port > 0, with the tracer's and
-        the watchdog's scalars added to `sources`, /healthz and POST
-        /profile (captures land in profile_dir, else dump_dir, else cwd)."""
+        the watchdog's scalars added to `sources`, /healthz, GET
+        /debug/flight and POST /profile (captures land in profile_dir, else
+        dump_dir, else cwd)."""
         if self.cfg.metrics_port <= 0:
             return None
 
@@ -91,6 +96,7 @@ class ObsRuntime:
             list(sources) + [self.tracer.scalars, _watchdog_scalars],
             health_provider=health_provider,
             profile_handler=self.profiler.capture,
+            flight_provider=self.recorder.snapshot,
         ).start()
         return self.server
 

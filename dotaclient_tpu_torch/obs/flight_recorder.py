@@ -70,6 +70,34 @@ class FlightRecorder:
         with self._lock:
             self._sections[name] = provider
 
+    def snapshot(self, max_events: int = 256, max_bytes: int = 262144) -> dict:
+        """The GET /debug/flight view: the newest `max_events` events and
+        the dump sections, halved oldest-first (then the sections dropped)
+        until the JSON fits `max_bytes`. Touches no disk and marks no
+        reason, so a fleet-wide fan-in may hit every process at once."""
+        with self._lock:
+            events = list(self._ring)[-max(int(max_events), 0):]
+            recorded = self.events_recorded
+            providers = list(self._sections.items())
+        sections = {}
+        for name, provider in providers:
+            try:
+                sections[name] = provider()
+            except Exception:  # a recorder must never add a second failure
+                sections[name] = "<section provider failed>"
+        payload = {"role": self.role, "pid": os.getpid(), "time": time.time(), "events_recorded": recorded,
+                   "truncated": False, "events": events, "sections": sections}
+        while len(json.dumps(payload, default=str)) > max_bytes:
+            if payload["events"]:
+                half = len(payload["events"]) // 2
+                payload["events"] = payload["events"][-half:] if half else []
+            elif payload["sections"]:
+                payload["sections"] = {}
+            else:
+                break
+            payload["truncated"] = True
+        return payload
+
     # -------------------------------------------------------------- dump
 
     def dump(self, reason: str, once: bool = True) -> Optional[str]:

@@ -6,6 +6,9 @@ GET /healthz, and on-demand POST /profile capture.
 when its "ok" is true and 503 when not (the k8s liveness-probe contract).
 With no provider it is a plain 200 {"ok": true}.
 
+GET /debug/flight?max_events=N returns the flight recorder's bounded live
+snapshot (`flight_provider`), 404 when none is wired.
+
 POST /profile?seconds=N runs `profile_handler(seconds)` (obs/compute.py
 ProfileCapture) and returns {"trace_dir", "seconds"}; 409 while a capture
 is in flight, 500 when the capture fails (never an empty trace), 404 when
@@ -66,13 +69,15 @@ class MetricsHTTPServer:
 
     def __init__(self, port: int, sources: Optional[List[Callable[[], Dict[str, float]]]] = None,
                  health_provider: Optional[Callable[[], Dict]] = None,
-                 profile_handler: Optional[Callable[[float], object]] = None):
+                 profile_handler: Optional[Callable[[float], object]] = None,
+                 flight_provider: Optional[Callable[..., Dict]] = None):
         self._sources: List[Callable[[], Dict[str, float]]] = list(sources or [])
         self._httpd: Optional[ThreadingHTTPServer] = None
         self._thread: Optional[threading.Thread] = None
         self._requested_port = port
         self.health_provider = health_provider
         self.profile_handler = profile_handler
+        self.flight_provider = flight_provider
         # Boot-epoch fence for aggregators: a changed value tells a counter
         # reset (restart) from a counter loss.
         self._boot_epoch_ms = float(int(time.time() * 1000.0))
@@ -129,6 +134,22 @@ class MetricsHTTPServer:
                 elif route == "/healthz":
                     body = server.health()
                     self._reply_json(200 if body.get("ok", True) else 503, body)
+                elif route == "/debug/flight":
+                    provider = server.flight_provider  # one read
+                    if provider is None:
+                        self._reply_json(404, {"error": "no flight recorder wired on this surface"})
+                        return
+                    try:
+                        max_events = int(parse_qs(urlparse(self.path).query).get("max_events", ["256"])[0])
+                    except ValueError:
+                        max_events = 256
+                    try:
+                        body = dict(provider(max_events=max_events))
+                    except Exception as e:
+                        _log.exception("flight snapshot failed")
+                        self._reply_json(500, {"error": f"{type(e).__name__}: {e}"})
+                        return
+                    self._reply_json(200, body)
                 else:
                     self.send_error(404)
 

@@ -1,7 +1,8 @@
-"""Metric-name registry of the learner (the learner-side part of
-dotaclient_tpu/obs/registry.py, same names and meanings): every scalar the
-port's learner logs or serves on /metrics is named here, so dashboards and
-the reference's alert and control clauses resolve against the port.
+"""Metric-name registry (the part of dotaclient_tpu/obs/registry.py the
+port's binaries emit, same names and meanings): every scalar the port's
+learner, inference server, carry store and fabric shards log or serve on
+/metrics is named here, so dashboards and the reference's alert and control
+clauses resolve against the port.
 
 - SCALARS: exact names.
 - PREFIXES: documented families whose tails are data-dependent
@@ -75,6 +76,36 @@ SCALARS: Dict[str, str] = {
     "resume_reservoir_entries": "replay-reservoir entries rehydrated from the aux manifest",
     "resume_pending_frames": "staged-but-untrained frames re-injected from the aux manifest",
     "resume_restore_wall_s": "wall seconds from restore start to full-state rehydration",
+    # --- serve batcher (runtime/actor.py InferenceBatcher; the inference
+    #     server exports the actor_* family under the reference's names)
+    "actor_offered_steps_per_sec": "real env steps offered by this process per second",
+    "actor_batch_occupancy": "mean real-rows / capacity of the batched inference tick",
+    "actor_gather_wait_s": "mean per-tick wait assembling the batch (bounded by --gather_window_s)",
+    "actor_jit_step_s": "mean per-tick batched jit inference latency (incl. the one device_get)",
+    # --- inference service (serve/server.py)
+    "serve_requests_total": "policy-step requests handled (cumulative, all connections)",
+    "serve_unknown_client_total": "steps naming a client_key with no resident carry and no episode-start flag (server restarted/evicted; the client abandons the episode)",
+    "serve_bad_requests_total": "malformed step requests refused",
+    "serve_episode_resets_total": "carry resets on EPISODE_START flags (cumulative)",
+    "serve_evictions_total": "carries evicted on client disconnect (cumulative)",
+    "serve_weight_swaps_total": "param-tree hot-swaps applied between ticks (cumulative)",
+    "serve_version": "model version of the currently-serving param tree",
+    "serve_clients_connected": "live client connections",
+    "serve_carries_resident": "LSTM carries held server-side across all connections",
+    "serve_load_clients": "live client connections (the S_INFO load report's clients field)",
+    "serve_load_occupancy": "mean real-rows / capacity over the tick-occupancy histogram",
+    "serve_load_pending": "step requests queued for the next inference tick",
+    "serve_load_capacity": "batched-tick capacity (--serve.max_batch)",
+    # --- session continuity, server side (serve/server.py + serve/handoff.py)
+    "serve_handoff_store_writes_total": "chunk-boundary carries write-ahead-streamed to the shared store BEFORE the chunk-fill reply (cumulative)",
+    "serve_handoff_store_errors_total": "carry-store RPCs that failed (write or failover read); the affected sessions degrade to abandon-on-failover",
+    "serve_handoff_resumes_total": "sessions restored from the store on failover (S_RESUME answered OK; the client replays and the episode continues)",
+    "serve_handoff_resume_misses_total": "resume handshakes refused (no store, store miss, or no entry matching the client's boundary) — the client abandons",
+    "serve_handoff_replayed_steps_total": "FLAG_REPLAY steps served — buffered partial-chunk observations re-driven to rebuild a resumed session's mid-chunk carry",
+    # --- multi-model serve tier (serve/server.py, --serve.models > 1)
+    "serve_models_resident": "param-tree slots resident on this server (--serve.models)",
+    "serve_league_syncs_total": "league-assignment slot installs applied by the sync loop (--serve.league_endpoint; cumulative)",
+    "serve_league_sync_errors_total": "failed league assignment/snapshot polls — current slots keep serving",
     # --- obs watchdog (obs/watchdog.py)
     "watchdog_ok": "1 while /healthz serves 200, 0 once tripped",
     "watchdog_strikes": "escalation ladder position: max of consecutive failing checks (stall/NaN) and consecutive failing metrics windows (starvation/regression) — window strikes advance per logged window, not per check",
@@ -88,6 +119,29 @@ PREFIXES: Dict[str, str] = {
     "obs_": "live scrape-surface gauges (obs/__init__.py sources)",
     "pipeline_": "overlapped learner pipeline lane accounting (runtime/learner.py)",
     "staging_pack_": "parallel host feed scoreboard (sharded pack pool + transfer ring)",
+    # the learner's fabric fan-in (transport/fabric.py fabric_stats, only
+    # with a shard-list --broker_url): fanin_queue_depth, _delivered_total,
+    # _fence_dropped_total, _dup_dropped_total, _pop_threads, _keys_tracked,
+    # _publish_failovers_total, _publish_failed_total
+    "fanin_": "broker-fabric fan-in consumer ledgers (transport/fabric.py)",
+    # per-shard fabric meters, two emitters: the learner's fan-in
+    # (broker_shard_<i>_popped_total / _starved_s / _up, i = index in its
+    # shard list) and the shard binary's own /metrics (the un-indexed
+    # ledger broker_shard_enqueued_total / _popped_total / _dropped_total /
+    # _shed_total / _reply_lost_total / _evicted_low_total / _resident /
+    # _depth, transport/fabric.py shard_metrics_source)
+    "broker_shard_": "per-shard broker-fabric health (transport/fabric.py)",
+    # the shard binary's assembly-station ledger (all zero: A.10f)
+    "broker_assemble_": "in-network batch assembly ledger (transport/tcp.py assemble tier)",
+    # rows-per-fired-tick occupancy histogram: actor_tick_rows_<k>
+    "actor_tick_rows_": "rows-per-fired-tick occupancy histogram (runtime/actor.py InferenceBatcher)",
+    # the carry-store binary's /metrics (serve/handoff.py CarryStoreServer):
+    # serve_handoff_store_sessions, _puts_total, _gets_total, _hits_total,
+    # _misses_total, _stale_total, _requests_total, _bad_requests_total
+    "serve_handoff_store_": "carry-store service health (serve/handoff.py)",
+    # per-slot serve ledgers at --serve.models > 1: serve_model_requests_total_<m>,
+    # serve_model_swaps_total_<m>, serve_model_evictions_total_<m>, serve_model_version_<m>
+    "serve_model_": "per-model-slot serve tier ledgers (serve/server.py)",
 }
 
 

@@ -1020,6 +1020,12 @@ class Learner:
         scalars["wire_bytes_consumed_total"] = stats["wire_bytes"]
         scalars["wire_frames_obs_bf16_total"] = stats["wire_frames_obs_bf16"]
         scalars["wire_frames_obs_f32_total"] = stats["wire_frames_obs_f32"]
+        # the fabric's fanin_* / broker_shard_<i>_* scalars: local counters
+        # (no RPC), present only with a shard-list broker_url
+        fabric_stats = getattr(self.broker, "fabric_stats", None)
+        if fabric_stats is not None:
+            for k, v in fabric_stats().items():
+                scalars[k] = float(v)
         for k, v in stats.items():
             if k.startswith("pack_"):  # the parallel feed (pack_workers > 1)
                 scalars[f"staging_{k}"] = float(v)
@@ -1064,6 +1070,14 @@ def main(argv=None):
     logging.basicConfig(level=logging.INFO)
     cfg = parse_config(LearnerConfig(), argv)
     broker = broker_connect(cfg.broker_url, retry=RetryPolicy.from_config(cfg.retry))
+    if cfg.broker_shards:
+        # a learner of several consuming a disjoint shard subset: only a
+        # shard-list broker_url has shards to pick
+        restrict = getattr(broker, "restrict_consume_shards", None)
+        if restrict is None:
+            raise ValueError(f"--broker_shards={cfg.broker_shards!r} needs a broker fabric (comma-separated "
+                             f"--broker_url shard list); got {cfg.broker_url!r}")
+        restrict([int(s) for s in cfg.broker_shards.split(",") if s.strip()])
     learner = Learner(cfg, broker, device="cpu" if cfg.platform == "cpu" else None)
     if cfg.ckpt.drain_on_sigterm:
         # after the Learner (and its obs runtime's SIGTERM dump trigger)
@@ -1076,6 +1090,7 @@ def main(argv=None):
             _log.info("SIGTERM drain complete at version %d; exiting 0", learner.version)
     finally:
         learner.close()
+    return learner
 
 
 if __name__ == "__main__":

@@ -392,14 +392,40 @@ class StagingBuffer:
         self._fatal = e
         self._stop.set()
 
+    def _drain_residual(self, max_items: int, sink) -> None:
+        """The quiesced consumer's step (classic and pool mode): fetch the
+        fabric fan-in's residual (frames already popped off the shards) and
+        hand it to `sink`, pacing the loop when there is none. `_popping`
+        covers only the non-blocking fetch and the sink, so drained() sees
+        frames held in this thread's locals, and not the pacing sleep (or
+        drained() would read not-drained nearly always)."""
+        with self._mutate_lock:
+            self._popping = True
+        try:
+            frames = self._residual_frames(max_items)
+            if frames:
+                sink(frames)
+        finally:
+            with self._mutate_lock:
+                self._popping = False
+        if frames is None:
+            time.sleep(0.02)
+
     def _run(self) -> None:
         """The classic consumer (pack_workers=1): pop, parse and pack here."""
         B = self.cfg.batch_size
+
+        def _ingest_sink(frames):
+            with self._mutate_lock:
+                self._ingest(frames)
+
         while not self._stop.is_set():
             try:
                 if self._quiesce.is_set():
-                    frames = None  # draining: no new broker pops, pack what is pending
-                    time.sleep(0.02)
+                    # draining: no new broker pops; ingest the fabric's
+                    # residual and pack what is pending
+                    self._drain_residual(B, _ingest_sink)
+                    frames = None
                 else:
                     frames = self.broker.consume_experience(max_items=B, timeout=0.2)
                 if frames:
@@ -421,10 +447,20 @@ class StagingBuffer:
         else. The intake bound (4 drains) keeps an outrun learner from
         buffering the broker in its own memory."""
         B = self.cfg.batch_size
+
+        def _intake_sink(frames):
+            while not self._stop.is_set():
+                try:
+                    self._intake.put(frames, timeout=0.2)
+                    break
+                except queue.Full:
+                    continue
+
         while not self._stop.is_set():
             try:
                 if self._quiesce.is_set():
-                    time.sleep(0.02)
+                    # the fabric's residual flows on to the intake as usual
+                    self._drain_residual(B, _intake_sink)
                     continue
                 with self._mutate_lock:
                     self._popping = True
@@ -772,8 +808,23 @@ class StagingBuffer:
             self._pending_traces = [None] * len(restored)  # trace refs are process-local
         return {"pending": len(restored)}
 
+    def _residual_frames(self, max_items: int):
+        """Frames a fabric broker's pop threads took off the shards before
+        the quiesce (FabricBroker.consume_residual): popped frames, so the
+        drain ingests them. None on a broker without that station."""
+        residual = getattr(self.broker, "consume_residual", None)
+        if residual is None:
+            return None
+        return residual(max_items) or None
+
     def quiesce(self) -> None:
-        """Stop popping the broker; keep packing already-pending frames."""
+        """Stop popping the broker; keep packing already-pending frames. A
+        fabric broker quiesces with it (its pop threads stop taking new
+        frames off the shards) and its residual drains through
+        _residual_frames."""
+        broker_quiesce = getattr(self.broker, "quiesce", None)
+        if broker_quiesce is not None:
+            broker_quiesce()
         self._quiesce.set()
 
     def attach_prefetch_probe(self, probe: Callable[[], bool]) -> None:
@@ -786,8 +837,12 @@ class StagingBuffer:
         drain held by the pop thread or the intake queue, no batch mid-pack,
         fewer than B frames pending, the ready queue empty, and (by
         default) the prefetch lane holding nothing. Stations are checked
-        upstream first, the direction frames move."""
+        upstream first, the direction frames move; a fabric broker's fan-in
+        (frames popped off the shards, not yet ingested) is the first."""
         if not self._quiesce.is_set():
+            return False
+        fanin_residual = getattr(self.broker, "fanin_residual", None)
+        if fanin_residual is not None and fanin_residual():
             return False
         with self._mutate_lock:
             if self._popping:

@@ -2,8 +2,10 @@
 hot-swap (torch twin of dotaclient_tpu/serve/server.py).
 
 `python -m dotaclient_tpu_torch.serve.server --serve.port 13380
- --broker_url tcp://broker:13370`  (`--platform cpu` serves on the host;
-the default is the CUDA device). Once listening it prints one JSON line,
+ --broker_url tcp://broker:13370 --obs.enabled true --obs.metrics_port 9100`
+(`--platform cpu` serves on the host; the default is the CUDA device; a
+comma-separated `--broker_url` polls the broker fabric's shards). Once
+listening it prints one JSON line,
 `{"serving": true, "port": P}`, with the bound port (`--serve.port 0`
 picks a free one).
 
@@ -32,13 +34,24 @@ over the serve wire (serve/wire.py), byte for byte the reference's:
   fanout (a poll thread applying the actor's `apply_weight_frame` rules),
   from `swap_params` (a co-located publisher), or `swap_model` for the
   frozen slots of `--serve.models N`.
+- **Session continuity** (`--serve.handoff_endpoint`, serve/handoff.py):
+  on a WANT_CARRY step the carry is written to the shared store before
+  the reply goes out (a kill can lose the reply, never the entry); an
+  S_RESUME naming a boundary step and the carry's fingerprint restores
+  the stored carry, bit for bit, as the client's resident carry on the
+  serving device, and the client replays its buffered steps. A store
+  failure is counted and serving goes on; without a store S_RESUME is
+  answered UNKNOWN_CLIENT.
+- **League sync** (`--serve.league_endpoint`, `--serve.models` > 1): a
+  `serve-league-sync` thread polls the league service's GET /assignments
+  every `--serve.league_sync_s` and installs each changed slot's GET
+  /snapshot (base64 arrays under flax names) with `swap_model`. An outage
+  is counted and the slots keep serving.
+- **Obs** (`--obs.enabled`): /metrics from `stats()` (serve_*, actor_*,
+  handoff and league counters), /healthz and /debug/flight.
 
-Not ported, refused through config.UNPORTED: the carry store behind
-S_RESUME (`--serve.handoff_endpoint`, ROADMAP A.12b; S_RESUME is answered
-UNKNOWN_CLIENT, the reference's answer without a store), league sync of
-the frozen slots (`--serve.league_endpoint`, A.12c) and the chaos broker
-(`--chaos.enabled`, A.10j); through config.SERVE_UNPORTED, the server's
-obs runtime (`--obs.enabled`, A.13c).
+Not ported, refused through config.UNPORTED: the chaos broker
+(`--chaos.enabled`, ROADMAP A.10j).
 """
 
 from __future__ import annotations
@@ -55,7 +68,7 @@ import numpy as np
 import torch
 
 from dotaclient_tpu_torch import resolve_device
-from dotaclient_tpu_torch.config import SERVE_UNPORTED, InferenceConfig, refuse_unported
+from dotaclient_tpu_torch.config import InferenceConfig, refuse_unported
 from dotaclient_tpu_torch.env import featurizer as F
 from dotaclient_tpu_torch.models import policy as P
 from dotaclient_tpu_torch.ops.batch import as_tensors
@@ -67,14 +80,16 @@ _log = logging.getLogger(__name__)
 
 
 class _ClientConn:
-    """Per-connection state: the resident carries this connection owns, the
-    serve slot its S_INFO bound it to, and the lock serializing its
-    interleaved replies."""
+    """Per-connection state: the resident carries this connection owns, each
+    carry's episode position (completed steps: the episode_step its store
+    entries carry), the serve slot its S_INFO bound it to, and the lock
+    serializing its interleaved replies."""
 
     def __init__(self, writer: asyncio.StreamWriter):
         self.writer = writer
         self.lock = asyncio.Lock()
         self.carries: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
+        self.steps: Dict[int, int] = {}
         self.model = 0
 
     async def send(self, mtype: int, payload: bytes) -> None:
@@ -97,11 +112,13 @@ def serve_device(cfg: InferenceConfig) -> torch.device:
 class InferenceServer:
     """Asyncio inference service; `start()` runs it in a daemon thread.
     The param tree starts from `cfg.seed` as the port learner's does, so
-    the service answers before the first weight broadcast."""
+    the service answers before the first weight broadcast. `carry_store`
+    is any object with the CarryStoreClient API (a LocalCarryStore in
+    tests); without one, `--serve.handoff_endpoint` builds the TCP client,
+    and with neither the handoff module is not imported."""
 
-    def __init__(self, cfg: InferenceConfig, broker=None, device=None):
+    def __init__(self, cfg: InferenceConfig, broker=None, device=None, obs_runtime=None, carry_store=None):
         refuse_unported(cfg)
-        refuse_unported(cfg, table=SERVE_UNPORTED)
         if cfg.policy.arch != "lstm":
             raise ValueError(f"inference service requires policy.arch='lstm', got {cfg.policy.arch!r}")
         self.cfg = cfg
@@ -127,6 +144,11 @@ class InferenceServer:
         self.model_requests = [0] * self.models
         self.model_evictions = [0] * self.models
         self.model_swaps = [0] * self.models
+        self.league_syncs_total = 0
+        self.league_sync_errors_total = 0
+        self._synced: Dict[int, Tuple[str, int]] = {}  # slot → installed (name, version)
+        self._stop_sync = threading.Event()
+        self._sync_thread: Optional[threading.Thread] = None
         # loop-thread-written counters; stats() takes single reads
         self.first_request_t: Optional[float] = None
         self.requests_total = 0
@@ -135,6 +157,12 @@ class InferenceServer:
         self.episode_resets_total = 0
         self.evictions_total = 0
         self.weight_swaps_total = 0
+        if carry_store is None and cfg.serve.handoff_endpoint:
+            carry_store = _store_client(cfg.serve.handoff_endpoint, cfg.serve.handoff_timeout_s)
+        self._store = carry_store
+        self.handoff_writes_total = 0
+        self.handoff_write_errors_total = 0
+        self.resumes_total = 0
         self.resume_misses_total = 0
         self.replayed_steps_total = 0
         self._conns: set = set()
@@ -146,6 +174,7 @@ class InferenceServer:
         self._stop_poll = threading.Event()
         self._poke = threading.Event()
         self._poll_thread: Optional[threading.Thread] = None
+        self.obs = obs_runtime
 
     # ------------------------------------------------------------ weights
 
@@ -214,6 +243,43 @@ class InferenceServer:
                     self.model_swaps[0] += 1
                     self._bundles[0] = (self.params, self.version)
 
+    def _league_sync_once(self) -> None:
+        """One poll of the league service: fetch the slot map, install each
+        slot whose (name, version) changed. Stdlib HTTP: the sync is a wire
+        contract (GET /assignments → {"assignments": {slot: {"name",
+        "version"}}}, GET /snapshot?name= → {"version", "params": {flax
+        name: {"dtype", "shape", "b64"}}})."""
+        import base64
+        import urllib.request
+
+        ep = str(self.cfg.serve.league_endpoint)
+        timeout = max(1.0, float(self.cfg.serve.league_sync_s))
+        with urllib.request.urlopen(f"http://{ep}/assignments", timeout=timeout) as resp:
+            body = json.loads(resp.read().decode("utf-8", "replace"))
+        for slot_s, rec in (body.get("assignments") or {}).items():
+            m = int(slot_s)
+            if not 0 < m < self.models:
+                continue  # a larger league than this server holds slots for
+            want = (str(rec.get("name", "")), int(rec.get("version", 0)))
+            if self._synced.get(m) == want:
+                continue
+            with urllib.request.urlopen(f"http://{ep}/snapshot?name={want[0]}", timeout=timeout) as resp:
+                snap = json.loads(resp.read().decode("utf-8", "replace"))
+            named = [(str(name), np.frombuffer(base64.b64decode(arr["b64"]), dtype=np.dtype(arr["dtype"]))
+                      .reshape(arr["shape"])) for name, arr in (snap.get("params") or {}).items()]
+            self.swap_model(m, named, int(snap.get("version", want[1])))
+            self._synced[m] = want
+            self.league_syncs_total += 1
+            _log.info("serve: league sync installed %s v%d into slot %d", want[0], want[1], m)
+
+    def _league_sync_loop(self) -> None:
+        while not self._stop_sync.wait(float(self.cfg.serve.league_sync_s)):
+            try:
+                self._league_sync_once()
+            except Exception as e:  # league outage: keep serving the current slots
+                self.league_sync_errors_total += 1
+                _log.warning("serve: league sync failed (%s); retrying", e)
+
     # ------------------------------------------------------------- serving
 
     def _zero_state(self):
@@ -257,17 +323,36 @@ class InferenceServer:
             self.first_request_t = time.monotonic()
         new_state, action, logp, value, rng2 = row
         conn.carries[req.client_key] = new_state
+        ep_step = 1 if req.episode_start else conn.steps.get(req.client_key, 0) + 1
+        conn.steps[req.client_key] = ep_step
         carry = None
         if req.want_carry:
             carry = tuple(x[0].cpu().numpy() for x in new_state)
+            if self._store is not None:
+                # write-ahead: the entry lands before the reply that vouches
+                # for this boundary; a store failure degrades the session to
+                # abandon-on-failover and serving goes on. Store keys compose
+                # (client_key, model); model 0 is the bare key.
+                try:
+                    await self._store.put(W.compose_store_key(req.client_key, conn.model), ep_step, version,
+                                          carry[0], carry[1])
+                    self.handoff_writes_total += 1
+                except Exception as e:
+                    self.handoff_write_errors_total += 1
+                    _log.warning("serve: carry handoff write failed for client %d (%s); session degrades to "
+                                 "abandon-on-failover", req.client_key, e)
         resp = W.StepResponse(client_key=req.client_key, status=W.OK, version=version, tick=tick, rng=rng2,
                               action=action, logp=float(logp), value=float(value), carry=carry)
         await conn.send(W.R_STEP, W.encode_step_response(resp))
 
     async def _resume_request(self, conn: _ClientConn, payload: bytes) -> None:
-        """S_RESUME without a carry store (ROADMAP A.12b): refused with
-        UNKNOWN_CLIENT, so the client abandons the episode, as the
-        reference answers when it has no store."""
+        """Session continuity: restore the client's boundary carry from the
+        store and make it resident on the serving device, bit for bit, so
+        the replay steps that follow rebuild its mid-chunk carry. A task
+        like S_STEP, so a slow store read holds up no other env of the
+        connection. Any refusal (no store, miss, stale, width or
+        fingerprint mismatch) answers UNKNOWN_CLIENT: the client abandons
+        the episode."""
         try:
             req = W.decode_resume_request(payload)
         except Exception as e:
@@ -276,8 +361,37 @@ class InferenceServer:
             key = struct.unpack_from("<Q", payload)[0] if len(payload) >= 8 else 0
             await conn.send(W.R_RESUME, W.encode_resume_response(W.ResumeResponse(key, W.UNKNOWN_CLIENT)))
             return
-        self.resume_misses_total += 1
-        await conn.send(W.R_RESUME, W.encode_resume_response(W.ResumeResponse(req.client_key, W.UNKNOWN_CLIENT)))
+        entry = None
+        if self._store is not None:
+            try:
+                _, entry = await self._store.get(W.compose_store_key(req.client_key, conn.model), req.boundary_step)
+            except Exception as e:
+                self.handoff_write_errors_total += 1
+                _log.warning("serve: carry handoff read failed: %s", e)
+        if entry is not None and entry.c.size != self.cfg.policy.lstm_hidden:
+            _log.warning("serve: store entry width %d != lstm_hidden %d; refusing resume", entry.c.size,
+                         self.cfg.policy.lstm_hidden)
+            entry = None
+        if entry is not None:
+            from dotaclient_tpu_torch.serve.handoff import carry_fingerprint
+
+            # boundary steps repeat across a client's episodes: only the
+            # bytes the client holds may be restored
+            if carry_fingerprint(entry.c, entry.h) != req.carry_hash:
+                _log.warning("serve: store entry for client %d boundary %d fails the carry fingerprint; refusing "
+                             "resume", req.client_key, req.boundary_step)
+                entry = None
+        if entry is None:
+            self.resume_misses_total += 1
+            await conn.send(W.R_RESUME, W.encode_resume_response(W.ResumeResponse(req.client_key, W.UNKNOWN_CLIENT)))
+            return
+        # f32 host → device with no dtype change: the replayed rows stay bitwise
+        conn.carries[req.client_key] = tuple(
+            torch.from_numpy(np.ascontiguousarray(x, np.float32)[None]).to(self.device) for x in (entry.c, entry.h))
+        conn.steps[req.client_key] = int(entry.episode_step)
+        self.resumes_total += 1
+        await conn.send(W.R_RESUME, W.encode_resume_response(
+            W.ResumeResponse(req.client_key, W.OK, int(entry.version), int(entry.episode_step))))
 
     async def _handle(self, reader: asyncio.StreamReader, writer: asyncio.StreamWriter):
         conn = _ClientConn(writer)
@@ -322,6 +436,7 @@ class InferenceServer:
             self.evictions_total += len(conn.carries)
             self.model_evictions[conn.model] += len(conn.carries)
             conn.carries.clear()
+            conn.steps.clear()
             self._conns.discard(conn)
             for t in tasks:
                 t.cancel()
@@ -354,6 +469,11 @@ class InferenceServer:
         for d in tick_loops:
             d.cancel()
         await asyncio.gather(*tick_loops, return_exceptions=True)
+        if self._store is not None:
+            try:
+                await self._store.close()
+            except Exception:
+                pass
 
     def _warm(self) -> None:
         """One row step before listening: the first client request does not
@@ -390,10 +510,16 @@ class InferenceServer:
         if self.broker is not None:
             self._poll_thread = threading.Thread(target=self._poll_weights_loop, daemon=True, name="serve-weights")
             self._poll_thread.start()
+        if self.models > 1 and str(self.cfg.serve.league_endpoint):
+            self._sync_thread = threading.Thread(target=self._league_sync_loop, daemon=True, name="serve-league-sync")
+            self._sync_thread.start()
+        if self.obs is not None:
+            self.obs.serve_metrics([self.stats], health_provider=self._health, device=self.device)
         return self
 
     def stop(self) -> None:
         self._stop_poll.set()
+        self._stop_sync.set()
         self._poke.set()
         loop = self._loop
         if loop is not None and not loop.is_closed():
@@ -405,12 +531,16 @@ class InferenceServer:
             self._thread.join(timeout=10)
         if self._poll_thread:
             self._poll_thread.join(timeout=5)
+        if self._sync_thread:
+            self._sync_thread.join(timeout=5)
+        if self.obs is not None:
+            self.obs.close()
 
     # ------------------------------------------------------------- surface
 
     def stats(self) -> dict:
         """The batchers' actor_* family (summed over slots) and the serve_*
-        counters the reference reports for the modes the port has."""
+        counters, the handoff and league ones included."""
         out = dict(self.batcher.stats())
         for b in self.batchers[1:]:
             for k, v in b.stats().items():
@@ -426,9 +556,14 @@ class InferenceServer:
             "serve_version": float(self._bundle[1]),
             "serve_clients_connected": float(len(conns)),
             "serve_carries_resident": float(sum(len(c.carries) for c in conns)),
+            "serve_handoff_store_writes_total": float(self.handoff_writes_total),
+            "serve_handoff_store_errors_total": float(self.handoff_write_errors_total),
+            "serve_handoff_resumes_total": float(self.resumes_total),
             "serve_handoff_resume_misses_total": float(self.resume_misses_total),
             "serve_handoff_replayed_steps_total": float(self.replayed_steps_total),
             "serve_models_resident": float(self.models),
+            "serve_league_syncs_total": float(self.league_syncs_total),
+            "serve_league_sync_errors_total": float(self.league_sync_errors_total),
         })
         load = self.load()
         for k in ("clients", "occupancy", "pending", "capacity"):
@@ -465,19 +600,37 @@ class InferenceServer:
             "load": self.load(),
         }
 
+    def _health(self) -> dict:
+        """The /healthz body."""
+        return {"ok": True, "role": "serve", "version": self._bundle[1], "clients": len(list(self._conns))}
+
+
+def _store_client(endpoint: str, timeout_s: float):
+    """The carry-store client `--serve.handoff_endpoint` names: one
+    host:port, or a comma list sharded by rendezvous hash of the key."""
+    from dotaclient_tpu_torch.serve.handoff import CarryStoreClient, ShardedCarryStore
+
+    if "," in endpoint:
+        return ShardedCarryStore(endpoint, timeout_s=timeout_s)
+    host, sep, port = endpoint.rpartition(":")
+    if not sep or not port.isdigit():
+        raise ValueError(f"--serve.handoff_endpoint must be host:port, got {endpoint!r}")
+    return CarryStoreClient(host or "127.0.0.1", int(port), timeout_s=timeout_s)
+
 
 def main(argv=None):
     from dotaclient_tpu_torch.config import parse_config
+    from dotaclient_tpu_torch.obs import ObsRuntime
     from dotaclient_tpu_torch.transport.base import RetryPolicy
     from dotaclient_tpu_torch.transport.base import connect as broker_connect
 
     logging.basicConfig(level=logging.INFO)
     cfg = parse_config(InferenceConfig(), argv)
     refuse_unported(cfg)
-    refuse_unported(cfg, table=SERVE_UNPORTED)
     device = serve_device(cfg)
     broker = broker_connect(cfg.broker_url, retry=RetryPolicy.from_config(cfg.retry))
-    server = InferenceServer(cfg, broker, device=device).start()
+    obs = ObsRuntime.create(cfg.obs, role="serve")
+    server = InferenceServer(cfg, broker, device=device, obs_runtime=obs).start()
     print(json.dumps({"serving": True, "port": server.port}), flush=True)
     try:
         while True:

@@ -7,9 +7,11 @@ Semantics every implementation honours:
 - weights: fanout with latest-wins; subscribers poll and only ever see
   the newest frame, never a backlog.
 
-Two schemes are ported: `mem://<name>` (in-process) and `tcp://host:port`
-(the framework's own broker, transport/tcp.py; its server is
-`python -m dotaclient_tpu_torch.transport.tcp_server`). The learner also
+Ported: `mem://<name>` (in-process), `tcp://host:port` (the framework's
+own broker, transport/tcp.py; its server is
+`python -m dotaclient_tpu_torch.transport.tcp_server`) and a
+comma-separated list of them, the broker fabric (transport/fabric.py; a
+shard is `python -m dotaclient_tpu_torch.transport.fabric`). The learner also
 accepts any object with the `Broker` surface, so a test can hand it the
 reference package's broker and a JAX actor fleet can feed it.
 """
@@ -93,13 +95,16 @@ class Broker(abc.ABC):
 
 def connect(url: str, retry: Optional[RetryPolicy] = None, **kw) -> Broker:
     """A broker for `url`. `retry` is the reconnect policy of tcp://;
-    mem:// has no connection to retry and ignores it. The fabric (a
-    comma-separated shard list) and amqp:// are ROADMAP A.10d2."""
-    if "," in url or url.startswith("amqp://"):
-        raise NotImplementedError(
-            f"broker url {url!r}: the broker fabric (comma-separated shard list) and amqp:// "
-            f"are not ported yet (ROADMAP A.10d2)"
-        )
+    mem:// has no connection to retry and ignores it. A comma-separated
+    list of urls is the broker fabric (transport/fabric.py: N shards behind
+    a rendezvous router with a fenced fan-in), imported only then, so a
+    single endpoint never loads it. amqp:// is ROADMAP A.10d3."""
+    if "," in url:
+        from dotaclient_tpu_torch.transport.fabric import FabricBroker, parse_fabric_endpoints
+
+        return FabricBroker(parse_fabric_endpoints(url), retry=retry, **kw)
+    if url.startswith("amqp://"):
+        raise NotImplementedError(f"broker url {url!r}: amqp:// (RabbitMQ) is not ported yet (ROADMAP A.10d3)")
     if url.startswith("mem://"):
         from dotaclient_tpu_torch.transport.memory import MemoryBroker
 

@@ -30,7 +30,15 @@ from dotaclient_tpu.runtime.learner import Learner as JLearner
 from dotaclient_tpu.transport import memory as jmem
 from dotaclient_tpu.transport.serialize import deserialize_weights as j_deserialize_weights
 from dotaclient_tpu.transport.serialize import flatten_params
-from dotaclient_tpu_torch.config import UNPORTED, LearnerConfig, PolicyConfig, PPOConfig, parse_config, unported_flags
+from dotaclient_tpu_torch.config import (
+    UNPORTED,
+    LearnerConfig,
+    PolicyConfig,
+    PPOConfig,
+    parse_config,
+    refuse_unported,
+    unported_flags,
+)
 from dotaclient_tpu_torch.env import featurizer as F
 from dotaclient_tpu_torch.models import policy as P
 from dotaclient_tpu_torch.ops import batch as tbatch
@@ -40,6 +48,7 @@ from dotaclient_tpu_torch.runtime import learner as tlearner
 from dotaclient_tpu_torch.runtime.checkpoint import Checkpointer, SchemaMismatchError
 from dotaclient_tpu_torch.transport import memory as tmem
 from dotaclient_tpu_torch.transport import serialize as tser
+from dotaclient_tpu_torch.transport.base import connect
 from dotaclient_tpu_torch.transport.params import load_named, load_named_adam, named_adam_state, named_params
 from test_torch_train import PARAM_LR, _compare_states, _jax_adam_named
 
@@ -304,7 +313,6 @@ REFUSED = [
     ("multihost", True, "A.14"),
     ("profile_port", 9999, "A.13b"),
     ("chaos.enabled", True, "A.10j"),
-    ("broker_shards", "0,1", "A.10d2"),
 ]
 
 
@@ -321,11 +329,10 @@ def test_unported_modes_are_refused(tmp_path, field, value, item):
 
 def test_every_unported_mode_is_tested_and_their_settings_do_not_parse():
     """The refusal table is config.UNPORTED, one entry per mode (the
-    learner has every flag but the serve ones); settings that only
-    unported modes read are not flags, so they fail to parse instead of
-    doing nothing."""
+    learner has every flag of it); settings that only unported modes read
+    are not flags, so they fail to parse instead of doing nothing."""
     assert {r[0] for r in REFUSED} == set(unported_flags(LearnerConfig()))
-    assert set(UNPORTED) - set(unported_flags(LearnerConfig())) == {"serve.handoff_endpoint", "serve.league_endpoint"}
+    assert set(UNPORTED) == set(unported_flags(LearnerConfig()))
     for argv in (["--replay.ratio", "0.5"], ["--chaos.spec", "dup:0.1"], ["--coordinator", "h:1"]):
         with pytest.raises(SystemExit):
             parse_config(LearnerConfig(), argv)
@@ -357,8 +364,52 @@ def test_main_parses_the_reference_flags_and_trains(tmp_path):
     frame = watcher.poll_weights()
     assert frame[:4] == b"DTW1" and tser.deserialize_weights(frame)[1] == 2
     assert [r["step"] for r in _metric_lines(tmp_path / "main" / "metrics.jsonl")] == [2]
-    with pytest.raises(NotImplementedError, match="A.10d2"):
+    with pytest.raises(NotImplementedError, match="A.10d3"):
         tlearner.main(["--broker_url", "amqp://guest@localhost/", "--platform", "cpu"])
+
+
+def test_main_broker_shards_refuses_a_classic_url():
+    with pytest.raises(ValueError, match="broker_shards"):
+        tlearner.main(["--broker_url", "mem://ln_classic", "--broker_shards", "0", "--train_steps", "1",
+                       "--platform", "cpu"])
+
+
+def test_main_over_a_fabric_shard_trains_bitwise_a_plain_broker_and_logs_the_fanin(tmp_path):
+    """`--broker_url mem://a,mem://b --broker_shards 1`: the learner
+    binary's main consumes shard 1 only, through the fenced fan-in, and
+    ends with params bitwise those of a learner fed the same frames (the
+    ones routed to shard 1, in order) by one plain broker; its metric
+    windows carry the fanin_* and broker_shard_1_* scalars."""
+    from dotaclient_tpu_torch.transport.fabric import FabricBroker, rendezvous_order
+
+    urls = ["mem://ln_fab_0", "mem://ln_fab_1"]
+    for u in urls:
+        tmem.reset(u[len("mem://"):])
+    cfg = _tcfg("ln_fab_plain", tmp_path)
+    frames = frames_for(cfg, 8)
+    pub = FabricBroker(urls)
+    for f in frames:
+        pub.publish_experience(f)
+    mine = [f for f in frames if rendezvous_order(tser.peek_rollout_actor_id(f), urls)[0] == 1]
+    steps = len(mine) // B
+    assert steps >= 2
+    argv = ["--broker_url", ",".join(urls), "--broker_shards", "1", "--platform", "cpu", "--train_steps", str(steps),
+            "--batch_size", str(B), "--seq_len", str(T), "--policy.lstm_hidden", "16", "--policy.unit_embed_dim", "16",
+            "--policy.mlp_hidden", "16", "--policy.dtype", "float32", "--ppo.max_staleness", "1000",
+            "--metrics_every", "2", "--native_packer", "true", "--log_dir", str(tmp_path / "ln_fab")]
+    fab = tlearner.main(argv)
+    assert isinstance(fab.broker, FabricBroker) and fab.broker.consume_shards == [1] and fab.version == steps
+    plain, _ = _port_learner("ln_fab_plain", tmp_path, mine, native_packer=True)
+    plain.run(num_steps=steps, max_idle=3)
+    plain.close()
+    for (na, a), (nb, b) in zip(named_params(fab.state.net), named_params(plain.state.net)):
+        assert na == nb and np.array_equal(a, b), na
+    rec = _metric_lines(tmp_path / "ln_fab" / "metrics.jsonl")[-1]
+    assert rec["fanin_delivered_total"] >= steps * B and rec["fanin_pop_threads"] == 1.0
+    assert rec["broker_shard_1_up"] == 1.0 and "broker_shard_0_up" not in rec
+    assert rec["fanin_fence_dropped_total"] == rec["fanin_dup_dropped_total"] == 0
+    fab.broker.close()
+    pub.close()
 
 
 # ------------------------------------------------------------ interop loop
@@ -439,7 +490,8 @@ def _swap(args, flag, value):
 
 def test_the_learner_manifest_parses_and_builds_a_port_learner(tmp_path):
     """k8s/learner.yaml's args: every flag parses in the port as in the
-    reference; the comma-list broker_url refuses naming A.10d2; with one
+    reference and none is refused; the comma-list broker_url builds the
+    broker fabric over its three shards (no dial until used); with one
     endpoint, local paths and --platform cpu they build a Learner whose
     obs, pool, ring, checkpoint and drain settings are the manifest's; a
     gs:// remote refuses with its message. chip_smoke.py reads the same
@@ -454,8 +506,12 @@ def test_the_learner_manifest_parses_and_builds_a_port_learner(tmp_path):
     tcfg, jcfg = parse_config(LearnerConfig(), args), j_parse_config(JLearnerConfig(), args)
     _assert_same_fields(tcfg, jcfg)
     assert tcfg.staging.pack_workers == 4 and tcfg.ckpt.drain_budget_s == 45.0 and tcfg.mesh_shape == "dp=-1"
-    with pytest.raises(NotImplementedError, match="A.10d2"):
-        tlearner.main(args + ["--platform", "cpu"])
+    refuse_unported(tcfg)
+    from dotaclient_tpu_torch.transport.fabric import FabricBroker
+
+    fabric = connect(tcfg.broker_url)
+    assert isinstance(fabric, FabricBroker) and len(fabric.endpoints) == 3
+    fabric.close()
     local = _swap(_swap(args, "--broker_url", "mem://ln_manifest"), "--checkpoint_remote_dir", str(tmp_path / "remote"))
     for flag, sub in (("--checkpoint_dir", "ck"), ("--log_dir", "logs"), ("--obs.dump_dir", "logs"),
                       ("--obs.profile_dir", "logs")):

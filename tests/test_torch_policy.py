@@ -230,6 +230,8 @@ def _imported_roots(path: Path):
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     files = sorted((REPO / "dotaclient_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 10
+    for new in ("transport/fabric.py", "serve/handoff.py"):
+        assert REPO / "dotaclient_tpu_torch" / new in files
     for path in files:
         for mod in _imported_roots(path):
             root = mod.split(".")[0]

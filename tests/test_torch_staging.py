@@ -310,3 +310,49 @@ def test_staging_refuses_what_is_not_ported():
     with pytest.raises(ValueError, match="pack_workers must be >= 1"):
         tstaging.StagingBuffer(dataclasses.replace(tcfg, staging=dataclasses.replace(tcfg.staging, pack_workers=0)), b,
                                fused_io=tio)
+
+
+@pytest.mark.parametrize("pack_workers", [1, 4])
+def test_the_drain_takes_the_fabric_residual_as_the_reference_does(pack_workers):
+    """Frames the fabric's fan-in popped off the shards before the quiesce
+    survive the drain into pending, and drained() reads False while any
+    sit in the fan-in queue, on the classic consumer and in pool mode; the
+    reference's staging over its own fabric ends with the same pending
+    frames."""
+    from dotaclient_tpu.transport import fabric as jfab
+    from dotaclient_tpu_torch.transport import fabric as tfab
+
+    jcfg, tcfg = _cfgs("float32", False)
+    jio, tio = _io_pair(jcfg, tcfg)
+    frames = [jser.serialize_rollout(make_rollout(L=T, H=H, version=VERSION_NOW, actor_id=aid, seed=700 + aid))
+              for aid in range(B - 3)]  # fewer than a batch: they can only drain to pending
+    pendings = []
+    for pkg, fab, mem, make in (("port", tfab, tmem, tstaging.StagingBuffer), ("ref", jfab, jmem, JStagingBuffer)):
+        names = [f"st_fab_{pkg}_{pack_workers}_{i}" for i in range(2)]
+        for n in names:
+            mem.reset(n)
+        fb = fab.FabricBroker([f"mem://{n}" for n in names], failover_window_s=0.4, cooldown_s=0.5)
+        for f in frames:
+            fb.publish_experience(f)
+        cfg = dataclasses.replace(jcfg if pkg == "ref" else tcfg, native_packer=False)
+        cfg = dataclasses.replace(cfg, staging=dataclasses.replace(cfg.staging, pack_workers=pack_workers))
+        staging = make(cfg, fb, version_fn=lambda: VERSION_NOW, fused_io=jio if pkg == "ref" else tio)
+        fb._ensure_fanin()  # pull the frames into the fan-in queue before the consumer starts
+        deadline = time.monotonic() + 5
+        while fb._fanin.qsize() < len(frames) and time.monotonic() < deadline:
+            time.sleep(0.02)
+        assert fb.fanin_residual() >= len(frames)
+        staging.start()
+        staging.quiesce()
+        assert fb._quiesce.is_set()
+        assert not staging.drained() or fb.fanin_residual() == 0
+        deadline = time.monotonic() + 5
+        while not staging.drained() and time.monotonic() < deadline:
+            time.sleep(0.02)
+        assert staging.drained() and fb.fanin_residual() == 0
+        pending = staging.snapshot_state()["pending"]
+        staging.stop()
+        fb.close()
+        pendings.append(sorted(bytes(p) if isinstance(p, (bytes, bytearray)) else jser.serialize_rollout(p)
+                               for p in pending))
+    assert pendings[0] == pendings[1] == sorted(frames)

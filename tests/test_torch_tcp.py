@@ -227,9 +227,8 @@ def test_connect_schemes_and_refusals():
         server.stop()
     with pytest.raises(NotImplementedError, match="ROADMAP A.10f"):
         ttcp.BrokerServer(assemble=True)
-    for url in ("amqp://guest@localhost/", "tcp://127.0.0.1:1,tcp://127.0.0.1:2"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A.10d2"):
-            tbase.connect(url)
+    with pytest.raises(NotImplementedError, match="ROADMAP A.10d3"):
+        tbase.connect("amqp://guest@localhost/")
     with pytest.raises(ConnectionError):
         tbase.connect("tcp://127.0.0.1:1")  # dials at construction: a wrong URL fails fast
 

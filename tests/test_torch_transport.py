@@ -239,14 +239,22 @@ def test_port_hubs_are_separate_from_the_reference_hubs():
 
 @pytest.mark.parametrize("url", ["tcp://127.0.0.1:1", "amqp://guest@localhost/", "mem://a,mem://b", "tcp://h:1,tcp://h:2"])
 def test_connect_refuses_unported_brokers(url):
-    """The fabric (a comma list) and amqp:// are refused, naming their
-    ROADMAP item. tcp:// is ported (tests/test_torch_tcp.py): it dials at
-    construction, so a dead address fails fast instead."""
+    """amqp:// is refused, naming its ROADMAP item. tcp:// is ported
+    (tests/test_torch_tcp.py): it dials at construction, so a dead address
+    fails fast instead. A comma list builds the broker fabric
+    (tests/test_torch_fabric.py), which dials no shard until it is used."""
     if url.startswith("tcp://") and "," not in url:
         with pytest.raises(ConnectionError):
             tbase.connect(url)
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP A.10d2"):
+    if "," in url:
+        from dotaclient_tpu_torch.transport.fabric import FabricBroker
+
+        fb = tbase.connect(url)
+        assert isinstance(fb, FabricBroker) and fb.endpoints == url.split(",")
+        fb.close()
+        return
+    with pytest.raises(NotImplementedError, match="ROADMAP A.10d3"):
         tbase.connect(url)
 
 
