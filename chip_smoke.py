@@ -75,14 +75,24 @@ Phases, in order; any failure exits non-zero:
               (--platform the card), the port carry-store binary, a league
               stand-in and phase 10's shards; 64 sessions on slots 0-3, the
               server SIGKILLed halfway and a second one resuming every
-              session (see phase_serve_manifest).
+              session (see phase_serve_manifest);
+12. transformer — the transformer family at full width (d_model 128, 2
+              layers, 4 heads): the card's f32 unroll against the CPU's,
+              256 rows x 17 KV-cache key steps against the unroll (f32 and
+              bf16), a 64-row batched key step bitwise the single one, the
+              learner binary with --policy.arch transformer (20 steps,
+              serial and pipelined bitwise, DTW2 and restore bitwise,
+              compute_mfu), and scripts/bench_tf.py's ladder (contexts
+              64/128/256 at batch 64, dense, blockwise and remat: ms, device
+              ms, env steps/s, peak memory; blockwise vs dense, remat
+              bitwise); no recurrence launch (see phase_transformer).
 Each path of the main path (serving, learner forward, each train step,
 the reuse step, the learner loop, the manifest learner, the fabric
 learner, the serve manifest) is driven with the kernels' launch counters
 zeroed just before it and read just after (the serve manifest's servers
 are processes of their own, which start at 0 and report their count).
-The last lines are one JSON object per kernel, the card line, and
-{"ok": true, "device": {...}}.
+The last lines are the transformer line, one JSON object per kernel, the
+card line, and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -2875,6 +2885,317 @@ def phase_serve_manifest(device, card: str, shards, phase8, weights_version: int
     return out
 
 
+# ---------------------------------------------------------------- phase 12
+
+# Phase 12, the transformer family. Card vs CPU, f32: TF32 is off, so the
+# two differ by the order of f32 sums (cuBLAS vs the CPU's) through two
+# blocks and the heads. Step vs unroll on the card: the same ops at [B, 1]
+# and [B, T] shapes, whose products cuBLAS sums in other orders; in bf16 a
+# last-bit difference can flip one bf16 rounding of an activation, which
+# the f32 heads see (the CPU tests hold the same pair to 1e-5 / 2e-2).
+TOL_TF_CARD_CPU = 1e-4
+TOL_TF_STEP = {"float32": 1e-4, "bfloat16": 2e-2}
+# The bench_tf ladder: dense against blockwise attention at one start.
+# The blockwise loop sums the softmax in another order and rounds the
+# attention output to bf16 from other f32 bits, so a bf16 ulp can flip;
+# the metrics are masked means of such values (as TOL_LEARNER), the global
+# gradient norm averages them over every element (as TOL_GRAD_NORM).
+TOL_TF_BLOCK_METRICS = 5e-3
+TOL_TF_BLOCK_GRAD_NORM = 1e-3
+TF_LADDER = ((64, 0, False), (128, 0, False), (128, 64, False), (128, 64, True),
+             (256, 0, False), (256, 64, False), (256, 64, True))
+
+
+def _tf_step_vs_unroll(device, policy, rows: int, steps: int, seed: int):
+    """`steps` KV-cache key steps of `rows` rows (one forward per step,
+    the action sampled from each row's jax key) against the teacher-forced
+    unroll's logp of the same actions and its value. Returns the max abs
+    differences (logp, value)."""
+    from dotaclient_tpu_torch.config import LearnerConfig
+    from dotaclient_tpu_torch.env import featurizer as F
+    from dotaclient_tpu_torch.models import policy as P
+    from dotaclient_tpu_torch.ops import action_dist as ad
+    from dotaclient_tpu_torch.ops.batch import as_tensors, make_train_batch
+    from dotaclient_tpu_torch.runtime.actor import key_row_inputs
+
+    net = P.init_params(policy, torch.Generator().manual_seed(seed), device)
+    obs = as_tensors(make_train_batch(LearnerConfig(batch_size=rows, seq_len=steps - 1, policy=policy), seed).obs, device)
+    keys = np.stack([np.array([seed, i], np.uint32) for i in range(rows)])
+    state = P.initial_state(policy, (rows,), device)
+    logp, value, actions = [], [], []
+    with torch.no_grad():
+        _, unroll = net(state, obs, unroll=True)
+        for t in range(steps):
+            keys, u = key_row_inputs(policy, keys)
+            state, out = net(state, F.Observation(*(x[:, t] for x in obs)))
+            action = ad.sample_uniform(out.dist, torch.from_numpy(u[:, 0]).to(device))
+            actions.append(action)
+            logp.append(ad.log_prob(out.dist, action))
+            value.append(out.value)
+        ref_logp = torch.stack([ad.log_prob(ad.Dist(*(x[:, t] for x in unroll.dist)), a) for t, a in enumerate(actions)], 1)
+    if int(state.idx.min()) != steps or not torch.isfinite(ref_logp).all():
+        raise SystemExit(f"transformer: after {steps} steps the cache is at {state.idx.min().item()}, or the unroll is not finite")
+    return ((torch.stack(logp, 1) - ref_logp).abs().max().item(), (torch.stack(value, 1) - unroll.value).abs().max().item())
+
+
+def _tf_key_tick(device, policy, rows: int, ticks: int):
+    """`ticks` batched key-step ticks of `rows` transformer rows, each row
+    held bitwise against the single-row key step on its own inputs (the
+    contract of make_batched_key_actor_step); the last tick reverses the
+    rows. Returns the rows checked."""
+    from dotaclient_tpu_torch.config import LearnerConfig
+    from dotaclient_tpu_torch.env import featurizer as F
+    from dotaclient_tpu_torch.models import policy as P
+    from dotaclient_tpu_torch.models.transformer_policy import KVCache
+    from dotaclient_tpu_torch.ops.batch import as_tensors, make_train_batch
+    from dotaclient_tpu_torch.runtime.actor import make_batched_key_actor_step, make_key_actor_step
+
+    net = P.init_params(policy, torch.Generator().manual_seed(41), device)
+    obs = as_tensors(make_train_batch(LearnerConfig(batch_size=rows, seq_len=ticks, policy=policy), 42).obs, device)
+    step, single = make_batched_key_actor_step(policy), make_key_actor_step(policy)
+    keys = np.stack([np.array([7, 500 + i], np.uint32) for i in range(rows)])
+    state, checked = P.initial_state(policy, (rows,), device), 0
+    for t in range(ticks):
+        order = list(range(rows)) if t < ticks - 1 else list(reversed(range(rows)))
+        prev, o = KVCache(*(x[order] for x in state)), F.Observation(*(x[:, t][order] for x in obs))
+        new, action, logp, value, keys2 = step(net, prev, o, keys[order])
+        if not isinstance(new, KVCache):
+            raise SystemExit(f"transformer: the batched key step returned a {type(new).__name__}, not a KVCache")
+        for i in range(rows):
+            s1, a1, l1, v1, k1 = single(net, KVCache(*(x[i : i + 1].clone() for x in prev)),
+                                        F.Observation(*(x[i : i + 1].clone() for x in o)), keys[order][i])
+            same = (all(torch.equal(x[i : i + 1], y) for x, y in zip(new, s1))
+                    and all(torch.equal(x[i : i + 1], y) for x, y in zip(action, a1))
+                    and torch.equal(logp[i : i + 1], l1) and torch.equal(value[i : i + 1], v1) and np.array_equal(keys2[i], k1))
+            if not same:
+                raise SystemExit(f"transformer: tick {t} row {i} of the batched key step is not bitwise its single step")
+            checked += 1
+        inv = np.argsort(order)
+        state, keys = KVCache(*(x[inv] for x in new)), keys2[inv]
+    return checked
+
+
+def _tf_learner_binary(device, card: str, flags, steps: int, tmp: str):
+    """The learner binary's main with `--policy.arch transformer` over
+    mem:// (frames stamped before the run: batch k carries version k),
+    serial and pipelined. Checks: 0 recurrence launches, serial ≡
+    pipelined bitwise, the last DTW2 frame bitwise the params, a restore
+    bitwise the state, compute_mfu within 0.8–1.25x of the flop count over
+    the mean window over the peak. Returns its facts."""
+    from dotaclient_tpu_torch.config import LearnerConfig, parse_config
+    from dotaclient_tpu_torch.ops import lstm as L
+    from dotaclient_tpu_torch.ops.flops import PEAK_BF16_FLOPS, train_step_flops
+    from dotaclient_tpu_torch.runtime.learner import Learner
+    from dotaclient_tpu_torch.runtime.learner import main as learner_main
+    from dotaclient_tpu_torch.transport import memory as tmem
+    from dotaclient_tpu_torch.transport.params import named_params
+    from dotaclient_tpu_torch.transport.serialize import deserialize_weights
+
+    base = parse_config(LearnerConfig(), list(flags))
+    B = base.batch_size
+    pool = rollout_frames(base, 2)
+    schedule = _stamped([pool[(k % 2) * B + i] for k in range(steps) for i in range(B)], B)
+    runs = {}
+    for arm in ("serial", "pipelined"):
+        name = f"chip_tf_{arm}"
+        tmem.reset(name)
+        hub = tmem.MemoryBroker(name, maxlen=len(schedule))  # the binary's client joins this hub
+        for f in schedule:
+            hub.publish_experience(f)
+        if hub.experience_depth() != len(schedule):
+            raise SystemExit(f"transformer learner: the hub holds {hub.experience_depth()} of {len(schedule)} frames")
+        argv = list(flags) + ["--broker_url", f"mem://{name}", "--train_steps", str(steps), "--metrics_every", "5",
+                              "--checkpoint_every", str(steps // 2), "--checkpoint_dir", os.path.join(tmp, arm, "ck"),
+                              "--log_dir", os.path.join(tmp, arm, "logs"), "--obs.enabled", "true",
+                              "--obs.install_handlers", "false", "--learner.prefetch", str(arm == "pipelined").lower()]
+        torch.cuda.synchronize()
+        L.LAUNCHES = 0  # each run of the learner binary starts with the counter at 0
+        t0 = time.perf_counter()
+        done = {}
+        # on a thread, so a run that starves cannot hold the call: main's run() waits for batches without end
+        runner = threading.Thread(target=lambda: done.update(learner=learner_main(argv)), daemon=True)
+        runner.start()
+        runner.join(timeout=600)
+        if "learner" not in done:
+            raise SystemExit(f"transformer learner ({arm}): the binary did not finish {steps} steps in 600 s")
+        learner = done["learner"]
+        wall_s = time.perf_counter() - t0
+        launches = L.LAUNCHES
+        frame = hub.poll_weights()
+        lines = [json.loads(x) for x in open(os.path.join(tmp, arm, "logs", "metrics.jsonl"))]
+        runs[arm] = dict(learner=learner, launches=launches, frame=frame, lines=lines, wall_s=wall_s,
+                         cfg=parse_config(LearnerConfig(), argv))
+    serial, pipe = runs["serial"], runs["pipelined"]
+    for arm, r in runs.items():
+        if r["learner"].version != steps or r["launches"]:
+            raise SystemExit(f"transformer learner ({arm}): version {r['learner'].version} of {steps}, "
+                             f"{r['launches']} recurrence launches")
+    if _state_bits(serial["learner"].state) != _state_bits(pipe["learner"].state):
+        raise SystemExit("transformer learner: the serial and pipelined runs end with other bits")
+    named, version, _ = deserialize_weights(pipe["frame"])
+    if version != steps or not all(n == m and np.array_equal(a, b)
+                                   for (n, a), (m, b) in zip(named, named_params(pipe["learner"].state.net))):
+        raise SystemExit(f"transformer learner: the last DTW2 frame (v{version}) is not bitwise the params")
+    restored = Learner(pipe["cfg"], tmem.MemoryBroker("chip_tf_restore"), device)
+    try:
+        if restored.version != steps or _state_bits(restored.state) != _state_bits(pipe["learner"].state):
+            raise SystemExit(f"transformer learner: the checkpoint restored v{restored.version}, or other bits")
+    finally:
+        restored.close()
+    lines = pipe["lines"]
+    window_ms = statistics.mean(_window_ms(r) for r in lines)
+    flops = train_step_flops(pipe["cfg"])
+    mfu = lines[-1].get("compute_mfu")
+    expect = flops / (window_ms / 1e3) / PEAK_BF16_FLOPS.get(torch.cuda.get_device_name(device), 1.0) \
+        if device.type == "cuda" else None
+    if device.type == "cuda" and (mfu is None or not 0.8 < mfu / expect < 1.25):
+        raise SystemExit(f"transformer learner: compute_mfu {mfu} is far from {expect} (flops / window / peak)")
+    out = dict(steps=steps, launches=serial["launches"] + pipe["launches"], flops_per_step=flops, window_ms=window_ms,
+               serial_window_ms=statistics.mean(_window_ms(r) for r in serial["lines"]),
+               wall_ms_per_step={a: 1e3 * r["wall_s"] / steps for a, r in runs.items()},
+               env_steps_per_sec=statistics.median(r["env_steps_per_sec"] for r in lines),
+               loss=[r["loss"] for r in lines], compute_mfu=mfu, expected_mfu=expect)
+    print(f"transformer learner: the binary with --policy.arch transformer, {steps} steps B={B} T={base.seq_len} "
+          f"serial and pipelined over mem://: bitwise equal; 0 recurrence launches; last DTW2 v{version} bitwise the "
+          f"params; restore v{steps} bitwise; window {window_ms:.3f} ms per step (serial {out['serial_window_ms']:.3f}); "
+          f"{out['env_steps_per_sec']:.0f} env steps/s; {flops / 1e9:.2f} GFLOP per step, compute_mfu {mfu} (expected "
+          f"{expect}) | {card}", flush=True)
+    return out
+
+
+def _tf_ladder_row(device, ctx: int, block: int, remat: bool, batch: int):
+    """One shape of scripts/bench_tf.py's ladder through the learner's
+    default path (build_single_train_step): host-paced and device ms per
+    step, env steps/s and the peak memory of a step. Returns (row, the
+    params after its first step, that step's metrics)."""
+    from dotaclient_tpu_torch.config import LearnerConfig, PolicyConfig
+    from dotaclient_tpu_torch.ops.batch import make_train_batch
+    from dotaclient_tpu_torch.parallel import train_step as ts
+    from dotaclient_tpu_torch.runtime.staging import cast_obs_to_compute_dtype
+    from dotaclient_tpu_torch.transport.params import named_params
+
+    cfg = LearnerConfig(batch_size=batch, seq_len=ctx - 1, policy=PolicyConfig(
+        arch="transformer", tf_context=ctx, tf_attn_block=block, tf_remat=remat))
+    step, io = ts.build_single_train_step(cfg, device)
+    buf = io.pack_transfer(cast_obs_to_compute_dtype(cfg, make_train_batch(cfg, 0)))
+    state, first = step(ts.init_train_state(cfg, device), io.consume(*io.transfer(buf)))
+    first_state = named_params(state.net)  # host copies
+    holder = [state]
+
+    def run():
+        holder[0], _ = step(holder[0], io.consume(*io.transfer(buf)))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    run()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(device)
+    ms = cuda_ms(run, samples=5, calls=3)
+    device_ms = cuda_ms(run, samples=5, calls=1, ahead=True)
+    row = dict(tf_context=ctx, seq_len=ctx - 1, batch=batch, attn_block=block, remat=remat, ms=ms, device_ms=device_ms,
+               env_steps_per_sec=batch * (ctx - 1) / (ms / 1e3), max_memory_allocated=peak)
+    # The spin holds the stream only while a step's launches fit the
+    # device's queue of pending launches (~1,000); past it the host blocks
+    # mid-step and `device_ms` takes in host gaps. The profiler's busy time
+    # (the sum of the step's kernel times) has no such limit.
+    row["busy_ms"], row["profiled_wall_ms"], row["device_kernels"] = profile_device(
+        run, f"transformer ctx {ctx} block {block} remat {remat}", top=0 if block else 8)
+    return row, first_state, {k: v.item() for k, v in first.items()}
+
+
+def phase_transformer(device, card: str, policy=None, rows: int = 256, tick_rows: int = 64, ticks: int = 3,
+                      learner_flags=("--policy.arch", "transformer"), learner_steps: int = 20, ladder=TF_LADDER,
+                      ladder_batch: int = 64):
+    """Phase 12: the transformer family on the card at its full width
+    (`policy`, default PolicyConfig(arch="transformer"): d_model 128, 2
+    layers, 4 heads, bf16 compute, f32 params): the card against the CPU,
+    KV-cache steps against the unroll, the batched key step against the
+    single one, the learner binary, and scripts/bench_tf.py's ladder. The
+    recurrence kernel's counter must stay at 0 throughout."""
+    from dotaclient_tpu_torch.config import LearnerConfig, PolicyConfig
+    from dotaclient_tpu_torch.models import policy as P
+    from dotaclient_tpu_torch.ops import lstm as L
+    from dotaclient_tpu_torch.ops.batch import as_tensors, make_train_batch
+    from dotaclient_tpu_torch.transport.params import load_named, named_params
+
+    t_phase = time.perf_counter()
+    policy = PolicyConfig(arch="transformer") if policy is None else policy
+    f32 = dataclasses.replace(policy, dtype="float32")
+    L.LAUNCHES = 0
+
+    # 1. the port on the card against the port on the CPU, the same params, f32, B=8, T=17
+    cpu_net = P.init_params(f32, torch.Generator().manual_seed(30), "cpu")
+    card_net = load_named(P.PolicyNet(f32, device), named_params(cpu_net))
+    obs = make_train_batch(LearnerConfig(batch_size=8, seq_len=16, policy=f32), 30).obs
+    with torch.no_grad():
+        _, on_cpu = cpu_net(P.initial_state(f32, (8,), "cpu"), as_tensors(obs, "cpu"), unroll=True)
+        _, on_card = card_net(P.initial_state(f32, (8,), device), as_tensors(obs, device), unroll=True)
+    card_cpu = max((a.cpu() - b).abs().max().item() for a, b in zip((*on_card.dist, on_card.value), (*on_cpu.dist, on_cpu.value)))
+    if not card_cpu <= TOL_TF_CARD_CPU:
+        raise SystemExit(f"transformer: the card's f32 unroll is {card_cpu} from the CPU's (limit {TOL_TF_CARD_CPU})")
+
+    # 2. KV-cache key steps against the unroll, on the card
+    step_err = {}
+    for dtype in ("float32", "bfloat16"):
+        step_err[dtype] = _tf_step_vs_unroll(device, dataclasses.replace(policy, dtype=dtype), rows, 17, seed=31)
+        if not max(step_err[dtype]) <= TOL_TF_STEP[dtype]:
+            raise SystemExit(f"transformer: {dtype} key steps vs the unroll: logp, value {step_err[dtype]} (limit "
+                             f"{TOL_TF_STEP[dtype]})")
+
+    # 3. the batched key step against the single one, bitwise
+    checked = _tf_key_tick(device, policy, tick_rows, ticks)
+    print(f"transformer: card vs CPU f32 unroll B=8 T=17 max abs {card_cpu:.3g} (limit {TOL_TF_CARD_CPU}); {rows} rows x "
+          f"17 KV-cache key steps vs the unroll, max abs logp / value: f32 {step_err['float32'][0]:.3g} / "
+          f"{step_err['float32'][1]:.3g}, bf16 {step_err['bfloat16'][0]:.3g} / {step_err['bfloat16'][1]:.3g} (limits "
+          f"{TOL_TF_STEP['float32']}, {TOL_TF_STEP['bfloat16']}); batched key step of {tick_rows} rows bitwise the single "
+          f"step on {checked} rows | {card}", flush=True)
+
+    # 4. the learner binary
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tf_")
+    try:
+        learner = _tf_learner_binary(device, card, learner_flags, learner_steps, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # 5. the learner's train step at the family's learner shape (B=256, T=16, tf_context 17), then the bench_tf ladder
+    step_row, _, _ = _tf_ladder_row(device, 17, 0, False, 256)
+    print(f"transformer train step B=256 T=16: {step_row['ms']:.3f} ms host-paced, {step_row['device_ms']:.3f} device "
+          f"(spin), profiled busy {step_row['busy_ms']:.3f} ms over {step_row['device_kernels']} kernels; peak memory "
+          f"{step_row['max_memory_allocated'] / 2**20:.1f} MiB | {card}", flush=True)
+    rows_out, firsts = [], {}
+    for ctx, block, remat in ladder:
+        row, first_params, first_metrics = _tf_ladder_row(device, ctx, block, remat, ladder_batch)
+        firsts[(ctx, block, remat)] = (first_params, first_metrics)
+        rows_out.append(row)
+        print(f"transformer ladder: ctx {ctx} (seq_len {ctx - 1}) x batch {ladder_batch}, attn_block {block}, remat "
+              f"{remat}: {row['ms']:.3f} ms per step host-paced, {row['device_ms']:.3f} device (spin); "
+              f"profiled busy {row['busy_ms']:.3f} ms over {row['device_kernels']} kernels; "
+              f"{row['env_steps_per_sec']:.0f} env steps/s; peak memory {row['max_memory_allocated'] / 2**20:.1f} MiB "
+              f"| {card}", flush=True)
+    checks = []
+    for (ctx, block, remat), (params, metrics) in firsts.items():
+        if block and not remat and (ctx, 0, False) in firsts:
+            dense = firsts[(ctx, 0, False)][1]
+            m_err = max(abs(metrics[k] - dense[k]) for k in metrics if k != "grad_norm")
+            g_rel = abs(metrics["grad_norm"] - dense["grad_norm"]) / abs(dense["grad_norm"])
+            checks.append(dict(ctx=ctx, compare="blockwise_vs_dense", metrics_max_abs=m_err, grad_norm_rel=g_rel))
+            if not (m_err <= TOL_TF_BLOCK_METRICS and g_rel <= TOL_TF_BLOCK_GRAD_NORM):
+                raise SystemExit(f"transformer ladder ctx {ctx}: blockwise vs dense metrics {m_err}, grad norm {g_rel} "
+                                 f"(limits {TOL_TF_BLOCK_METRICS}, {TOL_TF_BLOCK_GRAD_NORM})")
+        if remat:
+            plain = firsts[(ctx, block, False)][0]
+            diff = max(float(np.abs(a - b).max()) for (_, a), (_, b) in zip(params, plain))
+            checks.append(dict(ctx=ctx, compare="remat_vs_not", params_max_abs=diff))
+            if diff:
+                raise SystemExit(f"transformer ladder ctx {ctx}: remat changes the params after one step by {diff}")
+    if L.LAUNCHES:
+        raise SystemExit(f"transformer: the recurrence kernel was launched {L.LAUNCHES} times in phase 12")
+    out = dict(card_vs_cpu_f32=card_cpu, step_vs_unroll=step_err, key_tick_rows_checked=checked, learner=learner,
+               train_step=step_row, ladder=rows_out, ladder_checks=checks, phase_s=time.perf_counter() - t_phase)
+    print(f"transformer ladder checks: {json.dumps(checks)}; phase {out['phase_s']:.1f} s | {card}", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke needs an NVIDIA GPU", file=sys.stderr)
@@ -2919,6 +3240,7 @@ def main() -> int:
     finally:
         for proc, _, _ in shards:
             stop_process(proc)
+    transformer = phase_transformer(device, card)  # zeroes the counter itself; no path of it may launch the kernel
 
     main_case = cases[0]
     kernels = [
@@ -2958,9 +3280,11 @@ def main() -> int:
             "learner_fabric": fabric,
             "launches_serve_manifest": sum(serve_manifest["launches"]),
             "serve_manifest": serve_manifest,
+            "launches_transformer_learner": transformer["learner"]["launches"],
         }
     ]
     print(f"smoke: {time.perf_counter() - t_smoke:.1f} s | {card}", flush=True)
+    print(json.dumps({"transformer": transformer}))
     print(json.dumps({"kernels": kernels}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

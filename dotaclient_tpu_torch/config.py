@@ -23,12 +23,33 @@ from dataclasses import dataclass, field
 
 @dataclass
 class PolicyConfig:
-    """Architecture of the LSTM actor-critic."""
+    """Architecture of the actor-critic."""
 
-    arch: str = "lstm"  # only the LSTM family is ported
+    # Temporal core family: "lstm" (the flagship) or "transformer" (causal
+    # attention over the chunk, chunk-local context;
+    # models/transformer_policy.py).
+    arch: str = "lstm"
     unit_embed_dim: int = 128
-    lstm_hidden: int = 128
+    lstm_hidden: int = 128  # temporal-core width (d_model for the transformer family)
     mlp_hidden: int = 128
+    # Transformer-family shape (ignored for arch="lstm").
+    tf_layers: int = 2
+    tf_heads: int = 4
+    # Actor KV-cache capacity; past it the cache wraps into a sliding
+    # window. The default leaves one slot over the default rollout_len 16.
+    tf_context: int = 17
+    # Sequence parallelism over a mesh axis of this name (not ported;
+    # refused).
+    tf_sp_axis: str = ""
+    # Key-block size of the blockwise (streaming-softmax) attention in the
+    # learner unroll: intermediates [N, T, block] instead of [N, T, T] at a
+    # time (in training, together with tf_remat). 0 = dense; engages only
+    # when the key axis exceeds it.
+    tf_attn_block: int = 0
+    # Recompute each transformer block's activations in the backward
+    # (torch.utils.checkpoint) instead of storing them. Unroll only; the
+    # math is unchanged.
+    tf_remat: bool = False
     n_move_bins: int = 9  # 9-way discretized move offsets per axis
     move_step: float = 350.0  # map units per outermost move-grid cell
     # Auxiliary value heads (win-prob, last-hit, net-worth).
@@ -336,6 +357,7 @@ UNPORTED = {
     "multihost": (bool, "multi-process data parallelism", "A.14"),
     "profile_port": (bool, "the deprecated always-on profiler server (use POST /profile)", "A.13b"),
     "chaos.enabled": (bool, "the fault-injecting broker wrapper", "A.10j"),
+    "policy.tf_sp_axis": (bool, "sequence-parallel attention (ring / Ulysses)", "A.14"),
 }
 
 

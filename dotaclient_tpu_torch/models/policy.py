@@ -1,12 +1,14 @@
-"""LSTM actor-critic (torch twin of dotaclient_tpu/models/policy.py, LSTM
-family).
+"""Actor-critic policy (torch twin of dotaclient_tpu/models/policy.py).
 
 Per-unit MLP embeddings pooled over nearby units + hero/global stats →
-trunk → LSTM → heads {action type, move x, move y, target via dot-product
-attention over unit embeddings, value (+ aux)}. One module, two modes:
-`net(state, obs)` is the actor's single step (obs leaves [B, ...]);
+trunk → temporal core → heads {action type, move x, move y, target via
+dot-product attention over unit embeddings, value (+ aux)}. The temporal
+core is the LSTM (the flagship; its recurrence runs through ops/lstm.py)
+or, with `arch="transformer"`, causal attention over the chunk
+(models/transformer_policy.py). One module, two modes: `net(state, obs)`
+is the actor's single step (obs leaves [B, ...]);
 `net(state, obs, unroll=True)` is the learner's teacher-forced unroll
-(obs leaves [B, T, ...]) whose recurrence runs through ops/lstm.py.
+(obs leaves [B, T, ...]).
 
 Numerics follow the reference: Dense layers in the compute dtype cast
 input, kernel and bias to it and return it (flax `Dense(dtype=...)`);
@@ -53,10 +55,13 @@ def _dtype(cfg: PolicyConfig) -> torch.dtype:
     return {"bfloat16": torch.bfloat16, "float32": torch.float32}[cfg.dtype]
 
 
+ARCHS = ("lstm", "transformer")
+
+
 def check_arch(cfg: PolicyConfig) -> None:
-    """Raise for a policy family the port does not have yet."""
-    if cfg.arch != "lstm":
-        raise NotImplementedError(f"arch={cfg.arch!r}: only the LSTM family is ported")
+    """ValueError for an unknown policy family."""
+    if cfg.arch not in ARCHS:
+        raise ValueError(f"arch={cfg.arch!r}: unknown policy family (one of {', '.join(ARCHS)})")
 
 
 class Dense(nn.Module):
@@ -133,7 +138,8 @@ def obs_trunk(core: "PolicyCore", obs: F.Observation):
 
 
 def action_heads(core: "PolicyCore", out: torch.Tensor, unit_emb: torch.Tensor, obs: F.Observation) -> PolicyOutput:
-    """Masked action heads + value (+aux); `out` is the LSTM output in f32."""
+    """Masked action heads + value (+aux); `out` is the temporal core's
+    output in f32."""
     D = core.cfg.unit_embed_dim
     type_logits = core.type_head(out)
     move_x = core.move_x_head(out)
@@ -159,7 +165,9 @@ def action_heads(core: "PolicyCore", out: torch.Tensor, unit_emb: torch.Tensor, 
 
 
 class PolicyCore(nn.Module):
-    """The LSTM policy network: obs + (c, h) → action dist + value."""
+    """The LSTM policy network: obs + (c, h) → action dist + value. A
+    subclass swaps the temporal core by overriding `add_temporal_core`
+    (models/transformer_policy.py)."""
 
     def __init__(self, cfg: PolicyConfig, device):
         super().__init__()
@@ -172,7 +180,7 @@ class PolicyCore(nn.Module):
         self.hero_mlp = Dense(F.HERO_FEATURES, M, dt, device)
         self.global_mlp = Dense(F.GLOBAL_FEATURES, M // 4, dt, device)
         self.trunk = Dense(M + M // 4 + 2 * D, H, dt, device)
-        self.lstm = LSTMCell(H, H, dt, cfg.lstm_impl, device)
+        self.temporal = self.add_temporal_core(cfg, device)
         self.type_head = Dense(H, F.N_ACTION_TYPES, f32, device)
         self.move_x_head = Dense(H, cfg.n_move_bins, f32, device)
         self.move_y_head = Dense(H, cfg.n_move_bins, f32, device)
@@ -183,9 +191,14 @@ class PolicyCore(nn.Module):
             self.aux_lh = Dense(H, 1, f32, device)
             self.aux_nw = Dense(H, 1, f32, device)
 
-    def forward(self, carry: LSTMState, obs: F.Observation, unroll: bool = False):
+    def add_temporal_core(self, cfg: PolicyConfig, device) -> str:
+        """Register the temporal core and return its attribute name."""
+        self.lstm = LSTMCell(cfg.lstm_hidden, cfg.lstm_hidden, self.dtype, cfg.lstm_impl, device)
+        return "lstm"
+
+    def forward(self, carry, obs: F.Observation, unroll: bool = False):
         trunk, unit_emb = obs_trunk(self, obs)
-        carry, out = self.lstm(carry, trunk, unroll=unroll)
+        carry, out = getattr(self, self.temporal)(carry, trunk, unroll=unroll)
         return carry, action_heads(self, out, unit_emb, obs)
 
 
@@ -195,53 +208,80 @@ class PolicyNet(nn.Module):
     - `net(state, obs)` — single step, obs leaves [B, ...];
     - `net(state, obs_seq, unroll=True)` — teacher-forced unroll, obs
       leaves [B, T, ...]; outputs carry a [B, T] time axis, plus the final
-      (c, h).
-    Parameters live on `device` (default: the current CUDA device) and are
-    left uninitialised here: use `init_params` or `transport.params.load_named`.
+      temporal state.
+    `cfg.arch` picks the core: "lstm", or "transformer" (whose state is a
+    KVCache in step mode and is ignored by the unroll). Parameters live on
+    `device` (default: the current CUDA device) and are left uninitialised
+    here: use `init_params` or `transport.params.load_named`.
     """
 
     def __init__(self, cfg: PolicyConfig, device=None):
         super().__init__()
         check_arch(cfg)
         self.cfg = cfg
-        self.core = PolicyCore(cfg, resolve_device(device))
+        if cfg.arch == "transformer":
+            # imported here: transformer_policy builds on this module
+            from dotaclient_tpu_torch.models.transformer_policy import TransformerPolicyCore
 
-    def forward(self, state: LSTMState, obs: F.Observation, unroll: bool = False):
+            self.core = TransformerPolicyCore(cfg, resolve_device(device))
+        else:
+            self.core = PolicyCore(cfg, resolve_device(device))
+
+    def forward(self, state, obs: F.Observation, unroll: bool = False):
         if tuple(obs.unit_feats.shape[-2:]) != (F.MAX_UNITS, F.UNIT_FEATURES):
             raise ValueError(f"unit_feats must end in {(F.MAX_UNITS, F.UNIT_FEATURES)}, got {tuple(obs.unit_feats.shape)}")
         return self.core(state, obs, unroll)
 
 
-def initial_state(cfg: PolicyConfig, batch_shape, device=None) -> LSTMState:
-    """Fresh LSTM (c, h) zeros, each [*batch_shape, H] f32."""
+def initial_state(cfg: PolicyConfig, batch_shape, device=None):
+    """Fresh temporal state, batch-leading: LSTM (c, h) zeros, each
+    [*batch_shape, H] f32, or the transformer family's empty KVCache."""
     check_arch(cfg)
+    if cfg.arch == "transformer":
+        from dotaclient_tpu_torch.models.transformer_policy import init_cache
+
+        return init_cache(cfg, batch_shape, device)
     shape = tuple(batch_shape) + (cfg.lstm_hidden,)
     dev = resolve_device(device)
     return (torch.zeros(shape, device=dev), torch.zeros(shape, device=dev))
 
 
-def wire_state(cfg: PolicyConfig, state: LSTMState) -> LSTMState:
+def wire_state(cfg: PolicyConfig, state) -> LSTMState:
     """The (c, h) [B, H] f32 pair shipped with each rollout: the LSTM's
-    state is that pair."""
+    state is that pair; a transformer KVCache maps to zeros (the learner's
+    unroll is chunk-local and ignores the initial state)."""
     check_arch(cfg)
+    if cfg.arch == "transformer":
+        z = torch.zeros((state.idx.shape[0], cfg.lstm_hidden), device=state.idx.device)
+        return (z, z)
     return state
 
 
-def reset_between_chunks(cfg: PolicyConfig, state: LSTMState) -> LSTMState:
-    """Chunk-boundary transition: the LSTM carries its state across chunks."""
+def reset_between_chunks(cfg: PolicyConfig, state):
+    """Chunk-boundary transition: the LSTM carries its state across
+    chunks; the transformer family starts an empty cache, so the acting
+    context matches the learner's chunk-local re-evaluation."""
     check_arch(cfg)
+    if cfg.arch == "transformer":
+        from dotaclient_tpu_torch.models.transformer_policy import init_cache
+
+        return init_cache(cfg, (state.idx.shape[0],), state.idx.device)
     return state
 
 
 @torch.no_grad()
 def init_params(cfg: PolicyConfig, generator: torch.Generator, device=None) -> PolicyNet:
     """A PolicyNet with fresh parameters: flax's lecun_normal (truncated
-    normal at ±2σ, σ = 1/sqrt(fan_in) / 0.8796…) for every kernel and
-    LSTM matrix, zeros for biases. Draws on the generator's device."""
+    normal at ±2σ, σ = 1/sqrt(fan_in) / 0.8796…) for every Dense kernel and
+    LSTM matrix, zeros for biases, ones for LayerNorm scales. Draws on the
+    generator's device."""
     net = PolicyNet(cfg, device)
     for name, p in net.named_parameters():
         if name.endswith("bias"):
             p.zero_()
+            continue
+        if name.endswith("scale"):
+            p.fill_(1.0)
             continue
         std = 1.0 / math.sqrt(p.shape[0]) / 0.87962566103423978
         tmp = torch.empty(p.shape, device=generator.device)

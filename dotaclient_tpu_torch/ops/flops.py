@@ -1,6 +1,6 @@
 """Analytic FLOPs model of the PPO train step (own copy of
-dotaclient_tpu/ops/flops.py, the LSTM family), and the peak table the MFU
-meter divides by.
+dotaclient_tpu/ops/flops.py, both policy families), and the peak table the
+MFU meter divides by.
 
 Counts matmul FLOPs only (2·M·N·K per [M,K]x[K,N]); the backward pass is
 twice the forward, so one update is 3x forward. The optimizer update is
@@ -17,7 +17,10 @@ from dotaclient_tpu_torch.env import featurizer as F
 
 def policy_forward_flops_per_frame(cfg: PolicyConfig) -> float:
     """Matmul FLOPs for one batch element, one time frame, forward only:
-    obs trunk, LSTM (input and hidden projections), heads."""
+    obs trunk, temporal core, heads. The LSTM pays its input and hidden
+    projections; the transformer its QKV/out/MLP projections per layer and
+    the attention scores against its context (`tf_context`, as the
+    reference counts it)."""
     U, UF = F.MAX_UNITS, F.UNIT_FEATURES
     D, M, H = cfg.unit_embed_dim, cfg.mlp_hidden, cfg.lstm_hidden
 
@@ -28,8 +31,14 @@ def policy_forward_flops_per_frame(cfg: PolicyConfig) -> float:
     fl += 2.0 * F.GLOBAL_FEATURES * (M // 4)  # global_mlp
     trunk_in = M + M // 4 + 2 * D  # hero ++ glob ++ pool_max ++ pool_mean
     fl += 2.0 * trunk_in * H  # trunk dense
-    fl += 2.0 * H * 4 * H  # x-projection (input is the trunk's H)
-    fl += 2.0 * H * 4 * H  # recurrence hidden projection
+    if cfg.arch == "transformer":
+        Dh = H  # qkv/out are HxH each; MLP is Hx4H up + 4HxH down
+        per_layer = 2.0 * (4 * H * Dh) + 2.0 * (2 * H * 4 * H)
+        per_layer += 2.0 * 2 * cfg.tf_context * H  # scores QK^T + attn·V vs the context
+        fl += cfg.tf_layers * per_layer
+    else:
+        fl += 2.0 * H * 4 * H  # x-projection (input is the trunk's H)
+        fl += 2.0 * H * 4 * H  # recurrence hidden projection
     head_out = F.N_ACTION_TYPES + 2 * cfg.n_move_bins + D + 1
     if cfg.aux_heads:
         head_out += 3

@@ -1,8 +1,8 @@
-"""PPO clipped-surrogate loss over the teacher-forced LSTM re-evaluation
+"""PPO clipped-surrogate loss over the teacher-forced re-evaluation
 (torch twin of dotaclient_tpu/ops/ppo.py).
 
 Re-run the policy over the shipped sequences from the shipped initial
-(c, h), form ratio = exp(logp_new − logp_old), and combine clipped
+(c, h) (the transformer family's unroll ignores it), form ratio = exp(logp_new − logp_old), and combine clipped
 surrogate + PPO2-clipped value loss + entropy bonus (+ aux), all masked
 means over real steps. The metric keys are the reference's. Gradients
 come through autograd; the reference's stop_gradients are `detach()`.

@@ -94,8 +94,10 @@ def epoch_permutations(cfg: LearnerConfig, step: int, device=None) -> torch.Tens
 def build_train_step(cfg: LearnerConfig, device=None):
     """`step(state, batch) -> (state', metrics)` over a TrainBatch of
     tensors on `device` (ops.batch.as_tensors). The reuse step also takes
-    `perms` ([epochs][B] indices) to replay given shuffles."""
+    `perms` ([epochs][B] indices) to replay given shuffles. Either policy
+    family; sequence parallelism (`policy.tf_sp_axis`) is refused."""
     check_arch(cfg.policy)
+    refuse_unported(cfg, ("policy.tf_sp_axis",))
     R, M = cfg.ppo.epochs, cfg.ppo.minibatches
     if R < 1 or M < 1:
         raise ValueError(f"ppo.epochs={R} and ppo.minibatches={M} must be >= 1")

@@ -92,10 +92,16 @@ def apply_weight_frame(agent, frame: bytes, log_name: str, on_applied=None) -> b
 # ----------------------------------------------------------------- key steps
 
 
+def _cat(trees):
+    """Row trees (tuples / NamedTuples of [1, ...] tensors) concatenated
+    leaf by leaf into one tree of the first's type."""
+    leaves = [torch.cat(x) for x in zip(*trees)]
+    return type(trees[0])(*leaves) if hasattr(trees[0], "_fields") else tuple(leaves)
+
+
 def _stack_rows(rows):
     states, actions, logps, values = zip(*rows)
-    state = tuple(torch.cat(s) for s in zip(*states))
-    return state, ad.Action(*(torch.cat(a) for a in zip(*actions))), torch.cat(logps), torch.cat(values)
+    return _cat(states), _cat(actions), torch.cat(logps), torch.cat(values)
 
 
 def _row(tree, i: int):
@@ -121,7 +127,8 @@ def _key_step_row(net, state, obs, u):
 
 def make_batched_key_actor_step(cfg: PolicyConfig):
     """M-row tick on jax keys: `step(net, state, obs, keys)` with stacked
-    per-env (state, obs) rows on the net's device and keys u32 [M, 2] →
+    per-env (state, obs) rows on the net's device (the state an LSTM (c, h)
+    or a transformer KVCache, every leaf batch-leading) and keys u32 [M, 2] →
     (state', action, logp, value) stacked, and keys' u32 [M, 2]. Row i is
     `make_key_actor_step`'s result on row i's inputs, bit for bit: the
     integer stream is hashed per key, and the row's device work sees only

@@ -552,3 +552,86 @@ def test_server_binary_serves_on_the_card_by_default(cuda):
             if p is not None:
                 p.terminate()
                 p.wait(timeout=30)
+
+
+# ------------------------------------------------------------ transformer family
+
+# Step vs unroll at full width on the card: the same ops at [B, 1] and
+# [B, T] shapes, summed by cuBLAS in other orders; in bf16 a last-bit
+# difference can flip one bf16 rounding of an activation (as chip_smoke.py
+# phase 12).
+TF_STEP_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_transformer_steps_reproduce_the_unroll(cuda, dtype):
+    from dotaclient_tpu_torch.config import LearnerConfig, PolicyConfig
+    from dotaclient_tpu_torch.env import featurizer as F
+    from dotaclient_tpu_torch.models import policy as P
+    from dotaclient_tpu_torch.ops.batch import as_tensors, make_train_batch
+
+    cfg = PolicyConfig(arch="transformer", dtype=dtype)
+    net = P.init_params(cfg, torch.Generator().manual_seed(3), cuda)
+    obs = as_tensors(make_train_batch(LearnerConfig(batch_size=64, seq_len=16, policy=cfg), 3).obs, cuda)
+    state, values, type_logp = P.initial_state(cfg, (64,), cuda), [], []
+    with torch.no_grad():
+        _, out = net(state, obs, unroll=True)
+        for t in range(17):
+            state, o = net(state, F.Observation(*(x[:, t] for x in obs)))
+            values.append(o.value)
+            type_logp.append(o.dist.type_logp)
+    tol = TF_STEP_TOL[dtype]
+    assert (torch.stack(values, 1) - out.value).abs().max().item() <= tol
+    assert (torch.stack(type_logp, 1) - out.dist.type_logp).abs().max().item() <= tol
+    assert state.idx.tolist() == [17] * 64 and state.k.device == cuda
+
+
+def test_transformer_blockwise_unroll_matches_dense(cuda):
+    """tf_attn_block 64 over 128 frames against dense attention, f32 (TF32
+    off): the streaming softmax sums in another order."""
+    from dotaclient_tpu_torch.config import LearnerConfig, PolicyConfig
+    from dotaclient_tpu_torch.models import policy as P
+    from dotaclient_tpu_torch.ops.batch import as_tensors, make_train_batch
+    from dotaclient_tpu_torch.transport.params import load_named, named_params
+
+    cfg = PolicyConfig(arch="transformer", dtype="float32", tf_context=128)
+    dense = P.init_params(cfg, torch.Generator().manual_seed(4), cuda)
+    block = load_named(P.PolicyNet(PolicyConfig(arch="transformer", dtype="float32", tf_context=128, tf_attn_block=64),
+                                   cuda), named_params(dense))
+    obs = as_tensors(make_train_batch(LearnerConfig(batch_size=8, seq_len=127, policy=cfg), 4).obs, cuda)
+    zeros = P.initial_state(cfg, (8,), cuda)
+    with torch.no_grad():
+        _, a = dense(zeros, obs, unroll=True)
+        _, b = block(zeros, obs, unroll=True)
+    for x, y in zip((*a.dist, a.value), (*b.dist, b.value)):
+        assert (x - y).abs().max().item() <= 1e-4
+
+
+def test_transformer_batched_key_step_rows_match_single_step(cuda):
+    import numpy as np
+
+    from dotaclient_tpu_torch.config import LearnerConfig, PolicyConfig
+    from dotaclient_tpu_torch.env import featurizer as F
+    from dotaclient_tpu_torch.models import policy as P
+    from dotaclient_tpu_torch.models.transformer_policy import KVCache
+    from dotaclient_tpu_torch.ops.batch import as_tensors, make_train_batch
+    from dotaclient_tpu_torch.runtime.actor import make_batched_key_actor_step, make_key_actor_step
+
+    cfg = PolicyConfig(arch="transformer")
+    net = P.init_params(cfg, torch.Generator().manual_seed(5), cuda)
+    M = 16
+    obs = as_tensors(make_train_batch(LearnerConfig(batch_size=M, seq_len=2, policy=cfg), 5).obs, cuda)
+    step, single = make_batched_key_actor_step(cfg), make_key_actor_step(cfg)
+    keys = np.stack([np.array([1, 900 + i], np.uint32) for i in range(M)])
+    state = P.initial_state(cfg, (M,), cuda)
+    for t in range(2):
+        o = F.Observation(*(x[:, t] for x in obs))
+        new, action, logp, value, keys2 = step(net, state, o, keys)
+        assert isinstance(new, KVCache)
+        for i in range(M):
+            s1, a1, l1, v1, k1 = single(net, KVCache(*(x[i : i + 1].clone() for x in state)),
+                                        F.Observation(*(x[i : i + 1].clone() for x in o)), keys[i])
+            assert all(torch.equal(x[i : i + 1], y) for x, y in zip(new, s1))
+            assert all(torch.equal(x[i : i + 1], y) for x, y in zip(action, a1))
+            assert torch.equal(logp[i : i + 1], l1) and torch.equal(value[i : i + 1], v1) and np.array_equal(keys2[i], k1)
+        state, keys = new, keys2

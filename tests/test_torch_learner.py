@@ -313,6 +313,7 @@ REFUSED = [
     ("multihost", True, "A.14"),
     ("profile_port", 9999, "A.13b"),
     ("chaos.enabled", True, "A.10j"),
+    ("policy.tf_sp_axis", "sp", "A.14"),
 ]
 
 

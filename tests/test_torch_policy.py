@@ -172,8 +172,8 @@ def test_state_helpers_and_device_rule(monkeypatch):
         resolve_device()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         P.PolicyNet(cfg)
-    with pytest.raises(NotImplementedError):
-        P.PolicyNet(dataclasses.replace(cfg, arch="transformer"), device="cpu")
+    with pytest.raises(ValueError, match="unknown policy family"):
+        P.PolicyNet(dataclasses.replace(cfg, arch="gru"), device="cpu")
 
 
 def test_batched_actor_step_rows_match_single_step():

@@ -825,6 +825,7 @@ def test_batcher_resumes_a_ticks_requesters_before_the_next_tick():
 
 REFUSED_SERVE = [
     ("chaos.enabled", True, "A.10j"),
+    ("policy.tf_sp_axis", "sp", "A.14"),
 ]
 
 

@@ -305,8 +305,11 @@ def test_init_train_state_is_seeded_and_fresh():
 
 def test_builders_refuse_what_the_port_does_not_have():
     _, tcfg = _configs("float32")
-    with pytest.raises(NotImplementedError, match="only the LSTM family"):
-        ts.build_train_step(dataclasses.replace(tcfg, policy=dataclasses.replace(tcfg.policy, arch="transformer")), "cpu")
+    with pytest.raises(ValueError, match="unknown policy family"):
+        ts.build_train_step(dataclasses.replace(tcfg, policy=dataclasses.replace(tcfg.policy, arch="gru")), "cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP A.14"):
+        ts.build_train_step(dataclasses.replace(tcfg, policy=dataclasses.replace(tcfg.policy, arch="transformer",
+                                                                                  tf_sp_axis="sp")), "cpu")
     with pytest.raises(ValueError, match="use build_train_step"):
         ts.build_single_train_step(dataclasses.replace(tcfg, fused_h2d=False), "cpu")
     with pytest.raises(NotImplementedError, match="grouped four-buffer"):
