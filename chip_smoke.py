@@ -85,12 +85,21 @@ Phases, in order; any failure exits non-zero:
               compute_mfu), and scripts/bench_tf.py's ladder (contexts
               64/128/256 at batch 64, dense, blockwise and remat: ms, device
               ms, env steps/s, peak memory; blockwise vs dense, remat
-              bitwise); no recurrence launch (see phase_transformer).
+              bitwise); no recurrence launch (see phase_transformer);
+13. actors  — a 4-slot VectorActor's frames (flagship policy, the port's
+              fake env in-process) byte for byte its standalone Actors';
+              then a closed loop with no jax, dotaclient_tpu,
+              google.protobuf or grpc in any process: three port shards
+              (k8s/broker.yaml), the learner binary with k8s/learner.yaml's
+              args training 5 steps at 256 x 16, and 4 actor processes
+              (`--actor-proc`) with the actors-scripted container's args
+              (see phase_actors).
 Each path of the main path (serving, learner forward, each train step,
 the reuse step, the learner loop, the manifest learner, the fabric
-learner, the serve manifest) is driven with the kernels' launch counters
-zeroed just before it and read just after (the serve manifest's servers
-are processes of their own, which start at 0 and report their count).
+learner, the serve manifest, the actors' closed loop) is driven with the
+kernels' launch counters zeroed just before it and read just after (the
+serve manifest's servers and the actor processes are processes of their
+own, which start at 0 and report their count).
 The last lines are the transformer line, one JSON object per kernel, the
 card line, and {"ok": true, "device": {...}}.
 """
@@ -1860,19 +1869,25 @@ def _scrape(port: int) -> dict:
             if ln and not ln.startswith("#")}
 
 
-def start_fabric_shards(n: int = 3):
+def start_fabric_shards(n: int = 3, import_logs=None):
     """n port shard processes with k8s/broker.yaml's args, the host, port
-    and metrics port made local and ephemeral. Returns [(process, port,
-    metrics port)]."""
+    and metrics port made local and ephemeral. With `import_logs` (a
+    directory) each runs under `-X importtime`, its stderr in
+    import_logs/shardI.log. Returns [(process, port, metrics port)]."""
     args = manifest_args(BROKER_MANIFEST)
     out = []
-    for _ in range(n):
+    for i in range(n):
         mport = _free_port()
         flags = list(args)
         for flag, value in (("--host", "127.0.0.1"), ("--port", "0"), ("--metrics_port", str(mport))):
             flags[flags.index(flag) + 1] = value
-        proc = subprocess.Popen([sys.executable, "-m", "dotaclient_tpu_torch.transport.fabric", *flags], cwd=ROOT,
-                                stdout=subprocess.PIPE, text=True)
+        trace, err = [], None
+        if import_logs is not None:
+            trace, err = ["-X", "importtime"], open(os.path.join(import_logs, f"shard{i}.log"), "w")
+        proc = subprocess.Popen([sys.executable, *trace, "-m", "dotaclient_tpu_torch.transport.fabric", *flags],
+                                cwd=ROOT, stdout=subprocess.PIPE, stderr=err, text=True)
+        if err is not None:
+            err.close()
         line = proc.stdout.readline().strip()
         if not line.startswith("fabric shard listening on 127.0.0.1:") or "priority admission" not in line:
             proc.kill()
@@ -3196,6 +3211,361 @@ def phase_transformer(device, card: str, policy=None, rows: int = 256, tick_rows
     return out
 
 
+# ---------------------------------------------------------------- phase 13
+
+ACTORS_MANIFEST = os.path.join(ROOT, "k8s", "actors.yaml")
+# Modules no process of the closed loop may hold: JAX, the JAX package
+# (the exact name), protobuf and gRPC.
+FORBIDDEN_ROOTS = ("jax", "jaxlib", "flax", "optax", "grpc")
+
+
+def forbidden_modules(names) -> list:
+    """The names among `names` (module names) that are JAX, the JAX
+    package, google.protobuf or grpc."""
+    return sorted(m for m in names if m.split(".")[0] in FORBIDDEN_ROOTS or m == "dotaclient_tpu"
+                  or m.startswith("dotaclient_tpu.") or m == "google.protobuf" or m.startswith("google.protobuf."))
+
+
+def _imported_by_log(path: str) -> list:
+    """Module names a `-X importtime` stderr log lists."""
+    out = []
+    for line in open(path):
+        if line.startswith("import time:") and "|" in line:
+            out.append(line.rsplit("|", 1)[1].strip())
+    return out
+
+
+def actor_args(broker_url: str, tmp: str, actor_id: int, extra=()) -> list:
+    """The `actors-scripted` actor container's args from k8s/actors.yaml,
+    less --env_addr and every --serve.* flag (the env is in-process and
+    the remote client is ROADMAP A.11b), the shard list swapped for the
+    local one, flight dumps in `tmp`, this process's --actor_id; `extra`
+    appended."""
+    args = manifest_args(ACTORS_MANIFEST, container=1)
+    out, i = [], 0
+    while i < len(args):
+        if args[i] == "--env_addr" or args[i].startswith("--serve."):
+            i += 2
+            continue
+        out.append(args[i])
+        i += 1
+    out[out.index("--broker_url") + 1] = broker_url
+    return out + ["--actor_id", str(actor_id), "--obs.dump_dir", tmp] + list(extra)
+
+
+class CountingBroker:
+    """The actor's broker with its publishes counted: each call is an
+    attempt; an accepted one adds its frame's version (header offset 4)
+    and whether it is a trace-stamped bf16 DTR3 frame. Everything else is
+    the wrapped broker's."""
+
+    def __init__(self, inner):
+        self._inner = inner
+        self.attempts = 0
+        self.versions = {}
+        self.dtr3_traced = 0
+
+    def __getattr__(self, name):
+        return getattr(self._inner, name)
+
+    def _count(self, data: bytes) -> None:
+        from dotaclient_tpu_torch.transport.serialize import peek_rollout_trace
+
+        v = struct.unpack_from("<I", data, 4)[0]
+        self.versions[v] = self.versions.get(v, 0) + 1
+        if data[:4] == b"DTR3" and peek_rollout_trace(data)[0] != 0:
+            self.dtr3_traced += 1
+
+    def publish_experience(self, data: bytes) -> None:
+        self.attempts += 1
+        self._inner.publish_experience(data)
+        self._count(data)
+
+    def publish_experience_prioritized(self, data: bytes, priority: float) -> None:
+        self.attempts += 1
+        self._inner.publish_experience_prioritized(data, priority)
+        self._count(data)
+
+
+def actor_proc_main(argv) -> int:
+    """`chip_smoke.py --actor-proc DIR INDEX [actor flags]`: one actor
+    process of phase 13. Parses the actor flags through the port's
+    parse_config, builds a VectorActor whose env slots are
+    LocalDotaServiceStubs on the port's FakeDotaService, runs it until the
+    file DIR/stop exists, and writes DIR/actorINDEX.json every 0.25 s and
+    at the end: steps, episodes, the publish ledger (attempts, published,
+    shed, failed), the versions of the frames published, the weight
+    versions applied, the mean tick ms, env steps/s, recurrence launches
+    and the forbidden modules it holds."""
+    import asyncio
+
+    from dotaclient_tpu_torch.config import ActorConfig, parse_config
+    from dotaclient_tpu_torch.env.fake_dotaservice import FakeDotaService
+    from dotaclient_tpu_torch.env.service import LocalDotaServiceStub
+    from dotaclient_tpu_torch.ops import lstm as L
+    from dotaclient_tpu_torch.runtime.actor import VectorActor
+    from dotaclient_tpu_torch.transport.base import RetryPolicy, connect
+
+    d, index = argv[0], int(argv[1])
+    cfg = parse_config(ActorConfig(), argv[2:])
+    broker = CountingBroker(connect(cfg.broker_url, retry=RetryPolicy.from_config(cfg.retry)))
+    env = FakeDotaService()
+    M = max(int(cfg.envs_per_process), 1)
+    vec = VectorActor(cfg, broker, actor_id=cfg.actor_id, stubs=[LocalDotaServiceStub(env) for _ in range(M)])
+    applied = []
+    update = vec.maybe_update_weights
+
+    def recording_update() -> bool:
+        ok = update()
+        if ok:
+            applied.append(vec.version)
+        return ok
+
+    vec.maybe_update_weights = recording_update
+    status, stop = os.path.join(d, f"actor{index}.json"), os.path.join(d, "stop")
+    t0 = time.perf_counter()
+
+    def report(done: bool) -> None:
+        st = vec.stats()
+        elapsed = time.perf_counter() - t0
+        _write_json(status, dict(
+            steps=vec.steps_done, episodes=vec.episodes_done, attempts=broker.attempts,
+            published=vec.rollouts_published, shed=vec.rollouts_shed, failed=vec.rollouts_failed,
+            versions={str(k): n for k, n in sorted(broker.versions.items())}, dtr3_traced=broker.dtr3_traced,
+            applied=applied, version=vec.version, tick_ms=1e3 * st["actor_jit_step_s"],
+            occupancy=st["actor_batch_occupancy"], steps_per_s=vec.steps_done / max(elapsed, 1e-9),
+            elapsed_s=elapsed, launches=L.LAUNCHES, device=str(vec.envs[0].device),
+            forbidden=forbidden_modules(list(sys.modules)), done=done))
+
+    async def go():
+        task = asyncio.create_task(vec.run())
+        try:
+            while not os.path.exists(stop):
+                if task.done():
+                    task.result()  # an actor failure ends the process non-zero
+                    raise RuntimeError("the actor stopped on its own")
+                report(False)
+                await asyncio.sleep(0.25)
+        finally:
+            task.cancel()
+            await asyncio.gather(task, return_exceptions=True)
+
+    asyncio.run(go())
+    report(True)
+    broker.close()
+    return 0
+
+
+def _fleet_frames(device, policy, envs: int, episodes: int, max_time: float, actor_id: int = 1):
+    """The fleet contract on `device`: a VectorActor with `envs` slots and
+    standalone Actors with the slots' ids, each `episodes` episodes on the
+    port's fake env through LocalDotaServiceStubs, over mem:// hubs.
+    Returns (vector frames by actor id, standalone frames by actor id,
+    the vector run's batcher stats, its env steps, its seconds)."""
+    import asyncio
+
+    from dotaclient_tpu_torch.config import ActorConfig
+    from dotaclient_tpu_torch.env.fake_dotaservice import FakeDotaService
+    from dotaclient_tpu_torch.env.service import LocalDotaServiceStub
+    from dotaclient_tpu_torch.runtime.actor import Actor, VectorActor
+    from dotaclient_tpu_torch.transport import memory as tmem
+    from dotaclient_tpu_torch.transport.serialize import peek_rollout_actor_id
+
+    cfg = ActorConfig(policy=policy, max_dota_time=max_time)
+    svc = FakeDotaService()
+
+    def by_actor(hub):
+        out = {}
+        for f in tmem.MemoryBroker(hub).consume_experience(100000, timeout=0.1):
+            out.setdefault(peek_rollout_actor_id(f), []).append(f)
+        return out
+
+    for hub in ("actors_fleet", "actors_single"):
+        tmem.reset(hub)
+        tmem.MemoryBroker(hub)
+    vec = VectorActor(cfg, tmem.MemoryBroker("actors_fleet"), actor_id=actor_id, envs=envs,
+                      stubs=[LocalDotaServiceStub(svc) for _ in range(envs)], device=device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    asyncio.run(vec.run_episodes(episodes))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    stats = vec.batcher.stats()
+    for j in range(envs):
+        actor = Actor(cfg, tmem.MemoryBroker("actors_single"), actor_id=actor_id * envs + j,
+                      stub=LocalDotaServiceStub(svc), device=device)
+        asyncio.run(actor.run(num_episodes=episodes))
+    return by_actor("actors_fleet"), by_actor("actors_single"), stats, vec.steps_done, wall
+
+
+def phase_actors(device, card: str, fabric_window_ms=None, policy=None, envs: int = 4, episodes: int = 2,
+                 max_time: float = 60.0, procs: int = 4, steps: int = 5, extra=(), actor_extra=()):
+    """Phase 13: the actor on the card.
+
+    1. The fleet contract: a VectorActor of `envs` slots (flagship
+       policy) and standalone Actors with ids actor_id*M + j, `episodes`
+       episodes each at max_dota_time `max_time`; every frame of slot j
+       byte for byte the standalone's.
+    2. The closed loop with nothing of JAX in it: three port fabric shards
+       (k8s/broker.yaml's args), the port learner binary's main with
+       k8s/learner.yaml's args and the three-endpoint list, --train_steps
+       `steps`, and `procs` actor processes (`--actor-proc`) with the
+       actors-scripted container's args (less --serve.* and --env_addr),
+       each a VectorActor on the port's fake env in-process. After the
+       learner's last step the actors run on until each has published a
+       frame of version >= 1. Checks: no process holds jax, dotaclient_tpu,
+       google.protobuf or grpc; one recurrence launch per train step and
+       none in an actor; every actor applied a weight frame >= v1 and
+       published frames stamped with it; 0 quarantined; DTR3 bf16 frames
+       with trace stamps; each actor's attempts = published + shed +
+       failed and the frames published = the frames the shards enqueued.
+    `extra` goes to the learner, `actor_extra` to the actors (a CPU
+    rehearsal passes --platform cpu and small policy flags to both)."""
+    from dotaclient_tpu_torch.config import ActorConfig, LearnerConfig, PolicyConfig, parse_config
+    from dotaclient_tpu_torch.ops import lstm as L
+    from dotaclient_tpu_torch.runtime import learner as tlearner
+
+    t_phase = time.perf_counter()
+    policy = policy or PolicyConfig()
+    vec, single, fstats, fsteps, fwall = _fleet_frames(device, policy, envs, episodes, max_time)
+    problems = []
+    if sorted(vec) != sorted(single) or len(vec) != envs:
+        problems.append(f"actor ids {sorted(vec)} vs {sorted(single)}")
+    n_frames = 0
+    for aid in sorted(single):
+        if len(vec.get(aid, [])) != len(single[aid]) or any(a != b for a, b in zip(vec.get(aid, []), single[aid])):
+            problems.append(f"slot {aid}: the vector fleet's frames differ from the standalone Actor's")
+        n_frames += len(single[aid])
+    if problems:
+        raise SystemExit(f"actors: {problems}")
+    fleet = dict(frames=n_frames, env_steps=fsteps, tick_ms=1e3 * fstats["actor_jit_step_s"],
+                 occupancy=fstats["actor_batch_occupancy"], steps_per_s=fsteps / fwall)
+    print(f"actors: fleet contract on {device}: a VectorActor of {envs} slots ({policy.lstm_hidden} wide, "
+          f"{policy.dtype} compute) and {envs} standalone Actors, {episodes} episodes each at max_dota_time "
+          f"{max_time:g}: {n_frames} frames, every one byte for byte; tick {fleet['tick_ms']:.3f} ms, occupancy "
+          f"{fleet['occupancy']:.3f}, {fleet['steps_per_s']:.1f} env steps/s | {card}", flush=True)
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_actors_")
+    logs, adir = os.path.join(tmp, "imports"), os.path.join(tmp, "actors")
+    os.makedirs(logs)
+    os.makedirs(adir)
+    shards = start_fabric_shards(3, import_logs=logs)
+    aprocs = []
+    ok = False
+    try:
+        url = ",".join(f"tcp://127.0.0.1:{p}" for _, p, _ in shards)
+        mport = _free_port()
+        flags = local_manifest(manifest_args(), tmp, url, mport, extra=list(extra) + [
+            "--train_steps", str(steps), "--metrics_every", "1"])
+        cfg = parse_config(LearnerConfig(), flags)
+        slots = parse_config(ActorConfig(), actor_args(url, tmp, 0, actor_extra)).envs_per_process
+        aprocs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--actor-proc", adir, str(i),
+                                    *actor_args(url, tmp, i, actor_extra)], cwd=ROOT) for i in range(procs)]
+        status = lambda: [_read_json(os.path.join(adir, f"actor{i}.json")) or {} for i in range(procs)]  # noqa: E731
+        errors, main_done = [], threading.Event()
+
+        def watchdog():
+            # the learner's run() has no idle limit: a loop the actors cannot feed is drained by SIGTERM
+            deadline = time.monotonic() + 240
+            while not main_done.wait(0.5):
+                if time.monotonic() > deadline or any(p.poll() is not None for p in aprocs):
+                    errors.append(f"learner not done: actor exits {[p.poll() for p in aprocs]}")
+                    os.kill(os.getpid(), signal.SIGTERM)
+                    return
+
+        saved = sys.excepthook, threading.excepthook, signal.getsignal(signal.SIGTERM)
+        guard = threading.Thread(target=watchdog, daemon=True, name="chip-smoke-actors")
+        try:
+            torch.cuda.synchronize()
+            L.LAUNCHES = 0  # the closed loop's learner starts here
+            t0 = time.perf_counter()
+            guard.start()
+            learner = tlearner.main(flags)
+            wall_s = time.perf_counter() - t0
+            launches = L.LAUNCHES
+        finally:
+            main_done.set()
+            sys.excepthook, threading.excepthook = saved[:2]
+            signal.signal(signal.SIGTERM, saved[2])
+            guard.join(timeout=10)
+        if errors:
+            raise SystemExit(f"actors: {errors[0]}")
+        _wait(lambda: all(any(int(v) >= 1 for v in s.get("versions", {})) for s in status()), 120,
+              "every actor to publish a frame of version >= 1", aprocs)
+        open(os.path.join(adir, "stop"), "w").close()
+        _wait(lambda: all(s.get("done") for s in status()), 60, "the actors to stop", aprocs)
+        for p in aprocs:
+            p.wait(timeout=30)
+        actors = status()
+        shard_led = [_scrape(m) for _, _, m in shards]
+        learner.broker.close()
+        ok = True
+    finally:
+        for p in aprocs:
+            stop_process(p)
+        for proc, _, _ in shards:
+            if ok:
+                stop_process(proc)
+            else:
+                proc.kill()
+    stats = learner.staging.stats()
+    trace = learner.obs.tracer.scalars() if learner.obs is not None else {}
+    lines = [json.loads(x) for x in open(os.path.join(cfg.log_dir, "metrics.jsonl"))]
+    windows = [_window_ms(r) for r in lines[1:]] or [_window_ms(lines[-1])]
+    shard_imports = {f"shard{i}": forbidden_modules(_imported_by_log(os.path.join(logs, f"shard{i}.log")))
+                      for i in range(len(shards))}
+    shutil.rmtree(tmp, ignore_errors=True)
+    enqueued = [led["broker_shard_enqueued_total"] for led in shard_led]
+    published = sum(a["published"] for a in actors)
+    if launches != steps or learner.version != steps:
+        problems.append(f"{launches} recurrence launches, version {learner.version} (expected {steps})")
+    held = dict(learner=forbidden_modules(list(sys.modules)), **shard_imports,
+                **{f"actor{i}": a["forbidden"] for i, a in enumerate(actors)})
+    if any(held.values()):
+        problems.append(f"forbidden modules: {held}")
+    for i, a in enumerate(actors):
+        if not a["applied"] or max(a["applied"]) < 1 or not any(int(v) >= 1 for v in a["versions"]):
+            problems.append(f"actor {i} applied {a['applied']} and published versions {a['versions']}")
+        if a["attempts"] != a["published"] + a["shed"] + a["failed"] or a["dtr3_traced"] != a["published"]:
+            problems.append(f"actor {i} ledger: {a['attempts']} attempts, {a['published']} published (DTR3 "
+                            f"traced {a['dtr3_traced']}), {a['shed']} shed, {a['failed']} failed")
+        if a["launches"] != 0:
+            problems.append(f"actor {i} launched the recurrence {a['launches']} times")
+    if published != sum(enqueued):
+        problems.append(f"the actors published {published} frames, the shards enqueued {enqueued}")
+    if stats["quarantined"] != 0 or stats["wire_frames_obs_bf16"] == 0 or stats["wire_frames_obs_f32"] != 0:
+        problems.append(f"staging: quarantined {stats['quarantined']}, bf16 frames {stats['wire_frames_obs_bf16']}, "
+                        f"f32 frames {stats['wire_frames_obs_f32']}")
+    if "trace_e2e_actor_apply_s" not in trace:
+        problems.append("the learner's tracer saw no trace-stamped frame applied")
+    if problems:
+        raise SystemExit(f"actors: {problems}")
+    rates = [a["steps_per_s"] for a in actors]
+    lag = [learner.version - a["version"] for a in actors]
+    res = dict(fleet=fleet, steps=steps, launches=launches, learner_wall_s=wall_s, window_ms=windows,
+               window_ms_median=statistics.median(windows), fabric_window_ms=fabric_window_ms,
+               actor_steps_per_s=rates, total_steps_per_s=sum(rates), actor_tick_ms=[a["tick_ms"] for a in actors],
+               actor_occupancy=[a["occupancy"] for a in actors], applied=[a["applied"] for a in actors],
+               lag_versions_at_stop=lag, published=published, shed=[a["shed"] for a in actors],
+               failed=[a["failed"] for a in actors], enqueued=enqueued, quarantined=stats["quarantined"],
+               consumed=stats["consumed"], dropped_stale=stats["dropped_stale"], trace_e2e_s=trace.get(
+                   "trace_e2e_actor_apply_s"), env_steps=sum(a["steps"] for a in actors))
+    res["phase_s"] = time.perf_counter() - t_phase
+    print(f"actors: closed loop (three port shards, the learner binary with k8s/learner.yaml's args, {procs} actor "
+          f"processes with the actors-scripted args, each a VectorActor of {slots} slots "
+          f"on the port's fake env on {actors[0]['device']}): {steps} train steps, {launches} recurrence launches, "
+          f"none in an actor; no process holds jax, dotaclient_tpu, google.protobuf or grpc; weight versions "
+          f"applied {res['applied']}, lag at stop {lag} versions; published {published} = enqueued "
+          f"{[int(x) for x in enqueued]} (shed {res['shed']}, failed {res['failed']}), all DTR3 bf16 traced, "
+          f"0 quarantined, consumed {stats['consumed']} (stale {stats['dropped_stale']}) | {card}", flush=True)
+    print(f"actors: env steps/s per actor process {[round(r, 1) for r in rates]} (total {sum(rates):.1f}); tick ms "
+          f"{[round(x, 3) for x in res['actor_tick_ms']]}; learner window ms per step fed by the actors "
+          f"{[round(x, 3) for x in windows]} (median {res['window_ms_median']:.3f}; phase 10's fabric window with "
+          f"producer processes {fabric_window_ms}); learner wall {wall_s:.1f} s; phase {res['phase_s']:.1f} s "
+          f"| {card}", flush=True)
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke needs an NVIDIA GPU", file=sys.stderr)
@@ -3241,6 +3611,7 @@ def main() -> int:
         for proc, _, _ in shards:
             stop_process(proc)
     transformer = phase_transformer(device, card)  # zeroes the counter itself; no path of it may launch the kernel
+    actors = phase_actors(device, card, fabric_window_ms=fabric["fabric_window_ms"])  # zeroes the counter itself
 
     main_case = cases[0]
     kernels = [
@@ -3281,6 +3652,8 @@ def main() -> int:
             "launches_serve_manifest": sum(serve_manifest["launches"]),
             "serve_manifest": serve_manifest,
             "launches_transformer_learner": transformer["learner"]["launches"],
+            "launches_actors_loop": actors["launches"],
+            "actors": actors,
         }
     ]
     print(f"smoke: {time.perf_counter() - t_smoke:.1f} s | {card}", flush=True)
@@ -3303,4 +3676,6 @@ if __name__ == "__main__":
         sys.exit(serve_binary_main(sys.argv[2:]))
     if sys.argv[1:2] == ["--serve-resume-client"]:
         sys.exit(resume_client_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--actor-proc"]:
+        sys.exit(actor_proc_main(sys.argv[2:]))
     sys.exit(main())

@@ -10,7 +10,8 @@ NotImplementedError naming its ROADMAP item. Settings only those modes
 read are left out, so their flags fail to parse.
 
 Binaries: the learner (`LearnerConfig`), the inference server
-(`InferenceConfig`) and the carry store (`HandoffConfig`).
+(`InferenceConfig`), the carry store (`HandoffConfig`) and the actor
+(`ActorConfig`).
 """
 
 from __future__ import annotations
@@ -245,6 +246,82 @@ class ServeConfig:
 
 
 @dataclass
+class WireConfig:
+    """Experience-wire quantization (transport/serialize.py DTR3), on the
+    producer side only: consumers take DTR1/2/3 alike."""
+
+    # Wire dtype of the float obs leaves of published rollout frames:
+    # "f32" ships DTR1/DTR2 frames; "bf16" casts the obs to bf16 at the
+    # source (the rounding staging's compute-dtype cast applies anyway) and
+    # ships DTR3.
+    obs_dtype: str = "f32"
+
+
+@dataclass
+class ServeClientConfig:
+    """The actor's opt-in to the remote inference service. The client
+    (serve/client.py) is not ported: a non-empty value is refused (ROADMAP
+    A.11b), and its other flags do not parse yet."""
+
+    # Inference-service endpoint(s), "host:port[,host:port...]"; "" = the
+    # local policy step.
+    endpoint: str = ""
+    # League service "host:port" of league-opponent fleets.
+    league: str = ""
+
+
+@dataclass
+class ActorConfig:
+    """The actor binary's flags (`python -m dotaclient_tpu_torch.runtime.actor`;
+    reference: dotaclient_tpu/config.py ActorConfig), less the settings
+    only self-play and the league read (team_size, league_capacity,
+    league_snapshot_every, pfsp_mode: ROADMAP A.11c), which do not parse.
+
+    `platform` differs from the reference: "" (the default) runs the
+    policy step on the CUDA device and "cpu" on the host, where the
+    reference defaults to "cpu"."""
+
+    # The env server's gRPC address (the binary dials it; in-process envs
+    # are handed to Actor / VectorActor as stubs instead).
+    env_addr: str = "localhost:13337"
+    # "internal": the framework's env messages; "valve": a real
+    # dotaservice's schema (not ported; refused, ROADMAP A.11d).
+    env_dialect: str = "internal"
+    broker_url: str = "mem://"
+    rollout_len: int = 16  # steps per published experience chunk
+    host_timescale: float = 10.0
+    ticks_per_observation: int = 30
+    max_dota_time: float = 600.0
+    # One hero name or a comma-separated pool; both sides draw from it.
+    hero: str = "npc_dota_hero_nevermore"
+    # "scripted" (the env's passive bot) or "scripted_hard" (farms and
+    # retreats); "self" and "league" are refused (ROADMAP A.11c).
+    opponent: str = "scripted"
+    # Kill switch: exit (for a supervisor restart) when no weight frame
+    # arrived for this many seconds; 0 disables it.
+    max_weight_age_s: float = 900.0
+    # Ablation: mask CAST out of every observation.
+    disable_cast: bool = False
+    # Env sessions one process drives on one asyncio loop (VectorActor),
+    # their policy steps gathered into one tick; 1 = the single-env Actor.
+    envs_per_process: int = 1
+    # A tick fires when every env slot has submitted, and no later than
+    # this long after its first request.
+    gather_window_s: float = 0.005
+    obs: ObsConfig = field(default_factory=ObsConfig)
+    policy: PolicyConfig = field(default_factory=PolicyConfig)
+    retry: RetryConfig = field(default_factory=RetryConfig)
+    chaos: ChaosConfig = field(default_factory=ChaosConfig)
+    wire: WireConfig = field(default_factory=WireConfig)
+    serve: ServeClientConfig = field(default_factory=ServeClientConfig)
+    # Param init (the learner fleet's seed) and the actor's streams.
+    seed: int = 0
+    actor_id: int = 0
+    # "" = the CUDA device; "cpu" runs the policy step on the host.
+    platform: str = ""
+
+
+@dataclass
 class InferenceConfig:
     """The inference-service binary's flags (reference:
     dotaclient_tpu/config.py InferenceConfig). The service owns one param
@@ -358,6 +435,16 @@ UNPORTED = {
     "profile_port": (bool, "the deprecated always-on profiler server (use POST /profile)", "A.13b"),
     "chaos.enabled": (bool, "the fault-injecting broker wrapper", "A.10j"),
     "policy.tf_sp_axis": (bool, "sequence-parallel attention (ring / Ulysses)", "A.14"),
+}
+
+# The actor binary's modes that are not ported, in UNPORTED's form (the
+# chaos switch is UNPORTED's row): Actor and the actor binary refuse them.
+ACTOR_UNPORTED = {
+    "serve.endpoint": (bool, "the remote inference client (serve/client.py)", "A.11b"),
+    "serve.league": (bool, "the league-opponent remote client (serve/client.py)", "A.11b"),
+    "opponent": (lambda v: v in ("self", "league"), "self-play and the league", "A.11c"),
+    "env_dialect": (lambda v: v == "valve", "the valve dialect adapter (env/valve_adapter.py)", "A.11d"),
+    "chaos.enabled": UNPORTED["chaos.enabled"],
 }
 
 

@@ -16,14 +16,16 @@ inference server, the carry store and the fabric shards:
 - obs/registry.py         the documented scalar names.
 
 Everything is off by default (`--obs.enabled`): with it off no obs object
-exists and the staging, learner and serve paths are the plain ones. The
-inference server's runtime (role "serve") serves /metrics from its stats,
-/healthz and the flight recorder; the compute observer and the watchdog
-are attached by the learner only.
+exists and the staging, learner, serve and actor paths are the plain ones.
+The inference server's runtime (role "serve") serves /metrics from its
+stats, /healthz and the flight recorder; an actor's runtime trace-stamps
+each chunk it publishes (`stamp`) and serves its actor_* gauges; the
+compute observer and the watchdog are attached by the learner only.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Callable, Dict, List, Optional
 
 from dotaclient_tpu_torch.config import ObsConfig
@@ -47,6 +49,7 @@ class ObsRuntime:
         self.compute: Optional[ComputeObserver] = None
         self.watchdog: Optional[Watchdog] = None
         self.profiler: Optional[ProfileCapture] = None
+        self._trace_seq = 0
 
     @classmethod
     def create(cls, cfg: ObsConfig, role: str) -> Optional["ObsRuntime"]:
@@ -57,6 +60,17 @@ class ObsRuntime:
         if cfg.install_handlers:
             rt.recorder.install_handlers()
         return rt
+
+    def stamp(self, rollout, actor_id: int):
+        """Trace-stamp an outgoing rollout chunk (the actor's publish path):
+        a trace id of the actor (high word) and this process's sequence
+        number (low word), the birth time, and a publish event in the
+        recorder. serialize_rollout then emits DTR2 (DTR3 when bf16)."""
+        self._trace_seq += 1
+        trace_id = ((actor_id & 0xFFFFFFFF) << 32) | (self._trace_seq & 0xFFFFFFFF)
+        birth = time.time()
+        self.recorder.record("publish", t=birth, trace=trace_id, actor=actor_id)
+        return rollout._replace(trace_id=trace_id, birth_time=birth)
 
     def attach_compute(self, flops_per_step: float, peak_flops: Optional[float], overlap: bool = False) -> ComputeObserver:
         """The learner's compute bundle: phase timer (cfg.step_phases; in

@@ -55,6 +55,12 @@ def _hash_iota(keys, n: int):
     return threefry2x32(keys[..., 0:1], keys[..., 1:2], np.zeros(n, np.uint32), lo)
 
 
+def prng_key(seed: int) -> np.ndarray:
+    """`jax.random.PRNGKey(seed)` with 64-bit mode off (jax's default):
+    the seed's low 32 bits in the second word, 0 in the first."""
+    return np.array([0, int(seed) & 0xFFFFFFFF], np.uint32)
+
+
 def split(keys, num: int = 2) -> np.ndarray:
     """`jax.random.split(key, num)` for every key: [..., 2] → [..., num, 2]."""
     y1, y2 = _hash_iota(keys, num)

@@ -1,13 +1,74 @@
-"""Metrics sink: JSONL always, TensorBoard when importable (own copy of
-dotaclient_tpu/runtime/metrics.py). Scalar names are the reference's, so
-training curves of the two learners compare directly."""
+"""Metrics sink (own copy of dotaclient_tpu/runtime/metrics.py): JSONL and
+a TensorBoard event file. Scalar names are the reference's, so training
+curves of the two learners compare directly.
+
+The event file is written by the port itself (TFRecord framing of Event
+records through protos/event.py), not by `torch.utils.tensorboard`, whose
+import brings in `tensorboard`, `google.protobuf` and `grpc`: a learner
+process holds none of them.
+"""
 
 from __future__ import annotations
 
 import json
 import os
+import socket
+import struct
 import time
 from typing import Dict
+
+from dotaclient_tpu_torch.protos.event import Event, Summary, SummaryValue
+
+
+def _crc32c_table():
+    table = []
+    for i in range(256):
+        c = i
+        for _ in range(8):
+            c = (c >> 1) ^ 0x82F63B78 if c & 1 else c >> 1
+        table.append(c)
+    return table
+
+
+_CRC32C = _crc32c_table()
+
+
+def masked_crc32c(data: bytes) -> int:
+    """The TFRecord checksum: CRC-32C (Castagnoli), rotated right by 15
+    and offset by 0xa282ead8."""
+    crc = 0xFFFFFFFF
+    for b in data:
+        crc = _CRC32C[(crc ^ b) & 0xFF] ^ (crc >> 8)
+    crc ^= 0xFFFFFFFF
+    return (((crc >> 15) | (crc << 17)) + 0xA282EAD8) & 0xFFFFFFFF
+
+
+class EventFileWriter:
+    """A TensorBoard event file in `log_dir`
+    (events.out.tfevents.<time>.<host>.<pid>): the file-version record,
+    then one Event per `add_scalars` call carrying each scalar as a
+    Summary value."""
+
+    def __init__(self, log_dir: str):
+        name = f"events.out.tfevents.{int(time.time())}.{socket.gethostname()}.{os.getpid()}"
+        self.path = os.path.join(log_dir, name)
+        self._f = open(self.path, "ab")
+        self._write(Event(wall_time=time.time(), file_version="brain.Event:2"))
+
+    def _write(self, event: Event) -> None:
+        data = event.SerializeToString()
+        head = struct.pack("<Q", len(data))
+        self._f.write(head + struct.pack("<I", masked_crc32c(head)) + data + struct.pack("<I", masked_crc32c(data)))
+
+    def add_scalars(self, step: int, scalars: Dict[str, float], wall_time: float) -> None:
+        self._write(Event(wall_time=wall_time, step=step, summary=Summary(
+            value=[SummaryValue(tag=k, simple_value=v) for k, v in scalars.items()])))
+
+    def flush(self) -> None:
+        self._f.flush()
+
+    def close(self) -> None:
+        self._f.close()
 
 
 def histogram_scalars(prefix: str, edges, counts) -> Dict[str, float]:
@@ -35,12 +96,7 @@ class MetricsLogger:
         if log_dir:
             os.makedirs(log_dir, exist_ok=True)
             self._jsonl = open(os.path.join(log_dir, "metrics.jsonl"), "a", buffering=1)
-            try:
-                from torch.utils.tensorboard import SummaryWriter
-
-                self._tb = SummaryWriter(log_dir)
-            except Exception:  # tensorboard is optional: JSONL only
-                self._tb = None
+            self._tb = EventFileWriter(log_dir)
 
     def log(self, step: int, scalars: Dict[str, float]) -> None:
         # A window racing teardown is dropped, not an IO error on a closed file.
@@ -48,13 +104,13 @@ class MetricsLogger:
             return
         clean = {k: float(v) for k, v in scalars.items()}
         self._latest_rec = (step, clean)
+        now = time.time()
         if self._jsonl is not None:
-            rec = {"step": step, "time": time.time()}
+            rec = {"step": step, "time": now}
             rec.update(clean)
             self._jsonl.write(json.dumps(rec) + "\n")
         if self._tb is not None:
-            for k, v in clean.items():
-                self._tb.add_scalar(k, v, step)
+            self._tb.add_scalars(step, clean, now)
         self._writes += 1
         if self._writes % self._flush_every == 0:
             self.flush()
@@ -80,7 +136,6 @@ class MetricsLogger:
             return
         self._closed = True
         if self._tb is not None:
-            self._tb.flush()
             self._tb.close()
         if self._jsonl is not None:
             self._jsonl.close()

@@ -194,6 +194,17 @@ def cast_rollout_obs_bf16(r: Rollout) -> Rollout:
     return r._replace(obs=obs)
 
 
+def wire_cast_fn(obs_dtype: str):
+    """The publish-side cast for a --wire.obs_dtype value: the identity
+    for "f32" (DTR1/DTR2 frames), cast_rollout_obs_bf16 for "bf16" (DTR3).
+    A bad value raises here, at boot."""
+    if obs_dtype in ("f32", "float32"):
+        return lambda r: r
+    if obs_dtype in ("bf16", "bfloat16"):
+        return cast_rollout_obs_bf16
+    raise ValueError(f"wire.obs_dtype must be 'f32' or 'bf16', got {obs_dtype!r}")
+
+
 def _obs_arrays(obs: F.Observation, obs_bf16: bool = False) -> List[np.ndarray]:
     fl = _bf16_words if obs_bf16 else _f32_values
     return [

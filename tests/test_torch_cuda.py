@@ -635,3 +635,41 @@ def test_transformer_batched_key_step_rows_match_single_step(cuda):
             assert all(torch.equal(x[i : i + 1], y) for x, y in zip(action, a1))
             assert torch.equal(logp[i : i + 1], l1) and torch.equal(value[i : i + 1], v1) and np.array_equal(keys2[i], k1)
         state, keys = new, keys2
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_vector_actor_frames_on_the_card_are_the_standalone_actors(cuda, dtype):
+    """The fleet contract on the card: every frame env slot j of a
+    VectorActor publishes (flagship width) is byte for byte the frame of a
+    standalone Actor with id actor_id*M + j, on the port's fake env."""
+    import asyncio
+
+    from dotaclient_tpu_torch.config import ActorConfig, PolicyConfig
+    from dotaclient_tpu_torch.env.fake_dotaservice import FakeDotaService
+    from dotaclient_tpu_torch.env.service import LocalDotaServiceStub
+    from dotaclient_tpu_torch.runtime.actor import Actor, VectorActor
+    from dotaclient_tpu_torch.transport import memory as tmem
+    from dotaclient_tpu_torch.transport.serialize import peek_rollout_actor_id
+
+    cfg = ActorConfig(policy=PolicyConfig(dtype=dtype), max_dota_time=30.0, rollout_len=8, seed=3)
+    M, svc = 3, FakeDotaService()
+    for hub in ("cuda_fleet", "cuda_single"):
+        tmem.reset(hub)
+    vec = VectorActor(cfg, tmem.MemoryBroker("cuda_fleet"), actor_id=2, envs=M,
+                      stubs=[LocalDotaServiceStub(svc) for _ in range(M)])
+    assert vec.envs[0].device.type == "cuda"  # ActorConfig.platform "" is the card
+    asyncio.run(vec.run_episodes(2))
+    for j in range(M):
+        asyncio.run(Actor(cfg, tmem.MemoryBroker("cuda_single"), actor_id=2 * M + j,
+                          stub=LocalDotaServiceStub(svc)).run(num_episodes=2))
+
+    def by_actor(hub):
+        out = {}
+        for f in tmem.MemoryBroker(hub).consume_experience(100000, timeout=0.05):
+            out.setdefault(peek_rollout_actor_id(f), []).append(f)
+        return out
+
+    fleet, single = by_actor("cuda_fleet"), by_actor("cuda_single")
+    assert sorted(fleet) == sorted(single) == [6, 7, 8]
+    for aid in single:
+        assert fleet[aid] == single[aid] and len(single[aid]) >= 2

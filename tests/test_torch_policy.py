@@ -215,24 +215,47 @@ def test_batched_actor_step_rows_match_single_step():
 
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "etils", "ml_dtypes", "dotaclient_tpu")
+# grpc is imported only inside these functions of env/service.py: the ones
+# that dial or serve a network env address.
+GRPC_ALLOWED = {("env/service.py", "_grpc")}
 
 
 def _imported_roots(path: Path):
+    """(module, enclosing function or None) of every import in `path`."""
     tree = ast.parse(path.read_text(), filename=str(path))
-    for node in ast.walk(tree):
-        if isinstance(node, ast.Import):
-            for alias in node.names:
-                yield alias.name
-        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
-            yield node.module
+
+    def walk(node, func):
+        for child in ast.iter_child_nodes(node):
+            if isinstance(child, ast.Import):
+                for alias in child.names:
+                    yield alias.name, func
+            elif isinstance(child, ast.ImportFrom) and child.level == 0 and child.module:
+                yield child.module, func
+                for alias in child.names:
+                    yield f"{child.module}.{alias.name}", func
+            inner = child.name if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef)) else func
+            yield from walk(child, inner)
+
+    yield from walk(tree, None)
 
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
+    """No jax, flax, optax, dotaclient_tpu anywhere in the port or the GPU
+    smoke; no google.protobuf anywhere; grpc only inside the env service's
+    network dial/serve helper, never at module level."""
     files = sorted((REPO / "dotaclient_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 10
-    for new in ("transport/fabric.py", "serve/handoff.py"):
+    for new in ("transport/fabric.py", "serve/handoff.py", "protos/message.py", "env/service.py", "runtime/actor.py"):
         assert REPO / "dotaclient_tpu_torch" / new in files
+    grpc_sites = set()
     for path in files:
-        for mod in _imported_roots(path):
+        rel = path.relative_to(REPO / "dotaclient_tpu_torch").as_posix() if "dotaclient_tpu_torch" in path.parts \
+            else path.name
+        for mod, func in _imported_roots(path):
             root = mod.split(".")[0]
-            assert root not in FORBIDDEN, f"{path.relative_to(REPO)} imports {mod}"
+            assert root not in FORBIDDEN, f"{rel} imports {mod}"
+            assert not (mod == "google.protobuf" or mod.startswith("google.protobuf.")), f"{rel} imports {mod}"
+            if root == "grpc":
+                assert (rel, func) in GRPC_ALLOWED, f"{rel} imports grpc in {func or 'module scope'}"
+                grpc_sites.add((rel, func))
+    assert grpc_sites == GRPC_ALLOWED
