@@ -72,8 +72,9 @@ Phases, in order; any failure exits non-zero:
               drain, then a restart (see phase_learner_fabric); loop ms
               over the fabric and over one endpoint in turns;
 11. serve manifest — the server binary with k8s/inference.yaml's args
-              (--platform the card), the port carry-store binary, a league
-              stand-in and phase 10's shards; 64 sessions on slots 0-3, the
+              (--platform the card), the port carry-store binary, the
+              port's league service seeded with three trees and phase 10's
+              shards; 64 sessions on slots 0-3, the
               server SIGKILLed halfway and a second one resuming every
               session (see phase_serve_manifest);
 12. transformer — the transformer family at full width (d_model 128, 2
@@ -91,15 +92,24 @@ Phases, in order; any failure exits non-zero:
               then a closed loop with no jax, dotaclient_tpu,
               google.protobuf or grpc in any process: three port shards
               (k8s/broker.yaml), the learner binary with k8s/learner.yaml's
-              args training 5 steps at 256 x 16, and 4 actor processes
+              args training 3 steps at 256 x 16, and 4 actor processes
               (`--actor-proc`) with the actors-scripted container's args
-              (see phase_actors).
+              (see phase_actors);
+14. fleet   — the production actor fleet: three shards, the carry store,
+              two servers with k8s/inference.yaml's args, the league
+              service with k8s/league.yaml's, the learner binary, 2
+              actors-scripted and 2 actors processes with k8s/actors.yaml's
+              args whole (remote inference with failover, local fallback
+              and resume; league opponents on the serve slots), the
+              evaluator with k8s/evaluator.yaml's; a server SIGKILLed, then
+              both, then one back; a 5v5 mirror episode (see phase_fleet).
 Each path of the main path (serving, learner forward, each train step,
 the reuse step, the learner loop, the manifest learner, the fabric
-learner, the serve manifest, the actors' closed loop) is driven with the
-kernels' launch counters zeroed just before it and read just after (the
-serve manifest's servers and the actor processes are processes of their
-own, which start at 0 and report their count).
+learner, the serve manifest, the actors' closed loop, the fleet's loop)
+is driven with the kernels' launch counters zeroed just before it and
+read just after (the serve manifest's servers, the actor processes, the
+league service and the evaluator are processes of their own, which start
+at 0 and report their count).
 The last lines are the transformer line, one JSON object per kernel, the
 card line, and {"ok": true, "device": {...}}.
 """
@@ -2424,55 +2434,24 @@ def phase_learner_fabric(card: str, single_window_ms, steps: int = 40, producers
 # ---------------------------------------------------------------- phase 11
 
 
-class LeagueStandIn:
-    """The league service's serve-facing wire, standing in for the JAX
-    package's league/server.py (the card's machine has no JAX): GET
-    /assignments → {"assignments": {slot: {"name", "version"}}} and GET
-    /snapshot?name= → {"name", "version", "params": {flax name: {"dtype",
-    "shape", "b64"}}}, over `members` = {slot: (name, version, named
-    arrays)}."""
+def league_service(members, slots: int = 3, **league_kw):
+    """The port's LeagueService (league/server.py) on a free port, in
+    memory, seeded with `members` = {slot: (name, version, named arrays)}
+    admitted in slot order, so GET /assignments maps slot m to member m
+    (the service fills free slots with the oldest unassigned of the newest
+    `slots` members)."""
+    from dotaclient_tpu_torch.config import LeagueConfig, LeagueServiceConfig
+    from dotaclient_tpu_torch.league.server import LeagueService
 
-    def __init__(self, members):
-        import base64
-        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-        from urllib.parse import parse_qs, urlparse
-
-        assignments = {"ok": True, "assignments": {str(m): {"name": n, "version": v}
-                                                   for m, (n, v, _) in members.items()}}
-        snapshots = {n: {"ok": True, "name": n, "version": v, "params": {
-            name: {"dtype": a.dtype.name, "shape": list(a.shape), "b64": base64.b64encode(a.tobytes()).decode("ascii")}
-            for name, a in named}} for n, v, named in members.values()}
-        self.requests = {"/assignments": 0, "/snapshot": 0}
-        outer = self
-
-        class Handler(BaseHTTPRequestHandler):
-            def do_GET(self):
-                url = urlparse(self.path)
-                if url.path == "/assignments":
-                    body = assignments
-                elif url.path == "/snapshot" and parse_qs(url.query).get("name", [""])[0] in snapshots:
-                    body = snapshots[parse_qs(url.query)["name"][0]]
-                else:
-                    self.send_error(404)
-                    return
-                outer.requests[url.path] += 1
-                data = json.dumps(body).encode()
-                self.send_response(200)
-                self.send_header("Content-Type", "application/json")
-                self.send_header("Content-Length", str(len(data)))
-                self.end_headers()
-                self.wfile.write(data)
-
-            def log_message(self, fmt, *a):
-                pass
-
-        self.httpd = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
-        self.port = self.httpd.server_address[1]
-        threading.Thread(target=self.httpd.serve_forever, daemon=True, name="league-stand-in").start()
-
-    def stop(self):
-        self.httpd.shutdown()
-        self.httpd.server_close()
+    svc = LeagueService(LeagueConfig(league=LeagueServiceConfig(port=0, slots=slots, **league_kw))).start()
+    for m in sorted(members):
+        name, version, named = members[m]
+        if not svc.ingest_snapshot(name, version, named):
+            raise SystemExit(f"league: {name} was not admitted")
+    got = {int(k): (v["name"], v["version"]) for k, v in svc.assignments()["assignments"].items()}
+    if got != {m: (n, v) for m, (n, v, _) in members.items()}:
+        raise SystemExit(f"league: assignments {got}")
+    return svc
 
 
 def serve_binary_main(argv) -> int:
@@ -2487,7 +2466,7 @@ def serve_binary_main(argv) -> int:
 
     def report():
         while not stop.wait(0.1):
-            _write_json(status, {"launches": L.LAUNCHES})
+            _write_json(status, {"launches": L.LAUNCHES, "forbidden": forbidden_modules(list(sys.modules))})
 
     reporter = threading.Thread(target=report, daemon=True)
     reporter.start()
@@ -2496,7 +2475,7 @@ def serve_binary_main(argv) -> int:
     finally:
         stop.set()
         reporter.join()
-        _write_json(status, {"launches": L.LAUNCHES, "stopped": True})
+        _write_json(status, {"launches": L.LAUNCHES, "forbidden": forbidden_modules(list(sys.modules)), "stopped": True})
     return 0
 
 
@@ -2680,7 +2659,7 @@ def phase_serve_manifest(device, card: str, shards, phase8, weights_version: int
     """Phase 11: the port server binary with k8s/inference.yaml's args, its
     endpoints local: the three fabric shards of phase 10 (slot 0's weights
     are the learner's last publish there), the port carry-store binary
-    with the manifest's args, a league stand-in serving three seeded trees
+    with the manifest's args, the port's league service seeded with three trees
     for slots 1-3; `--platform ""` (the card) is the one changed value.
     `clients` processes run `per_client` sessions each, client c on slot
     c % 4, odd sessions with bf16 obs, the carry every `carry_every` steps.
@@ -2710,7 +2689,7 @@ def phase_serve_manifest(device, card: str, shards, phase8, weights_version: int
     store_args = manifest_args(INFERENCE_MANIFEST, 1)
     members = {m: (f"league_m{m}", 100 + m, named_params(P.init_params(cfg, torch.Generator().manual_seed(300 + m), "cpu")))
                for m in (1, 2, 3)}
-    league = LeagueStandIn(members)
+    league = league_service(members)
     procs, servers = [], []
     store_proc = None
     try:
@@ -3237,8 +3216,9 @@ def _imported_by_log(path: str) -> list:
 
 def actor_args(broker_url: str, tmp: str, actor_id: int, extra=()) -> list:
     """The `actors-scripted` actor container's args from k8s/actors.yaml,
-    less --env_addr and every --serve.* flag (the env is in-process and
-    the remote client is ROADMAP A.11b), the shard list swapped for the
+    less --env_addr and every --serve.* flag (the env is in-process, and
+    phase 13 steps the policy locally; phase 14 runs them whole), the
+    shard list swapped for the
     local one, flight dumps in `tmp`, this process's --actor_id; `extra`
     appended."""
     args = manifest_args(ACTORS_MANIFEST, container=1)
@@ -3399,7 +3379,7 @@ def _fleet_frames(device, policy, envs: int, episodes: int, max_time: float, act
 
 
 def phase_actors(device, card: str, fabric_window_ms=None, policy=None, envs: int = 4, episodes: int = 2,
-                 max_time: float = 60.0, procs: int = 4, steps: int = 5, extra=(), actor_extra=()):
+                 max_time: float = 60.0, procs: int = 4, steps: int = 3, extra=(), actor_extra=()):
     """Phase 13: the actor on the card.
 
     1. The fleet contract: a VectorActor of `envs` slots (flagship
@@ -3566,6 +3546,620 @@ def phase_actors(device, card: str, fabric_window_ms=None, policy=None, envs: in
     return res
 
 
+# ---------------------------------------------------------------- phase 14
+
+EVALUATOR_MANIFEST = os.path.join(ROOT, "k8s", "evaluator.yaml")
+LEAGUE_MANIFEST = os.path.join(ROOT, "k8s", "league.yaml")
+# Replies per actor process kept for the bitwise replay: episode starts,
+# whose carry before the step is the zero state.
+FLEET_SAMPLES = 8
+
+
+def fleet_actor_args(deployment: int, broker_url: str, endpoints: str, league: str, tmp: str, actor_id: int,
+                     extra=()) -> list:
+    """A k8s/actors.yaml deployment's actor args (0 `actors`, 1
+    `actors-scripted`) whole but for --env_addr (the env is in-process):
+    the shard list, the serve endpoints and the league service local,
+    flight dumps in `tmp`, this process's --actor_id; `extra` appended."""
+    args = manifest_args(ACTORS_MANIFEST, container=deployment)
+    i = args.index("--env_addr")
+    args = args[:i] + args[i + 2:]
+    for flag, value in (("--broker_url", broker_url), ("--serve.endpoint", endpoints), ("--serve.league", league)):
+        if flag in args:
+            args[args.index(flag) + 1] = value
+    return args + ["--actor_id", str(actor_id), "--obs.dump_dir", tmp] + list(extra)
+
+
+class _TaggingBroker:
+    """One env slot's view of the process's CountingBroker: each publish
+    is counted there, and a frame published while the slot's episode runs
+    on the local fallback adds its version to `local_versions`."""
+
+    def __init__(self, inner, env, local_versions):
+        self._inner, self._env, self._local = inner, env, local_versions
+
+    def __getattr__(self, name):
+        return getattr(self._inner, name)
+
+    def _tag(self, data: bytes) -> None:
+        if getattr(self._env, "_episode_local", False):
+            v = struct.unpack_from("<I", data, 4)[0]
+            self._local[v] = self._local.get(v, 0) + 1
+
+    def publish_experience(self, data: bytes) -> None:
+        self._inner.publish_experience(data)
+        self._tag(data)
+
+    def publish_experience_prioritized(self, data: bytes, priority: float) -> None:
+        self._inner.publish_experience_prioritized(data, priority)
+        self._tag(data)
+
+
+def fleet_actor_main(argv) -> int:
+    """`chip_smoke.py --fleet-actor DIR INDEX [actor flags]`: one actor
+    process of phase 14, built by the actor binary's own dispatch
+    (runtime/actor.py build_actors) with in-process fake envs. Every
+    serve reply of the process is seen at RemotePolicyClient.step: the
+    endpoint it came from (transitions with their wall time), the client's
+    latency, and the first FLEET_SAMPLES episode-start replies with their
+    request bytes. Writes DIR/actorINDEX.json every 0.25 s and at the end
+    (the file DIR/stop ends it): steps, episodes, the publish ledger,
+    published versions (and those of local-fallback episodes), the
+    fallback's applied versions, the fleet's serve_* meters, the
+    self-play league counters, recurrence launches and forbidden
+    modules."""
+    import asyncio
+
+    from dotaclient_tpu_torch.config import ActorConfig, parse_config
+    from dotaclient_tpu_torch.env.fake_dotaservice import FakeDotaService
+    from dotaclient_tpu_torch.env.service import LocalDotaServiceStub
+    from dotaclient_tpu_torch.ops import lstm as L
+    from dotaclient_tpu_torch.runtime.actor import build_actors
+    from dotaclient_tpu_torch.serve import client as C
+    from dotaclient_tpu_torch.serve import wire as W
+    from dotaclient_tpu_torch.transport.base import RetryPolicy, connect
+
+    d, index = argv[0], int(argv[1])
+    cfg = parse_config(ActorConfig(), argv[2:])
+    broker = CountingBroker(connect(cfg.broker_url, retry=RetryPolicy.from_config(cfg.retry)))
+    env = FakeDotaService()
+    actors = build_actors(cfg, broker, make_stub=lambda: LocalDotaServiceStub(env))
+    transitions, samples, replies, latency = [], [], {}, []
+    step = C.RemotePolicyClient.step
+
+    async def seen_step(self, client_key, obs, rng, episode_start=False, want_carry=False, replay=False):
+        res = await step(self, client_key, obs, rng, episode_start, want_carry, replay)
+        ep = "%s:%d" % self.endpoints[self._ep]
+        now = time.time()
+        if not transitions or transitions[-1][1] != ep:
+            transitions.append((now, ep))
+        replies[ep] = replies.get(ep, 0) + 1
+        latency.append(self.latency_s[-1] * 1e3)
+        if episode_start and not replay and len(samples) < FLEET_SAMPLES:
+            req = W.encode_step_request(client_key, obs, rng, episode_start, want_carry, self._obs_bf16)
+            samples.append({"model": self.model, "version": res.version, "request": req.hex(),
+                            "key": res.rng.tolist(), "action": res.action.tolist(),
+                            "logp": int(np.float32(res.logp).view(np.uint32)),
+                            "value": int(np.float32(res.value).view(np.uint32))})
+        return res
+
+    C.RemotePolicyClient.step = seen_step
+    local_versions, fb_applied = {}, []
+    fleet = actors[0] if isinstance(actors[0], C.RemoteFleet) else None
+    if fleet is not None:
+        for e in fleet.envs:
+            e.broker = _TaggingBroker(broker, e, local_versions)
+        if fleet.fallback is not None:
+            poll = fleet.fallback.poll
+
+            def recording_poll() -> bool:
+                ok = poll()
+                if ok:
+                    fb_applied.append(fleet.fallback.version)
+                return ok
+
+            fleet.fallback.poll = recording_poll
+    status, stop = os.path.join(d, f"actor{index}.json"), os.path.join(d, "stop")
+    t0 = time.perf_counter()
+
+    def report(done: bool) -> None:
+        elapsed = time.perf_counter() - t0
+        steps = sum(a.steps_done for a in actors)
+        out = dict(kind=type(actors[0]).__name__, steps=steps, episodes=sum(a.episodes_done for a in actors),
+                   attempts=broker.attempts, published=sum(a.rollouts_published for a in actors),
+                   shed=sum(a.rollouts_shed for a in actors), failed=sum(a.rollouts_failed for a in actors),
+                   versions={str(k): n for k, n in sorted(broker.versions.items())}, dtr3_traced=broker.dtr3_traced,
+                   local_versions={str(k): n for k, n in sorted(local_versions.items())}, fallback_applied=fb_applied,
+                   transitions=transitions, replies=replies, samples=samples,
+                   latency_p50_ms=float(np.percentile(latency, 50)) if latency else None,
+                   latency_p99_ms=float(np.percentile(latency, 99)) if latency else None, remote_steps=len(latency),
+                   steps_per_s=steps / max(elapsed, 1e-9), elapsed_s=elapsed, launches=L.LAUNCHES,
+                   forbidden=forbidden_modules(list(sys.modules)), done=done)
+        if fleet is not None:
+            out["meters"] = fleet.stats()
+            out["abandoned"] = sum(e.episodes_abandoned for e in fleet.envs)
+            out["resumed"] = sum(e.episodes_resumed for e in fleet.envs)
+            out["fallback_engaged"] = bool(fleet.fallback is not None and fleet.fallback.engaged)
+        else:
+            out["league"] = {k: sum(getattr(a, k) for a in actors) for k in (
+                "remote_matches", "remote_match_errors", "remote_results_posted", "remote_result_errors",
+                "remote_fallbacks", "remote_resumes")}
+            out["device"] = str(actors[0].device)
+        _write_json(status, out)
+
+    async def go():
+        task = asyncio.ensure_future(asyncio.gather(*(a.run() for a in actors)))
+        try:
+            while not os.path.exists(stop):
+                if task.done():
+                    task.result()  # an actor failure ends the process non-zero
+                    raise RuntimeError("the actors stopped on their own")
+                report(False)
+                await asyncio.sleep(0.25)
+        finally:
+            task.cancel()
+            await asyncio.gather(task, return_exceptions=True)
+
+    asyncio.run(go())
+    report(True)
+    broker.close()
+    return 0
+
+
+def fleet_evaluator_main(argv) -> int:
+    """`chip_smoke.py --fleet-evaluator DIR [evaluator flags]`: the
+    evaluator binary's main (eval/evaluator.py) with an in-process fake env
+    until DIR/stop exists; then DIR/evaluator.json: recurrence launches and
+    forbidden modules."""
+    from dotaclient_tpu_torch.env.fake_dotaservice import FakeDotaService
+    from dotaclient_tpu_torch.env.service import LocalDotaServiceStub
+    from dotaclient_tpu_torch.eval import evaluator as E
+    from dotaclient_tpu_torch.ops import lstm as L
+
+    d = argv[0]
+    E.main(argv[1:], stub=LocalDotaServiceStub(FakeDotaService()),
+           should_stop=lambda: os.path.exists(os.path.join(d, "stop")))
+    _write_json(os.path.join(d, "evaluator.json"), dict(launches=L.LAUNCHES, forbidden=forbidden_modules(
+        list(sys.modules)), done=True))
+    return 0
+
+
+def _mirror_5v5(device, card: str, policy, max_time: float):
+    """One --opponent self --team_size 5 SelfPlayActor episode on the card
+    (flagship policy): one B=10 call per tick, and each of the 10 sides'
+    ledger exact (chunks = ceil(ticks / rollout_len), steps = ticks)."""
+    import asyncio
+
+    from dotaclient_tpu_torch.config import ActorConfig
+    from dotaclient_tpu_torch.env.fake_dotaservice import FakeDotaService
+    from dotaclient_tpu_torch.env.service import LocalDotaServiceStub
+    from dotaclient_tpu_torch.runtime.selfplay import SelfPlayActor
+    from dotaclient_tpu_torch.transport import memory as tmem
+
+    cfg = ActorConfig(policy=policy, opponent="self", team_size=5, max_dota_time=max_time, max_weight_age_s=0.0)
+    tmem.reset("fleet_5v5")
+    broker = CountingBroker(tmem.MemoryBroker("fleet_5v5"))
+    actor = SelfPlayActor(cfg, broker, actor_id=0, stub=LocalDotaServiceStub(FakeDotaService()), device=device)
+    calls, sides = [], {}
+    step, publish = actor.step_fn, actor._publish
+
+    def counting(net, state, obs, key):
+        calls.append(obs.unit_feats.shape[0])
+        return step(net, state, obs, key)
+
+    def per_side(side, win, done):
+        led = sides.setdefault(side.player_id, [0, 0])
+        led[0] += 1
+        led[1] += len(side.chunk)
+        publish(side, win, done)
+
+    actor.step_fn, actor._publish = counting, per_side
+    t0 = time.perf_counter()
+    asyncio.run(actor.run(num_episodes=1))
+    wall = time.perf_counter() - t0
+    ticks = actor.steps_done // 10
+    chunks = -(-ticks // cfg.rollout_len)
+    frames = tmem.MemoryBroker("fleet_5v5").consume_experience(100000, timeout=0.05)
+    problems = []
+    if calls != [10] * ticks or ticks == 0:
+        problems.append(f"{len(calls)} calls of {sorted(set(calls))} rows for {ticks} ticks")
+    if sorted(sides) != [0, 1, 2, 3, 4, 5, 6, 7, 8, 9] or any(v != [chunks, ticks] for v in sides.values()):
+        problems.append(f"side ledgers {sides} (want {chunks} chunks of {ticks} steps each)")
+    if not (len(frames) == broker.attempts == actor.rollouts_published == 10 * chunks) or actor.rollouts_shed \
+            or actor.rollouts_failed:
+        problems.append(f"{len(frames)} frames, {broker.attempts} attempts, {actor.rollouts_published} published")
+    if problems:
+        raise SystemExit(f"fleet: mirror 5v5: {problems}")
+    print(f"fleet: mirror 5v5 on {device}: one B=10 call per tick for {ticks} ticks, each of 10 sides {chunks} "
+          f"chunks of {ticks} steps, {len(frames)} frames = attempts; {actor.steps_done / wall:.1f} env steps/s "
+          f"| {card}", flush=True)
+    return dict(ticks=ticks, calls=len(calls), frames=len(frames), steps_per_s=actor.steps_done / wall)
+
+
+def phase_fleet(device, card: str, actors_window_ms=None, policy=None, steps: int = 3, snapshot_every: int = 1,
+                fallback_after_s: float = 3.0, eval_episodes: int = 1, eval_every: int = 4, mirror_time: float = 40.0,
+                extra=(), actor_extra=(), server_extra=(), platform: str = ""):
+    """Phase 14: the production actor fleet on the card, nothing of JAX in
+    any process. k8s/broker.yaml's three shards; the carry store and two
+    inference servers with k8s/inference.yaml's args (--serve.models 4,
+    the store and the league local, fixed ports so a server can come back
+    on its own); the league service binary with k8s/league.yaml's args
+    (local --league.dir, the serve endpoint the two servers); the
+    learner binary's main with k8s/learner.yaml's args (256 x 16) for
+    `steps` steps; 2 actor processes with the actors-scripted args (every
+    --serve.* flag, both servers) and 2 with the actors args (--opponent
+    league --serve.league); one evaluator with k8s/evaluator.yaml's args.
+    Cuts: the learner's step count, --league.snapshot_every
+    (`snapshot_every`), --serve.fallback_after_s (`fallback_after_s`),
+    --episodes and --eval_every. The env is in-process (--env_addr
+    dropped).
+
+    While the learner trains, an orchestrator waits for every actor to
+    reply from the serve tier, the league to assign slots the servers
+    installed, and a league episode to post; SIGKILLs server 1 (every
+    scripted actor goes on at server 2: time to its first reply there);
+    SIGKILLs server 2 (after fallback_after_s the scripted actors step
+    local episodes, stamped with the fanout's versions); restarts server
+    1 on its port (the actors go back to it). Checks, each failing the
+    phase: every sampled reply bitwise the standalone key step of its
+    slot's net at its version; the failover and fallback meters; the
+    league's /leaderboard moved by posted results and its registry loaded
+    by a fresh service; the evaluator's metrics for a version; each
+    actor's attempts = published + shed + failed, published = the
+    shards' enqueued; one recurrence launch per learner step and none in
+    the servers, actors, league or evaluator; no jax, dotaclient_tpu,
+    google.protobuf or grpc in any process; and a 5v5 mirror episode of
+    one B=10 call per tick with exact side ledgers. `extra` goes to the
+    learner, `actor_extra` to the actors and (prefixed --actor.) the
+    evaluator, `server_extra` to the servers, `platform` is the servers'
+    --platform (a CPU rehearsal passes small policy flags and "cpu").
+    Version 0 is two nets here (a server's boot net until the learner's
+    v0 reaches it), so a v0 reply may match either."""
+    from dotaclient_tpu_torch.config import LearnerConfig, LeagueConfig, LeagueServiceConfig, PolicyConfig, parse_config
+    from dotaclient_tpu_torch.env import featurizer as F
+    from dotaclient_tpu_torch.league.server import LeagueService
+    from dotaclient_tpu_torch.models import policy as P
+    from dotaclient_tpu_torch.ops import lstm as L
+    from dotaclient_tpu_torch.ops.batch import as_tensors
+    from dotaclient_tpu_torch.runtime import learner as tlearner
+    from dotaclient_tpu_torch.runtime.actor import make_key_actor_step, net_like
+    from dotaclient_tpu_torch.serve import wire as W
+    from dotaclient_tpu_torch.serve.server import InferenceServer
+    from dotaclient_tpu_torch.transport import fabric as tfabric
+    from dotaclient_tpu_torch.transport.serialize import deserialize_weights
+
+    t_phase = time.perf_counter()
+    policy = policy or PolicyConfig()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fleet_")
+    logs, adir = os.path.join(tmp, "imports"), os.path.join(tmp, "actors")
+    os.makedirs(logs)
+    os.makedirs(adir)
+    pyenv = dict(os.environ, PYTHONPATH=os.pathsep.join([ROOT] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    shards = start_fabric_shards(3, import_logs=logs)
+    url = ",".join(f"tcp://127.0.0.1:{p}" for _, p, _ in shards)
+    servers, booted, aprocs, league_proc, store_proc, ev_proc = {}, [], [], None, None, None
+    frames = {}  # learner publishes, version -> DTW2 frame (the replay's nets)
+    publish = tfabric.FabricBroker.publish_weights
+
+    def recording_publish(self, data: bytes) -> None:
+        frames[deserialize_weights(data)[1]] = bytes(data)
+        publish(self, data)
+
+    ok = False
+    try:
+        # the carry store with the manifest's args, a free port
+        sflags = manifest_args(INFERENCE_MANIFEST, 1)
+        for flag, value in (("--port", "0"), ("--obs.metrics_port", str(_free_port()))):
+            sflags[sflags.index(flag) + 1] = value
+        with open(os.path.join(logs, "store.log"), "w") as err:
+            store_proc = subprocess.Popen([sys.executable, "-X", "importtime", "-m",
+                                           "dotaclient_tpu_torch.serve.handoff", *sflags], cwd=tmp,
+                                          stdout=subprocess.PIPE, text=True, env=pyenv, stderr=err)
+        store_port = json.loads(store_proc.stdout.readline())["port"]
+        sports = [_free_port(), _free_port()]
+        endpoints = ",".join(f"127.0.0.1:{p}" for p in sports)
+        # the league service binary with league.yaml's args
+        lflags = manifest_args(LEAGUE_MANIFEST)
+        for flag, value in (("--league.port", "0"), ("--league.dir", os.path.join(tmp, "league")),
+                            ("--league.serve_endpoint", endpoints), ("--league.broker_url", url),
+                            ("--league.snapshot_every", str(snapshot_every))):
+            lflags[lflags.index(flag) + 1] = value
+        lflags += ["--obs.dump_dir", tmp]
+        with open(os.path.join(logs, "league.log"), "w") as err:
+            league_proc = subprocess.Popen([sys.executable, "-X", "importtime", "-m",
+                                            "dotaclient_tpu_torch.league.server", *lflags], cwd=tmp,
+                                           stdout=subprocess.PIPE, text=True, env=pyenv, stderr=err)
+        lready = json.loads(league_proc.stdout.readline())
+        lport = lready["port"]
+        league_url = f"http://127.0.0.1:{lport}"
+        iargs = manifest_args(INFERENCE_MANIFEST)
+
+        def server_flags(i):
+            out = list(iargs)
+            for flag, value in (("--serve.port", str(sports[i])), ("--platform", platform), ("--broker_url", url),
+                                ("--serve.handoff_endpoint", f"127.0.0.1:{store_port}"),
+                                ("--serve.league_endpoint", f"127.0.0.1:{lport}"),
+                                ("--obs.metrics_port", str(_free_port()))):
+                out[out.index(flag) + 1] = value
+            return out + list(server_extra)
+
+        def boot(i, life):
+            srv = _start_server(tmp, server_flags(i), f"server{i + 1}_{life}")
+            servers[i] = srv
+            booted.append(srv)
+            return srv
+
+        boots = [threading.Thread(target=boot, args=(i, 1)) for i in (0, 1)]  # both warm up at once
+        for t in boots:
+            t.start()
+        for t in boots:
+            t.join()
+        if sorted(servers) != [0, 1]:
+            raise SystemExit("fleet: a server did not start")
+        fa = ["--serve.fallback_after_s", str(fallback_after_s)]
+        specs = [(1, 0, fa), (1, 1, fa), (0, 2, []), (0, 3, [])]  # (deployment, actor_id, cut)
+        aflags = [fleet_actor_args(dep, url, endpoints, f"127.0.0.1:{lport}", tmp, aid, list(cut) + list(actor_extra))
+                  for dep, aid, cut in specs]
+        for i, flags in enumerate(aflags):
+            aprocs.append(subprocess.Popen([sys.executable, os.path.abspath(__file__), "--fleet-actor", adir, str(i),
+                                            *flags], cwd=tmp))
+        eargs = manifest_args(EVALUATOR_MANIFEST)
+        i = eargs.index("--actor.env_addr")
+        eargs = eargs[:i] + eargs[i + 2:]
+        for flag, value in (("--actor.broker_url", url), ("--log_dir", os.path.join(tmp, "eval")),
+                            ("--episodes", str(eval_episodes)), ("--eval_every", str(eval_every))):
+            eargs[eargs.index(flag) + 1] = value
+        eargs += ["--actor." + a[2:] if a.startswith("--") else a for a in actor_extra]
+        ev_proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--fleet-evaluator", adir, *eargs],
+                                   cwd=tmp)
+        status = lambda: [_read_json(os.path.join(adir, f"actor{i}.json")) or {} for i in range(len(specs))]  # noqa
+        scripted, leaguers = [0, 1], [2, 3]
+        mflags = local_manifest(manifest_args(), tmp, url, _free_port(), extra=list(extra) + [
+            "--train_steps", str(steps), "--metrics_every", "1"])
+        cfg = parse_config(LearnerConfig(), mflags)
+        events, errors, main_done = {}, [], threading.Event()
+
+        def lget(path):
+            code, body = _http("GET", league_url + path, timeout=10)
+            if code != 200:
+                raise SystemExit(f"fleet: league {path} answered {code}")
+            return json.loads(body)
+
+        def orchestrate():
+            try:
+                wait = lambda cond, t, what: _wait(cond, t, what, aprocs)  # noqa: E731
+                wait(lambda: all(s.get("remote_steps", 0) > 0 for s in status()), 240,
+                     "every actor to get serve replies")
+                wait(lambda: len(lget("/assignments")["assignments"]) >= 1 and all(
+                    _scrape(s[2]).get("serve_model_version_1", -1) >= 0 for s in servers.values()), 240,
+                     "the league to assign a slot the servers installed")
+                wait(lambda: sum(s.get("league", {}).get("remote_results_posted", 0) for s in status()) >= 1, 300,
+                     "a league actor to post a result")
+                # the fallback nets must have a learner version past the boot one to stamp
+                wait(lambda: any(v >= 1 for v in frames) and all(max(status()[i].get("fallback_applied") or [0]) >= 1
+                                                              for i in scripted), 300,
+                     "the learner's v1 to reach the scripted actors' fallback nets")
+                events["leaderboard_before_kill"] = lget("/leaderboard")["leaderboard"]
+                events["occupancy"] = [_scrape(s[2]).get("actor_batch_occupancy") for s in servers.values()]
+                events["server_rows"] = [_scrape(s[2]).get("serve_requests_total") for s in servers.values()]
+                victim = f"127.0.0.1:{sports[0]}"
+                events["kill1_t"] = time.time()
+                servers[0][0].kill()  # SIGKILL server 1
+                servers[0][0].wait(timeout=30)
+                survivor = f"127.0.0.1:{sports[1]}"
+                before = {i: dict(status()[i].get("replies", {})) for i in scripted}
+                wait(lambda: all(status()[i].get("replies", {}).get(survivor, 0) > before[i].get(survivor, 0)
+                                 for i in scripted), 120, "every scripted actor to reply from server 2")
+                events["failover"] = {i: dict(transitions=status()[i]["transitions"],
+                                              meters=status()[i]["meters"]) for i in scripted}
+                events["victim"], events["survivor"] = victim, survivor
+                events["kill2_t"] = time.time()
+                servers[1][0].kill()  # both servers down now
+                servers[1][0].wait(timeout=30)
+                wait(lambda: all(status()[i].get("fallback_engaged") and sum(status()[i].get(
+                    "local_versions", {}).values()) >= 2 for i in scripted), 240,
+                     "the scripted actors' local fallback to publish")
+                events["engaged_t"] = time.time()
+                events["fallback"] = {i: status()[i]["meters"] for i in scripted}
+                boot(0, 2)  # server 1 comes back on its port
+                events["restart_t"] = time.time()
+                back = {i: status()[i].get("replies", {}).get(victim, 0) for i in scripted}
+                wait(lambda: all(not status()[i].get("fallback_engaged") and status()[i].get("replies", {}).get(
+                    victim, 0) > back[i] for i in scripted), 300, "the scripted actors to return to server 1")
+                events["returned_t"] = time.time()
+                events["returned"] = {i: status()[i]["meters"] for i in scripted}
+            except BaseException as e:
+                errors.append(f"{type(e).__name__}: {e}")
+            finally:
+                events["done"] = True
+
+        def watchdog():
+            # the learner's run() has no idle limit: a loop the fleet cannot feed is drained by SIGTERM
+            deadline = time.monotonic() + 420
+            while not main_done.wait(0.5):
+                dead = [p.poll() for p in aprocs + [ev_proc, league_proc, store_proc] if p.poll() is not None]
+                if time.monotonic() > deadline or dead or errors:
+                    errors.append(f"learner not done: exits {dead}")
+                    os.kill(os.getpid(), signal.SIGTERM)
+                    return
+
+        saved = sys.excepthook, threading.excepthook, signal.getsignal(signal.SIGTERM)
+        orch = threading.Thread(target=orchestrate, daemon=True, name="chip-smoke-fleet")
+        guard = threading.Thread(target=watchdog, daemon=True, name="chip-smoke-fleet-guard")
+        tfabric.FabricBroker.publish_weights = recording_publish
+        try:
+            torch.cuda.synchronize()
+            L.LAUNCHES = 0  # the fleet's learner starts here
+            t0 = time.perf_counter()
+            orch.start()
+            guard.start()
+            learner = tlearner.main(mflags)
+            wall_s = time.perf_counter() - t0
+            launches = L.LAUNCHES
+        finally:
+            tfabric.FabricBroker.publish_weights = publish
+            main_done.set()
+            sys.excepthook, threading.excepthook = saved[:2]
+            signal.signal(signal.SIGTERM, saved[2])
+            guard.join(timeout=10)
+        orch.join(timeout=600)
+        if errors or not events.get("done"):
+            raise SystemExit(f"fleet: {errors or ['the orchestrator did not finish']}")
+        _wait(lambda: os.path.exists(os.path.join(tmp, "eval", "metrics.jsonl")), 240,
+              "the evaluator's first result", [ev_proc])
+        open(os.path.join(adir, "stop"), "w").close()
+        _wait(lambda: all(s.get("done") for s in status()), 120, "the actors to stop", aprocs)
+        for p in aprocs + [ev_proc]:
+            p.wait(timeout=60)
+        actors = status()
+        evaluator = _read_json(os.path.join(adir, "evaluator.json")) or {}
+        board = lget("/leaderboard")["leaderboard"]
+        lineage = lget("/lineage")["lineage"]
+        shard_led = [_scrape(m) for _, _, m in shards]
+        learner.broker.close()
+        league_proc.send_signal(signal.SIGINT)
+        league_proc.wait(timeout=30)
+        ok = True
+    finally:
+        tfabric.FabricBroker.publish_weights = publish
+        for p in aprocs + [ev_proc]:
+            if p is not None:
+                stop_process(p)
+        for s in booted:
+            stop_process(s[0])
+        for p in (league_proc, store_proc):
+            if p is not None:
+                stop_process(p)
+        for proc, _, _ in shards:
+            if ok:
+                stop_process(proc)
+            else:
+                proc.kill()
+    srv_status = {os.path.basename(s[3]): _read_json(s[3]) or {} for s in booted}
+    problems = []
+    # a fresh service loads the registry the live one wrote, and rebuilds its leaderboard from the match log
+    fresh = LeagueService(LeagueConfig(league=LeagueServiceConfig(port=0, dir=os.path.join(tmp, "league"))))
+    fresh_board = fresh.leaderboard()["leaderboard"]
+    if sorted(fresh.registry.lineage()) != sorted(lineage) or \
+            [(r["name"], r["mu"], r["sigma"], r["games"]) for r in fresh_board] != \
+            [(r["name"], r["mu"], r["sigma"], r["games"]) for r in board]:
+        problems.append("a fresh league service did not load the registry and leaderboard the live one wrote")
+    games = {r["name"]: r["games"] for r in board}
+    posted = sum(a["league"]["remote_results_posted"] for a in actors if "league" in a)
+    if games.get("agent", 0) != posted or posted < 1:
+        problems.append(f"leaderboard agent games {games.get('agent')} vs {posted} results posted")
+    if len(lineage) < 2:
+        problems.append(f"the league admitted {sorted(lineage)} from the learner's publishes")
+    # every sampled reply, replayed through the standalone key step on the card
+    template = P.init_params(policy, torch.Generator().manual_seed(0), device)  # the servers' boot net (--seed 0)
+    nets, step = {0: [template]}, make_key_actor_step(policy)
+    for v, data in frames.items():
+        nets.setdefault(v, []).insert(0, net_like(template, deserialize_weights(data)[0]))
+    checked = 0
+    for i, a in enumerate(actors):
+        for s in a["samples"]:
+            if s["version"] not in nets:
+                problems.append(f"actor {i}: a reply of version {s['version']} (model {s['model']}) the learner "
+                                f"never published")
+                continue
+            req = W.decode_step_request(bytes.fromhex(s["request"]))
+            obs = as_tensors(F.stack([InferenceServer._canon_obs(req.obs)]), device)
+            mine = []
+            for net in nets[s["version"]]:
+                _, action, logp, value, key = step(net, P.initial_state(policy, (1,), device), obs, req.rng)
+                mine.append((key.tolist(), [int(x.item()) for x in action],
+                             int(logp.cpu().numpy().view(np.uint32)[0]), int(value.cpu().numpy().view(np.uint32)[0])))
+            if (s["key"], s["action"], s["logp"], s["value"]) not in mine:
+                problems.append(f"actor {i}: a model-{s['model']} reply at v{s['version']} is not bitwise the "
+                                f"standalone key step")
+            checked += 1
+    models = sorted({s["model"] for a in actors for s in a["samples"]})
+    if checked < 2 * len(actors) or not any(m > 0 for m in models):
+        problems.append(f"{checked} replies checked, models {models}")
+    # failover, fallback and return
+    for i in scripted:
+        a = actors[i]
+        trans = events["failover"][i]["transitions"]
+        after = [t for t, ep in trans if ep == events["survivor"] and t > events["kill1_t"]]
+        on_it = trans and trans[-1][1] == events["survivor"]
+        if not (after or on_it):
+            problems.append(f"scripted actor {i} never replied from server 2 after the kill")
+        m = a["meters"]
+        if m["serve_fallback_engagements_total"] < 1 or m["serve_fallback_steps_total"] <= 0 or a["fallback_engaged"]:
+            problems.append(f"scripted actor {i} fallback meters {m}")
+        local = {int(v) for v in a["local_versions"]}
+        if not local or not local <= set(a["fallback_applied"]) or max(local) < 1:
+            problems.append(f"scripted actor {i}: local frames stamped {sorted(local)}, the fanout applied "
+                            f"{a['fallback_applied']}")
+        if a["replies"].get(events["victim"], 0) == 0:
+            problems.append(f"scripted actor {i} never returned to server 1")
+    # ledgers, launches, imports
+    enqueued = [led["broker_shard_enqueued_total"] for led in shard_led]
+    published = sum(a["published"] for a in actors)
+    for i, a in enumerate(actors):
+        if a["attempts"] != a["published"] + a["shed"] + a["failed"]:
+            problems.append(f"actor {i} ledger: {a['attempts']} attempts, {a['published']} published, {a['shed']} "
+                            f"shed, {a['failed']} failed")
+        if a["launches"] != 0:
+            problems.append(f"actor {i} launched the recurrence {a['launches']} times")
+    if published != sum(enqueued):
+        problems.append(f"the actors published {published} frames, the shards enqueued {enqueued}")
+    if launches != steps or learner.version != steps:
+        problems.append(f"{launches} recurrence launches, version {learner.version} (expected {steps})")
+    srv_launches = {k: v.get("launches") for k, v in srv_status.items()}
+    if any(v != 0 for v in srv_launches.values()) or evaluator.get("launches") != 0:
+        problems.append(f"recurrence launches: servers {srv_launches}, evaluator {evaluator.get('launches')}")
+    held = dict(learner=forbidden_modules(list(sys.modules)), evaluator=evaluator.get("forbidden", ["no status"]),
+                **{f"actor{i}": a["forbidden"] for i, a in enumerate(actors)},
+                **{name: forbidden_modules(_imported_by_log(os.path.join(logs, f"{name}.log")))
+                   for name in ["store", "league"] + [f"shard{i}" for i in range(len(shards))]},
+                **{k: v.get("forbidden", ["no status"]) for k, v in srv_status.items()})
+    if any(held.values()):
+        problems.append(f"forbidden modules: {held}")
+    evals = [json.loads(x) for x in open(os.path.join(tmp, "eval", "metrics.jsonl"))]
+    if not evals or not {"win_rate", "trueskill_mu", "skill"} <= set(evals[0]):
+        problems.append(f"evaluator metrics {evals}")
+    lines = [json.loads(x) for x in open(os.path.join(cfg.log_dir, "metrics.jsonl"))]
+    windows = [_window_ms(r) for r in lines[1:]] or [_window_ms(lines[-1])]
+    shutil.rmtree(tmp, ignore_errors=True)
+    if problems:
+        raise SystemExit(f"fleet: {problems}")
+    mirror = _mirror_5v5(device, card, policy, mirror_time)
+    rates = [a["steps_per_s"] for a in actors]
+    first_reply = {i: min([t for t, ep in events["failover"][i]["transitions"] if ep == events["survivor"]
+                           and t > events["kill1_t"]] or [events["kill1_t"]]) - events["kill1_t"] for i in scripted}
+    res = dict(steps=steps, launches=launches, learner_wall_s=wall_s, window_ms=windows,
+               window_ms_median=statistics.median(windows), actors_window_ms=actors_window_ms,
+               actor_steps_per_s=rates, total_steps_per_s=sum(rates),
+               p50_ms=[a["latency_p50_ms"] for a in actors], p99_ms=[a["latency_p99_ms"] for a in actors],
+               occupancy=events["occupancy"], server_rows_at_kill=events["server_rows"], checked_replies=checked,
+               models=models, failover_first_reply_s=first_reply,
+               failover_meters={i: {k: v for k, v in events["failover"][i]["meters"].items()
+                                    if k.startswith("serve_failover") or k.startswith("serve_handoff")} for i in scripted},
+               fallback_engage_s=events["engaged_t"] - events["kill2_t"],
+               return_s=events["returned_t"] - events["restart_t"],
+               local_versions=[actors[i]["local_versions"] for i in scripted], published=published, enqueued=enqueued,
+               league_games=games, league_members=sorted(lineage), evaluations=[(r["step"], r["win_rate"]) for r in evals],
+               mirror=mirror, env_steps=sum(a["steps"] for a in actors))
+    res["phase_s"] = time.perf_counter() - t_phase
+    print(f"fleet: three port shards, the carry store, two servers (inference.yaml, --serve.models 4), the league "
+          f"service (league.yaml), the learner binary ({steps} steps at 256 x 16), 2 actors-scripted and 2 actors "
+          f"processes, the evaluator: {launches} recurrence launches, none elsewhere; no process holds jax, "
+          f"dotaclient_tpu, google.protobuf or grpc; {checked} sampled replies (models {models}) bitwise the standalone "
+          f"key step; failover first reply on server 2 {[round(x, 3) for x in first_reply.values()]} s after the "
+          f"SIGKILL; fallback engaged {res['fallback_engage_s']:.1f} s after both were down (local frames stamped "
+          f"{res['local_versions']}); back on server 1 {res['return_s']:.1f} s after its restart; league members "
+          f"{res['league_members']}, games {games}; evaluator {res['evaluations']}; published {published} = enqueued "
+          f"{[int(x) for x in enqueued]} | {card}", flush=True)
+    print(f"fleet: env steps/s per actor process {[round(r, 1) for r in rates]} (total {sum(rates):.1f}); remote step "
+          f"p50 {[None if x is None else round(x, 3) for x in res['p50_ms']]} ms, p99 "
+          f"{[None if x is None else round(x, 3) for x in res['p99_ms']]} ms (client side); server occupancy "
+          f"{events['occupancy']}; failover meters {res['failover_meters']}; learner window ms per step fed by the "
+          f"remote fleet {[round(x, 3) for x in windows]} (median {res['window_ms_median']:.3f}; phase 13's locally "
+          f"stepping fleet {actors_window_ms}); phase {res['phase_s']:.1f} s | {card}", flush=True)
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke needs an NVIDIA GPU", file=sys.stderr)
@@ -3612,6 +4206,7 @@ def main() -> int:
             stop_process(proc)
     transformer = phase_transformer(device, card)  # zeroes the counter itself; no path of it may launch the kernel
     actors = phase_actors(device, card, fabric_window_ms=fabric["fabric_window_ms"])  # zeroes the counter itself
+    fleet = phase_fleet(device, card, actors_window_ms=actors["window_ms_median"])  # zeroes the counter itself
 
     main_case = cases[0]
     kernels = [
@@ -3654,6 +4249,8 @@ def main() -> int:
             "launches_transformer_learner": transformer["learner"]["launches"],
             "launches_actors_loop": actors["launches"],
             "actors": actors,
+            "launches_fleet_loop": fleet["launches"],
+            "fleet": fleet,
         }
     ]
     print(f"smoke: {time.perf_counter() - t_smoke:.1f} s | {card}", flush=True)
@@ -3678,4 +4275,8 @@ if __name__ == "__main__":
         sys.exit(resume_client_main(sys.argv[2:]))
     if sys.argv[1:2] == ["--actor-proc"]:
         sys.exit(actor_proc_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--fleet-actor"]:
+        sys.exit(fleet_actor_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--fleet-evaluator"]:
+        sys.exit(fleet_evaluator_main(sys.argv[2:]))
     sys.exit(main())

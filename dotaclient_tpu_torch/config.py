@@ -10,8 +10,9 @@ NotImplementedError naming its ROADMAP item. Settings only those modes
 read are left out, so their flags fail to parse.
 
 Binaries: the learner (`LearnerConfig`), the inference server
-(`InferenceConfig`), the carry store (`HandoffConfig`) and the actor
-(`ActorConfig`).
+(`InferenceConfig`), the carry store (`HandoffConfig`), the actor
+(`ActorConfig`), the league service (`LeagueConfig`) and the evaluator
+(`EvalConfig`).
 """
 
 from __future__ import annotations
@@ -259,23 +260,53 @@ class WireConfig:
 
 @dataclass
 class ServeClientConfig:
-    """The actor's opt-in to the remote inference service. The client
-    (serve/client.py) is not ported: a non-empty value is refused (ROADMAP
-    A.11b), and its other flags do not parse yet."""
+    """The actor's opt-in to the remote inference service
+    (serve/client.py). With `endpoint` empty the actor steps its own
+    policy and the client is never imported."""
 
-    # Inference-service endpoint(s), "host:port[,host:port...]"; "" = the
-    # local policy step.
+    # Inference-service endpoint(s): "host:port", a comma-separated
+    # failover list, or "control:host:port" (the list comes from the
+    # control plane's GET /topology). A client sticks to one replica (the
+    # LSTM carry lives there) and fails over to the next healthy one on
+    # connection loss or reply timeout. "" = the local policy step.
     endpoint: str = ""
-    # League service "host:port" of league-opponent fleets.
+    # Reply timeout of one request, seconds: a server that dies without a
+    # reset surfaces as a retryable RemoteInferenceError.
+    timeout_s: float = 30.0
+    # TCP connect + handshake timeout of one dial, seconds.
+    connect_timeout_s: float = 5.0
+    # Seconds a failed endpoint sits out of the rotation; the return-to-
+    # remote probes of an engaged fallback pace at this cadence too.
+    cooldown_s: float = 5.0
+    # Keep a local net warm from the broker's weight fanout and, once every
+    # endpoint has been down longer than fallback_after_s, step whole
+    # episodes locally until an endpoint is back.
+    fallback_local: bool = False
+    # All-endpoints-down time before the local fallback engages, seconds.
+    fallback_after_s: float = 10.0
+    # Session continuity: on a failure mid-episode, reconnect, restore the
+    # last chunk-boundary carry through S_RESUME and replay the steps of
+    # the partial chunk, instead of abandoning the episode.
+    resume: bool = False
+    # Time one resume may take (retried across failovers), seconds; past
+    # it the episode is abandoned.
+    resume_window_s: float = 20.0
+    # Endpoint pick at (re)connect: "order" (list order, sticky) or "load"
+    # (probe each candidate's S_INFO load report, least loaded first).
+    route: str = "order"
+    # Resident model slot this client's sessions step against (0 = the
+    # live tree; N > 0 binds the connection to frozen slot N).
+    model: int = 0
+    # League service "host:port": league-opponent actors (--opponent
+    # league with an endpoint) ask it GET /match for each episode's
+    # opponent and POST /result with the outcome.
     league: str = ""
 
 
 @dataclass
 class ActorConfig:
     """The actor binary's flags (`python -m dotaclient_tpu_torch.runtime.actor`;
-    reference: dotaclient_tpu/config.py ActorConfig), less the settings
-    only self-play and the league read (team_size, league_capacity,
-    league_snapshot_every, pfsp_mode: ROADMAP A.11c), which do not parse.
+    reference: dotaclient_tpu/config.py ActorConfig).
 
     `platform` differs from the reference: "" (the default) runs the
     policy step on the CUDA device and "cpu" on the host, where the
@@ -294,9 +325,18 @@ class ActorConfig:
     max_dota_time: float = 600.0
     # One hero name or a comma-separated pool; both sides draw from it.
     hero: str = "npc_dota_hero_nevermore"
-    # "scripted" (the env's passive bot) or "scripted_hard" (farms and
-    # retreats); "self" and "league" are refused (ROADMAP A.11c).
+    # "scripted" (the env's passive bot), "scripted_hard" (farms and
+    # retreats), "self" (mirror self-play, both sides the live net) or
+    # "league" (the opposing team plays a frozen league snapshot; with
+    # --serve.endpoint and --serve.league, a slot of the serve tier
+    # matched by the league service) — runtime/selfplay.py.
     opponent: str = "scripted"
+    # Heroes per team in self-play; all the heroes one net steps go in one
+    # batched call per tick (B = 2 * team_size in mirror).
+    team_size: int = 1
+    league_capacity: int = 8  # snapshots in the local league pool at most
+    league_snapshot_every: int = 20  # learner versions between snapshots
+    pfsp_mode: str = "hard"  # "hard" | "even" | "uniform"
     # Kill switch: exit (for a supervisor restart) when no weight frame
     # arrived for this many seconds; 0 disables it.
     max_weight_age_s: float = 900.0
@@ -421,6 +461,67 @@ class LearnerConfig:
     train_steps: int = 0
 
 
+@dataclass
+class LeagueServiceConfig:
+    """The --league.* flags of the standing league service
+    (league/server.py): a disk-backed snapshot registry with lineage
+    records, matchmaking over the clause grammar (league/policy.py) and
+    TrueSkill ratings of ingested results."""
+
+    # Port of the HTTP surface (GET /match, /leaderboard, /lineage,
+    # /assignments, /snapshot; POST /result, /snapshot; /metrics,
+    # /healthz); 0 = pick a free port.
+    port: int = 13410
+    # Registry root (<dir>/<name>.npz, lineage.json, matches.jsonl);
+    # "" = in memory only.
+    dir: str = ""
+    # Pool size; past it the weakest member by mu (never the newest) is
+    # evicted.
+    capacity: int = 8
+    # Serve model slots 1..slots that GET /assignments fills with the most
+    # recent members (slot 0 is the live tree).
+    slots: int = 3
+    # Learner versions between snapshots admitted from the weight fanout.
+    snapshot_every: int = 20
+    # ";"-separated clauses "kind[@weight]", kind uniform | prioritized |
+    # exploiter; each GET /match draws one by weight.
+    policy: str = "uniform"
+    # The serve endpoint /match hands to its callers (never dialled here).
+    serve_endpoint: str = ""
+    # Weight-fanout source feeding the registry ("" = POST /snapshot only).
+    broker_url: str = ""
+    # Fanout poll cadence, seconds.
+    poll_s: float = 1.0
+    # Exploiter promotion gate: this many results against the agent, at
+    # this win rate at least.
+    gate_games: int = 5
+    gate_winrate: float = 0.55
+    # Matchmaking draw seed.
+    seed: int = 0
+
+
+@dataclass
+class LeagueConfig:
+    """The league-service binary's flags (`python -m
+    dotaclient_tpu_torch.league.server`). Stdlib and numpy only: it never
+    touches the device."""
+
+    league: LeagueServiceConfig = field(default_factory=LeagueServiceConfig)
+    obs: ObsConfig = field(default_factory=ObsConfig)
+
+
+@dataclass
+class EvalConfig:
+    """The evaluator binary's flags (`python -m
+    dotaclient_tpu_torch.eval.evaluator`): frozen-policy episodes against
+    the scripted bot on each fresh weight version."""
+
+    actor: ActorConfig = field(default_factory=ActorConfig)
+    episodes: int = 16  # episodes per evaluation round
+    eval_every: int = 10  # learner versions between evaluations
+    log_dir: str = ""
+
+
 # Modes of the reference binaries that the port has not ported: the flag,
 # the test of its value that selects the mode, what the mode is, and its
 # ROADMAP item. The learner, the staging buffer, the single-buffer train
@@ -440,9 +541,6 @@ UNPORTED = {
 # The actor binary's modes that are not ported, in UNPORTED's form (the
 # chaos switch is UNPORTED's row): Actor and the actor binary refuse them.
 ACTOR_UNPORTED = {
-    "serve.endpoint": (bool, "the remote inference client (serve/client.py)", "A.11b"),
-    "serve.league": (bool, "the league-opponent remote client (serve/client.py)", "A.11b"),
-    "opponent": (lambda v: v in ("self", "league"), "self-play and the league", "A.11c"),
     "env_dialect": (lambda v: v == "valve", "the valve dialect adapter (env/valve_adapter.py)", "A.11d"),
     "chaos.enabled": UNPORTED["chaos.enabled"],
 }

@@ -65,12 +65,21 @@ def render_prometheus(scalars: Dict[str, float], prefix: str = "dotaclient_") ->
 class MetricsHTTPServer:
     """One daemon thread serving GET /metrics + GET /healthz (+ POST
     /profile when a handler is wired) until stop(). Sources are sampled per
-    scrape; port=0 binds an ephemeral port, read back via `.port`."""
+    scrape; port=0 binds an ephemeral port, read back via `.port`.
+
+    A service adds its own JSON routes: `json_routes` (GET path → zero-arg
+    callable), `query_routes` (GET path → callable of the parsed query,
+    {name: [values]}) and `post_routes` (POST path → callable of the body
+    bytes). A route raising KeyError or ValueError answers 400, anything
+    else 500; the serving thread lives on."""
 
     def __init__(self, port: int, sources: Optional[List[Callable[[], Dict[str, float]]]] = None,
                  health_provider: Optional[Callable[[], Dict]] = None,
                  profile_handler: Optional[Callable[[float], object]] = None,
-                 flight_provider: Optional[Callable[..., Dict]] = None):
+                 flight_provider: Optional[Callable[..., Dict]] = None,
+                 json_routes: Optional[Dict[str, Callable[[], Dict]]] = None,
+                 query_routes: Optional[Dict[str, Callable[[Dict], Dict]]] = None,
+                 post_routes: Optional[Dict[str, Callable[[bytes], Dict]]] = None):
         self._sources: List[Callable[[], Dict[str, float]]] = list(sources or [])
         self._httpd: Optional[ThreadingHTTPServer] = None
         self._thread: Optional[threading.Thread] = None
@@ -78,6 +87,9 @@ class MetricsHTTPServer:
         self.health_provider = health_provider
         self.profile_handler = profile_handler
         self.flight_provider = flight_provider
+        self.json_routes: Dict[str, Callable[[], Dict]] = dict(json_routes or {})
+        self.query_routes: Dict[str, Callable[[Dict], Dict]] = dict(query_routes or {})
+        self.post_routes: Dict[str, Callable[[bytes], Dict]] = dict(post_routes or {})
         # Boot-epoch fence for aggregators: a changed value tells a counter
         # reset (restart) from a counter loss.
         self._boot_epoch_ms = float(int(time.time() * 1000.0))
@@ -150,11 +162,36 @@ class MetricsHTTPServer:
                         self._reply_json(500, {"error": f"{type(e).__name__}: {e}"})
                         return
                     self._reply_json(200, body)
+                elif route in server.json_routes:
+                    self._route(route, server.json_routes[route])
+                elif route in server.query_routes:
+                    params = parse_qs(urlparse(self.path).query)
+                    self._route(route, lambda: server.query_routes[route](params))
                 else:
                     self.send_error(404)
 
+            def _route(self, route: str, call) -> None:
+                try:
+                    body = dict(call())
+                except (KeyError, ValueError) as e:
+                    self._reply_json(400, {"error": f"{type(e).__name__}: {e}"})
+                    return
+                except Exception as e:
+                    _log.exception("route %s failed", route)
+                    self._reply_json(500, {"error": f"{type(e).__name__}: {e}"})
+                    return
+                self._reply_json(200, body)
+
             def do_POST(self):
                 parsed = urlparse(self.path)
+                if parsed.path in server.post_routes:
+                    try:
+                        length = int(self.headers.get("Content-Length") or 0)
+                    except ValueError:
+                        length = 0
+                    data = self.rfile.read(length) if length > 0 else b""
+                    self._route(parsed.path, lambda: server.post_routes[parsed.path](data))
+                    return
                 if parsed.path != "/profile":
                     self.send_error(404)
                     return

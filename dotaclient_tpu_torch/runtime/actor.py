@@ -347,6 +347,29 @@ def make_batched_key_actor_step(cfg: PolicyConfig):
     return step
 
 
+def make_group_key_step(cfg: PolicyConfig):
+    """The reference's B-row actor step on ONE key, as self-play steps all
+    the heroes one net plays in a tick: `rng, key = split(rng)` and
+    `sample(key, dist)` over the [B]-row dist, so the uniforms are the
+    reference's for that B. The net work runs row by row, each row its own
+    B=1 step on freshly copied inputs (as in make_batched_key_actor_step),
+    so a row is bitwise the B=1 step on its inputs and uniforms whatever B
+    is. `step(net, state, obs, key)` with B stacked rows and key u32[2] →
+    (state', action, logp, value) stacked, key'. At B=1 it is
+    make_key_actor_step."""
+    check_arch(cfg)
+    sizes = (F.N_ACTION_TYPES, cfg.n_move_bins, cfg.n_move_bins, F.MAX_UNITS)
+
+    def step(net, state, obs, key):
+        B = obs.unit_feats.shape[0]
+        s = threefry.split(np.asarray(key, np.uint32), 2)
+        u = torch.from_numpy(ad.key_uniforms(s[1], (B,), sizes)).to(obs.unit_feats.device)
+        rows = [_key_step_row(net, *_row((state, obs), i), u[i : i + 1].clone()) for i in range(B)]
+        return (*_stack_rows(rows), s[0])
+
+    return step
+
+
 def make_key_actor_step(cfg: PolicyConfig):
     """Single-env step on a jax key, the reference's `make_actor_step`:
     `step(net, state, obs, key)` with obs leaves [1, ...] and key u32[2]
@@ -653,7 +676,8 @@ class Actor:
     None to dial cfg.env_addr over gRPC on first use (inside the event
     loop). `params` lets a VectorActor share its one net with its env
     slots; otherwise the net is drawn from cfg.seed on `device` (default:
-    cfg.platform's)."""
+    cfg.platform's). `params=()` builds no net: a subclass that steps
+    elsewhere (the remote client) keeps its episode state on the host."""
 
     # Episode failures run() retries with backoff instead of dying: env
     # RPC outages. A class attribute, so a subclass can extend it.
@@ -670,7 +694,7 @@ class Actor:
             dev = actor_device(cfg) if device is None else torch.device(device)
             params = P.init_params(cfg.policy, torch.Generator().manual_seed(cfg.seed), dev)
         self.params = params
-        self.device = next(params.parameters()).device
+        self.device = next(params.parameters()).device if isinstance(params, torch.nn.Module) else torch.device("cpu")
         self.version = 0
         self.step_fn = make_key_actor_step(cfg.policy)
         self.rng = threefry.prng_key(cfg.seed * 9973 + actor_id)
@@ -737,11 +761,14 @@ class Actor:
             obs.action_mask[F.ACT_CAST] = False
         return obs, handles
 
-    async def _policy_step(self, state, obs: F.Observation):
+    async def _policy_step(self, state, obs: F.Observation, chunk_len: int = 0, episode_start: bool = False):
         """One policy step on the current obs → (state', action, logp,
         value), the action as host [1] arrays, logp and value as host
         floats; advances the actor's key. A vector fleet's env slots route
-        it through the shared batcher instead."""
+        it through the shared batcher instead, a remote actor over the
+        wire. `chunk_len` (steps already in the chunk) and `episode_start`
+        say where the loop is: the local paths ignore them, the remote one
+        drives the server-resident carry with them."""
         obs_b = as_tensors(F.stack([obs]), self.device)
         state, action, logp, value, self.rng = self.step_fn(self.params, state, obs_b, self.rng)
         acts, floats = _to_host(action, logp, value)
@@ -774,8 +801,11 @@ class Actor:
         done = False
         obs, handles = self._featurize(world)  # each world is featurized once
 
+        episode_start = True
         while not done:
-            state, action, logp, value = await self._policy_step(state, obs)
+            state, action, logp, value = await self._policy_step(state, obs, chunk_len=len(chunk),
+                                                                 episode_start=episode_start)
+            episode_start = False
             hero = F.find_hero(world, self.player_id)
             if hero is not None:
                 snap = ws.Unit()
@@ -866,7 +896,7 @@ class _BatchedEnvActor(Actor):
     def _make_obs_runtime(self):
         return self.owner.obs
 
-    async def _policy_step(self, state, obs: F.Observation):
+    async def _policy_step(self, state, obs: F.Observation, chunk_len: int = 0, episode_start: bool = False):
         (state, acts, logp, value, self.rng), _, _ = await self.owner.batcher.step(state, obs, self.rng)
         return state, _host_action(acts), logp, value
 
@@ -1060,13 +1090,58 @@ class VectorActor:
                 self.obs.close()
 
 
+def build_actors(cfg: ActorConfig, broker: Broker, make_stub=None) -> list:
+    """What the actor binary runs for `cfg`: a list of agents, each with an
+    async `run()`, run together on one loop.
+
+    - --serve.endpoint (and no remote league): a RemoteFleet of
+      envs_per_process slots stepping on the inference service;
+    - --opponent self|league: one SelfPlayActor per env slot (each
+      batches its own heroes; slots play different nets, so they share no
+      call); with --serve.league and an endpoint, the opponents step on
+      the serve tier's league slots;
+    - otherwise the Actor, or a VectorActor of envs_per_process slots.
+
+    `make_stub()` gives each env slot an in-process env instead of a
+    gRPC dial of cfg.env_addr."""
+    refuse_unported(cfg, table=ACTOR_UNPORTED)
+    M = max(int(cfg.envs_per_process), 1)
+    stub = make_stub if make_stub is not None else (lambda: None)
+    remote_league = cfg.opponent == "league" and bool(cfg.serve.league)
+    if cfg.serve.endpoint and not remote_league:
+        if cfg.opponent in ("self", "league"):
+            raise ValueError(
+                "--serve.endpoint does not serve mirror/league sessions "
+                "directly: live self-play sides step the training params. "
+                "League actors ARE supported through the multi-model serve "
+                "tier — run the server with --serve.models N, point this "
+                "actor at the league service with --serve.league "
+                "<host:port> (opponents then step serve-resident slots "
+                "via their matched --serve.model id); plain evaluation "
+                "fleets pin one slot with --serve.model <id>"
+            )
+        from dotaclient_tpu_torch.serve.client import RemoteFleet
+
+        fleet = RemoteFleet(cfg, broker, actor_id=cfg.actor_id, envs=M)
+        for env in fleet.envs:
+            env._stub = stub()
+        return [fleet]
+    if cfg.opponent in ("self", "league"):
+        from dotaclient_tpu_torch.runtime.selfplay import SelfPlayActor
+
+        ids = [cfg.actor_id] if M == 1 else [cfg.actor_id * M + j for j in range(M)]
+        return [SelfPlayActor(cfg, broker, actor_id=i, stub=stub()) for i in ids]
+    if M > 1:
+        return [VectorActor(cfg, broker, actor_id=cfg.actor_id, stubs=[stub() for _ in range(M)])]
+    return [Actor(cfg, broker, actor_id=cfg.actor_id, stub=stub())]
+
+
 def main(argv=None):
     """`python -m dotaclient_tpu_torch.runtime.actor [--flags]`: the
-    reference binary's flags. Dials the env at --env_addr over gRPC (so it
-    needs `grpc`, and says so at boot without it) and publishes to
-    --broker_url; one env per process runs the Actor, more the
-    VectorActor. Unported modes are refused at boot, naming their ROADMAP
-    item."""
+    reference binary's flags and dispatch (build_actors). Dials the env at
+    --env_addr over gRPC (so it needs `grpc`, and says so at boot without
+    it) and publishes to --broker_url. Unported modes are refused at boot,
+    naming their ROADMAP item."""
     from dotaclient_tpu_torch.config import parse_config
     from dotaclient_tpu_torch.env.service import require_grpc
     from dotaclient_tpu_torch.transport.base import connect as broker_connect
@@ -1076,9 +1151,12 @@ def main(argv=None):
     refuse_unported(cfg, table=ACTOR_UNPORTED)
     require_grpc()
     broker = broker_connect(cfg.broker_url, retry=RetryPolicy.from_config(cfg.retry))
-    M = max(int(cfg.envs_per_process), 1)
-    actor = VectorActor(cfg, broker, actor_id=cfg.actor_id) if M > 1 else Actor(cfg, broker, actor_id=cfg.actor_id)
-    asyncio.run(actor.run())
+    actors = build_actors(cfg, broker)
+
+    async def run_all():
+        await asyncio.gather(*(a.run() for a in actors))
+
+    asyncio.run(run_all())
 
 
 if __name__ == "__main__":

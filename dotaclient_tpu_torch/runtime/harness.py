@@ -50,10 +50,17 @@ class ActorPool:
     def _maybe_vectorize(self, actor):
         """A VectorActor over the actor when envs per actor exceed 1. Only
         the exact Actor type is wrapped: an env slot or another agent is
-        never wrapped twice."""
+        never wrapped twice. A remote actor (serve/client.py) is wrapped in
+        a RemoteFleet of that many slots, one at least: the server batches,
+        and the fleet's episode loop retries a failed step where a bare
+        run_episode would end the thread."""
         M = self._envs_per_actor
         if M is None:
             M = int(getattr(getattr(actor, "cfg", None), "envs_per_process", 1) or 1)
+        if getattr(actor, "remote_policy", None) is not None:
+            from dotaclient_tpu_torch.serve.client import RemoteFleet
+
+            return RemoteFleet.from_actor(actor, envs=max(M, 1))
         if M <= 1:
             return actor
         from dotaclient_tpu_torch.runtime.actor import Actor, VectorActor

@@ -4,11 +4,11 @@
                    the reference's;
 - serve/server.py  InferenceServer: continuous batching, resident LSTM
                    carries on the serving device, weight hot-swap;
-                   `python -m dotaclient_tpu_torch.serve.server`.
-
-The reference's clients (serve/client.py) need grpc for their episode
-loop and are not ported (ROADMAP A.11); its carry store (serve/handoff.py)
-is ROADMAP A.12b.
+                   `python -m dotaclient_tpu_torch.serve.server`;
+- serve/handoff.py the carry store behind session continuity;
+- serve/client.py  the actors' side: RemotePolicyClient (failover,
+                   load routing, resume), RemoteActor, RemoteFleet and
+                   the local fallback.
 """
 
 from __future__ import annotations

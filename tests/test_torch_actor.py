@@ -42,6 +42,7 @@ from dotaclient_tpu_torch.config import (
     PolicyConfig,
     PPOConfig,
     parse_config,
+    refuse_unported,
     unported_flags,
 )
 from dotaclient_tpu_torch.env import featurizer as F
@@ -195,9 +196,9 @@ class _TraceActor(tactor.Actor):
         super().__init__(*a, **kw)
         self.trace = []
 
-    async def _policy_step(self, state, obs):
+    async def _policy_step(self, state, obs, chunk_len=0, episode_start=False):
         self.trace.append((tuple(x.clone() for x in state), obs, self.rng.copy()))
-        return await super()._policy_step(state, obs)
+        return await super()._policy_step(state, obs, chunk_len, episode_start)
 
 
 class _JTraceActor(jactor.Actor):
@@ -449,10 +450,6 @@ def test_env_rpc_errors_are_retried_with_the_capped_backoff(monkeypatch):
 
 
 REFUSED = [
-    ("serve.endpoint", "inference-0:13380", "A.11b"),
-    ("serve.league", "league:13410", "A.11b"),
-    ("opponent", "self", "A.11c"),
-    ("opponent", "league", "A.11c"),
     ("env_dialect", "valve", "A.11d"),
     ("chaos.enabled", True, "A.10j"),
 ]
@@ -476,11 +473,18 @@ def test_unported_actor_modes_are_refused_naming_their_item(flag, value, item):
 
 
 def test_every_unported_actor_mode_is_tested_and_the_serve_client_flags_do_not_parse():
+    """Every refused mode has its case above. The remote client and
+    self-play are ported now: their flags parse to the reference's values
+    and select no refusal (the name is this test's since the flags were
+    unported)."""
     assert {r[0] for r in REFUSED} == set(unported_flags(ActorConfig(), ACTOR_UNPORTED)) == set(ACTOR_UNPORTED)
     for argv in (["--serve.cooldown_s", "5"], ["--serve.resume", "true"], ["--team_size", "5"],
-                 ["--pfsp_mode", "even"], ["--serve.route", "load"]):
-        with pytest.raises(SystemExit):
-            parse_config(ActorConfig(), argv)
+                 ["--pfsp_mode", "even"], ["--serve.route", "load"], ["--serve.endpoint", "a:1,b:2"],
+                 ["--serve.league", "league:13410"], ["--opponent", "self"], ["--opponent", "league"]):
+        ours, theirs = parse_config(ActorConfig(), argv), j_parse_config(JActorConfig(), argv)
+        assert vars(ours.serve) == vars(theirs.serve)
+        assert (ours.team_size, ours.pfsp_mode, ours.opponent) == (theirs.team_size, theirs.pfsp_mode, theirs.opponent)
+        refuse_unported(ours, table=ACTOR_UNPORTED)
 
 
 def test_the_scripted_actor_manifest_parses_as_the_reference_does():

@@ -673,3 +673,54 @@ def test_vector_actor_frames_on_the_card_are_the_standalone_actors(cuda, dtype):
     assert sorted(fleet) == sorted(single) == [6, 7, 8]
     for aid in single:
         assert fleet[aid] == single[aid] and len(single[aid]) >= 2
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("team_size", [1, 5])
+def test_selfplay_batched_step_rows_are_bitwise_their_b1_rows(cuda, dtype, team_size):
+    """SelfPlayActor._batched_step on the card (flagship width): one call
+    for the 2 * team_size mirror heroes; each hero's state, action, logp
+    and value bitwise the B=1 group step on its own inputs with its row of
+    the group's uniforms, and the actor's key advanced once."""
+    import numpy as np
+
+    from dotaclient_tpu_torch.config import ActorConfig, PolicyConfig
+    from dotaclient_tpu_torch.env import featurizer as F
+    from dotaclient_tpu_torch.ops import action_dist as ad
+    from dotaclient_tpu_torch.ops import threefry
+    from dotaclient_tpu_torch.ops.batch import as_tensors
+    from dotaclient_tpu_torch.runtime import actor as A
+    from dotaclient_tpu_torch.runtime.selfplay import SelfPlayActor, _Side
+    from dotaclient_tpu_torch.transport import memory as tmem
+
+    cfg = ActorConfig(policy=PolicyConfig(dtype=dtype), opponent="self", team_size=team_size, seed=5)
+    actor = SelfPlayActor(cfg, tmem.MemoryBroker("cuda_sp"), actor_id=1)
+    assert actor.device.type == "cuda"
+    rs = np.random.RandomState(team_size)
+    group = []
+    for i in range(2 * team_size):
+        s = _Side(i, 2 if i < team_size else 3, cfg, actor.device)
+        o = F.zeros_observation()
+        mask = rs.rand(F.N_ACTION_TYPES) > 0.3
+        mask[0] = True
+        s.obs = o._replace(unit_feats=rs.randn(*o.unit_feats.shape).astype(np.float32),
+                           hero_feats=rs.randn(*o.hero_feats.shape).astype(np.float32),
+                           global_feats=rs.randn(*o.global_feats.shape).astype(np.float32),
+                           unit_mask=rs.rand(F.MAX_UNITS) > 0.3, target_mask=rs.rand(F.MAX_UNITS) > 0.3,
+                           action_mask=mask)
+        s.state = tuple(torch.from_numpy(0.5 * rs.randn(1, 128).astype(np.float32)).to(actor.device) for _ in range(2))
+        group.append(s)
+    inputs = [(s.state, s.obs) for s in group]
+    key = actor.rng.copy()
+    actor._batched_step(actor.params, group)
+    assert np.array_equal(actor.rng, threefry.split(key, 2)[0])
+    sizes = (F.N_ACTION_TYPES, 9, 9, F.MAX_UNITS)
+    u = torch.from_numpy(ad.key_uniforms(threefry.split(key, 2)[1], (len(group),), sizes)).to(actor.device)
+    for i, (s, (state, obs)) in enumerate(zip(group, inputs)):
+        want = A._key_step_row(actor.params, state, as_tensors(F.stack([obs]), actor.device), u[i : i + 1].clone())
+        for x, y in zip(s.state, want[0]):
+            assert torch.equal(x, y)
+        action, logp, value = s._step_record
+        acts, floats = A._to_host(want[1], want[2], want[3])
+        assert [int(a[0]) for a in action] == acts[0].tolist()
+        assert (logp, value) == (float(floats[0, 0]), float(floats[0, 1]))

@@ -259,3 +259,21 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                 assert (rel, func) in GRPC_ALLOWED, f"{rel} imports grpc in {func or 'module scope'}"
                 grpc_sites.add((rel, func))
     assert grpc_sites == GRPC_ALLOWED
+
+
+# The remote client, self-play, the league and the evaluator: no grpc and
+# no google.protobuf anywhere in them, not even inside a function (the env
+# dial they need goes through env/service.py).
+NO_GRPC_MODULES = ["serve/client.py", "runtime/selfplay.py", "eval/__init__.py", "eval/rating.py", "eval/league.py",
+                   "eval/evaluator.py", "league/__init__.py", "league/policy.py", "league/registry.py",
+                   "league/client.py", "league/server.py"]
+
+
+@pytest.mark.parametrize("rel", NO_GRPC_MODULES)
+def test_remote_selfplay_and_league_modules_import_no_grpc_or_protobuf(rel):
+    path = REPO / "dotaclient_tpu_torch" / rel
+    assert path.exists()
+    for mod, func in _imported_roots(path):
+        root = mod.split(".")[0]
+        assert root not in FORBIDDEN + ("grpc",), f"{rel} imports {mod} in {func or 'module scope'}"
+        assert not (mod == "google" or mod.startswith("google.")), f"{rel} imports {mod}"
