@@ -102,7 +102,15 @@ Phases, in order; any failure exits non-zero:
               args whole (remote inference with failover, local fallback
               and resume; league opponents on the serve slots), the
               evaluator with k8s/evaluator.yaml's; a server SIGKILLed, then
-              both, then one back; a 5v5 mirror episode (see phase_fleet).
+              both, then one back; a 5v5 mirror episode; beside them the
+              control plane and fleetd binaries with k8s/control.yaml's and
+              k8s/fleetd.yaml's args (torch- and numpy-free processes of
+              their own): the decision ledger over the live servers and
+              shards, an actor discovering the servers through /topology,
+              a clean conservation audit after quiescence, 12 frames stolen
+              and flagged, the alert and its incident bundle (see
+              phase_fleet). Host preflight (obs/preflight.py) runs once
+              before the first phase that starts processes.
 Each path of the main path (serving, learner forward, each train step,
 the reuse step, the learner loop, the manifest learner, the fabric
 learner, the serve manifest, the actors' closed loop, the fleet's loop)
@@ -131,8 +139,88 @@ import threading
 import time
 import traceback
 
-import numpy as np
-import torch
+
+def stdlib_binary_main(argv) -> int:
+    """`chip_smoke.py --stdlib-binary STATUS MODULE [flags]`: the control
+    plane's or fleetd's main (MODULE, `python -m` style) with the flags,
+    and a thread that writes STATUS every 0.25 s: the modules of torch,
+    numpy, jax and the JAX package this process holds, its peak RSS
+    (VmHWM where /proc has it, else the largest VmRSS or statm resident
+    size sampled every 0.25 s from before the import on), whether the
+    recurrence kernel's module is loaded, and for the
+    control plane its decision ledger (each entry's time, tier, meter,
+    value, action, reason, actuation and the tier's up/scraped counts).
+    Runs before this script imports numpy or torch, so what it reports is
+    the binary's own weight. SIGINT stops it cleanly."""
+    import importlib
+
+    sampled = [0, ""]
+
+    def rss_kib():
+        """(peak KiB, its source): VmHWM, else the sampled max of VmRSS or
+        of statm's resident pages."""
+        try:
+            fields = dict(ln.split(":", 1) for ln in open("/proc/self/status") if ":" in ln)
+        except OSError:
+            fields = {}
+        if "VmHWM" in fields:
+            return int(fields["VmHWM"].split()[0]), "VmHWM"
+        if "VmRSS" in fields:
+            now, source = int(fields["VmRSS"].split()[0]), "VmRSS sampled"
+        else:
+            now = int(open("/proc/self/statm").read().split()[1]) * os.sysconf("SC_PAGE_SIZE") // 1024
+            source = "statm sampled"
+        sampled[:] = [max(sampled[0], now), source]
+        return tuple(sampled)
+
+    status, module, flags = argv[0], argv[1], argv[2:]
+    rss_kib()
+    mod = importlib.import_module(module)
+    rss_kib()
+    owner = getattr(mod, "ControlPlane", None) or getattr(mod, "FleetDaemon")
+    started, start = [], owner.start
+
+    def recording_start(self):
+        started.append(self)
+        return start(self)
+
+    owner.start = recording_start
+    stop = threading.Event()
+
+    def report(done: bool = False) -> None:
+        held = sorted(m for m in list(sys.modules) if m.split(".")[0] in ("torch", "numpy", "jax", "jaxlib")
+                      or m == "dotaclient_tpu" or m.startswith("dotaclient_tpu."))
+        peak, source = rss_kib()
+        out = dict(pid=os.getpid(), held=held, peak_rss_kib=peak, rss_source=source, done=done,
+                   lstm_loaded="dotaclient_tpu_torch.ops.lstm" in sys.modules)
+        if started and hasattr(started[0], "ledger"):
+            out["ledger"] = [dict(t=e["t"], tier=e["tier"], meter=e["meter"], value=e["value"], action=e["action"],
+                                  reason=e["reason"], actuated=bool(e.get("actuation", {}).get("actuated")),
+                                  up=e["meters"].get("up"), scraped=e["meters"].get("scraped"))
+                             for e in started[0].ledger()]
+        tmp = status + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump(out, f)
+        os.replace(tmp, status)
+
+    def loop():
+        while not stop.wait(0.25):
+            report()
+
+    threading.Thread(target=loop, daemon=True).start()
+    try:
+        mod.main(flags)
+    finally:
+        stop.set()
+        report(done=True)
+    return 0
+
+
+if __name__ == "__main__" and sys.argv[1:2] == ["--stdlib-binary"]:
+    sys.exit(stdlib_binary_main(sys.argv[2:]))
+
+import numpy as np  # noqa: E402 (after the stdlib-binary mode, which must not load them)
+import torch  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM rate and the
 # per-type arithmetic peaks used for each kernel's bound.
@@ -3607,7 +3695,9 @@ def fleet_actor_main(argv) -> int:
     published versions (and those of local-fallback episodes), the
     fallback's applied versions, the fleet's serve_* meters, the
     self-play league counters, recurrence launches and forbidden
-    modules."""
+    modules. A remote fleet with --obs.metrics_port keeps its /metrics
+    surface up after the stop until DIR/exit exists: fleetd audits the
+    stopped fleet."""
     import asyncio
 
     from dotaclient_tpu_torch.config import ActorConfig, parse_config
@@ -3659,6 +3749,9 @@ def fleet_actor_main(argv) -> int:
                 return ok
 
             fleet.fallback.poll = recording_poll
+    surface_close = None
+    if fleet is not None and fleet.obs is not None and fleet.obs.cfg.metrics_port > 0:
+        surface_close, fleet.obs.close = fleet.obs.close, (lambda: None)
     status, stop = os.path.join(d, f"actor{index}.json"), os.path.join(d, "stop")
     t0 = time.perf_counter()
 
@@ -3703,6 +3796,11 @@ def fleet_actor_main(argv) -> int:
     asyncio.run(go())
     report(True)
     broker.close()
+    if surface_close is not None:
+        deadline = time.monotonic() + 900
+        while not os.path.exists(os.path.join(d, "exit")) and time.monotonic() < deadline:
+            time.sleep(0.1)
+        surface_close()
     return 0
 
 
@@ -3776,6 +3874,188 @@ def _mirror_5v5(device, card: str, policy, max_time: float):
     return dict(ticks=ticks, calls=len(calls), frames=len(frames), steps_per_s=actor.steps_done / wall)
 
 
+CONTROL_MANIFEST = os.path.join(ROOT, "k8s", "control.yaml")
+FLEETD_MANIFEST = os.path.join(ROOT, "k8s", "fleetd.yaml")
+# The two pods' memory limits in their manifests (256Mi, 512Mi), KiB.
+STDLIB_LIMIT_KIB = {"control": 256 * 1024, "fleetd": 512 * 1024}
+# Both binaries' poll period, cut from their manifests' 5.0 s, and the
+# frames the rogue consumer steals (the reference soak's 12).
+FLEET_POLL_S, STEAL = 1.0, 12
+SERVE_METER, BROKER_METER = "serve_load_occupancy.mean", "broker_shard_depth.max"
+
+
+def _start_stdlib(tmp: str, name: str, module: str, flags):
+    """A stdlib binary through --stdlib-binary, in `tmp`: (process, its
+    boot line, its status file)."""
+    status = os.path.join(tmp, f"{name}.status")
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--stdlib-binary", status, module, *flags],
+                            cwd=tmp, stdout=subprocess.PIPE, text=True)
+    line = proc.stdout.readline()
+    try:
+        return proc, json.loads(line), status
+    except ValueError:
+        proc.kill()
+        raise SystemExit(f"fleet: {name} printed {line!r}")
+
+
+def _scrape_or_none(port: int):
+    try:
+        return _scrape(port)
+    except (OSError, SystemExit):
+        return None
+
+
+def _fleet_get(port: int, route: str) -> dict:
+    code, body = _http("GET", f"http://127.0.0.1:{port}{route}", timeout=10)
+    if code != 200:
+        raise SystemExit(f"fleet: GET {route} on :{port} answered {code}")
+    return json.loads(body)
+
+
+def _control_checks(status: str, cport: int, sobs, shards, kills) -> tuple:
+    """The control plane over phase 14's fleet, read from its decision
+    ledger (the --stdlib-binary status file) and its /metrics: it polled;
+    both manifest meters were evaluated; the static driver actuated
+    nothing; scrape errors (a tier's scraped less up) fall only in the
+    servers' SIGKILL windows `kills` [(killed, back or None)] (a poll's
+    scrapes precede its ledger time by at most 5 s) and never on the
+    shards; and over the quiesced fleet, a poll's evaluated meters equal a
+    direct scrape of the same surfaces taken just before and just after
+    it. Returns (problems, readings)."""
+    problems = []
+
+    def ledger():
+        return (_read_json(status) or {}).get("ledger", [])
+
+    def direct():
+        occ = [s["serve_load_occupancy"] for s in map(_scrape_or_none, sobs) if s and "serve_load_occupancy" in s]
+        return {SERVE_METER: sum(occ) / len(occ) if occ else None,
+                BROKER_METER: max(_scrape(m)["broker_shard_depth"] for _, _, m in shards)}
+
+    bracket = None
+    for _ in range(5):
+        before, t0 = direct(), time.time()
+        _wait(lambda: len({e["meter"] for e in ledger() if e["t"] > t0}) == 2, 10 * FLEET_POLL_S + 10, "a control poll")
+        first = min(e["t"] for e in ledger() if e["t"] > t0)
+        polled = {e["meter"]: e["value"] for e in ledger() if e["t"] == first}
+        if direct() == before:
+            bracket = (before, polled)
+            break
+    entries = ledger()
+    metrics = _scrape(cport)  # after the ledger read: its counters cover every entry read
+    if metrics["control_polls_total"] <= 0 or not entries:
+        problems.append(f"control polls {metrics['control_polls_total']}, {len(entries)} ledger entries")
+    if bracket is None or bracket[0] != bracket[1]:
+        problems.append(f"control: direct scrape vs the poll's evaluated meters {bracket}")
+    evaluated = {m: sum(1 for e in entries if e["meter"] == m and e["value"] is not None)
+                 for m in (SERVE_METER, BROKER_METER)}
+    if min(evaluated.values()) == 0:
+        problems.append(f"control: meters evaluated {evaluated}")
+    moved = [e for e in entries if e["actuated"]]
+    if moved or metrics["control_scale_ups_total"] or metrics["control_scale_downs_total"] or \
+            metrics["control_topology_epoch"]:
+        problems.append(f"control: the static driver actuated {moved[:3]}, metrics {metrics}")
+
+    def allowed(t):
+        return sum(1 for killed, back in kills if killed <= t and (back is None or back >= t - 5.0))
+
+    stray = [e for e in entries if e["scraped"] - e["up"] > (allowed(e["t"]) if e["tier"] == "server" else 0)]
+    errors = sum(e["scraped"] - e["up"] for e in entries if e["meter"] == SERVE_METER)
+    if stray or errors < 1 or metrics["control_scrape_errors_total"] < errors:
+        problems.append(f"control: scrape errors outside the SIGKILL windows {stray[:3]}, server errors {errors}, "
+                        f"control_scrape_errors_total {metrics['control_scrape_errors_total']}")
+    actions = {}
+    for e in entries:
+        actions[f"{e['meter']}:{e['action']}"] = actions.get(f"{e['meter']}:{e['action']}", 0) + 1
+    return problems, dict(polls=metrics["control_polls_total"], scrapes=metrics["control_scrapes_total"],
+                          scrape_errors=metrics["control_scrape_errors_total"], server_errors_in_kills=errors,
+                          ledger=len(entries), evaluated=evaluated, actions=actions,
+                          bracket=bracket[1] if bracket else None)
+
+
+def _fleet_audit(fport: int, shards, lmport: int, aobs, actors) -> tuple:
+    """fleetd over the quiesced fleet (learner drained and actors stopped,
+    their surfaces up). Clean: after three more polls the producer, shard
+    and delivery ledgers read ok, nothing unaccounted, over-accounted or
+    fenced, no shard fenced, no alert fired, and each listed actor's
+    scraped producer ledger is its own count. Injected loss: a rogue tcp://
+    consumer pops STEAL frames off the fullest shard; the delivery
+    ledger must read exactly STEAL by the second poll after the theft
+    (the one in flight may have read the shard before it), the loss alert
+    must fire on the third window of the streak, and its incident bundle
+    must hold /debug/flight snapshots of at least three OS processes with
+    a populated trace_id index. Returns (problems, readings)."""
+    from dotaclient_tpu_torch.transport.tcp import TcpBroker
+
+    problems = []
+    p0 = _fleet_get(fport, "/fleet")["polls"]
+    _wait(lambda: _fleet_get(fport, "/fleet")["polls"] >= p0 + 3, 10 * FLEET_POLL_S + 10, "three fleet polls")
+    clean = _fleet_get(fport, "/fleet")
+    status = {n: clean["ledgers"][n]["status"] for n in ("producer", "shard", "delivery")}
+    slo = clean["slo"]
+    shard_fences = [t["fences"] for t in clean["targets"].values() if t["tier"] == "broker"]
+    fired = [a["fired_total"] for a in clean["alerts"]]
+    if set(status.values()) != {"ok"} or slo["fleet_unaccounted_frames"] or slo["fleet_overaccounted_frames"] or \
+            slo["fleet_fenced_frames"] or any(shard_fences) or any(fired):
+        problems.append(f"clean audit: ledgers {status}, unaccounted {slo['fleet_unaccounted_frames']}, over "
+                        f"{slo['fleet_overaccounted_frames']}, fenced {slo['fleet_fenced_frames']}, shard fences "
+                        f"{shard_fences}, alerts fired {fired}")
+    for i, port in aobs.items():
+        s = _scrape(port)
+        a = actors[i]
+        if (s["actor_publish_attempted_total"], s["actor_rollouts_published_total"]) != (a["attempts"], a["published"]):
+            problems.append(f"actor {i}: scraped producer ledger {s['actor_publish_attempted_total']} / "
+                            f"{s['actor_rollouts_published_total']} vs its count {a['attempts']} / {a['published']}")
+    audited = {n: clean["ledgers"][n]["windows_audited"] for n in status}
+    # injected loss
+    resident = [_scrape(m)["broker_shard_resident"] for _, _, m in shards]
+    v = max(range(len(shards)), key=lambda i: resident[i])
+    before, wire = _scrape(shards[v][2]), _scrape(lmport)["wire_frames_obs_bf16_total"]
+    rogue = TcpBroker("127.0.0.1", shards[v][1])
+    stolen = rogue.consume_experience(STEAL, timeout=5.0)
+    rogue.close()
+    t_theft, p_theft = time.time(), _fleet_get(fport, "/fleet")["polls"]
+    after = _scrape(shards[v][2])
+    if len(stolen) != STEAL or after["broker_shard_popped_total"] != before["broker_shard_popped_total"] + STEAL or \
+            _scrape(lmport)["wire_frames_obs_bf16_total"] != wire:
+        problems.append(f"theft: {len(stolen)} frames off shard {v} (resident {resident}), popped "
+                        f"{before['broker_shard_popped_total']} -> {after['broker_shard_popped_total']}")
+    seen, deadline = {}, time.monotonic() + 20 * FLEET_POLL_S + 20
+    while time.monotonic() < deadline:
+        body = _fleet_get(fport, "/fleet")
+        if body["polls"] not in seen:
+            seen[body["polls"]] = (time.time() - t_theft, body["ledgers"]["delivery"]["unaccounted"],
+                                   body["alerts"][0]["firing"], body["alerts"][0]["fired_total"], body["incidents"])
+        if body["alerts"][0]["firing"] and body["incidents"]:
+            break
+        time.sleep(0.05)
+    flagged = [p for p, s in sorted(seen.items()) if s[1] == STEAL]
+    firing = [p for p, s in sorted(seen.items()) if s[2]]
+    values = sorted({s[1] for s in seen.values()})
+    if not flagged or flagged[0] > p_theft + 2 or not set(values) <= {0.0, float(STEAL)}:
+        problems.append(f"theft of {STEAL}: delivery unaccounted by poll {[(p, s[1]) for p, s in sorted(seen.items())]}"
+                        f", theft after poll {p_theft}")
+    if not firing or not flagged or firing[0] != flagged[0] + 2 or seen[firing[0]][3] != 1:
+        problems.append(f"alert: firing at polls {firing}, flagged at {flagged}")
+    bundle, pids, traces = {}, [], 0
+    if firing and seen[firing[-1]][4]:
+        bundle = json.load(open(seen[firing[-1]][4][-1]))
+        pids = sorted({f["pid"] for f in bundle["flights"].values() if f})
+        traces = len(bundle["trace_index"])
+    if len(pids) < 3 or traces < 1:
+        problems.append(f"incident bundle: flights of pids {pids}, {traces} trace ids")
+    final = _fleet_get(fport, "/fleet")["alerts"]
+    if final[1]["fired_total"] != 0:
+        problems.append(f"alert {final[1]['clause']} fired")
+    return problems, dict(
+        ledgers=status, windows_audited=audited, polls=clean["polls"], fleet_fences=slo["fleet_fences_total"],
+        targets=len(clean["targets"]), stolen=len(stolen), victim_shard=v, resident=resident,
+        flag_s=seen[flagged[0]][0] if flagged else None, fire_s=seen[firing[0]][0] if firing else None,
+        flag_poll=(flagged[0] - p_theft) if flagged else None, fire_after_flag_polls=(firing[0] - flagged[0])
+        if firing and flagged else None, bundle_flights=sum(1 for f in bundle.get("flights", {}).values() if f),
+        bundle_pids=len(pids), bundle_trace_ids=traces)
+
+
 def phase_fleet(device, card: str, actors_window_ms=None, policy=None, steps: int = 3, snapshot_every: int = 1,
                 fallback_after_s: float = 3.0, eval_episodes: int = 1, eval_every: int = 4, mirror_time: float = 40.0,
                 extra=(), actor_extra=(), server_extra=(), platform: str = ""):
@@ -3785,11 +4065,12 @@ def phase_fleet(device, card: str, actors_window_ms=None, policy=None, steps: in
     the store and the league local, fixed ports so a server can come back
     on its own); the league service binary with k8s/league.yaml's args
     (local --league.dir, the serve endpoint the two servers); the
-    learner binary's main with k8s/learner.yaml's args (256 x 16) for
-    `steps` steps; 2 actor processes with the actors-scripted args (every
-    --serve.* flag, both servers) and 2 with the actors args (--opponent
-    league --serve.league); one evaluator with k8s/evaluator.yaml's args.
-    Cuts: the learner's step count, --league.snapshot_every
+    learner binary's main with k8s/learner.yaml's args (256 x 16) until
+    the SIGTERM drain that manifest arms (--ckpt.drain_on_sigterm), sent
+    once it has trained `steps` steps; 2 actor processes with the
+    actors-scripted args (every --serve.* flag, both servers) and 2 with
+    the actors args (--opponent league --serve.league); one evaluator with
+    k8s/evaluator.yaml's args. Cuts: --league.snapshot_every
     (`snapshot_every`), --serve.fallback_after_s (`fallback_after_s`),
     --episodes and --eval_every. The env is in-process (--env_addr
     dropped).
@@ -3814,10 +4095,37 @@ def phase_fleet(device, card: str, actors_window_ms=None, policy=None, steps: in
     evaluator, `server_extra` to the servers, `platform` is the servers'
     --platform (a CPU rehearsal passes small policy flags and "cpu").
     Version 0 is two nets here (a server's boot net until the learner's
-    v0 reaches it), so a v0 reply may match either."""
-    from dotaclient_tpu_torch.config import LearnerConfig, LeagueConfig, LeagueServiceConfig, PolicyConfig, parse_config
+    v0 reaches it), so a v0 reply may match either.
+
+    Beside the fleet, from before the first actor to the end: the control
+    plane and fleetd binaries (--stdlib-binary) with k8s/control.yaml's
+    and k8s/fleetd.yaml's args whole but the cuts printed (local ports,
+    --control.servers / --control.brokers the servers' and shards' obs
+    ports, --fleet.control the plane, --fleet.learners / --fleet.leagues
+    the learner's and the league's surfaces, --fleet.actors the two
+    scripted actors' surfaces (the self-play actors serve none), the
+    bundle dir under tmp, both poll_s cut to FLEET_POLL_S), and an in-process
+    discovery plane whose /topology names the servers' data ports
+    (StaticDriver topology_map); scripted actor 1 dials
+    `control:<plane>`. The learner's drain stops its fabric popping and
+    takes in every frame popped before main() returns; its /metrics stays
+    up until the audit ends; the actors stop and keep their surfaces. Then
+    _control_checks and _fleet_audit, and each binary's held modules and
+    peak RSS against its manifest's limit."""
+    from dotaclient_tpu_torch.config import (
+        ControlConfig,
+        ControlLoopConfig,
+        LearnerConfig,
+        LeagueConfig,
+        LeagueServiceConfig,
+        PolicyConfig,
+        parse_config,
+    )
+    from dotaclient_tpu_torch.control.drivers import StaticDriver
+    from dotaclient_tpu_torch.control.server import ControlPlane
     from dotaclient_tpu_torch.env import featurizer as F
     from dotaclient_tpu_torch.league.server import LeagueService
+    from dotaclient_tpu_torch.obs import ObsRuntime
     from dotaclient_tpu_torch.models import policy as P
     from dotaclient_tpu_torch.ops import lstm as L
     from dotaclient_tpu_torch.ops.batch import as_tensors
@@ -3838,8 +4146,17 @@ def phase_fleet(device, card: str, actors_window_ms=None, policy=None, steps: in
     shards = start_fabric_shards(3, import_logs=logs)
     url = ",".join(f"tcp://127.0.0.1:{p}" for _, p, _ in shards)
     servers, booted, aprocs, league_proc, store_proc, ev_proc = {}, [], [], None, None, None
+    stdlib_procs, discovery, held_obs = [], None, []
     frames = {}  # learner publishes, version -> DTW2 frame (the replay's nets)
     publish = tfabric.FabricBroker.publish_weights
+    obs_close = ObsRuntime.close
+
+    def deferred_close(self) -> None:
+        # the learner's /metrics outlives its main() until the audit ends
+        if self.role == "learner":
+            held_obs.append(self)
+        else:
+            obs_close(self)
 
     def recording_publish(self, data: bytes) -> None:
         frames[deserialize_weights(data)[1]] = bytes(data)
@@ -3873,13 +4190,14 @@ def phase_fleet(device, card: str, actors_window_ms=None, policy=None, steps: in
         lport = lready["port"]
         league_url = f"http://127.0.0.1:{lport}"
         iargs = manifest_args(INFERENCE_MANIFEST)
+        sobs = [_free_port(), _free_port()]  # each server's obs port, the same in every life
 
         def server_flags(i):
             out = list(iargs)
             for flag, value in (("--serve.port", str(sports[i])), ("--platform", platform), ("--broker_url", url),
                                 ("--serve.handoff_endpoint", f"127.0.0.1:{store_port}"),
                                 ("--serve.league_endpoint", f"127.0.0.1:{lport}"),
-                                ("--obs.metrics_port", str(_free_port()))):
+                                ("--obs.metrics_port", str(sobs[i]))):
                 out[out.index(flag) + 1] = value
             return out + list(server_extra)
 
@@ -3898,8 +4216,46 @@ def phase_fleet(device, card: str, actors_window_ms=None, policy=None, steps: in
             raise SystemExit("fleet: a server did not start")
         fa = ["--serve.fallback_after_s", str(fallback_after_s)]
         specs = [(1, 0, fa), (1, 1, fa), (0, 2, []), (0, 3, [])]  # (deployment, actor_id, cut)
-        aflags = [fleet_actor_args(dep, url, endpoints, f"127.0.0.1:{lport}", tmp, aid, list(cut) + list(actor_extra))
-                  for dep, aid, cut in specs]
+        scripted, leaguers = [0, 1], [2, 3]
+        aobs = {i: _free_port() for i in scripted}  # the remote fleets' /metrics (self-play actors serve none)
+        lmport = _free_port()
+        # the control plane, the discovery plane and fleetd, before any traffic
+        cport, fport = _free_port(), _free_port()
+        cflags = manifest_args(CONTROL_MANIFEST)
+        cuts = {"--control.port": str(cport), "--control.poll_s": str(FLEET_POLL_S),
+                "--control.servers": ",".join(f"127.0.0.1:{p}" for p in sobs),
+                "--control.brokers": ",".join(f"127.0.0.1:{m}" for _, _, m in shards)}
+        for flag, value in cuts.items():
+            cflags[cflags.index(flag) + 1] = value
+        control = _start_stdlib(tmp, "control", "dotaclient_tpu_torch.control.server", cflags)
+        stdlib_procs.append(control[0])
+        discovery = ControlPlane(ControlConfig(control=ControlLoopConfig(port=0, poll_s=3600.0)), StaticDriver(
+            {"server": [f"127.0.0.1:{p}" for p in sobs]}, topology_map={"server": endpoints.split(",")})).start()
+        fflags = manifest_args(FLEETD_MANIFEST)
+        fcuts = {"--fleet.port": str(fport), "--fleet.poll_s": str(FLEET_POLL_S),
+                 "--fleet.control": f"127.0.0.1:{cport}",
+                 "--fleet.learners": f"127.0.0.1:{lmport}", "--fleet.leagues": f"127.0.0.1:{lport}",
+                 "--fleet.bundle_dir": os.path.join(tmp, "incidents")}
+        for flag, value in fcuts.items():
+            fflags[fflags.index(flag) + 1] = value
+        fcuts["--fleet.actors"] = ",".join(f"127.0.0.1:{aobs[i]}" for i in scripted)
+        fflags += ["--fleet.actors", fcuts["--fleet.actors"]]
+        fleetd = _start_stdlib(tmp, "fleetd", "dotaclient_tpu_torch.obs.fleetd", fflags)
+        stdlib_procs.append(fleetd[0])
+        ready = {"control": control[1], "fleetd": fleetd[1]}
+        want = {"control": {"serving": True, "port": cport, "driver": "static", "tiers": ["broker", "server"]},
+                "fleetd": {"serving": True, "port": fport, "control": f"127.0.0.1:{cport}", "alerts": 2,
+                           "targets": sorted([f"actor/127.0.0.1:{aobs[i]}" for i in scripted] + [
+                               f"learner/127.0.0.1:{lmport}", f"league/127.0.0.1:{lport}"])}}
+        if ready != want:
+            raise SystemExit(f"fleet: boot lines {ready}, want {want}")
+        print(f"fleet: control plane (k8s/control.yaml) cut {cuts}; fleetd (k8s/fleetd.yaml) cut {fcuts}; discovery "
+              f"plane :{discovery.port} for scripted actor 1 (--serve.endpoint control:127.0.0.1:{discovery.port}); "
+              f"scripted actors' --obs.metrics_port {aobs}", flush=True)
+        ends = {i: (f"control:127.0.0.1:{discovery.port}" if i == 1 else endpoints) for i in range(len(specs))}
+        aflags = [fleet_actor_args(dep, url, ends[i], f"127.0.0.1:{lport}", tmp, aid, list(cut) + (
+            ["--obs.metrics_port", str(aobs[i])] if i in aobs else []) + list(actor_extra))
+                  for i, (dep, aid, cut) in enumerate(specs)]
         for i, flags in enumerate(aflags):
             aprocs.append(subprocess.Popen([sys.executable, os.path.abspath(__file__), "--fleet-actor", adir, str(i),
                                             *flags], cwd=tmp))
@@ -3913,9 +4269,7 @@ def phase_fleet(device, card: str, actors_window_ms=None, policy=None, steps: in
         ev_proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--fleet-evaluator", adir, *eargs],
                                    cwd=tmp)
         status = lambda: [_read_json(os.path.join(adir, f"actor{i}.json")) or {} for i in range(len(specs))]  # noqa
-        scripted, leaguers = [0, 1], [2, 3]
-        mflags = local_manifest(manifest_args(), tmp, url, _free_port(), extra=list(extra) + [
-            "--train_steps", str(steps), "--metrics_every", "1"])
+        mflags = local_manifest(manifest_args(), tmp, url, lmport, extra=list(extra) + ["--metrics_every", "1"])
         cfg = parse_config(LearnerConfig(), mflags)
         events, errors, main_done = {}, [], threading.Event()
 
@@ -3974,19 +4328,24 @@ def phase_fleet(device, card: str, actors_window_ms=None, policy=None, steps: in
                 events["done"] = True
 
         def watchdog():
-            # the learner's run() has no idle limit: a loop the fleet cannot feed is drained by SIGTERM
-            deadline = time.monotonic() + 420
+            # the learner's run() has no step limit: after `steps` steps (one recurrence launch each) it gets
+            # the SIGTERM drain; a loop the fleet cannot feed is drained the same way, and fails the phase
+            deadline, draining = time.monotonic() + 420, False
             while not main_done.wait(0.5):
                 dead = [p.poll() for p in aprocs + [ev_proc, league_proc, store_proc] if p.poll() is not None]
                 if time.monotonic() > deadline or dead or errors:
                     errors.append(f"learner not done: exits {dead}")
                     os.kill(os.getpid(), signal.SIGTERM)
                     return
+                if not draining and L.LAUNCHES >= steps:
+                    draining = True
+                    os.kill(os.getpid(), signal.SIGTERM)
 
         saved = sys.excepthook, threading.excepthook, signal.getsignal(signal.SIGTERM)
         orch = threading.Thread(target=orchestrate, daemon=True, name="chip-smoke-fleet")
         guard = threading.Thread(target=watchdog, daemon=True, name="chip-smoke-fleet-guard")
         tfabric.FabricBroker.publish_weights = recording_publish
+        ObsRuntime.close = deferred_close
         try:
             torch.cuda.synchronize()
             L.LAUNCHES = 0  # the fleet's learner starts here
@@ -3998,6 +4357,7 @@ def phase_fleet(device, card: str, actors_window_ms=None, policy=None, steps: in
             launches = L.LAUNCHES
         finally:
             tfabric.FabricBroker.publish_weights = publish
+            ObsRuntime.close = obs_close
             main_done.set()
             sys.excepthook, threading.excepthook = saved[:2]
             signal.signal(signal.SIGTERM, saved[2])
@@ -4007,11 +4367,31 @@ def phase_fleet(device, card: str, actors_window_ms=None, policy=None, steps: in
             raise SystemExit(f"fleet: {errors or ['the orchestrator did not finish']}")
         _wait(lambda: os.path.exists(os.path.join(tmp, "eval", "metrics.jsonl")), 240,
               "the evaluator's first result", [ev_proc])
+        # frames the drained learner leaves on the shards: the theft's pool
+        _wait(lambda: max(_scrape(m)["broker_shard_resident"] for _, _, m in shards) >= STEAL + 4, 120,
+              f"{STEAL + 4} frames resident on a shard", aprocs)
         open(os.path.join(adir, "stop"), "w").close()
         _wait(lambda: all(s.get("done") for s in status()), 120, "the actors to stop", aprocs)
-        for p in aprocs + [ev_proc]:
+        for p in [aprocs[i] for i in leaguers] + [ev_proc]:
             p.wait(timeout=60)
         actors = status()
+        kills = [(events["kill1_t"], events["restart_t"]), (events["kill2_t"], None)]
+        audit_problems, control_res = _control_checks(control[2], cport, sobs, shards, kills)
+        more, audit_res = _fleet_audit(fport, shards, lmport, aobs, actors)
+        audit_problems += more
+        open(os.path.join(adir, "exit"), "w").close()
+        for p in [aprocs[i] for i in scripted]:
+            p.wait(timeout=60)
+        for p in stdlib_procs:
+            p.send_signal(signal.SIGINT)
+            p.wait(timeout=30)
+        weight = {name: _read_json(st) or {} for name, st in (("control", control[2]), ("fleetd", fleetd[2]))}
+        for name, w in weight.items():
+            if not w.get("done") or w.get("held") or w.get("lstm_loaded") or \
+                    not 0 < (w.get("peak_rss_kib") or 0) <= STDLIB_LIMIT_KIB[name]:
+                audit_problems.append(f"{name}: held {w.get('held')}, peak RSS {w.get('peak_rss_kib')} KiB "
+                                      f"({w.get('rss_source')}; limit {STDLIB_LIMIT_KIB[name]}), recurrence module "
+                                      f"loaded {w.get('lstm_loaded')}")
         evaluator = _read_json(os.path.join(adir, "evaluator.json")) or {}
         board = lget("/leaderboard")["leaderboard"]
         lineage = lget("/lineage")["lineage"]
@@ -4022,7 +4402,11 @@ def phase_fleet(device, card: str, actors_window_ms=None, policy=None, steps: in
         ok = True
     finally:
         tfabric.FabricBroker.publish_weights = publish
-        for p in aprocs + [ev_proc]:
+        for rt in held_obs:
+            obs_close(rt)
+        if discovery is not None:
+            discovery.stop()
+        for p in aprocs + [ev_proc] + stdlib_procs:
             if p is not None:
                 stop_process(p)
         for s in booted:
@@ -4036,7 +4420,7 @@ def phase_fleet(device, card: str, actors_window_ms=None, policy=None, steps: in
             else:
                 proc.kill()
     srv_status = {os.path.basename(s[3]): _read_json(s[3]) or {} for s in booted}
-    problems = []
+    problems = list(audit_problems)
     # a fresh service loads the registry the live one wrote, and rebuilds its leaderboard from the match log
     fresh = LeagueService(LeagueConfig(league=LeagueServiceConfig(port=0, dir=os.path.join(tmp, "league"))))
     fresh_board = fresh.leaderboard()["leaderboard"]
@@ -4093,6 +4477,10 @@ def phase_fleet(device, card: str, actors_window_ms=None, policy=None, steps: in
                             f"{a['fallback_applied']}")
         if a["replies"].get(events["victim"], 0) == 0:
             problems.append(f"scripted actor {i} never returned to server 1")
+    disc = actors[1]["meters"]  # scripted actor 1 found the servers through the discovery plane
+    if disc["serve_topology_refreshes_total"] < 1 or disc["serve_topology_errors_total"] != 0 or \
+            sorted(actors[1]["replies"]) != sorted(endpoints.split(",")):
+        problems.append(f"discovery: topology meters {disc}, replies from {sorted(actors[1]['replies'])}")
     # ledgers, launches, imports
     enqueued = [led["broker_shard_enqueued_total"] for led in shard_led]
     published = sum(a["published"] for a in actors)
@@ -4104,8 +4492,9 @@ def phase_fleet(device, card: str, actors_window_ms=None, policy=None, steps: in
             problems.append(f"actor {i} launched the recurrence {a['launches']} times")
     if published != sum(enqueued):
         problems.append(f"the actors published {published} frames, the shards enqueued {enqueued}")
-    if launches != steps or learner.version != steps:
-        problems.append(f"{launches} recurrence launches, version {learner.version} (expected {steps})")
+    if launches != learner.version or learner.version < steps or not learner.drain_requested:
+        problems.append(f"{launches} recurrence launches, version {learner.version} (expected {steps} or more, one "
+                        f"launch each), drained {learner.drain_requested}")
     srv_launches = {k: v.get("launches") for k, v in srv_status.items()}
     if any(v != 0 for v in srv_launches.values()) or evaluator.get("launches") != 0:
         problems.append(f"recurrence launches: servers {srv_launches}, evaluator {evaluator.get('launches')}")
@@ -4128,7 +4517,7 @@ def phase_fleet(device, card: str, actors_window_ms=None, policy=None, steps: in
     rates = [a["steps_per_s"] for a in actors]
     first_reply = {i: min([t for t, ep in events["failover"][i]["transitions"] if ep == events["survivor"]
                            and t > events["kill1_t"]] or [events["kill1_t"]]) - events["kill1_t"] for i in scripted}
-    res = dict(steps=steps, launches=launches, learner_wall_s=wall_s, window_ms=windows,
+    res = dict(steps=learner.version, launches=launches, learner_wall_s=wall_s, window_ms=windows,
                window_ms_median=statistics.median(windows), actors_window_ms=actors_window_ms,
                actor_steps_per_s=rates, total_steps_per_s=sum(rates),
                p50_ms=[a["latency_p50_ms"] for a in actors], p99_ms=[a["latency_p99_ms"] for a in actors],
@@ -4141,9 +4530,31 @@ def phase_fleet(device, card: str, actors_window_ms=None, policy=None, steps: in
                local_versions=[actors[i]["local_versions"] for i in scripted], published=published, enqueued=enqueued,
                league_games=games, league_members=sorted(lineage), evaluations=[(r["step"], r["win_rate"]) for r in evals],
                mirror=mirror, env_steps=sum(a["steps"] for a in actors))
+    # a binary that holds no torch and never loaded the recurrence module launched it 0 times
+    res.update(control=control_res, audit=audit_res, weight={k: dict(
+        peak_rss_kib=w["peak_rss_kib"], rss_source=w["rss_source"], limit_kib=STDLIB_LIMIT_KIB[k], held=w["held"],
+        launches=0 if w["held"] == [] and w["lstm_loaded"] is False else None) for k, w in weight.items()})
     res["phase_s"] = time.perf_counter() - t_phase
+    print(f"fleet: control plane over the live servers and shards: {control_res['polls']:.0f} polls, "
+          f"{control_res['ledger']} ledger entries ({control_res['actions']}), nothing actuated, the poll over the "
+          f"quiesced fleet evaluated {control_res['bracket']} = a direct scrape; scrape errors "
+          f"{control_res['scrape_errors']:.0f}, all inside the servers' SIGKILL windows; scripted actor 1 adopted "
+          f"the servers through /topology ({actors[1]['meters']['serve_topology_refreshes_total']:.0f} refreshes, "
+          f"{actors[1]['meters']['serve_topology_errors_total']:.0f} errors) | {card}", flush=True)
+    print(f"fleet: fleetd audit after quiescence: ledgers {audit_res['ledgers']} over {audit_res['windows_audited']} "
+          f"windows, 0 unaccounted, 0 fenced, no alert; {audit_res['stolen']} frames stolen off shard "
+          f"{audit_res['victim_shard']} (resident {[int(x) for x in audit_res['resident']]}) flagged exactly at "
+          f"poll +{audit_res['flag_poll']} ({audit_res['flag_s']:.2f} s), alert fired "
+          f"{audit_res['fire_after_flag_polls']} polls later ({audit_res['fire_s']:.2f} s after the theft), bundle of "
+          f"{audit_res['bundle_flights']} flight snapshots from {audit_res['bundle_pids']} processes, "
+          f"{audit_res['bundle_trace_ids']} trace ids; peak RSS ({weight['control']['rss_source']}) control "
+          f"{weight['control']['peak_rss_kib'] / 1024:.1f} MiB of 256 MiB, fleetd "
+          f"{weight['fleetd']['peak_rss_kib'] / 1024:.1f} MiB of 512 MiB, neither holds torch, numpy, jax or "
+          f"dotaclient_tpu, recurrence launches {res['weight']['control']['launches']} and "
+          f"{res['weight']['fleetd']['launches']} | {card}", flush=True)
     print(f"fleet: three port shards, the carry store, two servers (inference.yaml, --serve.models 4), the league "
-          f"service (league.yaml), the learner binary ({steps} steps at 256 x 16), 2 actors-scripted and 2 actors "
+          f"service (league.yaml), the learner binary ({res['steps']} steps at 256 x 16 to its drain), 2 actors-scripted "
+          f"and 2 actors "
           f"processes, the evaluator: {launches} recurrence launches, none elsewhere; no process holds jax, "
           f"dotaclient_tpu, google.protobuf or grpc; {checked} sampled replies (models {models}) bitwise the standalone "
           f"key step; failover first reply on server 2 {[round(x, 3) for x in first_reply.values()]} s after the "
@@ -4193,6 +4604,14 @@ def main() -> int:
     forward_launches, ms_k, ms_t = phase_learner(device, net, cfg)
     train = phase_train(device)  # zeroes the counters itself before its main path
     loop = phase_learner_loop(device, card, train["ms"])  # zeroes the counters itself before its main path
+    # host preflight before the first phase that starts processes: every
+    # listening process of either package on the host is disclosed, and
+    # none fails the run (another checkout's run may share this host)
+    from dotaclient_tpu_torch.obs import preflight
+
+    os.environ.setdefault("DOTACLIENT_TPU_ALLOW_STRAYS", "1")
+    host = preflight.check("chip_smoke")
+    print(f"preflight: {json.dumps(host)}", flush=True)
     # zero the counters themselves; one producer process, then four
     loop["tcp"] = phase_learner_tcp(device, card, loop["free_pipelined_ms"])
     loop["tcp4"] = phase_learner_tcp(device, card, loop["free_pipelined_ms"], producers=4)
@@ -4250,6 +4669,8 @@ def main() -> int:
             "launches_actors_loop": actors["launches"],
             "actors": actors,
             "launches_fleet_loop": fleet["launches"],
+            "launches_control_plane": fleet["weight"]["control"]["launches"],
+            "launches_fleetd": fleet["weight"]["fleetd"]["launches"],
             "fleet": fleet,
         }
     ]

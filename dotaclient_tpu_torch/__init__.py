@@ -8,12 +8,19 @@ is its own copy. Entry points run on the GPU unless the caller passes
 
 from __future__ import annotations
 
-import torch
+from typing import TYPE_CHECKING
+
+if TYPE_CHECKING:
+    import torch
 
 
-def resolve_device(device=None) -> torch.device:
+def resolve_device(device=None) -> "torch.device":
     """`device` as a torch.device; None means the current CUDA device,
-    and raises when there is none (no silent CPU fallback)."""
+    and raises when there is none (no silent CPU fallback). torch is
+    imported here, not with the package: the stdlib tiers (control/,
+    obs/fleetd.py) import the package and must not load it."""
+    import torch
+
     if device is not None:
         return torch.device(device)
     if not torch.cuda.is_available():

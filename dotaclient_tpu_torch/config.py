@@ -522,6 +522,79 @@ class EvalConfig:
     log_dir: str = ""
 
 
+@dataclass
+class ControlLoopConfig:
+    """The --control.* flags of the control-plane binary (control/server.py;
+    reference: dotaclient_tpu/config.py ControlLoopConfig). The topology
+    lists are comma `host:port` lists of each tier's OBS surfaces: the
+    controller scrapes /metrics + /healthz there."""
+
+    # Port of GET /topology (discovery), /metrics (control_*), /healthz and
+    # /debug/flight; 0 = pick a free port.
+    port: int = 13400
+    poll_s: float = 2.0  # scrape-decide-actuate cadence, seconds
+    # ";"-separated "tier:meter,high=H,low=L,min=M,max=X,cooldown=C,step=S"
+    # clauses (control/policy.py); "" = observe-only.
+    policy: str = ""
+    # "static" ledgers decisions and actuates nothing; "k8s" runs `kubectl
+    # scale` against the committed manifests.
+    driver: str = "static"
+    brokers: str = ""
+    servers: str = ""
+    actors: str = ""
+    stores: str = ""
+    learner: str = ""
+    # k8s driver scope and the kubectl binary it runs.
+    namespace: str = "dotaclient"
+    kubectl: str = "kubectl"
+
+
+@dataclass
+class ControlConfig:
+    """The control-plane binary's flags (`python -m
+    dotaclient_tpu_torch.control.server`). Stdlib only: it never imports
+    torch, numpy or the wire stack."""
+
+    control: ControlLoopConfig = field(default_factory=ControlLoopConfig)
+    obs: ObsConfig = field(default_factory=ObsConfig)
+
+
+@dataclass
+class FleetLoopConfig:
+    """The --fleet.* flags of the fleet telemetry aggregator (obs/fleetd.py;
+    reference: dotaclient_tpu/config.py FleetLoopConfig)."""
+
+    # Port of GET /fleet, /metrics (fleet_*), /healthz (503 while a ledger
+    # is stale or alarming) and /debug/flight; 0 = pick a free port.
+    port: int = 13420
+    # Scrape-audit-alert cadence, seconds: one poll is one audit window.
+    poll_s: float = 2.0
+    window: int = 64  # poll windows kept per target
+    stale_s: float = 10.0  # seconds without a scrape before /fleet says stale
+    # Control plane whose GET /topology "metrics" map is merged with the
+    # literal lists below ("" = literal lists only).
+    control: str = ""
+    brokers: str = ""
+    servers: str = ""
+    actors: str = ""
+    stores: str = ""
+    learners: str = ""
+    leagues: str = ""
+    # ";"-separated "meter,op,threshold,for=W" clauses over fleetd's own
+    # gauges; a firing edge writes an incident bundle. Parse errors fail boot.
+    alerts: str = ""
+    bundle_dir: str = ""  # incident bundles ("" = cwd)
+
+
+@dataclass
+class FleetConfig:
+    """The fleet telemetry binary's flags (`python -m
+    dotaclient_tpu_torch.obs.fleetd`). Stdlib only, as the controller."""
+
+    fleet: FleetLoopConfig = field(default_factory=FleetLoopConfig)
+    obs: ObsConfig = field(default_factory=ObsConfig)
+
+
 # Modes of the reference binaries that the port has not ported: the flag,
 # the test of its value that selects the mode, what the mode is, and its
 # ROADMAP item. The learner, the staging buffer, the single-buffer train

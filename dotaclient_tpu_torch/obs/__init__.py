@@ -15,6 +15,10 @@ inference server, the carry store and the fabric shards:
                           → log → dump → 503; learner);
 - obs/registry.py         the documented scalar names.
 
+The package imports only stdlib modules: `compute` (torch) and `watchdog`
+load on first use of their names, so the stdlib tiers (control/,
+obs/fleetd.py) that import `obs` never load torch.
+
 Everything is off by default (`--obs.enabled`): with it off no obs object
 exists and the staging, learner, serve and actor paths are the plain ones.
 The inference server's runtime (role "serve") serves /metrics from its
@@ -25,15 +29,23 @@ compute observer and the watchdog are attached by the learner only.
 
 from __future__ import annotations
 
+import importlib
 import time
 from typing import Callable, Dict, List, Optional
 
 from dotaclient_tpu_torch.config import ObsConfig
-from dotaclient_tpu_torch.obs.compute import ComputeObserver, ProfileCapture
 from dotaclient_tpu_torch.obs.flight_recorder import FlightRecorder
 from dotaclient_tpu_torch.obs.http import MetricsHTTPServer
 from dotaclient_tpu_torch.obs.trace import PipelineTracer
-from dotaclient_tpu_torch.obs.watchdog import Watchdog
+
+# name -> submodule, loaded on first access (PEP 562)
+_LAZY = {"ComputeObserver": "compute", "ProfileCapture": "compute", "Watchdog": "watchdog"}
+
+
+def __getattr__(name: str):
+    if name in _LAZY:
+        return getattr(importlib.import_module(f"{__name__}.{_LAZY[name]}"), name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 class ObsRuntime:
@@ -46,9 +58,9 @@ class ObsRuntime:
         self.recorder = FlightRecorder(role, ring_size=cfg.ring_size, dump_dir=cfg.dump_dir)
         self.tracer = PipelineTracer(recorder=self.recorder)
         self.server: Optional[MetricsHTTPServer] = None
-        self.compute: Optional[ComputeObserver] = None
-        self.watchdog: Optional[Watchdog] = None
-        self.profiler: Optional[ProfileCapture] = None
+        self.compute = None  # ComputeObserver, attached by the learner
+        self.watchdog = None  # Watchdog
+        self.profiler = None  # ProfileCapture
         self._trace_seq = 0
 
     @classmethod
@@ -72,20 +84,24 @@ class ObsRuntime:
         self.recorder.record("publish", t=birth, trace=trace_id, actor=actor_id)
         return rollout._replace(trace_id=trace_id, birth_time=birth)
 
-    def attach_compute(self, flops_per_step: float, peak_flops: Optional[float], overlap: bool = False) -> ComputeObserver:
+    def attach_compute(self, flops_per_step: float, peak_flops: Optional[float], overlap: bool = False):
         """The learner's compute bundle: phase timer (cfg.step_phases; in
         overlap mode under the pipelined loop), recompile sentinel factory,
         MFU accounting."""
+        from dotaclient_tpu_torch.obs.compute import ComputeObserver
+
         self.compute = ComputeObserver(flops_per_step, peak_flops, recorder=self.recorder,
                                        step_phases=self.cfg.step_phases, overlap=overlap)
         return self.compute
 
-    def attach_watchdog(self, latest_fn, version_fn, latest_seq_fn=None) -> Optional[Watchdog]:
+    def attach_watchdog(self, latest_fn, version_fn, latest_seq_fn=None):
         """Build and start the watchdog when cfg.watchdog.enabled. Call it
         after the checkpoint restore: the restore's version write must be
         the baseline, not the first heartbeat."""
         if not self.cfg.watchdog.enabled:
             return None
+        from dotaclient_tpu_torch.obs.watchdog import Watchdog
+
         self.watchdog = Watchdog(self.cfg.watchdog, latest_fn, version_fn, recorder=self.recorder,
                                  latest_seq_fn=latest_seq_fn).start()
         return self.watchdog
@@ -98,6 +114,7 @@ class ObsRuntime:
         dump_dir, else cwd)."""
         if self.cfg.metrics_port <= 0:
             return None
+        from dotaclient_tpu_torch.obs.compute import ProfileCapture
 
         def _watchdog_scalars() -> Dict[str, float]:
             wd = self.watchdog  # one read: close() may null it meanwhile

@@ -35,6 +35,8 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from dotaclient_tpu_torch.obs.http import CaptureBusyError  # noqa: F401 (raised here; http answers it 409)
+
 _log = logging.getLogger(__name__)
 
 
@@ -282,10 +284,6 @@ class MfuAccountant:
 
 
 # ------------------------------------------------------------- profiler
-
-
-class CaptureBusyError(RuntimeError):
-    """A profiler capture is already in flight (the profiler is process-global)."""
 
 
 def trace_kernel_names(path: str) -> List[str]:

@@ -33,9 +33,14 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Callable, Dict, List, Optional
 from urllib.parse import parse_qs, urlparse
 
-from dotaclient_tpu_torch.obs.compute import CaptureBusyError
-
 _log = logging.getLogger(__name__)
+
+
+class CaptureBusyError(RuntimeError):
+    """A profiler capture is already in flight (the profiler is process-global);
+    POST /profile answers it with 409. Defined here, not in obs/compute.py,
+    so this stdlib module never imports torch."""
+
 
 _NAME_OK = re.compile(r"[^a-zA-Z0-9_:]")
 

@@ -1,8 +1,10 @@
 """Metric-name registry (the part of dotaclient_tpu/obs/registry.py the
 port's binaries emit, same names and meanings): every scalar the port's
-learner, inference server, carry store and fabric shards log or serve on
-/metrics is named here, so dashboards and the reference's alert and control
-clauses resolve against the port.
+learner, inference server, carry store, fabric shards, actors (local,
+vector, remote and self-play), serve client, evaluator, league, control
+plane and fleet aggregator log or serve on /metrics is named here, so
+dashboards, the control policy, fleetd's conservation ledgers and the
+reference's alert clauses resolve against the port.
 
 - SCALARS: exact names.
 - PREFIXES: documented families whose tails are data-dependent
@@ -82,6 +84,33 @@ SCALARS: Dict[str, str] = {
     "actor_batch_occupancy": "mean real-rows / capacity of the batched inference tick",
     "actor_gather_wait_s": "mean per-tick wait assembling the batch (bounded by --gather_window_s)",
     "actor_jit_step_s": "mean per-tick batched jit inference latency (incl. the one device_get)",
+    # --- producer ledger (runtime/actor.py VectorActor, serve/client.py
+    #     RemoteFleet): fleetd's producer identity joins on these
+    "actor_publish_attempted_total": "rollout chunks this process tried to publish (published + shed + failed, derived from the same reads so the identity is exact)",
+    "actor_rollouts_published_total": "rollout chunks acked by the broker (cumulative)",
+    # --- remote inference client (serve/client.py RemoteFleet.stats)
+    "serve_failover_endpoints": "configured inference endpoints in the failover list",
+    "serve_failover_endpoints_down": "endpoints currently sitting out a health cooldown",
+    "serve_failover_total": "failovers to a different endpoint (cumulative)",
+    "serve_failover_reconnects_total": "reconnect dials attempted (cumulative)",
+    "serve_failover_episodes_abandoned_total": "episodes abandoned on remote-inference failure — connection loss, reply deadline, UNKNOWN_CLIENT (the serve chaos soak's explicit abandon ledger)",
+    "serve_fallback_engaged": "1 while the local-policy fallback is stepping episodes",
+    "serve_fallback_engagements_total": "distinct fallback engagements — counted per outage, not per return-to-remote probe cycle",
+    "serve_fallback_steps_total": "policy steps served by the warm local tree (cumulative)",
+    "serve_fallback_version": "model version of the broker-fanout-refreshed local tree",
+    "serve_handoff_client_resumes_total": "episodes RESUMED after a remote-inference failure instead of abandoned (--serve.resume; the zero-abandon soak's ledger)",
+    "serve_handoff_replay_steps_total": "replay steps sent while rebuilding resumed sessions (at most one chunk per resume — the recompute bound)",
+    "serve_route_load_mode": "1 when --serve.route load is active (0 = the list order)",
+    "serve_route_probes_total": "endpoint load probes issued at (re)connect time (S_INFO dials across the in-rotation candidates)",
+    "serve_route_picks_total": "connects whose endpoint order came from a load probe pass",
+    "serve_topology_refreshes_total": "endpoint lists adopted from the control plane's GET /topology (--serve.endpoint control:<host:port>; 0 with literal lists)",
+    "serve_topology_errors_total": "failed /topology fetches — the client keeps its current list (rollback semantics: discovery can only improve on the static list)",
+    # --- evaluator (eval/evaluator.py) and rating (eval/rating.py)
+    "skill": "conservative TrueSkill estimate (mu - 3 sigma)",
+    "trueskill_mu": "anchored TrueSkill mean",
+    "trueskill_sigma": "anchored TrueSkill uncertainty",
+    "win_rate": "evaluation win rate vs the scripted yardstick",
+    "mean_eval_return": "mean evaluation episode return",
     # --- inference service (serve/server.py)
     "serve_requests_total": "policy-step requests handled (cumulative, all connections)",
     "serve_unknown_client_total": "steps naming a client_key with no resident carry and no episode-start flag (server restarted/evicted; the client abandons the episode)",
@@ -142,6 +171,30 @@ PREFIXES: Dict[str, str] = {
     # per-slot serve ledgers at --serve.models > 1: serve_model_requests_total_<m>,
     # serve_model_swaps_total_<m>, serve_model_evictions_total_<m>, serve_model_version_<m>
     "serve_model_": "per-model-slot serve tier ledgers (serve/server.py)",
+    # actor publish degradation (runtime/actor.py ShedThrottle via
+    # VectorActor / RemoteFleet stats): broker_shed_observed_total,
+    # broker_shed_publish_failed_total, broker_shed_throttle_s
+    "broker_shed_": "broker load-shed observability (admission refusals + actor throttle)",
+    # per-configured-endpoint client health (serve/client.py RemoteFleet):
+    # serve_endpoint_up_<i>, serve_endpoint_cooldown_s_<i>
+    "serve_endpoint_": "per-endpoint client-side health gauges (serve/client.py)",
+    # league population health (eval/league.py League.stats and
+    # league/server.py LeagueService.stats): league_pool_size,
+    # league_snapshots_total, league_matches_total, ...
+    "league_": "league population health (eval/league.py + league/)",
+    # control-plane loop health (control/server.py ControlPlane.stats):
+    # control_polls_total, control_scrapes_total, control_scrape_errors_total,
+    # control_scale_ups_total / _downs_total, control_holds_total,
+    # control_actuation_failures_total, control_topology_epoch,
+    # control_managed_tiers, control_decisions_ledgered,
+    # control_policy_clauses, control_replicas_<tier>
+    "control_": "control-plane autoscaler loop health (control/)",
+    # fleet telemetry plane (obs/fleet.py FleetAggregator, served by
+    # obs/fleetd.py): fleet_targets(_up), fleet_unaccounted_frames /
+    # _overaccounted_frames / _fenced_frames, fleet_ledger_<name>_*,
+    # fleet_tier_up_<tier>, fleet_e2e_env_steps_per_sec, fleet_alerts_*,
+    # fleet_incidents_total, fleet_topology_*, ...
+    "fleet_": "fleet telemetry rollups + conservation audit (obs/fleet.py)",
 }
 
 

@@ -536,7 +536,7 @@ class Learner:
             compute = self.obs.attach_compute(train_step_flops(cfg), device_peak_flops(self.device),
                                               overlap=self._prefetch_enabled)
             self.train_step = compute.wrap_train_step(self.train_step)
-            self.obs.serve_metrics([self.metrics.latest, self._obs_gauges], health_provider=self._health,
+            self.obs.serve_metrics([self._surface_scalars], health_provider=self._health,
                                    device=self.device)
         self.env_steps_done = 0  # real (unmasked) env steps trained on
         # `_drain`: run() stops fetching, trains out what staging holds and
@@ -574,14 +574,35 @@ class Learner:
         lane = self._prefetch_lane
         return lane is not None and lane.holding()
 
+    def _surface_scalars(self) -> Dict[str, float]:
+        """The /metrics scrape: the last metrics window's scalars, with
+        each meter the live gauges also read (the fabric's fanin_* and
+        broker_shard_<i>_*, the wire-frame counts) taken live, so every
+        meter has one value. A live fleet audit (obs/fleet.py LEDGERS)
+        that read the window's copy would count every frame popped since
+        the last window as lost."""
+        out = self.metrics.latest()
+        out.update(self._obs_gauges())
+        return out
+
     def _obs_gauges(self) -> Dict[str, float]:
-        """Live gauges for the /metrics scrape (the obs_ family)."""
+        """Live gauges: the obs_ family, and the delivery ledger's learner
+        terms (the fabric's fan-in ledger, the staging intake's held
+        frames and its wire-frame counts). The fabric is read before
+        staging, so a frame moving on between the two reads counts twice
+        (over), never not at all (loss)."""
+        fabric_stats = getattr(self.broker, "fabric_stats", None)
+        fanin = fabric_stats() if fabric_stats is not None else {}
         out = {"obs_learner_version": float(self.version)}
         depth = self.broker.experience_depth()
         if depth >= 0:  # -1: this transport cannot know it cheaply
             out["obs_broker_experience_depth"] = float(depth)
-        for k, v in self.staging.stats().items():
+        stats = self.staging.stats()
+        for k, v in stats.items():
             out[f"obs_staging_{k}"] = float(v)
+        out["wire_frames_obs_bf16_total"] = float(stats["wire_frames_obs_bf16"])
+        out["wire_frames_obs_f32_total"] = float(stats["wire_frames_obs_f32"])
+        out.update({k: float(v) for k, v in fanin.items()})
         return out
 
     def _health(self) -> dict:

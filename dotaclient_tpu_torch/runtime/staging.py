@@ -335,6 +335,14 @@ class StagingBuffer:
         if recorder is not None:
             recorder.add_section("staging_quarantine", self.quarantine)
         self._stats_lock = threading.Lock()
+        # Frames popped off the broker and not yet counted at the intake
+        # (_ingest): in a consumer thread's hands, or in the pool mode's
+        # intake queue. Raised once per non-empty pop, lowered by _ingest
+        # in the same critical section as its counts, and by every path
+        # that drops popped frames. A live gauge (stats() "intake_frames"):
+        # the fleet audit's delivery ledger reads it beside the fabric's
+        # fan-in queue, so frames dropped read as lost.
+        self._intake_frames = 0
         self._stats = {
             "consumed": 0,
             "dropped_stale": 0,
@@ -416,8 +424,8 @@ class StagingBuffer:
         B = self.cfg.batch_size
 
         def _ingest_sink(frames):
-            with self._mutate_lock:
-                self._ingest(frames)
+            self._hold(len(frames))
+            self._ingest_held(frames)
 
         while not self._stop.is_set():
             try:
@@ -427,10 +435,9 @@ class StagingBuffer:
                     self._drain_residual(B, _ingest_sink)
                     frames = None
                 else:
-                    frames = self.broker.consume_experience(max_items=B, timeout=0.2)
+                    frames = self._pop(B)
                 if frames:
-                    with self._mutate_lock:
-                        self._ingest(frames)
+                    self._ingest_held(frames)
                 self._pack_pending_loop(B)
             except BatchLayoutError as e:
                 self._die_on_layout(e)
@@ -449,12 +456,8 @@ class StagingBuffer:
         B = self.cfg.batch_size
 
         def _intake_sink(frames):
-            while not self._stop.is_set():
-                try:
-                    self._intake.put(frames, timeout=0.2)
-                    break
-                except queue.Full:
-                    continue
+            self._hold(len(frames))
+            self._put_intake(frames)
 
         while not self._stop.is_set():
             try:
@@ -465,13 +468,7 @@ class StagingBuffer:
                 with self._mutate_lock:
                     self._popping = True
                 try:
-                    frames = self.broker.consume_experience(max_items=B, timeout=0.2)
-                    while frames and not self._stop.is_set():
-                        try:
-                            self._intake.put(frames, timeout=0.2)
-                            break
-                        except queue.Full:
-                            continue
+                    self._put_intake(self._pop(B))
                 finally:
                     with self._mutate_lock:
                         self._popping = False
@@ -493,8 +490,7 @@ class StagingBuffer:
                     frames = None
                 if frames is not None:
                     try:
-                        with self._mutate_lock:
-                            self._ingest(frames)
+                        self._ingest_held(frames)
                     finally:
                         # unfinished_tasks reaches 0 only once the frames
                         # are visible in _pending (drained() reads it)
@@ -730,6 +726,7 @@ class StagingBuffer:
             self._stats["wire_bytes"] += wire_bytes
             self._stats["wire_frames_obs_bf16"] += wire_bf16
             self._stats["wire_frames_obs_f32"] += wire_f32
+            self._intake_frames -= consumed
 
     # -- learner side ----------------------------------------------------
 
@@ -860,9 +857,56 @@ class StagingBuffer:
                 return False
         return True
 
+    def _hold(self, n: int) -> None:
+        with self._stats_lock:
+            self._intake_frames += n
+
+    def _pop(self, max_items: int) -> List[bytes]:
+        """One broker pop; its frames count in the intake gauge until
+        _ingest counts them or a stop drops them."""
+        frames = self.broker.consume_experience(max_items=max_items, timeout=0.2)
+        if frames:
+            self._hold(len(frames))
+        return frames
+
+    def _ingest_held(self, frames: List[bytes]) -> None:
+        """_ingest frames the intake gauge holds: _ingest lowers it as it
+        counts them; frames an error loses leave it here."""
+        try:
+            with self._mutate_lock:
+                self._ingest(frames)
+        except BaseException:
+            self._hold(-len(frames))
+            raise
+
+    def _put_intake(self, frames: List[bytes]) -> None:
+        """Pool mode: hand held frames to the assembler. A drain the stop
+        catches here is dropped, and leaves the gauge."""
+        while frames and not self._stop.is_set():
+            try:
+                self._intake.put(frames, timeout=0.2)
+                return
+            except queue.Full:
+                continue
+        if frames:
+            self._hold(-len(frames))
+
+    def _drop_intake(self) -> None:
+        """After both pool threads have stopped: the drains the assembler
+        never took are dropped (start() builds a fresh intake), and leave
+        the gauge."""
+        while True:
+            try:
+                frames = self._intake.get_nowait()
+            except queue.Empty:
+                return
+            self._hold(-len(frames))
+            self._intake.task_done()
+
     def stats(self) -> Dict[str, float]:
         with self._stats_lock:
             out = dict(self._stats)
+            out["intake_frames"] = self._intake_frames
         out["ready_batches"] = self._ready.qsize()
         out["pending_rollouts"] = len(self._pending)  # a gauge: may drift by one in-flight frame
         cutoff = time.monotonic() - self.heartbeat_window_s
@@ -887,6 +931,8 @@ class StagingBuffer:
             self._thread.join(timeout=5)
         if self._assembler is not None:
             self._assembler.join(timeout=5)
+            if not (self._assembler.is_alive() or self._thread.is_alive()):
+                self._drop_intake()
             self._assembler = None
         if self._pool is not None:
             self._pool.stop()

@@ -1201,12 +1201,13 @@ class RemoteFleet:
         return sum(e.publish_throttle.failed for e in self.envs)
 
     def stats(self) -> dict:
-        shed = failed = abandoned = resumed = replayed = 0
+        shed = failed = published = abandoned = resumed = replayed = 0
         throttle_s = 0.0
         for e in self.envs:
             t = e.publish_throttle
             shed += t.shed
             failed += t.failed
+            published += e.rollouts_published
             throttle_s += t.throttle_s
             abandoned += e.episodes_abandoned
             resumed += e.episodes_resumed
@@ -1214,6 +1215,10 @@ class RemoteFleet:
         c = self.client
         fb = self.fallback
         out = {
+            # the producer ledger (obs/fleet.py LEDGERS), from the same
+            # per-slot reads as the shed/failed terms
+            "actor_rollouts_published_total": float(published),
+            "actor_publish_attempted_total": float(published + shed + failed),
             "broker_shed_observed_total": float(shed),
             "broker_shed_publish_failed_total": float(failed),
             "broker_shed_throttle_s": throttle_s,

@@ -223,7 +223,12 @@ def test_remote_fleet_frames_byte_equal_the_reference_fleet(server_pkg):
             assert x == y, f"actor {aid}: frame bytes differ"
     assert tfleet.steps_done == jfleet.steps_done > 0
     assert tfleet.client.steps == jfleet.client.steps and tfleet.client.errors == 0
-    assert set(tfleet.stats()) == set(jfleet.stats())
+    # the port's fleet also exports the producer ledger's two counters
+    # (obs/fleet.py LEDGERS), which the reference exports from VectorActor only
+    producer = {"actor_publish_attempted_total", "actor_rollouts_published_total"}
+    assert set(tfleet.stats()) == set(jfleet.stats()) | producer and not producer & set(jfleet.stats())
+    st = tfleet.stats()
+    assert st["actor_publish_attempted_total"] == st["actor_rollouts_published_total"] == tfleet.rollouts_published > 0
 
 
 def test_latency_percentiles_and_fleet_run_export_the_meters():

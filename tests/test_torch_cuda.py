@@ -724,3 +724,76 @@ def test_selfplay_batched_step_rows_are_bitwise_their_b1_rows(cuda, dtype, team_
         acts, floats = A._to_host(want[1], want[2], want[3])
         assert [int(a[0]) for a in action] == acts[0].tolist()
         assert (logp, value) == (float(floats[0, 0]), float(floats[0, 1]))
+
+
+def test_control_plane_and_fleetd_binaries_watch_a_server_on_the_card(cuda, tmp_path):
+    """The two stdlib binaries beside a port inference server on the card:
+    the control plane (k8s/control.yaml's policy, static driver) scrapes
+    the server's obs surface, fleetd discovers it through the plane's GET
+    /topology, and neither process imports torch or numpy (their
+    `-X importtime` logs)."""
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+    import urllib.request
+
+    from dotaclient_tpu_torch.config import InferenceConfig, ObsConfig, PolicyConfig, ServeConfig
+    from dotaclient_tpu_torch.obs import ObsRuntime
+    from dotaclient_tpu_torch.serve.server import InferenceServer
+
+    def free_port():
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+        s.close()
+        return port
+
+    mport, cport = free_port(), free_port()
+    obs = ObsRuntime.create(ObsConfig(enabled=True, metrics_port=mport, install_handlers=False), role="serve")
+    server = InferenceServer(InferenceConfig(serve=ServeConfig(port=0, max_batch=4), policy=PolicyConfig(),
+                                             obs=obs.cfg), obs_runtime=obs).start()
+    assert server.device.type == "cuda"
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root)
+    procs = []
+
+    def start(name, module, args):
+        err = open(tmp_path / f"{name}.log", "w")
+        procs.append(subprocess.Popen([sys.executable, "-X", "importtime", "-m", module, *args], cwd=str(tmp_path),
+                                      stdout=subprocess.PIPE, stderr=err, text=True, env=env))
+        return json.loads(procs[-1].stdout.readline())
+
+    try:
+        ready = start("control", "dotaclient_tpu_torch.control.server", [
+            "--control.port", str(cport), "--control.poll_s", "0.5", "--control.driver", "static",
+            "--control.policy", "server:serve_load_occupancy.mean,high=0.75,low=0.25,min=2,max=8,cooldown=120",
+            "--control.servers", f"127.0.0.1:{mport}", "--obs.enabled", "true", "--obs.metrics_port", "0"])
+        assert ready == {"serving": True, "port": cport, "driver": "static", "tiers": ["server"]}
+        fready = start("fleetd", "dotaclient_tpu_torch.obs.fleetd", [
+            "--fleet.port", "0", "--fleet.poll_s", "0.5", "--fleet.control", f"127.0.0.1:{cport}",
+            "--fleet.alerts", "fleet_unaccounted_frames,gt,0,for=3", "--fleet.bundle_dir", str(tmp_path),
+            "--obs.enabled", "true", "--obs.metrics_port", "0"])
+        deadline, fleet, control = time.time() + 60, {}, {}
+        while time.time() < deadline:
+            fleet = json.loads(urllib.request.urlopen(f"http://127.0.0.1:{fready['port']}/fleet", timeout=10).read())
+            body = urllib.request.urlopen(f"http://127.0.0.1:{cport}/metrics", timeout=10).read().decode()
+            control = {ln.split()[0]: float(ln.split()[1]) for ln in body.splitlines() if ln and ln[0] != "#"}
+            if fleet.get("targets", {}).get(f"server/127.0.0.1:{mport}", {}).get("up") and \
+                    control.get("dotaclient_control_polls_total", 0) >= 2:
+                break
+            time.sleep(0.2)
+        assert fleet["targets"][f"server/127.0.0.1:{mport}"]["up"] is True
+        assert control["dotaclient_control_scrape_errors_total"] == 0.0
+        assert control["dotaclient_control_scale_ups_total"] == control["dotaclient_control_topology_epoch"] == 0.0
+    finally:
+        for p in procs:
+            p.terminate()
+            p.wait(timeout=30)
+        server.stop()
+    for name in ("control", "fleetd"):
+        mods = [ln.rsplit("|", 1)[1].strip() for ln in open(tmp_path / f"{name}.log")
+                if ln.startswith("import time:") and "|" in ln]
+        assert "dotaclient_tpu_torch" in mods
+        assert not [m for m in mods if m.split(".")[0] in ("torch", "numpy", "jax")], name
