@@ -110,10 +110,26 @@ Phases, in order; any failure exits non-zero:
               a clean conservation audit after quiescence, 12 frames stolen
               and flagged, the alert and its incident bundle (see
               phase_fleet). Host preflight (obs/preflight.py) runs once
-              before the first phase that starts processes.
+              before the first phase that starts processes;
+15. skill   — the skill run's entry point (scripts/train_north_star.py
+              main) on the card for 4 updates in 2 evaluations: exit 1, the
+              reference's metrics.jsonl keys and NORTH_STAR.md fields, one
+              recurrence launch per update and none in the actor threads or
+              the evaluator, no dead actor (see phase_skill);
+16. chaos   — the chaos soak's phases (scripts/chaos_soak.py run_soak) at
+              the flagship policy with the soak's 16 x 8 batch and
+              watermarks, three broker kills: every verdict true, 0
+              unaccounted frames, each kill's recovery time; then a
+              LearnerIncarnations turn (a term life, a kill life, the next
+              boot), one recurrence launch per learner step. Until this
+              phase dotaclient_tpu_torch.chaos is in no process that
+              reports its modules: the smoke's own, and phases 13-14's
+              actors, servers, evaluator, shards, carry store, league
+              service, control plane and fleetd (see phase_chaos).
 Each path of the main path (serving, learner forward, each train step,
 the reuse step, the learner loop, the manifest learner, the fabric
-learner, the serve manifest, the actors' closed loop, the fleet's loop)
+learner, the serve manifest, the actors' closed loop, the fleet's loop,
+the skill run, the chaos soak and the learner lives)
 is driven with the kernels' launch counters zeroed just before it and
 read just after (the serve manifest's servers, the actor processes, the
 league service and the evaluator are processes of their own, which start
@@ -144,7 +160,8 @@ def stdlib_binary_main(argv) -> int:
     """`chip_smoke.py --stdlib-binary STATUS MODULE [flags]`: the control
     plane's or fleetd's main (MODULE, `python -m` style) with the flags,
     and a thread that writes STATUS every 0.25 s: the modules of torch,
-    numpy, jax and the JAX package this process holds, its peak RSS
+    numpy, jax, the JAX package and the port's chaos package this process
+    holds, its peak RSS
     (VmHWM where /proc has it, else the largest VmRSS or statm resident
     size sampled every 0.25 s from before the import on), whether the
     recurrence kernel's module is loaded, and for the
@@ -189,7 +206,8 @@ def stdlib_binary_main(argv) -> int:
 
     def report(done: bool = False) -> None:
         held = sorted(m for m in list(sys.modules) if m.split(".")[0] in ("torch", "numpy", "jax", "jaxlib")
-                      or m == "dotaclient_tpu" or m.startswith("dotaclient_tpu."))
+                      or m == "dotaclient_tpu" or m.startswith("dotaclient_tpu.")
+                      or m.startswith("dotaclient_tpu_torch.chaos"))
         peak, source = rss_kib()
         out = dict(pid=os.getpid(), held=held, peak_rss_kib=peak, rss_source=source, done=done,
                    lstm_loaded="dotaclient_tpu_torch.ops.lstm" in sys.modules)
@@ -362,6 +380,7 @@ def phase_kernels(device):
         ("ragged_bf16", 37, 17, 128, torch.bfloat16),
         ("ragged_f32", 37, 17, 128, torch.float32),
         ("wide_bf16", 256, 17, 256, torch.bfloat16),
+        ("skill_f32", 16, 17, 16, torch.float32),  # the skill run's learner (phase 15)
     ]
     results = []
     with torch.no_grad():
@@ -3282,15 +3301,19 @@ def phase_transformer(device, card: str, policy=None, rows: int = 256, tick_rows
 
 ACTORS_MANIFEST = os.path.join(ROOT, "k8s", "actors.yaml")
 # Modules no process of the closed loop may hold: JAX, the JAX package
-# (the exact name), protobuf and gRPC.
+# (the exact name), protobuf and gRPC; and, chaos being off until phase
+# 16, the port's chaos package.
 FORBIDDEN_ROOTS = ("jax", "jaxlib", "flax", "optax", "grpc")
+CHAOS_PACKAGE = "dotaclient_tpu_torch.chaos"
 
 
 def forbidden_modules(names) -> list:
     """The names among `names` (module names) that are JAX, the JAX
-    package, google.protobuf or grpc."""
+    package, google.protobuf or grpc, or the port's chaos package (no
+    process may hold it with chaos off: the inertness contract)."""
     return sorted(m for m in names if m.split(".")[0] in FORBIDDEN_ROOTS or m == "dotaclient_tpu"
-                  or m.startswith("dotaclient_tpu.") or m == "google.protobuf" or m.startswith("google.protobuf."))
+                  or m.startswith("dotaclient_tpu.") or m == "google.protobuf" or m.startswith("google.protobuf.")
+                  or m == CHAOS_PACKAGE or m.startswith(CHAOS_PACKAGE + "."))
 
 
 def _imported_by_log(path: str) -> list:
@@ -4571,6 +4594,251 @@ def phase_fleet(device, card: str, actors_window_ms=None, policy=None, steps: in
     return res
 
 
+# The reference's skill-run record keys and summary fields
+# (scripts/train_north_star.py; north_star/metrics.jsonl, NORTH_STAR.md).
+NORTH_STAR_KEYS = ["version", "wall_s", "episodes", "wins", "losses", "draws", "win_rate", "mean_return", "mu", "sigma",
+                   "conservative"]
+NORTH_STAR_FIELDS = ["result", "opponent", "anchor", "final agent rating", "final eval win rate", "learner updates",
+                     "evaluations"]
+
+
+# Phase 15's short skill run: learner updates, updates per evaluation and
+# episodes per evaluation.
+SKILL_UPDATES, SKILL_PER_EVAL, SKILL_EPISODES = 4, 2, 2
+# Phase 16: the soak's actor and replayer processes, and the learner
+# lives' periodic checkpoint interval in steps.
+CHAOS_ACTORS = CHAOS_REPLAYERS = 2
+LIVES_CKPT_EVERY = 5
+
+
+def phase_skill(card: str, platform: str = ""):
+    """Phase 15: the skill run's main (scripts/train_north_star.py) for
+    SKILL_UPDATES learner updates, evaluated every SKILL_PER_EVAL. The
+    learner's recurrence runs the kernel at B=16, T+1=17, H=16, f32: one
+    launch per update, none in the actor threads or the evaluator (T=1
+    steps are torch ops). The bar is not reachable in 4 updates, so main
+    exits 1; this phase checks the plumbing, not the skill."""
+    import re
+
+    from dotaclient_tpu_torch.ops import lstm as L
+    from dotaclient_tpu_torch.scripts import train_north_star as ns
+
+    by_thread, evaluator_launches, pools = {}, [], []
+    real_kernel = L.lstm_kernel
+
+    def counting_kernel(*args):
+        name = threading.current_thread().name
+        by_thread[name] = by_thread.get(name, 0) + 1
+        return real_kernel(*args)
+
+    class CountingEvaluator(ns.Evaluator):
+        def evaluate(self, params, n_episodes=10, version=0):
+            before = L.LAUNCHES
+            try:
+                return super().evaluate(params, n_episodes=n_episodes, version=version)
+            finally:
+                evaluator_launches.append(L.LAUNCHES - before)
+
+    class RecordingPool(ns.ActorPool):
+        def start(self):
+            pools.append(self)
+            return super().start()
+
+    saved = (L.lstm_kernel, ns.Evaluator, ns.ActorPool)
+    L.lstm_kernel, ns.Evaluator, ns.ActorPool = counting_kernel, CountingEvaluator, RecordingPool
+    tmp = tempfile.mkdtemp(prefix="skill_")
+    try:
+        argv = ["--out_dir", tmp, "--max_updates", str(SKILL_UPDATES), "--updates_per_eval", str(SKILL_PER_EVAL),
+                "--eval_episodes", str(SKILL_EPISODES)] + (["--platform", platform] if platform else [])
+        L.LAUNCHES = 0  # the skill run's main path starts here
+        t0 = time.perf_counter()
+        rc = ns.main(argv)
+        wall_s = time.perf_counter() - t0
+        launches = L.LAUNCHES
+        recs = [json.loads(line) for line in open(os.path.join(tmp, "metrics.jsonl"))]
+        md = open(os.path.join(tmp, "NORTH_STAR.md")).read()
+    finally:
+        L.lstm_kernel, ns.Evaluator, ns.ActorPool = saved
+        shutil.rmtree(tmp, ignore_errors=True)
+    actor_launches = sum(n for name, n in by_thread.items() if name.startswith("actor-"))
+    fields = re.findall(r"^- ([a-z ]+):", md, flags=re.M)
+    res = dict(rc=rc, wall_s=round(wall_s, 2), launches=launches, by_thread=by_thread,
+               actor_launches=actor_launches, evaluator_launches=sum(evaluator_launches),
+               dead=pools[0].dead if pools else None, evaluations=[{k: r[k] for k in ("version", "wall_s", "win_rate",
+                                                                                     "conservative")} for r in recs])
+    print("skill", json.dumps(res), flush=True)
+    if rc != 1:
+        raise SystemExit(f"skill: main exited {rc}, expected 1 (the bar is out of reach in {SKILL_UPDATES} updates)")
+    if len(recs) != SKILL_UPDATES // SKILL_PER_EVAL or any(list(r) != NORTH_STAR_KEYS for r in recs):
+        raise SystemExit(f"skill: metrics.jsonl records {[list(r) for r in recs]} are not the reference's")
+    if [r["version"] for r in recs] != list(range(SKILL_PER_EVAL, SKILL_UPDATES + 1, SKILL_PER_EVAL)):
+        raise SystemExit(f"skill: evaluated at versions {[r['version'] for r in recs]}")
+    if fields != NORTH_STAR_FIELDS or "**NOT reached**" not in md or (not platform and card.split(",")[0] not in md):
+        raise SystemExit(f"skill: NORTH_STAR.md fields {fields} (card line {card!r}):\n{md}")
+    if launches != SKILL_UPDATES or actor_launches or sum(evaluator_launches):
+        raise SystemExit(f"skill: {launches} recurrence launches for {SKILL_UPDATES} updates ({by_thread}, evaluator "
+                         f"{evaluator_launches})")
+    if res["dead"] != 0:
+        raise SystemExit(f"skill: {res['dead']} actor threads died")
+    return res
+
+
+def _learner_lives_turn(device, policy, platform: str):
+    """A LearnerIncarnations turn: a term life (drain, full-state save,
+    clean exit; the next boot restores its version and state bitwise), a
+    kill life (nothing saved at death; the next boot restores the last
+    periodic checkpoint, every LIVES_CKPT_EVERY steps, and the published
+    high-water keeps the version stamps monotonic), and every life's
+    staging intake balanced exactly. One recurrence launch per learner
+    step."""
+    from dotaclient_tpu_torch.chaos import LearnerIncarnations
+    from dotaclient_tpu_torch.config import LearnerConfig
+    from dotaclient_tpu_torch.ops import lstm as L
+    from dotaclient_tpu_torch.runtime.checkpoint import Checkpointer, state_arrays
+    from dotaclient_tpu_torch.runtime.learner import Learner
+    from dotaclient_tpu_torch.scripts.chaos_soak import _VERSION_AT, make_frames
+    from dotaclient_tpu_torch.transport import memory as mem
+    from dotaclient_tpu_torch.transport.base import connect
+
+    name = "chip_lives"
+    mem.reset(name)
+    tmp = tempfile.mkdtemp(prefix="lives_")
+
+    def cfg_():
+        cfg = LearnerConfig(batch_size=16, seq_len=8, policy=policy, checkpoint_dir=tmp, checkpoint_every=LIVES_CKPT_EVERY,
+                            publish_every=1, metrics_every=5, platform=platform)
+        cfg.ckpt.full_state = True
+        cfg.ckpt.async_save = True
+        return cfg
+
+    learners, boot_states = [], []
+
+    def make_learner():
+        learner = Learner(cfg_(), connect(f"mem://{name}"), device=device)
+        learners.append(learner)
+        boot_states.append(state_arrays(learner.state))  # before its loop starts
+        return learner
+
+    frames = make_frames(cfg_(), 64)
+    stop_feed = threading.Event()
+    pub = connect(f"mem://{name}")
+
+    def feeder():
+        i = 0
+        while not stop_feed.is_set():
+            learner = inc.learner
+            if pub.experience_depth() < 48:
+                for _ in range(16):
+                    fr = bytearray(frames[i % len(frames)])
+                    struct.pack_into("<I", fr, _VERSION_AT, learner.version if learner is not None else 0)
+                    pub.publish_experience(bytes(fr))
+                    i += 1
+            time.sleep(0.005)
+
+    def wait_version(v, what):
+        deadline = time.monotonic() + 120
+        while inc.learner.version < v and time.monotonic() < deadline:
+            time.sleep(0.01)
+        if inc.learner.version < v:
+            raise SystemExit(f"learner lives: {what} never reached version {v}")
+
+    L.LAUNCHES = 0  # the learner lives' main path starts here
+    inc = LearnerIncarnations(make_learner, run_kwargs={"batch_timeout": 1.0}).start()
+    feed = threading.Thread(target=feeder, daemon=True)
+    feed.start()
+    try:
+        wait_version(3, "the first life")
+        term = inc.kill(sig="term")
+        inc.restart()
+        drained, booted = state_arrays(learners[0].state), boot_states[1]
+        bitwise = drained.keys() == booted.keys() and all(
+            v.dtype == booted[k].dtype and v.tobytes() == booted[k].tobytes() for k, v in drained.items())
+        term_resume = inc.boots[-1]["resume_version"]
+        wait_version(term["version"] + LIVES_CKPT_EVERY + 2, "the second life")
+        kill = inc.kill(sig="kill")
+        hwm = Checkpointer(tmp).published_hwm()
+        inc.restart()
+        boot = dict(inc.boots[-1])
+        if inc.wait_first_step(timeout=60.0) is None:
+            raise SystemExit("learner lives: no step after the kill life's restart")
+    finally:
+        stop_feed.set()
+        feed.join(timeout=10)
+    totals = inc.final_ledger()
+    launches = L.LAUNCHES
+    shutil.rmtree(tmp, ignore_errors=True)
+    trained = sum(life["version"] - b["resume_version"] for life, b in zip(inc.lives, inc.boots))
+    balances = [life["consumed"] + life["resume_pending"] - life["dropped_stale"] - life["dropped_bad"]
+                - (life["rows_packed"] - life["rows_replayed"]) - life["pending_at_death"] - life["replay_admitted"]
+                for life in inc.lives]
+    restored = int(boot["resume"].get("resume_restored_step", -1))
+    res = dict(term=dict(version=term["version"], exit_clean=term["exit_clean"], resume_version=term_resume,
+                         restores_bitwise=bitwise, death_wall_s=term["death_wall_s"]),
+               kill=dict(version=kill["version"], exit_clean=kill["exit_clean"], published_hwm=hwm,
+                         resume_version=boot["resume_version"], restored_step=restored,
+                         hwm_bump=boot["resume"].get("resume_version_hwm_bump")),
+               lives=len(inc.lives), intake_balances=balances, trained_steps=trained, launches=launches,
+               consumed=totals["consumed"])
+    print("learner lives", json.dumps(res), flush=True)
+    if not (term["exit_clean"] and term_resume == term["version"] and bitwise):
+        raise SystemExit(f"learner lives: the term life did not drain and restore bitwise: {res['term']}")
+    if kill["exit_clean"] or not (restored <= kill["version"] and (restored % LIVES_CKPT_EVERY == 0 or restored == term["version"])):
+        raise SystemExit(f"learner lives: the kill life did not resume from its last periodic checkpoint: {res['kill']}")
+    if hwm is None or boot["resume_version"] != max(hwm, restored) or boot["resume_version"] < restored:
+        raise SystemExit(f"learner lives: the version stamps are not monotonic across the kill: {res['kill']}")
+    if any(balances) or len(inc.lives) != 3:
+        raise SystemExit(f"learner lives: staging intake unbalanced {balances}")
+    if launches != trained or trained <= 0:
+        raise SystemExit(f"learner lives: {launches} recurrence launches for {trained} learner steps")
+    return res
+
+
+def phase_chaos(device, card: str, policy=None, kills: str = "3:2,8:2,13:2", baseline_s: float = 6.0,
+                chaos_s: float = 18.0, overload_s: float = 8.0, platform: str = ""):
+    """Phase 16: the chaos soak's three phases (scripts/chaos_soak.py
+    run_soak) at --quick-like durations with three broker kills, at the
+    flagship policy (128-wide, bf16 compute) and the soak's own 16 x 8
+    batch and watermarks (maxlen 256, shed 48/16); then a
+    LearnerIncarnations turn. Fails unless every verdict holds, no frame
+    is unaccounted, every kill recovered, and the learner launched the
+    recurrence once per step."""
+    from dotaclient_tpu_torch.config import PolicyConfig
+    from dotaclient_tpu_torch.ops import lstm as L
+
+    held = sorted(m for m in sys.modules if m == CHAOS_PACKAGE or m.startswith(CHAOS_PACKAGE + "."))
+    if held:
+        raise SystemExit(f"chaos: {held} loaded before any chaos was enabled (the inertness contract)")
+    from dotaclient_tpu_torch.scripts import chaos_soak
+
+    policy = PolicyConfig() if policy is None else policy
+    args = chaos_soak.parse_args(["--quick", "--platform", platform])
+    args.kills, args.baseline_s, args.chaos_s, args.overload_s = kills, baseline_s, chaos_s, overload_s
+    args.actors, args.replayers = CHAOS_ACTORS, CHAOS_REPLAYERS
+    L.LAUNCHES = 0  # the soak's main path starts here
+    t0 = time.perf_counter()
+    art = chaos_soak.run_soak(args, policy=policy)
+    wall_s = time.perf_counter() - t0
+    launches = L.LAUNCHES
+    v, cons, kill_rows = art["verdict"], art["conservation"], art["phase_2_chaos"]["kills"]
+    res = dict(wall_s=round(wall_s, 2), launches=launches, steps=art["learner"]["steps"], verdict=v,
+               unaccounted_frames=cons["unaccounted_frames"], kills=kill_rows,
+               recovery_s=[k["recovery_s"] for k in kill_rows], baseline=art["phase_1_baseline"],
+               overload={k: art["phase_3_overload"][k] for k in ("pressure_to_drain_ratio", "drained_frames_per_sec",
+                                                                 "offered_frames_per_sec")},
+               injected=art["phase_2_chaos"]["injected"], broker=cons["broker"],
+               quarantined=art["learner"]["quarantined_total"], watchdog=art["learner"]["watchdog"])
+    print("chaos soak", json.dumps(res), flush=True)
+    red = [k for k, val in v.items() if isinstance(val, bool) and not val]
+    if red or cons["unaccounted_frames"] != 0:
+        raise SystemExit(f"chaos: red verdicts {red}, unaccounted {cons['unaccounted_frames']}")
+    if v["kills_executed"] < 1 or v["kills_executed"] != len(kill_rows):
+        raise SystemExit(f"chaos: {v['kills_executed']} kills executed, {len(kill_rows)} reported")
+    if launches != art["learner"]["steps"]:
+        raise SystemExit(f"chaos: {launches} recurrence launches for {art['learner']['steps']} learner steps")
+    res["lives"] = _learner_lives_turn(device, policy, platform)
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke needs an NVIDIA GPU", file=sys.stderr)
@@ -4626,6 +4894,8 @@ def main() -> int:
     transformer = phase_transformer(device, card)  # zeroes the counter itself; no path of it may launch the kernel
     actors = phase_actors(device, card, fabric_window_ms=fabric["fabric_window_ms"])  # zeroes the counter itself
     fleet = phase_fleet(device, card, actors_window_ms=actors["window_ms_median"])  # zeroes the counter itself
+    skill = phase_skill(card)  # zeroes the counter itself
+    chaos = phase_chaos(device, card)  # zeroes the counter itself before each path; imports the chaos package
 
     main_case = cases[0]
     kernels = [
@@ -4672,6 +4942,11 @@ def main() -> int:
             "launches_control_plane": fleet["weight"]["control"]["launches"],
             "launches_fleetd": fleet["weight"]["fleetd"]["launches"],
             "fleet": fleet,
+            "launches_skill": skill["launches"],
+            "skill": skill,
+            "launches_chaos": chaos["launches"],
+            "launches_learner_lives": chaos["lives"]["launches"],
+            "chaos": chaos,
         }
     ]
     print(f"smoke: {time.perf_counter() - t_smoke:.1f} s | {card}", flush=True)

@@ -187,10 +187,21 @@ class ObsConfig:
 
 @dataclass
 class ChaosConfig:
-    """Seeded fault injection around the broker; only the switch is
-    ported (the binaries refuse it on)."""
+    """Seeded fault injection (dotaclient_tpu_torch/chaos/). Off by
+    default and import-free: with enabled=False no chaos module is ever
+    imported and the broker and env objects are the production ones, with
+    the same wire bytes."""
 
+    # Wrap this binary's broker in a ChaosBroker driving the schedule
+    # below. The k8s manifests pin it off.
     enabled: bool = False
+    # Seed of every fault decision: the same seed and spec give the same
+    # faults at the same operation indices.
+    seed: int = 0
+    # Fault schedule, e.g. "latency:0.002~0.001,corrupt:0.01,dup:0.02,
+    # reset:0.005,stall@8:1.5,kill@10:2" (chaos/schedule.py has the
+    # grammar). Empty = no faults even when enabled.
+    spec: str = ""
 
 
 @dataclass
@@ -607,15 +618,13 @@ UNPORTED = {
     "fused_single_h2d": (lambda v: not v, "the grouped four-buffer transfer", "A.10b"),
     "multihost": (bool, "multi-process data parallelism", "A.14"),
     "profile_port": (bool, "the deprecated always-on profiler server (use POST /profile)", "A.13b"),
-    "chaos.enabled": (bool, "the fault-injecting broker wrapper", "A.10j"),
     "policy.tf_sp_axis": (bool, "sequence-parallel attention (ring / Ulysses)", "A.14"),
 }
 
-# The actor binary's modes that are not ported, in UNPORTED's form (the
-# chaos switch is UNPORTED's row): Actor and the actor binary refuse them.
+# The actor binary's modes that are not ported, in UNPORTED's form: Actor
+# and the actor binary refuse them.
 ACTOR_UNPORTED = {
     "env_dialect": (lambda v: v == "valve", "the valve dialect adapter (env/valve_adapter.py)", "A.11d"),
-    "chaos.enabled": UNPORTED["chaos.enabled"],
 }
 
 

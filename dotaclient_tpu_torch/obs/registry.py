@@ -182,6 +182,11 @@ PREFIXES: Dict[str, str] = {
     # league/server.py LeagueService.stats): league_pool_size,
     # league_snapshots_total, league_matches_total, ...
     "league_": "league population health (eval/league.py + league/)",
+    # seeded fault-injection meters (chaos/broker.py ChaosBroker): chaos_ops,
+    # chaos_corrupted, chaos_truncated, chaos_duplicated, chaos_resets,
+    # chaos_sheds, chaos_stall_s, chaos_latency_s; emitted only under
+    # --chaos.enabled (never in production)
+    "chaos_": "fault-injection layer meters (chaos/)",
     # control-plane loop health (control/server.py ControlPlane.stats):
     # control_polls_total, control_scrapes_total, control_scrape_errors_total,
     # control_scale_ups_total / _downs_total, control_holds_total,

@@ -1151,6 +1151,12 @@ def main(argv=None):
     refuse_unported(cfg, table=ACTOR_UNPORTED)
     require_grpc()
     broker = broker_connect(cfg.broker_url, retry=RetryPolicy.from_config(cfg.retry))
+    if cfg.chaos.enabled:
+        # a gated import: with chaos off the package never loads and the
+        # broker is the production object
+        from dotaclient_tpu_torch.chaos import wrap_broker
+
+        broker = wrap_broker(broker, cfg.chaos)
     actors = build_actors(cfg, broker)
 
     async def run_all():

@@ -208,6 +208,14 @@ class Checkpointer:
         p = self._dir / _AUX_FMT.format(step)
         return p.read_bytes() if p.exists() else None
 
+    def discard_pending(self) -> None:
+        """SIGKILL emulation (chaos/controller.py): drop the queued mirror
+        upload as a real kill -9 would; the durable state is what already
+        hit the disk. The aux manifest is written inside save_arrays, so
+        no aux work is ever queued here."""
+        with self._mirror_cond:
+            self._mirror_pending = None
+
     def save_stats(self) -> dict:
         """Full-state save health (the ckpt_* scalars); empty before the
         first aux manifest."""

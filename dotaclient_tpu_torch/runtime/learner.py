@@ -699,6 +699,16 @@ class Learner:
         the first metrics window has carried them)."""
         return dict(self._resume_scalars)
 
+    def discard_unsaved(self) -> None:
+        """SIGKILL emulation (chaos/controller.py): stop the checkpoint
+        worker without its pending save and drop the queued mirror work,
+        as a real kill -9 would; the durable state is what already hit
+        the disk."""
+        if self._ckpt_worker is not None:
+            self._ckpt_worker.stop(flush=False)
+        if self.checkpointer is not None:
+            self.checkpointer.discard_pending()
+
     @property
     def drain_requested(self) -> bool:
         return self._drain.is_set()
@@ -1099,6 +1109,12 @@ def main(argv=None):
             raise ValueError(f"--broker_shards={cfg.broker_shards!r} needs a broker fabric (comma-separated "
                              f"--broker_url shard list); got {cfg.broker_url!r}")
         restrict([int(s) for s in cfg.broker_shards.split(",") if s.strip()])
+    if cfg.chaos.enabled:
+        # a gated import: with chaos off the package never loads and the
+        # broker is the production object
+        from dotaclient_tpu_torch.chaos import wrap_broker
+
+        broker = wrap_broker(broker, cfg.chaos)
     learner = Learner(cfg, broker, device="cpu" if cfg.platform == "cpu" else None)
     if cfg.ckpt.drain_on_sigterm:
         # after the Learner (and its obs runtime's SIGTERM dump trigger)

@@ -49,9 +49,8 @@ over the serve wire (serve/wire.py), byte for byte the reference's:
   is counted and the slots keep serving.
 - **Obs** (`--obs.enabled`): /metrics from `stats()` (serve_*, actor_*,
   handoff and league counters), /healthz and /debug/flight.
-
-Not ported, refused through config.UNPORTED: the chaos broker
-(`--chaos.enabled`, ROADMAP A.10j).
+- **Chaos** (`--chaos.enabled`, `--chaos.seed`, `--chaos.spec`): the
+  weights broker wrapped in a ChaosBroker (chaos/), imported only then.
 """
 
 from __future__ import annotations
@@ -629,6 +628,12 @@ def main(argv=None):
     refuse_unported(cfg)
     device = serve_device(cfg)
     broker = broker_connect(cfg.broker_url, retry=RetryPolicy.from_config(cfg.retry))
+    if cfg.chaos.enabled:
+        # a gated import: with chaos off the package never loads and the
+        # broker is the production object
+        from dotaclient_tpu_torch.chaos import wrap_broker
+
+        broker = wrap_broker(broker, cfg.chaos)
     obs = ObsRuntime.create(cfg.obs, role="serve")
     server = InferenceServer(cfg, broker, device=device, obs_runtime=obs).start()
     print(json.dumps({"serving": True, "port": server.port}), flush=True)

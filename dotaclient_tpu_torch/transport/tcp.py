@@ -103,6 +103,10 @@ class BrokerServer:
         self.enqueued_total = 0
         self.popped_total = 0
         self.reply_lost_frames = 0
+        # The recovery probe (chaos/controller.py): monotonic time of this
+        # server's first enqueue, so a restarted broker's recovery reads
+        # as restart to first frame landed.
+        self.first_enqueue_t: Optional[float] = None
         self.consume_waiters = 0  # handlers parked in the CONSUME wait
         self.weights: Optional[bytes] = None
         self.weights_seq = 0
@@ -162,6 +166,8 @@ class BrokerServer:
         if self._prio_meta is not None:
             self._prio_meta.append((priority, time.monotonic()))
         self.enqueued_total += 1
+        if self.first_enqueue_t is None:
+            self.first_enqueue_t = time.monotonic()
 
     async def _dispatch(self, mtype: int, payload: bytes, writer: asyncio.StreamWriter):
         assert self._cond is not None

@@ -451,7 +451,6 @@ def test_env_rpc_errors_are_retried_with_the_capped_backoff(monkeypatch):
 
 REFUSED = [
     ("env_dialect", "valve", "A.11d"),
-    ("chaos.enabled", True, "A.10j"),
 ]
 
 
@@ -470,6 +469,26 @@ def test_unported_actor_modes_are_refused_naming_their_item(flag, value, item):
     argv = [f"--{flag}", str(value).lower() if isinstance(value, bool) else value, "--platform", "cpu"]
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         tactor.main(argv)
+
+
+def test_main_chaos_enabled_wraps_the_broker(monkeypatch):
+    """--chaos.enabled: the actor binary builds its actors on a ChaosBroker
+    over the production broker; chaos off hands them the broker itself."""
+    seen = []
+    from dotaclient_tpu_torch.env import service
+
+    monkeypatch.setattr(service, "require_grpc", lambda: None)
+    monkeypatch.setattr(tactor, "build_actors", lambda cfg, broker: seen.append(broker) or [])
+    argv = ["--platform", "cpu", "--broker_url", "mem://actor_chaos", "--chaos.enabled", "true", "--chaos.seed", "2",
+            "--chaos.spec", "corrupt:0.5,latency:0.001"]
+    tactor.main(argv)
+    tactor.main(argv[:4])
+    from dotaclient_tpu_torch.chaos import ChaosBroker
+
+    wrapped, plain = seen
+    assert type(wrapped) is ChaosBroker and type(wrapped.inner) is tmem.MemoryBroker
+    assert wrapped.schedule.seed == 2 and wrapped.schedule.rates == {"corrupt": 0.5}
+    assert wrapped.schedule.latency_mean_s == 0.001 and type(plain) is tmem.MemoryBroker
 
 
 def test_every_unported_actor_mode_is_tested_and_the_serve_client_flags_do_not_parse():

@@ -41,8 +41,10 @@ def inputs(B, T, H, dtype, device, seed=0):
 @pytest.mark.parametrize(
     "B,T,H",
     # B=128: a minibatch of the reuse step; H=48: a cluster of 3; H=40: the
-    # per-thread design; H=1024: per-thread, W_h from global memory
-    [(256, 17, 128), (128, 17, 128), (37, 17, 128), (5, 3, 32), (3, 1, 64), (9, 4, 256), (21, 5, 48), (4, 3, 40), (2, 2, 1024)],
+    # per-thread design; H=1024: per-thread, W_h from global memory; 16x17x16:
+    # the skill run's learner (scripts/train_north_star.py)
+    [(256, 17, 128), (128, 17, 128), (37, 17, 128), (5, 3, 32), (3, 1, 64), (9, 4, 256), (21, 5, 48), (4, 3, 40), (2, 2, 1024),
+     (16, 17, 16)],
 )
 def test_kernel_matches_scan(cuda, dtype, B, T, H):
     ins = inputs(B, T, H, dtype, cuda)
@@ -300,6 +302,20 @@ def test_learner_loop_launches_the_kernel_once_per_step(cuda, tmp_path):
     named, version, _ = deserialize_weights(watcher.poll_weights())
     assert version == 3 and all(a.tobytes() == b.tobytes() for (_, a), (_, b) in zip(named, named_params(learner.state.net)))
     assert learner.staging.stats()["consumer_errors"] == 0
+
+
+def test_learner_incarnations_term_then_kill_on_the_card(cuda):
+    """chaos/controller.py's LearnerIncarnations on the card, through
+    chip_smoke.py's own turn (it raises SystemExit on a failed check): a
+    term life drains and the next boot restores its version and state
+    bitwise; a kill life saves nothing at death and the next boot restores
+    the last periodic checkpoint at the published high-water; every life's
+    staging intake balances; one recurrence launch per learner step."""
+    import chip_smoke
+
+    res = chip_smoke._learner_lives_turn(cuda, _loop_cfg().policy, "")
+    assert res["lives"] == 3 and res["term"]["restores_bitwise"] and not any(res["intake_balances"])
+    assert res["launches"] == res["trained_steps"] > 0
 
 
 def test_a_ring_slot_goes_back_only_after_its_copy_retired(cuda):

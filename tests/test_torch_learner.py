@@ -312,7 +312,6 @@ REFUSED = [
     ("fused_single_h2d", False, "A.10b"),
     ("multihost", True, "A.14"),
     ("profile_port", 9999, "A.13b"),
-    ("chaos.enabled", True, "A.10j"),
     ("policy.tf_sp_axis", "sp", "A.14"),
 ]
 
@@ -334,7 +333,7 @@ def test_every_unported_mode_is_tested_and_their_settings_do_not_parse():
     are not flags, so they fail to parse instead of doing nothing."""
     assert {r[0] for r in REFUSED} == set(unported_flags(LearnerConfig()))
     assert set(UNPORTED) == set(unported_flags(LearnerConfig()))
-    for argv in (["--replay.ratio", "0.5"], ["--chaos.spec", "dup:0.1"], ["--coordinator", "h:1"]):
+    for argv in (["--replay.ratio", "0.5"], ["--replay.alpha", "0.5"], ["--coordinator", "h:1"]):
         with pytest.raises(SystemExit):
             parse_config(LearnerConfig(), argv)
 
@@ -367,6 +366,42 @@ def test_main_parses_the_reference_flags_and_trains(tmp_path):
     assert [r["step"] for r in _metric_lines(tmp_path / "main" / "metrics.jsonl")] == [2]
     with pytest.raises(NotImplementedError, match="A.10d3"):
         tlearner.main(["--broker_url", "amqp://guest@localhost/", "--platform", "cpu"])
+
+
+class _BrokerSeen(Exception):
+    """Raised by a stand-in Learner once main has handed it the broker."""
+
+
+@pytest.mark.parametrize("url,wrapped", [("mem://ln_chaos", True), ("mem://ln_chaos_a,mem://ln_chaos_b", False)],
+                         ids=["classic", "fabric"])
+def test_main_chaos_enabled_wraps_the_broker_and_refuses_a_fabric(monkeypatch, url, wrapped):
+    """--chaos.enabled: main hands the Learner a ChaosBroker over the
+    production broker, with the flags' seed and spec; a fabric URL is
+    refused with the reference's reason."""
+    seen = {}
+
+    def fake_learner(cfg, broker, device=None):
+        seen["broker"] = broker
+        raise _BrokerSeen
+
+    monkeypatch.setattr(tlearner, "Learner", fake_learner)
+    argv = ["--broker_url", url, "--platform", "cpu", "--chaos.enabled", "true", "--chaos.seed", "5",
+            "--chaos.spec", "dup:0.1,kill@3:1"]
+    if not wrapped:
+        with pytest.raises(ValueError, match="chaos cannot wrap a broker fabric"):
+            tlearner.main(argv)
+        assert "broker" not in seen
+        return
+    with pytest.raises(_BrokerSeen):
+        tlearner.main(argv)
+    from dotaclient_tpu_torch.chaos import ChaosBroker
+
+    broker = seen["broker"]
+    assert type(broker) is ChaosBroker and type(broker.inner) is tmem.MemoryBroker
+    assert broker.schedule.seed == 5 and broker.schedule.rates == {"dup": 0.1} and len(broker.schedule.kills()) == 1
+    with pytest.raises(_BrokerSeen):
+        tlearner.main(argv[:4])  # chaos off: the production broker itself
+    assert type(seen["broker"]) is tmem.MemoryBroker
 
 
 def test_main_broker_shards_refuses_a_classic_url():

@@ -854,7 +854,6 @@ def test_batcher_resumes_a_ticks_requesters_before_the_next_tick():
 
 
 REFUSED_SERVE = [
-    ("chaos.enabled", True, "A.10j"),
     ("policy.tf_sp_axis", "sp", "A.14"),
 ]
 
@@ -870,6 +869,35 @@ def test_unported_serve_modes_are_refused(field, value, item):
         tserver.InferenceServer(cfg)
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         tserver.main(["--platform", "cpu", f"--{field}", str(value)])
+
+
+class _BrokerSeen(Exception):
+    """Raised by a stand-in server once main has handed it the broker."""
+
+
+def test_main_chaos_enabled_wraps_the_weights_broker(monkeypatch):
+    """--chaos.enabled: the server binary's weights broker is a ChaosBroker
+    over the production broker; chaos off hands it the broker itself."""
+    from dotaclient_tpu_torch.transport import memory as tmem
+
+    seen = []
+
+    def fake_server(cfg, broker, device=None, obs_runtime=None):
+        seen.append(broker)
+        raise _BrokerSeen
+
+    monkeypatch.setattr(tserver, "InferenceServer", fake_server)
+    argv = ["--platform", "cpu", "--broker_url", "mem://serve_chaos", "--chaos.enabled", "true", "--chaos.spec",
+            "latency:0.002~0.001,stall@5:1"]
+    for a in (argv, argv[:4]):
+        with pytest.raises(_BrokerSeen):
+            tserver.main(a)
+    from dotaclient_tpu_torch.chaos import ChaosBroker
+
+    wrapped, plain = seen
+    assert type(wrapped) is ChaosBroker and type(wrapped.inner) is tmem.MemoryBroker
+    assert wrapped.schedule.latency_jitter_s == 0.001 and len(wrapped.schedule.stalls()) == 1
+    assert type(plain) is tmem.MemoryBroker
 
 
 def test_every_unported_serve_mode_is_tested_and_the_defaults():
