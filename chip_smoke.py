@@ -56,7 +56,7 @@ Phases, in order; any failure exits non-zero:
               stamped schedule through the manifest flags, obs off, the
               serial loop and phase 7's plain flags, params bitwise equal;
               40 steps fed by a producer thread, one kernel launch each,
-              with /metrics, /healthz and a 1 s POST /profile mid-run
+              with /metrics, /healthz and a 2 s POST /profile mid-run
               (its trace names the recurrence kernel); the learner binary
               over tcp:// drained by SIGTERM (exit 0, step durable and
               mirrored), restored locally and from the mirror (version
@@ -125,11 +125,23 @@ Phases, in order; any failure exits non-zero:
               phase dotaclient_tpu_torch.chaos is in no process that
               reports its modules: the smoke's own, and phases 13-14's
               actors, servers, evaluator, shards, carry store, league
-              service, control plane and fleetd (see phase_chaos).
+              service, control plane and fleetd (see phase_chaos);
+17. data modes — the learner's other host-to-device paths at the
+              flagship shape: the same frames through the single buffer,
+              the four dtype-grouped buffers and the per-leaf tree
+              (params bitwise, one launch per step, copies and H2D ms per
+              path); the replay reservoir on the tree path fed aged
+              frames (admitted, replayed, hit ratio, stale drops only past
+              its window, the step against its plain arm, a full-state
+              restore bitwise); DTB1 in-network assembly over three armed
+              shard processes (rows and params bitwise the classic pack,
+              each shard's assembly ledger exact, loop ms classic vs
+              assembled with four producer processes, an unarmed shard
+              refused) (see phase_data_modes).
 Each path of the main path (serving, learner forward, each train step,
 the reuse step, the learner loop, the manifest learner, the fabric
 learner, the serve manifest, the actors' closed loop, the fleet's loop,
-the skill run, the chaos soak and the learner lives)
+the skill run, the chaos soak, the learner lives and each data mode)
 is driven with the kernels' launch counters zeroed just before it and
 read just after (the serve manifest's servers, the actor processes, the
 league service and the evaluator are processes of their own, which start
@@ -142,7 +154,9 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import logging
 import os
+import queue
 import shutil
 import signal
 import socket
@@ -846,13 +860,17 @@ class Producer(threading.Thread):
     weight frame's header per poll and calls publish_experience once per
     frame, a batch at a time. Records the version, boot epoch and time of
     every weight frame polled, its own CPU time, the part of it spent in
-    the publish calls, and its wake-ups."""
+    the publish calls, and its wake-ups. With `ages`, frame i of the pool
+    is stamped ages[i % len(ages)] versions older than the one polled
+    (never below 0): the replay turn's mix of fresh and aged frames."""
 
-    def __init__(self, broker, pool, versions: int, batch: int, max_depth: int):
+    def __init__(self, broker, pool, versions: int, batch: int, max_depth: int, ages=(0,)):
         super().__init__(daemon=True, name="chip-smoke-producer")
         self.broker, self.pool, self.batch, self.max_depth = broker, pool, batch, max_depth
-        self.stamped = [[f[:4] + struct.pack("<I", v) + f[8:] for f in pool] for v in range(versions)]
+        self.stamped = [[f[:4] + struct.pack("<I", max(v - ages[i % len(ages)], 0)) + f[8:] for i, f in enumerate(pool)]
+                        for v in range(versions)]
         self.stop_event = threading.Event()
+        self.hold = threading.Event()  # set: publish nothing (the learner starves)
         self.version, self.published = 0, 0
         self.polled = []  # (version, boot_epoch, perf_counter) per frame polled
         self.last_frame = None
@@ -870,7 +888,7 @@ class Producer(threading.Thread):
         cpu0, i, n = time.thread_time(), 0, len(self.pool)
         while not self.stop_event.is_set():
             self.poll()
-            if self.broker.experience_depth() > self.max_depth - self.batch:
+            if self.hold.is_set() or self.broker.experience_depth() > self.max_depth - self.batch:
                 time.sleep(0.002)  # few wake-ups: each one takes the GIL from the loop thread
                 self.wakeups += 1
                 continue
@@ -1389,6 +1407,15 @@ def _window_ms(line) -> float:
     return 1e3 * (line["time_wait_batch_s"] + line["time_step_s"])
 
 
+# Phase 9's POST /profile: the capture window, and how long the held
+# producer waits after the request before it releases the PROFILE_STEPS
+# steps the window must see (the profiler's start can outlast steps that
+# run unheld). One capture, which must name the recurrence kernel.
+PROFILE_WINDOW_S = 2
+PROFILE_START_S = 1.0
+PROFILE_STEPS = 6
+
+
 def phase_learner_manifest(device, card: str, steps: int = 40, parity_steps: int = 10, extra=(), tcp=True):
     """Phase 9: the port's learner with k8s/learner.yaml's arguments
     (local_manifest's substitutions), on the card: sharded pack parity and
@@ -1495,10 +1522,32 @@ def phase_learner_manifest(device, card: str, steps: int = 40, parity_steps: int
             deadline = time.monotonic() + 120
             while learner.version < 12 and runner.is_alive() and time.monotonic() < deadline:
                 time.sleep(0.01)
-            code, body = _http("POST", f"http://127.0.0.1:{port}/profile?seconds=1")
+            # The capture window must hold training steps: the producer is
+            # held until the learner idles, the capture is requested, and
+            # PROFILE_STEPS steps are released into it after PROFILE_START_S.
+            t_profile, v_profile = time.perf_counter(), learner.version
+            producer.hold.set()
+            seen = -1
+            while seen != learner.version and runner.is_alive() and time.monotonic() < deadline:
+                seen = learner.version
+                time.sleep(0.3)
+            reply = {}
+            post = threading.Thread(target=lambda: reply.update(zip(("code", "body"), _http(
+                "POST", f"http://127.0.0.1:{port}/profile?seconds={PROFILE_WINDOW_S}"))), daemon=True)
+            post.start()
+            time.sleep(PROFILE_START_S)
+            producer.hold.clear()
+            while learner.version < seen + PROFILE_STEPS and post.is_alive() and runner.is_alive():
+                time.sleep(0.005)
+            producer.hold.set()
+            post.join(timeout=120)
+            code, body = reply.get("code"), reply.get("body")
             profile = json.loads(body) if code == 200 else {"error": body}
             if code != 200:
                 errors.append(f"POST /profile: {code} {body}")
+            producer.hold.clear()
+            # the profiling episode (hold and capture) is out of loop_ms
+            profile_s, profile_steps = time.perf_counter() - t_profile, learner.version - v_profile
             metrics_code, _ = _http("GET", f"http://127.0.0.1:{port}/metrics")
             health_code, health = _http("GET", f"http://127.0.0.1:{port}/healthz")
             runner.join(timeout=300)
@@ -1516,8 +1565,8 @@ def phase_learner_manifest(device, card: str, steps: int = 40, parity_steps: int
         kernels = trace_kernel_names(os.path.join(profile["trace_dir"], "trace.json"))
         lstm_in_trace = sum(1 for k in kernels if "lstm_" in k)
         if device.type == "cuda" and not lstm_in_trace:
-            raise SystemExit(f"learner manifest: the profile of 1 s mid-run names no recurrence kernel "
-                             f"({len(kernels)} kernels)")
+            raise SystemExit(f"learner manifest: the profile of {PROFILE_WINDOW_S} s mid-run names no recurrence "
+                             f"kernel ({len(kernels)} device kernels)")
         scraped = {ln.split()[0]: float(ln.split()[1]) for ln in metrics_end.splitlines() if ln and not ln.startswith("#")}
         want = ["compute_flops_per_sec", "compute_phase_fetch_s", "compute_phase_device_step_s", "pipeline_overlap_ratio",
                 "staging_pack_ring_occupancy"] + (["compute_mfu"] if device.type == "cuda" else [])
@@ -1527,7 +1576,7 @@ def phase_learner_manifest(device, card: str, steps: int = 40, parity_steps: int
         lines = [json.loads(x) for x in open(os.path.join(cfg.log_dir, "metrics.jsonl"))]
         stats = learner.staging.stats()
         worker = learner._ckpt_worker
-        loop_ms = wall_s * 1e3 / steps
+        loop_ms = (wall_s - profile_s) * 1e3 / max(steps - profile_steps, 1)
         gaps = {v: 1e3 * (t - tp) for (vp, tp), (v, t) in zip(marks, marks[1:])}
         ck_gaps = [g for v, g in gaps.items() if v % cfg.checkpoint_every == 0]
         plain_gaps = [g for v, g in gaps.items() if v % cfg.checkpoint_every and v > 2]
@@ -1605,8 +1654,9 @@ def phase_learner_manifest(device, card: str, steps: int = 40, parity_steps: int
     print(f"learner manifest: k8s/learner.yaml's args (one broker endpoint, local remote dir, checkpoint every "
           f"{cfg.checkpoint_every}): {steps} steps, {launches} kernel launches; params bitwise equal across manifest / "
           f"obs off / serial / plain flags over {parity_steps} stamped steps; /metrics carries compute_mfu, "
-          f"compute_phase_*, pipeline_overlap_ratio, staging_pack_ring_occupancy; /healthz 200; POST /profile 1 s: "
-          f"{len(kernels)} device kernels, {lstm_in_trace} of them the recurrence kernel; SIGTERM exit 0 at "
+          f"compute_phase_*, pipeline_overlap_ratio, staging_pack_ring_occupancy; /healthz 200; POST /profile "
+          f"{PROFILE_WINDOW_S} s: {len(kernels)} device kernels, {lstm_in_trace} of them the recurrence kernel; "
+          f"SIGTERM exit 0 at "
           f"v{sub['version']}, restored v{sub['restore_local'][0]} local and v{sub['restore_mirror'][0]} from the "
           f"mirror (high-water {hwm}); drained restart bitwise | {card}", flush=True)
     print(f"learner manifest: native pack per batch of {B} (median ms, buffer preparation + pack): 1 worker "
@@ -1986,17 +2036,23 @@ def _scrape(port: int) -> dict:
             if ln and not ln.startswith("#")}
 
 
-def start_fabric_shards(n: int = 3, import_logs=None):
+def start_fabric_shards(n: int = 3, import_logs=None, assemble: bool = False):
     """n port shard processes with k8s/broker.yaml's args, the host, port
-    and metrics port made local and ephemeral. With `import_logs` (a
+    and metrics port made local and ephemeral (and with `assemble` its
+    `--broker.assemble false` pin lifted). With `import_logs` (a
     directory) each runs under `-X importtime`, its stderr in
-    import_logs/shardI.log. Returns [(process, port, metrics port)]."""
+    import_logs/shardI.log. The processes start together; returns
+    [(process, port, metrics port)] once every one has printed its ready
+    line."""
     args = manifest_args(BROKER_MANIFEST)
-    out = []
+    started = []
     for i in range(n):
         mport = _free_port()
+        while mport in [m for _, m in started]:  # none bound yet: keep the picks apart
+            mport = _free_port()
         flags = list(args)
-        for flag, value in (("--host", "127.0.0.1"), ("--port", "0"), ("--metrics_port", str(mport))):
+        for flag, value in (("--host", "127.0.0.1"), ("--port", "0"), ("--metrics_port", str(mport)),
+                            ("--broker.assemble", "true" if assemble else "false")):
             flags[flags.index(flag) + 1] = value
         trace, err = [], None
         if import_logs is not None:
@@ -2005,9 +2061,14 @@ def start_fabric_shards(n: int = 3, import_logs=None):
                                 cwd=ROOT, stdout=subprocess.PIPE, stderr=err, text=True)
         if err is not None:
             err.close()
+        started.append((proc, mport))
+    out = []
+    for proc, mport in started:
         line = proc.stdout.readline().strip()
-        if not line.startswith("fabric shard listening on 127.0.0.1:") or "priority admission" not in line:
-            proc.kill()
+        if (not line.startswith("fabric shard listening on 127.0.0.1:") or "priority admission" not in line
+                or (", assemble" in line) != assemble):
+            for p, _ in started:
+                p.kill()
             raise SystemExit(f"fabric shard: unexpected ready line {line!r}")
         out.append((proc, int(line.split(":")[1].split()[0]), mport))
     return out
@@ -2083,10 +2144,20 @@ def fabric_producer_main(argv) -> int:
     return 0
 
 
-def _start_producers(url: str, d: str, n: int, total: int, share: int, lead: int = 1, extra=()):
+def _start_producers(url: str, d: str, n: int, total: int, share: int, lead: int = 1, extra=(), import_logs=None):
+    """n `--fabric-producer` processes; with `import_logs` (a directory)
+    each runs under `-X importtime`, its stderr in import_logs/producerI.log."""
     os.makedirs(d, exist_ok=True)
-    return [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--fabric-producer", url, str(i), str(total),
-                              str(share), str(lead), d, *extra], cwd=ROOT) for i in range(n)]
+    procs = []
+    for i in range(n):
+        trace, err = [], None
+        if import_logs is not None:
+            trace, err = ["-X", "importtime"], open(os.path.join(import_logs, f"producer{i}.log"), "w")
+        procs.append(subprocess.Popen([sys.executable, *trace, os.path.abspath(__file__), "--fabric-producer", url,
+                                       str(i), str(total), str(share), str(lead), d, *extra], cwd=ROOT, stderr=err))
+        if err is not None:
+            err.close()
+    return procs
 
 
 def _producer_status(d: str, n: int):
@@ -2293,6 +2364,11 @@ def _fabric_backlog_turn(shards, args, tmp: str, extra, steps: int = 40, produce
                 backlog_reply_lost=unseen, shard1_reply_lost=lost)
 
 
+# Phase 10's timed turns over the fabric and over one endpoint: one pair,
+# to hold the whole smoke near 800 s beside phase 17 (PERF.md §4).
+FABRIC_TURNS = ("fabric", "single")
+
+
 def phase_learner_fabric(card: str, single_window_ms, steps: int = 40, producers: int = 4, extra=()):
     """Phase 10: the port learner binary's main with k8s/learner.yaml's
     args, its three-endpoint --broker_url kept (three port shard processes
@@ -2485,7 +2561,7 @@ def phase_learner_fabric(card: str, single_window_ms, steps: int = 40, producers
         lines = [json.loads(x) for x in open(os.path.join(cfg.log_dir, "metrics.jsonl"))]
         run_window_ms = statistics.median(_window_ms(r) for r in lines)
         turns = {}
-        for i, kind in enumerate(("fabric", "single", "single", "fabric")):
+        for i, kind in enumerate(FABRIC_TURNS):
             turns.setdefault(kind, []).append(_fabric_turn(kind, shards, args, os.path.join(tmp, f"turn{i}"), extra))
         # the turns' learners published their own versions: the shards get the restart's frame back for phase 11
         pub = tfab.FabricBroker(urls)
@@ -2530,7 +2606,7 @@ def phase_learner_fabric(card: str, single_window_ms, steps: int = 40, producers
           f"{backlog['backlog_delivered_late']} delivered late, {backlog['backlog_reply_lost']} popped into replies "
           f"that never arrived (shard 1 lost {backlog['shard1_reply_lost']}); {backlog['launches']} kernel launches "
           f"| {card}", flush=True)
-    print(f"learner fabric: loop ms per step (second 5-step window, 4 producer processes, in turns F S S F): over the "
+    print(f"learner fabric: loop ms per step (second 5-step window, 4 producer processes, turns {' '.join(k[0].upper() for k in FABRIC_TURNS)}): over the "
           f"fabric {turns['fabric']}, over shard 0 as one tcp:// endpoint {turns['single']}; the 40-step run's median "
           f"window {run_window_ms:.3f} ms (shard 1 stopped inside it); phase 9's single-endpoint mem:// window "
           f"{single_window_ms} ms | {card}", flush=True)
@@ -4839,6 +4915,714 @@ def phase_chaos(device, card: str, policy=None, kills: str = "3:2,8:2,13:2", bas
     return res
 
 
+# Phase 17: the learner's data modes at the flagship shape (PolicyConfig
+# defaults, B=256 x T=16). Every setting is a module constant.
+DATA_MODE_STEPS = 5  # steps per transfer-path learner
+DATA_MODE_PATHS = (("single", {}), ("groups", {"fused_single_h2d": False}), ("tree", {"fused_h2d": False}))
+REPLAY_STEPS = 12
+REPLAY_FRESH_WINDOW = 1  # ppo.max_staleness of the replay learner
+REPLAY_WINDOW = 4  # its replay.max_staleness
+# the replay producer's stamps, in versions behind the one it polled:
+# fresh, aged past ppo.max_staleness but inside the reservoir's window,
+# and past the window (a stale drop)
+REPLAY_AGES = (0, 0, 0, 0, 0, 0, 2, 3, 6)
+ASM_SHARDS = 3
+ASM_PRODUCERS = 4
+ASM_PARITY_STEPS = 3  # 768 frames: exactly the manifest's shed_high on one shard
+ASM_STEPS = 6  # each throughput turn; its second metrics window is read
+
+
+def _counting_scan():
+    """Wrap ops/lstm.py's plain scan with a call counter; returns (counter,
+    restore)."""
+    from dotaclient_tpu_torch.ops import lstm as L
+
+    calls, scan = [0], L.lstm_scan
+
+    def counting(*a):
+        calls[0] += 1
+        return scan(*a)
+
+    L.lstm_scan = counting
+    return calls, lambda: setattr(L, "lstm_scan", scan)
+
+
+def _data_mode_cfg(base, tmp: str, name: str, **kw):
+    from dotaclient_tpu_torch.config import LearnerConfig
+
+    cfg = LearnerConfig() if base is None else base
+    return dataclasses.replace(cfg, native_packer=True, publish_every=1, log_dir=os.path.join(tmp, name, "logs"),
+                               checkpoint_dir="", **kw)
+
+
+def _transfer_paths_turn(device, card: str, tmp: str, base=None):
+    """(a) The same seeded DTR1 frames through three learners, DATA_MODE_STEPS
+    steps each over mem://, in turns single, groups, tree, tree, groups,
+    single: the groups and tree learners' params and Adam state must be
+    bitwise the single buffer's (else within phase 6's bounds, recorded),
+    one kernel launch per step and no plain scan."""
+    from dotaclient_tpu_torch.ops import lstm as L
+    from dotaclient_tpu_torch.ops.batch import tree_flatten
+    from dotaclient_tpu_torch.runtime.learner import Learner
+    from dotaclient_tpu_torch.transport import memory as tmem
+    from dotaclient_tpu_torch.transport.params import named_params
+
+    runs = {}
+    for name, flags in DATA_MODE_PATHS + tuple(reversed(DATA_MODE_PATHS)):
+        cfg = _data_mode_cfg(base, tmp, f"paths_{name}", metrics_every=DATA_MODE_STEPS, **flags)
+        cfg = dataclasses.replace(cfg, ppo=dataclasses.replace(cfg.ppo, max_staleness=1000))
+        frames = rollout_frames(cfg, DATA_MODE_STEPS, seed0=300)
+        hub = f"chip_paths_{name}"
+        tmem.reset(hub)
+        pub = tmem.MemoryBroker(hub, maxlen=len(frames))
+        for f in frames:
+            pub.publish_experience(f)
+        learner = Learner(cfg, tmem.MemoryBroker(hub, maxlen=len(frames)), device)
+        copies, transfer = [], learner.io.transfer
+
+        def counted(payload, transfer=transfer, copies=copies):
+            n = len(payload) if isinstance(payload, dict) else 1 if isinstance(payload, torch.Tensor) else \
+                len(tree_flatten(payload)[0])
+            copies.append(n)
+            return transfer(payload)
+
+        learner.io.transfer = counted
+        calls, restore = _counting_scan()
+        torch.cuda.synchronize()
+        L.LAUNCHES = 0  # this path's main run starts here
+        t0 = time.perf_counter()
+        try:
+            done = learner.run(num_steps=DATA_MODE_STEPS, batch_timeout=60.0, max_idle=3)
+        finally:
+            wall = time.perf_counter() - t0
+            launches = L.LAUNCHES
+            restore()
+            learner.close()
+        if done != DATA_MODE_STEPS or launches != DATA_MODE_STEPS or calls[0]:
+            raise SystemExit(f"data modes ({name}): {done} steps, {launches} kernel launches, {calls[0]} plain scans")
+        line = learner.metrics.latest()
+        run = dict(copies_per_step=copies[0], copies=sorted(set(copies)), put_ms=1e3 * line["time_device_put_s"],
+                   window_ms=_window_ms(line), loop_ms=1e3 * wall / DATA_MODE_STEPS, launches=launches,
+                   bits=_state_bits(learner.state), params=named_params(learner.state.net), lr=cfg.ppo.lr,
+                   metrics={k: line[k] for k in ("loss", "policy_loss", "value_loss", "entropy", "grad_norm")})
+        runs.setdefault(name, []).append(run)
+    single = runs["single"][0]
+    out = {}
+    for name, arms in runs.items():
+        first = arms[0]
+        bitwise = first["bits"] == single["bits"]
+        worst = max(float(np.abs(a - b).max()) for (_, a), (_, b) in zip(first["params"], single["params"]))
+        if not bitwise:
+            # a leaf's layout (strided view or contiguous) may steer cuBLAS to
+            # another algorithm: then phase 6's kernel-vs-plain bounds hold
+            if worst > PARAM_LR_PER_UPDATE * first["lr"] * DATA_MODE_STEPS or any(
+                    abs(first["metrics"][k] - single["metrics"][k]) / (1 + abs(single["metrics"][k])) >
+                    (TOL_GRAD_NORM if k == "grad_norm" else TOL_LEARNER) for k in first["metrics"]):
+                raise SystemExit(f"data modes ({name}): params {worst} or metrics {first['metrics']} outside phase "
+                                 f"6's bounds of the single buffer's {single['metrics']}")
+        out[name] = dict(bitwise=bitwise, params_max_abs_diff=worst, copies_per_step=first["copies_per_step"],
+                         put_ms=[a["put_ms"] for a in arms], window_ms=[a["window_ms"] for a in arms],
+                         loop_ms=[a["loop_ms"] for a in arms], launches=sum(a["launches"] for a in arms))
+        print(f"data modes (a) {name}: {first['copies_per_step']} host-to-device copies per step, H2D "
+              f"{', '.join(f'{x:.4f}' for x in out[name]['put_ms'])} ms (time_device_put_s), loop "
+              f"{', '.join(f'{x:.3f}' for x in out[name]['window_ms'])} ms per step (window) in turns; params "
+              f"{'bitwise' if bitwise else f'within bounds ({worst:.3g})'} the single buffer's | {card}", flush=True)
+    return out
+
+
+def _replay_step_vs_plain(device, cfg):
+    """One replay train step on the tree path (TreeBatchIO + the step), a
+    batch with a quarter of its rows replayed far off-policy (the IS
+    truncation engages), kernel arm against its plain arm
+    (lstm_impl="scan_recompute") within phase 6's bounds; the kernel arm
+    launches the recurrence once, the plain arm never."""
+    from dotaclient_tpu_torch.ops import lstm as L
+    from dotaclient_tpu_torch.ops.batch import make_train_batch
+    from dotaclient_tpu_torch.parallel import train_step as ts
+    from dotaclient_tpu_torch.parallel.fused_io import TreeBatchIO
+    from dotaclient_tpu_torch.runtime.staging import cast_obs_to_compute_dtype
+
+    plain_cfg = dataclasses.replace(cfg, policy=dataclasses.replace(cfg.policy, lstm_impl="scan_recompute"))
+    step_k, step_p, io = ts.build_train_step(cfg, device), ts.build_train_step(plain_cfg, device), TreeBatchIO(device)
+    batch = make_train_batch(cfg, 7, with_staleness=True)
+    q = cfg.batch_size // 4
+    stale = np.zeros(cfg.batch_size, np.float32)
+    stale[:q] = 3.0
+    logp = batch.behavior_logp.copy()
+    logp[:q] -= 3.0
+    host = cast_obs_to_compute_dtype(cfg, batch._replace(behavior_staleness=stale, behavior_logp=logp))
+    L.LAUNCHES = 0  # the replay step's main path
+    state_k, m_k = step_k(ts.init_train_state(cfg, device), io.consume(*io.transfer(host)))
+    launches = L.LAUNCHES
+    state_p, m_p = step_p(ts.init_train_state(plain_cfg, device), io.consume(*io.transfer(host)))
+    torch.cuda.synchronize()
+    if launches != 1 or L.LAUNCHES != 1:
+        raise SystemExit(f"data modes (b): the replay step launched the kernel {launches} times, the plain arm "
+                         f"{L.LAUNCHES - launches}")
+    if not m_k["replay_trunc_frac"].item() > 0:
+        raise SystemExit("data modes (b): the replay step truncated no IS ratio")
+    return compare_arms("data modes (b) replay step", state_k, state_p, [m_k], [m_p], 1, cfg.ppo.lr)
+
+
+def _replay_turn(device, card: str, tmp: str, base=None):
+    """(b) The replay learner (tree path) fed by a producer thread whose
+    frames are partly stamped REPLAY_AGES versions old, REPLAY_STEPS steps;
+    then a full-state checkpoint restored into a fresh learner, whose
+    reservoir must equal the uninterrupted one's and whose next step must
+    be bitwise its next step."""
+    from dotaclient_tpu_torch.ops import lstm as L
+    from dotaclient_tpu_torch.runtime.learner import Learner
+    from dotaclient_tpu_torch.transport import memory as tmem
+
+    cfg = _data_mode_cfg(base, tmp, "replay", metrics_every=REPLAY_STEPS, checkpoint_every=1000)
+    cfg = dataclasses.replace(cfg, checkpoint_dir=os.path.join(tmp, "replay", "ck"),
+                              ppo=dataclasses.replace(cfg.ppo, max_staleness=REPLAY_FRESH_WINDOW),
+                              replay=dataclasses.replace(cfg.replay, enabled=True, max_staleness=REPLAY_WINDOW),
+                              ckpt=dataclasses.replace(cfg.ckpt, full_state=True))
+    B = cfg.batch_size
+    worst = _replay_step_vs_plain(device, cfg)
+    tmem.reset("chip_replay")
+    learner = Learner(cfg, tmem.MemoryBroker("chip_replay"), device)
+    if learner.fused_io is not None:
+        raise SystemExit("data modes (b): the replay learner did not take the tree path")
+    producer = Producer(tmem.MemoryBroker("chip_replay"), rollout_frames(cfg, 2, seed0=400), versions=REPLAY_STEPS + 2,
+                        batch=B, max_depth=2 * B, ages=REPLAY_AGES)
+    calls, restore = _counting_scan()
+    producer.start()
+    torch.cuda.synchronize()
+    L.LAUNCHES = 0  # the replay learner's main path starts here
+    t0 = time.perf_counter()
+    try:
+        done = learner.run(num_steps=REPLAY_STEPS, batch_timeout=60.0, max_idle=3)
+    finally:
+        wall = time.perf_counter() - t0
+        launches = L.LAUNCHES
+        restore()
+        producer.stop_event.set()
+        producer.join(timeout=10)
+    stats, line = learner.staging.stats(), learner.metrics.latest()
+    if done != REPLAY_STEPS or launches != REPLAY_STEPS or calls[0]:
+        raise SystemExit(f"data modes (b): {done} steps, {launches} kernel launches, {calls[0]} plain scans")
+    if not (stats["replay_admitted"] > 0 and stats["rows_replayed"] > 0):
+        raise SystemExit(f"data modes (b): nothing replayed: {stats}")
+    if not stats["replay_hit_ratio"] <= cfg.replay.ratio:
+        raise SystemExit(f"data modes (b): replay_hit_ratio {stats['replay_hit_ratio']} > {cfg.replay.ratio}")
+    # every stale drop was a frame past the reservoir's own window
+    if stats["dropped_stale"] != stats["replay_rejected_stale"] or stats["dropped_bad"]:
+        raise SystemExit(f"data modes (b): dropped_stale {stats['dropped_stale']} vs rejected past the window "
+                         f"{stats['replay_rejected_stale']}, dropped_bad {stats['dropped_bad']}")
+    bad = [k for k in ("loss", "grad_norm", "replay_trunc_frac", "replay_occupancy", "replay_hit_ratio")
+           if k not in line or not np.isfinite(line[k])]
+    if bad:
+        raise SystemExit(f"data modes (b): the metrics window lacks finite {bad}")
+    # the checkpoint: nothing in flight (batches staging queued past the
+    # run are dropped, as a stop drops them), then a fresh learner restores
+    while True:
+        try:
+            learner.staging._ready.get_nowait()
+        except queue.Empty:
+            break
+    while learner.broker.consume_experience(4096, timeout=0.05):
+        pass
+    learner.checkpoint()
+    snap = learner.staging.snapshot_state()
+    tmem.reset("chip_replay_restore")
+    restored = Learner(cfg, tmem.MemoryBroker("chip_replay_restore"), device)
+    rsnap = restored.staging.snapshot_state()
+    if restored.version != learner.version or rsnap != snap or _state_bits(restored.state) != _state_bits(learner.state):
+        raise SystemExit(f"data modes (b): the restore differs (version {restored.version} vs {learner.version}, "
+                         f"reservoir equal {rsnap == snap})")
+    entries = len(snap["reservoir"]["entries"])
+    nxt = [f[:4] + struct.pack("<I", learner.version) + f[8:] for f in rollout_frames(cfg, 1, seed0=500)]
+    for arm in (learner, restored):
+        for f in nxt:
+            arm.broker.publish_experience(f)
+        L.LAUNCHES = 0
+        if arm.run(num_steps=1, batch_timeout=60.0, max_idle=3) != 1 or L.LAUNCHES != 1:
+            raise SystemExit("data modes (b): the step after the restore did not run once through the kernel")
+    restored.close()
+    learner.close()
+    if _state_bits(restored.state) != _state_bits(learner.state):
+        raise SystemExit("data modes (b): the restored learner's next step is not bitwise the uninterrupted one's")
+    out = dict(launches=launches, steps=REPLAY_STEPS, loop_ms=1e3 * wall / REPLAY_STEPS, window_ms=_window_ms(line),
+               put_ms=1e3 * line["time_device_put_s"], replay_admitted=stats["replay_admitted"],
+               rows_replayed=stats["rows_replayed"], rows_packed=stats["rows_packed"],
+               replay_hit_ratio=stats["replay_hit_ratio"], dropped_stale=stats["dropped_stale"],
+               replay_trunc_frac=line["replay_trunc_frac"], restored_entries=entries, step_vs_plain=worst)
+    print(f"data modes (b) replay: {REPLAY_STEPS} steps on the tree path, {launches} kernel launches, 0 plain scans; "
+          f"admitted {out['replay_admitted']}, rows replayed {out['rows_replayed']} of {out['rows_packed']} "
+          f"(hit ratio {out['replay_hit_ratio']:.4f} <= {cfg.replay.ratio}), {out['dropped_stale']} stale drops all "
+          f"past the window; loop {out['window_ms']:.3f} ms per step (window), H2D {out['put_ms']:.4f} ms; restore: "
+          f"{entries} reservoir entries equal, next step bitwise; replay step vs plain arm: params "
+          f"{worst['params']:.3g}, grad_norm {worst['grad_norm']:.3g} | {card}", flush=True)
+    return out
+
+
+def _assembly_learner(cfg, broker, device, steps: int):
+    """A learner over `broker` that records the sha256 of every row of every
+    transfer buffer staging lands; returns (learner, launches, wall s, row
+    hashes per batch in order)."""
+    import hashlib
+
+    from dotaclient_tpu_torch.ops import lstm as L
+    from dotaclient_tpu_torch.runtime.learner import Learner
+
+    learner = Learner(cfg, broker, device)
+    hashes, pack = [], learner.staging._pack
+
+    def hashing(items):
+        out = pack(items)
+        buf = out[1].numpy()
+        hashes.append([hashlib.sha256(buf[r].tobytes()).hexdigest() for r in range(buf.shape[0])])
+        return out
+
+    learner.staging._pack = hashing
+    calls, restore = _counting_scan()
+    torch.cuda.synchronize()
+    L.LAUNCHES = 0  # this arm's main path starts here
+    t0 = time.perf_counter()
+    try:
+        done = learner.run(num_steps=steps, batch_timeout=60.0, max_idle=3)
+    finally:
+        wall = time.perf_counter() - t0
+        launches = L.LAUNCHES
+        restore()
+        learner.close()
+    if done != steps or launches != steps or calls[0]:
+        raise SystemExit(f"data modes (c): {done} steps, {launches} kernel launches, {calls[0]} plain scans")
+    return learner, launches, wall, hashes
+
+
+def _assembly_turn(device, card: str, tmp: str, base=None, producer_flags=()):
+    """(c) ASM_SHARDS shard processes with k8s/broker.yaml's args less the
+    assembly pin, the learner with --staging.assemble: its transfer
+    buffers row for row (sha256) and its params bitwise the classic pack's
+    over the same frames in the same order; then ASM_PRODUCERS producer
+    processes feeding the classic and the assembled learner in turns; each
+    shard's assembly ledger exact; a learner asking an unarmed shard for
+    blocks fails; no process holds jax, dotaclient_tpu, google.protobuf or
+    grpc. `producer_flags`: the learner flags of a `base` other than the
+    flagship, for the producer processes."""
+    from dotaclient_tpu_torch.config import LearnerConfig
+    from dotaclient_tpu_torch.runtime.learner import Learner
+    from dotaclient_tpu_torch.transport import memory as tmem
+    from dotaclient_tpu_torch.transport.base import connect
+    from dotaclient_tpu_torch.transport.serialize import BlockSpec
+    from dotaclient_tpu_torch.transport.tcp import BrokerServer, TcpBroker
+
+    logs = os.path.join(tmp, "imports")
+    os.makedirs(logs, exist_ok=True)
+    shards = start_fabric_shards(ASM_SHARDS, import_logs=logs, assemble=True)
+    try:
+        url = ",".join(f"tcp://127.0.0.1:{p}" for _, p, _ in shards)
+        base = LearnerConfig() if base is None else base
+
+        def cfg_of(name, assemble, steps, **kw):
+            cfg = _data_mode_cfg(base, tmp, name, metrics_every=steps, **kw)
+            return dataclasses.replace(cfg, staging=dataclasses.replace(cfg.staging, assemble=assemble))
+
+        # parity: the same frames, in one order, straight onto shard 0
+        # (un-enveloped, FIFO) and onto a mem:// hub
+        frames = rollout_frames(base, ASM_PARITY_STEPS, seed0=600)
+        pub = TcpBroker("127.0.0.1", shards[0][1])
+        for f in frames:
+            pub.publish_experience(f)
+        pub.close()
+        asm, asm_launches, _, asm_rows = _assembly_learner(
+            cfg_of("asm_parity", True, ASM_PARITY_STEPS, broker_url=url), connect(url), device, ASM_PARITY_STEPS)
+        asm.broker.close()
+        tmem.reset("chip_asm_classic")
+        hub = tmem.MemoryBroker("chip_asm_classic", maxlen=len(frames))
+        for f in frames:
+            hub.publish_experience(f)
+        classic, classic_launches, _, classic_rows = _assembly_learner(
+            cfg_of("classic_parity", False, ASM_PARITY_STEPS), tmem.MemoryBroker("chip_asm_classic"), device,
+            ASM_PARITY_STEPS)
+        if asm_rows[:ASM_PARITY_STEPS] != classic_rows[:ASM_PARITY_STEPS]:
+            raise SystemExit("data modes (c): the assembled transfer buffers' rows differ from the classic pack's")
+        if _state_bits(asm.state) != _state_bits(classic.state):
+            raise SystemExit("data modes (c): the assembled learner's params are not bitwise the classic one's")
+
+        # throughput: producer processes through the FabricBroker, classic
+        # then assembled consume of the same shards
+        turns = {}
+        for kind in ("classic", "assembled"):
+            _drain_shards(shards)
+            cfg = cfg_of(f"turn_{kind}", kind == "assembled", ASM_STEPS // 2, broker_url=url)
+            B = cfg.batch_size
+            procs = _start_producers(url, os.path.join(tmp, f"prod_{kind}"), ASM_PRODUCERS,
+                                     (ASM_STEPS + 1) * B // ASM_PRODUCERS, B // ASM_PRODUCERS, extra=producer_flags,
+                                     import_logs=logs)
+            try:
+                learner, launches, wall, _ = _assembly_learner(cfg, connect(url), device, ASM_STEPS)
+                learner.broker.close()
+            finally:
+                for p in procs:
+                    stop_process(p)
+            line, st = learner.metrics.latest(), learner.staging.stats()
+            # the assembled intake's landing (row concat into a ring slot) per
+            # batch, past its wait for a free slot (as phase 9 reads the pool)
+            landing_s = st.get("pack_wall_s", float("nan")) - st.get("pack_ring_wait_s", 0.0)
+            turns[kind] = dict(window_ms=_window_ms(line), loop_ms=1e3 * wall / ASM_STEPS, launches=launches,
+                               pack_wall_ms=1e3 * landing_s / max(st["batches"], 1),
+                               ring_wait_ms=1e3 * st.get("pack_ring_wait_s", float("nan")) / max(st["batches"], 1))
+        ledgers = []
+        for _, _, mport in shards:
+            m = _scrape(mport)
+            led = {k: m[f"broker_assemble_{k}"] for k in (
+                "rows_admitted_total", "rows_packed_total", "rows_reject_total", "rows_bypassed_total",
+                "rows_dropped_total", "rows_resident", "cpu_s_total", "blocks_served_total")}
+            if led["rows_admitted_total"] != (led["rows_packed_total"] + led["rows_reject_total"]
+                                              + led["rows_bypassed_total"] + led["rows_dropped_total"]
+                                              + led["rows_resident"]):
+                raise SystemExit(f"data modes (c): a shard's assembly ledger does not balance: {led}")
+            ledgers.append(led)
+        if sum(led["rows_packed_total"] for led in ledgers) < (ASM_PARITY_STEPS + ASM_STEPS) * base.batch_size:
+            raise SystemExit(f"data modes (c): the shards packed fewer rows than the assembled learners trained")
+
+        # an unarmed shard: one endpoint has no block op; a fabric of
+        # unarmed shards closes every GET_BLOCK, and the learner starves
+        cfg = cfg_of("unarmed", True, 1)
+        try:
+            Learner(dataclasses.replace(cfg, broker_url=f"tcp://127.0.0.1:{shards[0][1]}"),
+                    connect(f"tcp://127.0.0.1:{shards[0][1]}"), device)
+            raise SystemExit("data modes (c): a one-endpoint learner took --staging.assemble")
+        except ValueError as e:
+            if "DTB1" not in str(e):
+                raise
+        unarmed = [BrokerServer("127.0.0.1", 0).start() for _ in range(2)]
+        # each refused GET_BLOCK closes its connection by raising in the
+        # server's handler, which asyncio logs with a traceback
+        asyncio_log = logging.getLogger("asyncio")
+        level = asyncio_log.level
+        asyncio_log.setLevel(logging.CRITICAL)
+        try:
+            spec = BlockSpec(cfg.seq_len, cfg.policy.lstm_hidden, cfg.policy.aux_heads, True, 1, 0)
+            try:
+                TcpBroker("127.0.0.1", unarmed[0].port).consume_block(spec, 4, timeout=0.2)
+                raise SystemExit("data modes (c): an unarmed shard served a block")
+            except (ConnectionError, OSError):
+                pass
+            uurl = ",".join(f"tcp://127.0.0.1:{s.port}" for s in unarmed)
+            learner = Learner(dataclasses.replace(cfg, broker_url=uurl), connect(uurl), device)
+            try:
+                learner.run(num_steps=1, batch_timeout=1.0, max_idle=2)
+                raise SystemExit("data modes (c): a learner over unarmed shards trained")
+            except TimeoutError:
+                pass
+            finally:
+                learner.close()
+                learner.broker.close()
+        finally:
+            asyncio_log.setLevel(level)
+            for s in unarmed:
+                s.stop()
+        held = {}
+        for name in sorted(os.listdir(logs)):
+            bad = forbidden_modules(_imported_by_log(os.path.join(logs, name)))
+            if bad:
+                held[name] = bad
+        own = [m for m in forbidden_modules(sys.modules) if not m.startswith(CHAOS_PACKAGE)]
+        if held or own:
+            raise SystemExit(f"data modes (c): forbidden modules held: {held}, this process {own}")
+    finally:
+        for proc, _, _ in shards:
+            stop_process(proc)
+    out = dict(launches=asm_launches + classic_launches + sum(t["launches"] for t in turns.values()),
+               parity_steps=ASM_PARITY_STEPS,
+               rows_checked=sum(len(r) for r in asm_rows[:ASM_PARITY_STEPS]), turns=turns,
+               shard_cpu_s=[led["cpu_s_total"] for led in ledgers], ledgers=ledgers)
+    print(f"data modes (c) assembly: {ASM_SHARDS} armed shards; {out['rows_checked']} rows sha256-equal to the classic "
+          f"pack and params bitwise after {ASM_PARITY_STEPS} steps; loop classic {turns['classic']['window_ms']:.3f} "
+          f"vs assembled {turns['assembled']['window_ms']:.3f} ms per step (window, {ASM_PRODUCERS} producer "
+          f"processes); learner-side landing {turns['assembled']['pack_wall_ms']:.3f} ms per batch (past a ring wait of "
+          f"{turns['assembled']['ring_wait_ms']:.3f}); shards' assembly "
+          f"cpu_s {', '.join(f'{x:.3f}' for x in out['shard_cpu_s'])}; ledgers exact; an unarmed shard refused; no "
+          f"forbidden module in {len(os.listdir(logs))} processes | {card}", flush=True)
+    return out
+
+
+def phase_data_modes(device, card: str, base=None, producer_flags=()):
+    """Phase 17: the learner's data modes (see the turns), each main path
+    with the kernel counter zeroed just before it and read just after.
+    `base` / `producer_flags`: a smaller LearnerConfig and its flags, for
+    a rehearsal on the CPU (default: the flagship)."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_modes_")
+    t0 = time.perf_counter()
+    try:
+        paths = _transfer_paths_turn(device, card, tmp, base)
+        replay = _replay_turn(device, card, tmp, base)
+        assembly = _assembly_turn(device, card, tmp, base, producer_flags)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = sum(p["launches"] for p in paths.values()) + replay["launches"] + assembly["launches"]
+    print(f"data modes: {launches} kernel launches over every path's steps, {time.perf_counter() - t0:.1f} s | {card}",
+          flush=True)
+    return dict(launches=launches, paths=paths, replay=replay, assembly=assembly, seconds=time.perf_counter() - t0)
+
+
+# ----------------------------------------------------------------- probes
+# `python3 chip_smoke.py --probe profile|tree_h2d|replay_h2d` measures one question
+# each and checks nothing; the smoke never runs them.
+PROBE_WINDOWS = 24  # profiler windows of PROBE_WINDOW_S, alternating plain / synchronized stop
+PROBE_WINDOW_S = 1.0
+PROBE_STEPS = 10  # steps per tree-H2D arm (one metrics window)
+
+
+def _trace_census(path: str) -> dict:
+    """Kernels and launch calls of one torch.profiler Chrome trace, by the
+    CPU thread that launched them (correlation ids) and by stream."""
+    from collections import Counter
+
+    with open(path) as f:
+        events = json.load(f).get("traceEvents", [])
+    names = {e.get("tid"): e.get("args", {}).get("name") for e in events
+             if e.get("ph") == "M" and e.get("name") == "thread_name"}
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    launches = [e for e in events if e.get("cat") in ("cuda_runtime", "cuda_driver") and "aunch" in e.get("name", "")]
+    kcorr = {e.get("args", {}).get("correlation") for e in kernels}
+    lcorr = {e.get("args", {}).get("correlation"): names.get(e.get("tid"), e.get("tid")) for e in launches}
+    thread = lambda e: str(names.get(e.get("tid"), e.get("tid")))  # noqa: E731
+    ts = [e["ts"] for e in kernels]
+    return dict(kernels=len(kernels), lstm=sum("lstm_" in e.get("name", "") for e in kernels),
+                lstm_launch_threads=Counter(str(lcorr.get(e.get("args", {}).get("correlation"), "none"))
+                                            for e in kernels if "lstm_" in e.get("name", "")),
+                launches_by_thread=Counter(thread(e) for e in launches),
+                launches_without_kernel=Counter(thread(e) for e in launches
+                                                if e.get("args", {}).get("correlation") not in kcorr),
+                kernels_by_launch_thread=Counter(str(lcorr.get(e.get("args", {}).get("correlation"), "none"))
+                                                 for e in kernels),
+                kernels_by_stream=Counter(str(e.get("args", {}).get("stream")) for e in kernels),
+                kernel_span_ms=(max(ts) - min(ts)) / 1e3 if ts else 0.0,
+                cpu_ops_by_thread=Counter(thread(e) for e in events if e.get("cat") == "cpu_op"))
+
+
+def _probe_profile(device) -> None:
+    """PROBE_WINDOWS profiler windows over phase 9's manifest learner fed by
+    a producer thread, from a thread that is not the loop's (as the HTTP
+    handler's): even windows through the learner's ProfileCapture, odd ones
+    the same capture with the device synchronized before the stop. Prints
+    each trace's census."""
+    from dotaclient_tpu_torch.config import LearnerConfig, parse_config
+    from dotaclient_tpu_torch.ops import lstm as L
+    from dotaclient_tpu_torch.transport import memory as tmem
+
+    class Unstamped(Producer):
+        """Publishes the pool as it is (version 0), however far the learner
+        runs: the probe's learner takes any staleness."""
+
+        def poll(self):
+            pass
+
+    tmp = tempfile.mkdtemp(prefix="chip_probe_profile_")
+    cfg = parse_config(LearnerConfig(), local_manifest(manifest_args(), tmp, "mem://probe", _free_port()))
+    cfg = dataclasses.replace(cfg, ppo=dataclasses.replace(cfg.ppo, max_staleness=1 << 30))
+    tmem.reset("chip_probe_profile")
+    learner = _manifest_learner(cfg, "chip_probe_profile", [], device)
+    producer = Unstamped(tmem.MemoryBroker("chip_probe_profile"), rollout_frames(cfg, 2), versions=1,
+                         batch=cfg.batch_size, max_depth=2 * cfg.batch_size)
+    out = {}
+
+    def run():
+        try:
+            out["done"] = learner.run(num_steps=4000, batch_timeout=1.0, max_idle=2)
+        except TimeoutError:
+            out["done"] = learner.version
+
+    runner = threading.Thread(target=run, daemon=True)
+    producer.start()
+    runner.start()
+    try:
+        while learner.version < 12 and runner.is_alive():
+            time.sleep(0.01)
+        for w in range(PROBE_WINDOWS):
+            sync = w % 2 == 1
+            v0, n0, t0 = learner.version, L.LAUNCHES, time.perf_counter()
+            if sync:
+                path = os.path.join(tmp, f"sync_{w}")
+                os.makedirs(path)
+                prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                          torch.profiler.ProfilerActivity.CUDA])
+                prof.start()
+                time.sleep(PROBE_WINDOW_S)
+                torch.cuda.synchronize()
+                prof.stop()
+                trace = os.path.join(path, "trace.json")
+                prof.export_chrome_trace(trace)
+            else:
+                try:
+                    path, _ = learner.obs.profiler.capture(PROBE_WINDOW_S)
+                    trace = os.path.join(path, "trace.json")
+                except RuntimeError as e:
+                    trace = str(e).rsplit("(", 1)[-1].rstrip(")")
+            census = _trace_census(trace)
+            census.update(window=w, sync=sync, wall_s=round(time.perf_counter() - t0, 3),
+                          steps=learner.version - v0, launches=L.LAUNCHES - n0)
+            print("probe profile " + json.dumps(census), flush=True)
+    finally:
+        producer.stop_event.set()
+        producer.join(timeout=10)
+        runner.join(timeout=60)
+        learner.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _pinned_tree_transfer(io, one_copy: bool):
+    """A tree transfer that packs the leaves into one pinned buffer (each at
+    a 16-byte offset) and sends it as one copy (`one_copy`) or one
+    asynchronous copy per leaf; the leaves come back as device views."""
+    from dotaclient_tpu_torch.ops.batch import tree_flatten, tree_unflatten
+    from dotaclient_tpu_torch.parallel.fused_io import _leaf_tensor
+
+    def transfer(batch):
+        leaves, structure = tree_flatten(batch)
+        host = [_leaf_tensor(x).contiguous() for x in leaves]
+        sizes = [t.numel() * t.element_size() for t in host]
+        offs = np.cumsum([0] + [-(-n // 16) * 16 for n in sizes])
+        buf = torch.empty(int(offs[-1]), dtype=torch.uint8, pin_memory=True)
+        flat = buf.numpy()
+        for t, o, n in zip(host, offs, sizes):
+            flat[o : o + n] = t.reshape(-1).view(torch.uint8).numpy()
+        views = [buf[o : o + n].view(t.dtype).view(t.shape) for t, o, n in zip(host, offs, sizes)]
+        with torch.cuda.stream(io._stream):
+            if one_copy:
+                dev = buf.to(io.device, non_blocking=True)
+                out = [dev[o : o + n].view(t.dtype).view(t.shape) for t, o, n in zip(host, offs, sizes)]
+            else:
+                out = [v.to(io.device, non_blocking=True) for v in views]
+            ready = torch.cuda.Event()
+            ready.record(io._stream)
+        return tree_unflatten(structure, out), ready
+
+    return transfer
+
+
+def _probe_tree_h2d(device) -> None:
+    """The tree path's H2D (time_device_put_s) and window, PROBE_STEPS steps
+    per arm at the flagship shape over mem://, arms in turns then reversed:
+    the per-leaf pageable copies with frames published before the run, then
+    beside a producer thread, then beside it at a 0.2 ms GIL switch
+    interval; the leaves packed into one pinned buffer sent as one copy or
+    as per-leaf copies, beside the producer and (one copy) without it.
+    Arms without a producer train the same frames: their params must agree
+    bitwise."""
+    from dotaclient_tpu_torch.config import LearnerConfig
+    from dotaclient_tpu_torch.runtime.learner import Learner
+    from dotaclient_tpu_torch.transport import memory as tmem
+
+    tmp = tempfile.mkdtemp(prefix="chip_probe_tree_")
+    base = dataclasses.replace(LearnerConfig(), fused_h2d=False)
+    base = dataclasses.replace(base, ppo=dataclasses.replace(base.ppo, max_staleness=1000))
+    pool = rollout_frames(base, 2, seed0=300)
+    B = base.batch_size
+    arms = (("leaf_pageable", False, 0.005), ("leaf_pageable", True, 0.005), ("leaf_pageable", True, 0.0002),
+            ("one_pinned", True, 0.005), ("leaf_pinned", True, 0.005), ("one_pinned", False, 0.005))
+    bits = {}
+    try:
+        for turn, (kind, with_producer, switch) in enumerate(arms + tuple(reversed(arms))):
+            cfg = _data_mode_cfg(base, tmp, f"tree_{turn}", metrics_every=PROBE_STEPS)
+            hub = f"chip_probe_tree_{turn}"
+            tmem.reset(hub)
+            if not with_producer:
+                pub = tmem.MemoryBroker(hub, maxlen=PROBE_STEPS * B)
+                for i in range(PROBE_STEPS * B):
+                    pub.publish_experience(pool[i % len(pool)])
+            learner = Learner(cfg, tmem.MemoryBroker(hub, maxlen=max(PROBE_STEPS * B, 4 * B)), device)
+            if kind != "leaf_pageable":
+                learner.io.transfer = _pinned_tree_transfer(learner.io, kind == "one_pinned")
+            producer = None
+            if with_producer:
+                producer = Producer(tmem.MemoryBroker(hub), pool, versions=PROBE_STEPS + 2, batch=B, max_depth=2 * B)
+                producer.start()
+            old = sys.getswitchinterval()
+            sys.setswitchinterval(switch)
+            t0 = time.perf_counter()
+            try:
+                done = learner.run(num_steps=PROBE_STEPS, batch_timeout=60.0, max_idle=3)
+            finally:
+                wall = time.perf_counter() - t0
+                sys.setswitchinterval(old)
+                if producer is not None:
+                    producer.stop_event.set()
+                    producer.join(timeout=10)
+                learner.close()
+            line = learner.metrics.latest()
+            if not with_producer:
+                bits.setdefault(kind, repr(_state_bits(learner.state)))
+            print("probe tree_h2d " + json.dumps(dict(
+                turn=turn, transfer=kind, producer=with_producer, switch_ms=1e3 * switch, steps=done,
+                put_ms=1e3 * line["time_device_put_s"], window_ms=_window_ms(line), loop_ms=1e3 * wall / PROBE_STEPS)),
+                flush=True)
+        print(f"probe tree_h2d: params of the producer-free arms bitwise equal: "
+              f"{len(set(bits.values())) == 1} ({sorted(bits)})", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _probe_replay_h2d(device) -> None:
+    """The tree path's H2D and window beside phase 17's replay producer
+    (REPLAY_AGES), PROBE_STEPS steps per arm, in turns then reversed:
+    replay off with no staleness drop, replay on as turn (b) sets it, and
+    replay on at a 0.2 ms GIL switch interval. Prints each arm's
+    time_device_put_s, window, process CPU per step and replayed rows."""
+    from dotaclient_tpu_torch.config import LearnerConfig
+    from dotaclient_tpu_torch.runtime.learner import Learner
+    from dotaclient_tpu_torch.transport import memory as tmem
+
+    tmp = tempfile.mkdtemp(prefix="chip_probe_replay_")
+    base = LearnerConfig()
+    pool = rollout_frames(base, 2, seed0=400)
+    B = base.batch_size
+    arms = (("replay_off", False, 0.005), ("replay_on", True, 0.005), ("replay_on", True, 0.0002))
+    try:
+        for turn, (name, replay, switch) in enumerate(arms + tuple(reversed(arms))):
+            cfg = _data_mode_cfg(base, tmp, f"replay_{turn}", metrics_every=PROBE_STEPS)
+            cfg = dataclasses.replace(
+                cfg, ppo=dataclasses.replace(cfg.ppo, max_staleness=REPLAY_FRESH_WINDOW if replay else 1000),
+                replay=dataclasses.replace(cfg.replay, enabled=replay, max_staleness=REPLAY_WINDOW),
+                fused_h2d=False)
+            hub = f"chip_probe_replay_{turn}"
+            tmem.reset(hub)
+            learner = Learner(cfg, tmem.MemoryBroker(hub), device)
+            producer = Producer(tmem.MemoryBroker(hub), pool, versions=PROBE_STEPS + 2, batch=B, max_depth=2 * B,
+                                ages=REPLAY_AGES)
+            producer.start()
+            old = sys.getswitchinterval()
+            sys.setswitchinterval(switch)
+            t0, c0 = time.perf_counter(), time.process_time()
+            try:
+                done = learner.run(num_steps=PROBE_STEPS, batch_timeout=60.0, max_idle=3)
+            finally:
+                wall, cpu = time.perf_counter() - t0, time.process_time() - c0
+                sys.setswitchinterval(old)
+                producer.stop_event.set()
+                producer.join(timeout=10)
+                learner.close()
+            line, st = learner.metrics.latest(), learner.staging.stats()
+            print("probe replay_h2d " + json.dumps(dict(
+                turn=turn, arm=name, switch_ms=1e3 * switch, steps=done, put_ms=1e3 * line["time_device_put_s"],
+                window_ms=_window_ms(line), loop_ms=1e3 * wall / PROBE_STEPS, cpu_ms=1e3 * cpu / PROBE_STEPS,
+                rows_replayed=st.get("rows_replayed", 0), dropped_stale=st["dropped_stale"])), flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def probe_main(argv) -> int:
+    """`--probe profile|tree_h2d|replay_h2d ...`: run the named probes on the card."""
+    if not torch.cuda.is_available():
+        print("probe: no CUDA device", file=sys.stderr)
+        return 1
+    from dotaclient_tpu_torch.ops import _kernels
+
+    _kernels.build_all()
+    device = torch.device("cuda", 0)
+    print(f"device: {gpu_line()} | torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
+    probes = {"profile": _probe_profile, "tree_h2d": _probe_tree_h2d, "replay_h2d": _probe_replay_h2d}
+    for name in argv:
+        probes[name](device)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke needs an NVIDIA GPU", file=sys.stderr)
@@ -4861,9 +5645,11 @@ def main() -> int:
             if any(w in line for w in ("Compiling entry", "registers", "spill", "smem")):
                 print(f"  {name}: {line.strip()}")
 
+    marks = [("build", time.perf_counter())]
     cases = phase_kernels(device)
     phase_row_invariance(device)
     split = phase_step_split(device)
+    marks.append(("3", time.perf_counter()))
 
     L.LAUNCHES = 0  # the serving path starts here
     net, cfg, ticks_per_s, before_per_s = phase_serving(device)
@@ -4872,6 +5658,7 @@ def main() -> int:
     forward_launches, ms_k, ms_t = phase_learner(device, net, cfg)
     train = phase_train(device)  # zeroes the counters itself before its main path
     loop = phase_learner_loop(device, card, train["ms"])  # zeroes the counters itself before its main path
+    marks.append(("4-7", time.perf_counter()))
     # host preflight before the first phase that starts processes: every
     # listening process of either package on the host is disclosed, and
     # none fails the run (another checkout's run may share this host)
@@ -4884,18 +5671,28 @@ def main() -> int:
     loop["tcp"] = phase_learner_tcp(device, card, loop["free_pipelined_ms"])
     loop["tcp4"] = phase_learner_tcp(device, card, loop["free_pipelined_ms"], producers=4)
     serve = phase_serve(device, card)  # zeroes the counters itself before its main path
+    marks.append(("7 tcp + 8", time.perf_counter()))
     manifest = phase_learner_manifest(device, card)  # zeroes the counters itself before each path
+    marks.append(("9", time.perf_counter()))
     fabric, shards = phase_learner_fabric(card, manifest["window_ms"])  # zeroes the counters itself
     try:
         serve_manifest = phase_serve_manifest(device, card, shards, serve, weights_version=fabric["weights_version"])
     finally:
         for proc, _, _ in shards:
             stop_process(proc)
+    marks.append(("10-11", time.perf_counter()))
     transformer = phase_transformer(device, card)  # zeroes the counter itself; no path of it may launch the kernel
+    marks.append(("12", time.perf_counter()))
     actors = phase_actors(device, card, fabric_window_ms=fabric["fabric_window_ms"])  # zeroes the counter itself
+    marks.append(("13", time.perf_counter()))
     fleet = phase_fleet(device, card, actors_window_ms=actors["window_ms_median"])  # zeroes the counter itself
+    marks.append(("14", time.perf_counter()))
     skill = phase_skill(card)  # zeroes the counter itself
+    marks.append(("15", time.perf_counter()))
     chaos = phase_chaos(device, card)  # zeroes the counter itself before each path; imports the chaos package
+    marks.append(("16", time.perf_counter()))
+    modes = phase_data_modes(device, card)  # zeroes the counter itself before each path
+    marks.append(("17", time.perf_counter()))
 
     main_case = cases[0]
     kernels = [
@@ -4947,9 +5744,12 @@ def main() -> int:
             "launches_chaos": chaos["launches"],
             "launches_learner_lives": chaos["lives"]["launches"],
             "chaos": chaos,
+            "launches_data_modes": modes["launches"],
+            "data_modes": modes,
         }
     ]
-    print(f"smoke: {time.perf_counter() - t_smoke:.1f} s | {card}", flush=True)
+    spans = ", ".join(f"{name} {t1 - t0:.1f}" for (_, t0), (name, t1) in zip(marks, marks[1:]))
+    print(f"smoke: {time.perf_counter() - t_smoke:.1f} s (phases {spans} s) | {card}", flush=True)
     print(json.dumps({"transformer": transformer}))
     print(json.dumps({"kernels": kernels}))
     print(gpu_line())
@@ -4975,4 +5775,6 @@ if __name__ == "__main__":
         sys.exit(fleet_actor_main(sys.argv[2:]))
     if sys.argv[1:2] == ["--fleet-evaluator"]:
         sys.exit(fleet_evaluator_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--probe"]:
+        sys.exit(probe_main(sys.argv[2:]))
     sys.exit(main())

@@ -88,10 +88,32 @@ class PPOConfig:
 
 @dataclass
 class ReplayConfig:
-    """Prioritized replay reservoir; only the switch is ported (the fused
-    train step and the learner refuse it)."""
+    """Host-side prioritized replay reservoir between staging and the
+    learner (replay/). Off by default: the data plane is then the
+    drop-on-stale pipeline, bit for bit."""
 
+    # Rollouts that aged past ppo.max_staleness are kept in the reservoir
+    # and re-sampled into batches, their IS ratio truncated in the loss.
     enabled: bool = False
+    # Target fraction of each batch drawn from the reservoir (0 <= ratio
+    # < 1); a short reservoir means more fresh rows, never a wait.
+    ratio: float = 0.25
+    # The reservoir's own window in learner versions: older frames are
+    # expired or rejected. Must exceed ppo.max_staleness.
+    max_staleness: int = 32
+    # Bound on resident serialized-frame bytes; lowest priority evicted
+    # first. Default 256 MiB.
+    byte_budget: int = 256 << 20
+    # PER exponent on the |TD-error| key (0 = uniform).
+    alpha: float = 0.6
+    # Age half-life of the sampling and eviction priority, in versions.
+    age_half_life: float = 8.0
+    # Samples of one entry before it retires (0 = unlimited).
+    max_replays: int = 4
+    # Once occupancy crosses spill_threshold * byte_budget the coldest
+    # entries are zlib-compressed in place (still sampleable).
+    spill_compress: bool = True
+    spill_threshold: float = 0.5
 
 
 @dataclass
@@ -106,7 +128,9 @@ class StagingConfig:
     # Pinned transfer-buffer ring depth (pack_workers > 1 only): a slot
     # goes back to the packers once its host-to-device copy has retired.
     transfer_depth: int = 2
-    # In-network batch assembly (DTB1 blocks; not ported; refused).
+    # In-network batch assembly: the fabric shards (--broker.assemble)
+    # pack each frame into this learner's row layout and serve DTB1 blocks
+    # of rows; the learner's pack is a row concat into a ring slot.
     assemble: bool = False
 
 
@@ -459,9 +483,10 @@ class LearnerConfig:
     # (runtime/staging.py cast_obs_to_compute_dtype): the policy's first
     # op is the same cast, and the host-to-device bytes halve.
     stage_obs_compute_dtype: bool = True
-    # The batch crosses host-to-device as dtype-grouped buffers, and with
-    # fused_single_h2d as ONE [B, row_bytes] u8 buffer
-    # (parallel/fused_io.py). The port has the single-buffer mode only.
+    # How the batch crosses host-to-device (parallel/fused_io.py): with
+    # fused_h2d as four dtype-grouped [B, cols] buffers, and with
+    # fused_single_h2d too as ONE [B, row_bytes] u8 buffer; fused_h2d off
+    # (or replay on) sends one copy per TrainBatch leaf.
     fused_h2d: bool = True
     fused_single_h2d: bool = True
     profile_port: int = 0
@@ -608,14 +633,10 @@ class FleetConfig:
 
 # Modes of the reference binaries that the port has not ported: the flag,
 # the test of its value that selects the mode, what the mode is, and its
-# ROADMAP item. The learner, the staging buffer, the single-buffer train
-# step and the inference server refuse them from this one table; a flag
+# ROADMAP item. The learner, the staging buffer, the train step builders
+# and the inference server refuse them from this one table; a flag
 # applies to the configs that have it.
 UNPORTED = {
-    "staging.assemble": (bool, "DTB1 in-network batch assembly", "A.10f"),
-    "replay.enabled": (bool, "the prioritized replay reservoir", "A.10g"),
-    "fused_h2d": (lambda v: not v, "the per-leaf tree transfer", "A.10b"),
-    "fused_single_h2d": (lambda v: not v, "the grouped four-buffer transfer", "A.10b"),
     "multihost": (bool, "multi-process data parallelism", "A.14"),
     "profile_port": (bool, "the deprecated always-on profiler server (use POST /profile)", "A.13b"),
     "policy.tf_sp_axis": (bool, "sequence-parallel attention (ring / Ulysses)", "A.14"),

@@ -143,6 +143,9 @@ SCALARS: Dict[str, str] = {
 }
 
 PREFIXES: Dict[str, str] = {
+    # replay reservoir stats and age histogram, re-prefixed by staging:
+    # replay_occupancy, replay_admitted, replay_age_le_<edge>, replay_hit_ratio, ...
+    "replay_": "replay reservoir health (runtime/staging.py stats passthrough)",
     "ckpt_mirror_": "checkpoint remote-mirror health (runtime/checkpoint.py)",
     "trace_": "pipeline per-stage latency scalars (obs/trace.py)",
     "obs_": "live scrape-surface gauges (obs/__init__.py sources)",
@@ -160,7 +163,11 @@ PREFIXES: Dict[str, str] = {
     # _shed_total / _reply_lost_total / _evicted_low_total / _resident /
     # _depth, transport/fabric.py shard_metrics_source)
     "broker_shard_": "per-shard broker-fabric health (transport/fabric.py)",
-    # the shard binary's assembly-station ledger (all zero: A.10f)
+    # the shard binary's assembly-station ledger (--broker.assemble; all
+    # zero on an unarmed shard): broker_assemble_rows_admitted_total /
+    # _rows_packed_total / _rows_reject_total / _rows_bypassed_total /
+    # _rows_dropped_total / _rows_resident / _blocks_built_total /
+    # _blocks_served_total / _block_bytes_total / _cpu_s_total
     "broker_assemble_": "in-network batch assembly ledger (transport/tcp.py assemble tier)",
     # rows-per-fired-tick occupancy histogram: actor_tick_rows_<k>
     "actor_tick_rows_": "rows-per-fired-tick occupancy histogram (runtime/actor.py InferenceBatcher)",

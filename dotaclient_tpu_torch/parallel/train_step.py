@@ -4,8 +4,10 @@ dotaclient_tpu/parallel/train_step.py, without the mesh).
 consume → teacher-forced re-eval → GAE → PPO backward → global-norm clip
 → Adam, then the caller publishes `weights_frame(state)`. The reference
 compiles this into one SPMD program over a device mesh; here it is eager
-PyTorch on one GPU (data parallelism is a later slice). Two shapes of
-step, as in the reference:
+PyTorch on one GPU (data parallelism is a later slice). The batch reaches
+the step as a tree of tensors (build_train_step), or as transfer buffers
+the step unpacks: four dtype groups (build_fused_train_step) or one u8
+buffer (build_single_train_step). Two shapes of step, as in the reference:
 - one update per consumed batch (ppo.epochs = ppo.minibatches = 1, the
   default);
 - sample reuse: epochs × minibatches updates against advantages frozen
@@ -161,6 +163,47 @@ def _build_reuse_step_fn(cfg: LearnerConfig, opt: ClipAdam, device):
     return step_fn
 
 
+def batch_template(cfg: LearnerConfig) -> TrainBatch:
+    """The TrainBatch staging emits for `cfg` (zeros, obs in the staged
+    dtype): with replay on it carries the [B] f32 behavior_staleness stamp,
+    so every layout derived from it does too."""
+    p = cfg.policy
+    return cast_obs_to_compute_dtype(
+        cfg, zeros_train_batch(cfg.batch_size, cfg.seq_len, p.lstm_hidden, p.aux_heads, with_staleness=cfg.replay.enabled)
+    )
+
+
+def _build_fused(cfg: LearnerConfig, device, single: bool):
+    """The two fused-transfer builders' shared body: one FusedBatchIO of
+    the staged template in the requested layout, and build_train_step's
+    step behind its unpack."""
+    if not cfg.fused_h2d:
+        raise ValueError("fused_h2d=False: the batch crosses as a tree of tensors; use build_train_step")
+    step_fn = build_train_step(cfg, device)
+    if cfg.replay.enabled:
+        raise ValueError(
+            "fused H2D transfer is incompatible with the replay reservoir: the per-row "
+            "behavior_staleness stamp is not part of the dtype-grouped transfer layout; "
+            "use build_train_step"
+        )
+    io = FusedBatchIO(batch_template(cfg), device, single=single)
+    unpack = io.unpack_single if single else io.unpack
+
+    def step(state: TrainState, payload, *perms):
+        return step_fn(state, unpack(payload), *perms)
+
+    return step, io
+
+
+def build_fused_train_step(cfg: LearnerConfig, device=None):
+    """Returns (step, io): the train step over the batch as FOUR
+    dtype-grouped [B, cols] buffers (`fused_single_h2d` off). Host side:
+    `payload = io.consume(*io.transfer(io.pack_transfer(batch)))`, one copy per
+    group on the io's side stream; the step unpacks with column views
+    (FusedBatchIO.unpack) and runs build_train_step's step."""
+    return _build_fused(cfg, device, single=False)
+
+
 def build_single_train_step(cfg: LearnerConfig, device=None):
     """Returns (step, io): the train step over the batch as ONE
     [B, row_bytes] u8 buffer on the device, the reference's default
@@ -170,21 +213,4 @@ def build_single_train_step(cfg: LearnerConfig, device=None):
     stream and the current stream ordered after it; then
     `step(state, payload)`, which unpacks with views
     (FusedBatchIO.unpack_single) and runs build_train_step's step."""
-    if not cfg.fused_h2d:
-        raise ValueError("fused_h2d=False: the batch crosses as a tree of tensors; use build_train_step")
-    refuse_unported(cfg, ("fused_single_h2d",))
-    step_fn = build_train_step(cfg, device)
-    if cfg.replay.enabled:
-        raise ValueError(
-            "fused H2D transfer is incompatible with the replay reservoir: the per-row "
-            "behavior_staleness stamp is not part of the dtype-grouped transfer layout; "
-            "use build_train_step"
-        )
-    p = cfg.policy
-    template = cast_obs_to_compute_dtype(cfg, zeros_train_batch(cfg.batch_size, cfg.seq_len, p.lstm_hidden, p.aux_heads))
-    io = FusedBatchIO(template, device)
-
-    def step(state: TrainState, payload: torch.Tensor, *perms):
-        return step_fn(state, io.unpack_single(payload), *perms)
-
-    return step, io
+    return _build_fused(cfg, device, single=True)

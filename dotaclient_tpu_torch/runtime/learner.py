@@ -17,8 +17,15 @@ dispatch. The lane is the same single FIFO staging consumer, so the params
 come out bitwise equal to the serial loop's (`learner.prefetch false`)
 over the same frames.
 
+The batch crosses host-to-device on one of three paths, chosen as the
+reference chooses: the single [B, row_bytes] u8 buffer (the default), the
+four dtype-grouped buffers (`fused_single_h2d` off), or the per-leaf tree
+of a dense batch (`fused_h2d` off, or `replay.enabled`, whose per-row
+staleness stamp is not in the fused layouts). Every path ends in the same
+train step.
+
 Stream ordering in place of JAX's donation semantics:
-- a batch's host-to-device copy runs on the FusedBatchIO's side stream;
+- a batch's host-to-device copies run on the io's side stream;
   the loop thread's stream waits on the copy's event before the step
   (`FusedBatchIO.consume`), so the copy of N+1 overlaps step N;
 - Adam updates the params in place, so a publish enqueues the flatten and
@@ -34,7 +41,8 @@ clone of the state (StateCopier) on its own stream, so the next in-place
 Adam update is ordered after it, and a CheckpointWorker thread copies the
 clone to pinned host memory on a stream of its own and writes it. With
 `ckpt.full_state` each step gets an aux manifest (pending frames in order,
-publish high-water, env steps) and every publish refreshes the
+the replay reservoir, publish high-water, env steps) and every publish
+refreshes the
 `version_hwm` file; a restore re-injects the frames and bumps the version
 counter to the high-water mark. `ckpt.drain_on_sigterm` (main only): SIGTERM
 stops fetching, trains out what staging and the lane hold, saves full
@@ -71,7 +79,14 @@ from dotaclient_tpu_torch.obs import ObsRuntime
 from dotaclient_tpu_torch.obs.compute import fence
 from dotaclient_tpu_torch.ops.flops import device_peak_flops, train_step_flops
 from dotaclient_tpu_torch.parallel.mesh import one_device_mesh
-from dotaclient_tpu_torch.parallel.train_step import TrainState, build_single_train_step, init_train_state
+from dotaclient_tpu_torch.parallel.fused_io import TreeBatchIO
+from dotaclient_tpu_torch.parallel.train_step import (
+    TrainState,
+    build_fused_train_step,
+    build_single_train_step,
+    build_train_step,
+    init_train_state,
+)
 from dotaclient_tpu_torch.runtime.checkpoint import Checkpointer, state_arrays
 from dotaclient_tpu_torch.runtime.metrics import MetricsLogger
 from dotaclient_tpu_torch.runtime.staging import StagingBuffer
@@ -327,13 +342,27 @@ _AUX_MAGIC = b"DTA1"
 
 def encode_aux(manifest: dict) -> bytes:
     """The aux manifest on disk: magic, u32 header length, a JSON header
-    (every field but the staging snapshot's pending frames, plus their
-    lengths), then the frames back to back. No pickle: a manifest is data."""
-    pending = [bytes(f) for f in manifest.get("staging", {}).get("pending", [])]
+    (every field but the staging snapshot's byte strings, plus their
+    lengths), then the byte strings back to back: the pending frames, then
+    the replay reservoir's entry payloads. The reservoir's header part
+    keeps each entry's priority, absolute behavior version, uses and spill
+    state, and the sampling Generator's state. No pickle: a manifest is
+    data."""
+    staging = manifest.get("staging", {})
+    blobs = [bytes(f) for f in staging.get("pending", [])]
     header = {k: v for k, v in manifest.items() if k != "staging"}
-    header["pending_lens"] = [len(f) for f in pending]
+    header["pending_lens"] = [len(f) for f in blobs]
+    reservoir = staging.get("reservoir")
+    if reservoir is not None:
+        entries = reservoir["entries"]
+        header["reservoir"] = {
+            "entries": [{k: v for k, v in e.items() if k != "payload"} for e in entries],
+            "payload_lens": [len(e["payload"]) for e in entries],
+            "rng_state": reservoir["rng_state"],
+        }
+        blobs += [bytes(e["payload"]) for e in entries]
     head = json.dumps(header, sort_keys=True).encode()
-    return b"".join([_AUX_MAGIC, struct.pack("<I", len(head)), head, *pending])
+    return b"".join([_AUX_MAGIC, struct.pack("<I", len(head)), head, *blobs])
 
 
 def decode_aux(data: bytes) -> dict:
@@ -342,13 +371,27 @@ def decode_aux(data: bytes) -> dict:
         raise ValueError("not an aux manifest")
     (n,) = struct.unpack_from("<I", data, 4)
     header = json.loads(data[8 : 8 + n])
-    off, pending = 8 + n, []
-    for size in header.pop("pending_lens"):
-        pending.append(data[off : off + size])
-        off += size
+    off = 8 + n
+
+    def take(sizes) -> list:
+        nonlocal off
+        out = []
+        for size in sizes:
+            out.append(data[off : off + size])
+            off += size
+        return out
+
+    staging = {"pending": take(header.pop("pending_lens"))}
+    reservoir = header.pop("reservoir", None)
+    if reservoir is not None:
+        payloads = take(reservoir["payload_lens"])
+        staging["reservoir"] = {
+            "entries": [dict(e, payload=p) for e, p in zip(reservoir["entries"], payloads)],
+            "rng_state": reservoir["rng_state"],
+        }
     if off != len(data):
         raise ValueError("aux manifest length mismatch")
-    header["staging"] = {"pending": pending}
+    header["staging"] = staging
     return header
 
 
@@ -500,7 +543,16 @@ class Learner:
         self._prefetch_enabled = bool(cfg.learner.prefetch)
         self._prefetch_depth = max(int(cfg.learner.prefetch_depth), 1)
         self._prefetch_lane: Optional[PrefetchLane] = None
-        self.train_step, self.io = build_single_train_step(cfg, self.device)
+        # The fused layouts when fused_h2d is on and replay off (its stamp is
+        # not in them), else the per-leaf tree: one train step either way.
+        # `fused_io` is what staging packs into (None: dense batches).
+        self.fused_io = None
+        if cfg.fused_h2d and not cfg.replay.enabled:
+            build = build_single_train_step if cfg.fused_single_h2d else build_fused_train_step
+            self.train_step, self.fused_io = build(cfg, self.device)
+            self.io = self.fused_io
+        else:
+            self.train_step, self.io = build_train_step(cfg, self.device), TreeBatchIO(self.device)
         self.version = 0
         # Drawn once per learner process and stamped into every weight
         # frame: subscribers detect a restart by the epoch changing.
@@ -509,7 +561,7 @@ class Learner:
         # None when obs is off: every obs touchpoint is one `is not None`.
         self.obs = ObsRuntime.create(cfg.obs, role="learner")
         self.staging = StagingBuffer(
-            cfg, broker, version_fn=lambda: self.version, fused_io=self.io,
+            cfg, broker, version_fn=lambda: self.version, fused_io=self.fused_io,
             tracer=self.obs.tracer if self.obs is not None else None,
             recorder=self.obs.recorder if self.obs is not None else None,
         )
@@ -646,7 +698,9 @@ class Learner:
 
     def _build_aux(self, version: int) -> bytes:
         """The aux manifest (encode_aux): the staging snapshot (pending
-        frames in arrival order), the publish high-water as of this step,
+        frames in arrival order, and the replay reservoir's entries,
+        priorities, absolute staleness stamps and Generator state), the
+        publish high-water as of this step,
         and the metrics/env-step marks, so a restored learner continues
         them instead of rewinding."""
         staging_snap = self.staging.snapshot_state() or {}
@@ -661,8 +715,9 @@ class Learner:
         })
 
     def _restore_full_state(self, t_restore: float) -> None:
-        """Re-inject the aux manifest's pending frames and bump the version
-        counter to the published high-water mark (max of the step, the
+        """Re-inject the aux manifest's pending frames, rebuild the replay
+        reservoir (so the next sample is the uninterrupted run's), and bump
+        the version counter to the published high-water mark (max of the step, the
         manifest's and the side file's), so staleness stamps the fleet has
         seen never read as from the future."""
         step = self.checkpointer.latest_step()
@@ -689,6 +744,7 @@ class Learner:
         self._resume_scalars = {
             "resume_restored_step": float(step),
             "resume_version_hwm_bump": float(bump),
+            "resume_reservoir_entries": float(counts.get("reservoir", 0)),
             "resume_pending_frames": float(counts["pending"]),
             "resume_restore_wall_s": round(time.monotonic() - t_restore, 3),
         }
@@ -769,8 +825,9 @@ class Learner:
     # --------------------------------------------------------------- loop
 
     def _fetch_next(self, batch_timeout: float, lane: bool = False, cancel=None):
-        """Pull one packed batch off staging and dispatch its H2D copy on
-        the side stream. Returns ((payload, ready), env_steps, wait_s,
+        """Pull one packed batch off staging and dispatch its H2D copies on
+        the side stream (the transfer payload, or each leaf of a dense
+        batch on the tree path). Returns ((payload, ready), env_steps, wait_s,
         put_s, trace) or (None, 0, wait_s, 0.0, None). Called after the
         current step's dispatch (serial loop) or on the lane thread
         (`lane`: phases go to the timer's overlap sums). With the obs phase
@@ -796,7 +853,7 @@ class Learner:
         t2 = time.perf_counter()
         if add is not None:
             add("pack", t2 - t1)  # staging packed already: the host read above
-        payload = self.io.transfer(buf)
+        payload = self.io.transfer(batch if self.fused_io is None else buf)
         if add is not None:
             if payload[1] is not None:
                 payload[1].synchronize()  # blocks only this thread
@@ -1058,8 +1115,10 @@ class Learner:
             for k, v in fabric_stats().items():
                 scalars[k] = float(v)
         for k, v in stats.items():
-            if k.startswith("pack_"):  # the parallel feed (pack_workers > 1)
+            if k.startswith("pack_"):  # the parallel feed (pack_workers > 1) and assembled intake
                 scalars[f"staging_{k}"] = float(v)
+            elif k.startswith("replay_"):  # the reservoir's health (replay.enabled)
+                scalars[k] = v
         scalars["weights_published"] = self.publisher.published
         scalars["weights_coalesced"] = self.publisher.coalesced
         if self.checkpointer is not None:

@@ -10,18 +10,27 @@ twin of dotaclient_tpu/runtime/staging.py).
   packer releases the GIL; the Python packer holds it, so with it the
   pool gives byte parity and no speed). Any N packs the same bytes.
 - Rollouts older than `ppo.max_staleness` learner versions are dropped
-  here, before they cost device time.
+  here, before they cost device time. With `replay.enabled` those within
+  `replay.max_staleness` go to a ReplayReservoir instead, and each batch
+  draws up to `replay.ratio` of its rows from it, every row stamped with
+  its behavior-policy staleness (`behavior_staleness`).
 - Frames that fail parse or the per-frame layout check are dropped and
   filed, with evidence, in a bounded quarantine ring.
-- Each batch of B rollouts is packed straight into the views of a pinned
-  [B, row_bytes] u8 buffer (parallel/fused_io.py), fresh per batch on the
+- Each batch of B rollouts is packed straight into the views of the
+  pinned transfer buffers of `fused_io` (parallel/fused_io.py: one
+  [B, row_bytes] u8 buffer, or four dtype groups), fresh per batch on the
   classic path and a leased ring slot with the pool, so the learner ships
-  it in one host-to-device copy; a bounded ready queue (depth 2) lets
-  packing overlap the device step.
-- Only the consumer (assembler) thread touches the pending list; only the
-  learner's getters pop ready batches.
-- `snapshot_state` / `restore_state` carry the pending frames through a
-  full-state checkpoint, in order.
+  it without a regroup copy. Without `fused_io` (the learner's tree path)
+  a batch is a dense TrainBatch of numpy leaves, obs cast to the compute
+  dtype inside the copy. A bounded ready queue (depth 2) lets packing
+  overlap the device step.
+- With `staging.assemble` the fabric shards pack each frame into this
+  learner's row layout (transport/assemble.py) and the broker delivers
+  AssembledRows: "packing" a batch is a row concat into a ring slot.
+- Only the consumer (assembler) thread touches the pending list and the
+  reservoir; only the learner's getters pop ready batches.
+- `snapshot_state` / `restore_state` carry the pending frames and the
+  reservoir through a full-state checkpoint, in order.
 
 A malformed frame costs its own batch at worst (`dropped_bad`). A layout
 or config mismatch (BatchLayoutError) would fail every batch: the consumer
@@ -42,23 +51,28 @@ import time
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
+import torch
 
 from dotaclient_tpu_torch.config import LearnerConfig, refuse_unported
 from dotaclient_tpu_torch.obs.trace import TraceRef
 from dotaclient_tpu_torch.ops.batch import BatchLayoutError, TrainBatch, zeros_train_batch
 from dotaclient_tpu_torch.transport.base import Broker
 from dotaclient_tpu_torch.transport.serialize import (
+    AssembledRow,
+    BlockSpec,
     Rollout,
     WireDtypeError,
     bf16_bits,
     bf16_bits_to_f32,
     bf16_tensor,
     check_dtr3_dtype_map,
+    deserialize_block,
     deserialize_rollout,
     f32_to_bf16_bits,
     is_bf16,
     peek_rollout_trace,
     rollout_obs_bf16,
+    serialize_block,
     serialize_rollout,
     strip_rollout_trace,
     wire_obs_is_bf16,
@@ -252,8 +266,9 @@ class _PackPool:
 
 class StagingBuffer:
     """Consume → filter → pack pipeline feeding the train loop, into the
-    single transfer buffer of `fused_io` (the FusedBatchIO the train step
-    was built with). Two packing paths, identical bytes:
+    transfer buffers of `fused_io` (the FusedBatchIO the train step was
+    built with), or into dense TrainBatches when it is None. Two packing
+    paths, identical bytes:
     - native (`cfg.native_packer`, default): frames are header-validated in
       C and kept as raw bytes; a batch (or a row shard of one) packs in one
       C call with the GIL released;
@@ -267,11 +282,6 @@ class StagingBuffer:
 
     def __init__(self, cfg: LearnerConfig, broker: Broker, version_fn: Callable[[], int] = lambda: 0, fused_io=None,
                  tracer=None, recorder=None):
-        if fused_io is None:
-            raise ValueError(
-                "the port stages into the single transfer buffer only: pass the FusedBatchIO from "
-                "build_single_train_step (a dense TrainBatch path is ROADMAP A.10b)"
-            )
         if cfg.staging.pack_workers < 1:
             raise ValueError(f"staging.pack_workers must be >= 1, got {cfg.staging.pack_workers}")
         refuse_unported(cfg)
@@ -286,7 +296,7 @@ class StagingBuffer:
         self._pending: List = []
         # TraceRef (or None) per pending item; kept only with a tracer
         self._pending_traces: List = []
-        # (TrainBatch views, buf, trace refs or None, ring lease or None)
+        # (TrainBatch, transfer payload or None, trace refs or None, ring lease or None)
         self._ready: "queue.Queue" = queue.Queue(maxsize=2)
         # Trace refs and ring lease of the batch a getter returned last
         # (only the learner's fetch pops batches, so these reads are its own).
@@ -326,6 +336,19 @@ class StagingBuffer:
             self._item_encode = self._item_decode = lambda item: item
         else:
             self._item_encode, self._item_decode = serialize_rollout, deserialize_rollout
+        # In-network assembly: the shards pack rows in the layout of this
+        # spec, taken from fused_io, so a shard whose template disagrees
+        # fails the layout_crc check at its first GET_BLOCK, never mid-batch.
+        self._assemble_spec: Optional[BlockSpec] = None
+        if cfg.staging.assemble:
+            self._assemble_spec = self._arm_assembly(broker, fused_io)
+        # The replay reservoir: its payloads are pending items (raw frames
+        # on the native path, Rollouts on the Python path), so a sampled
+        # entry re-enters the same packer.
+        self._reservoir = None
+        self._replay_target = 0
+        if cfg.replay.enabled:
+            self._reservoir = self._build_reservoir(fused_io)
         # actor heartbeats: actor_id → monotonic time of its last frame
         # (written only by the consumer thread)
         self._actor_seen: Dict[int, float] = {}
@@ -350,6 +373,7 @@ class StagingBuffer:
             "quarantined": 0,
             "batches": 0,
             "rows_packed": 0,
+            "rows_replayed": 0,
             "episode_return_sum": 0.0,
             "episodes": 0,
             "consumer_errors": 0,
@@ -359,10 +383,52 @@ class StagingBuffer:
             "wire_frames_obs_bf16": 0,
             "wire_frames_obs_f32": 0,
         }
-        if cfg.staging.pack_workers > 1:
-            # the parallel feed's meters exist only in pool mode
+        if cfg.staging.pack_workers > 1 or self._assemble_spec is not None:
+            # the parallel feed's meters exist only in pool and assembled
+            # mode (there pack_wall_s is the concat landing)
             self._stats["pack_wall_s"] = 0.0
             self._stats["pack_ring_wait_s"] = 0.0
+
+    def _arm_assembly(self, broker: Broker, fused_io) -> BlockSpec:
+        """Check what assembled intake needs, hand the broker this
+        learner's BlockSpec, and make pending rows checkpoint as one-row
+        DTB1 blocks. Raises, never falls back to the classic pack."""
+        cfg = self.cfg
+        if fused_io is None:
+            raise ValueError("staging.assemble requires the fused H2D path: the assembled rows are the transfer "
+                             "layout (build the learner with fused staging)")
+        if cfg.staging.pack_workers > 1:
+            raise ValueError("staging.assemble replaces the host pack pool (the learner-side pack is a row "
+                             "concat): set staging.pack_workers=1")
+        enable = getattr(broker, "enable_assembled_consume", None)
+        if enable is None:
+            raise ValueError("staging.assemble needs a broker that serves DTB1 blocks (a FabricBroker over "
+                             "tcp:// shards running --broker.assemble)")
+        spec = BlockSpec(cfg.seq_len, cfg.policy.lstm_hidden, cfg.policy.aux_heads, self._obs_bf16,
+                         fused_io.row_bytes, fused_io.layout.layout_crc)
+        enable(spec)
+        self._item_encode = lambda row: serialize_block(spec, [row])
+        self._item_decode = lambda b: deserialize_block(b)[1][0]
+        return spec
+
+    def _build_reservoir(self, fused_io):
+        cfg = self.cfg
+        if fused_io is not None:
+            raise ValueError("replay reservoir and fused H2D staging are mutually exclusive: the "
+                             "behavior_staleness stamp is not part of the dtype-grouped transfer layout (the "
+                             "Learner builds the tree-path train step when replay.enabled)")
+        if cfg.replay.max_staleness <= cfg.ppo.max_staleness:
+            raise ValueError(f"replay.max_staleness={cfg.replay.max_staleness} must exceed "
+                             f"ppo.max_staleness={cfg.ppo.max_staleness}: a smaller window can never retain a "
+                             f"frame the fresh filter would drop")
+        from dotaclient_tpu_torch.replay import ReplayReservoir
+
+        enc, dec = (None, None) if self._lib is not None else (serialize_rollout, deserialize_rollout)
+        reservoir = ReplayReservoir(cfg.replay, encode=enc, decode=dec, seed=cfg.seed)
+        # at most B-1: every batch keeps a fresh row, so batch formation
+        # always drains the broker and never lives on the reservoir alone
+        self._replay_target = min(int(round(cfg.batch_size * cfg.replay.ratio)), cfg.batch_size - 1)
+        return reservoir
 
     @property
     def native(self) -> bool:
@@ -381,11 +447,15 @@ class StagingBuffer:
         if workers > 1:
             self._intake = queue.Queue(maxsize=4)
             self._pool = _PackPool(workers)
-            self._ring = self._fused_io.make_ring(self.cfg.staging.transfer_depth)
+            if self._fused_io is not None:
+                self._ring = self._fused_io.make_ring(self.cfg.staging.transfer_depth)
             self._assembler = threading.Thread(target=self._run_assembler, daemon=True, name="staging-assembler")
             self._assembler.start()
             self._thread = threading.Thread(target=self._run_pop, daemon=True, name="staging-consumer")
         else:
+            if self._assemble_spec is not None:
+                # assembled rows land in ring slots on the one consumer too
+                self._ring = self._fused_io.make_ring(self.cfg.staging.transfer_depth)
             self._thread = threading.Thread(target=self._run, daemon=True, name="staging-consumer")
         self._thread.start()
         return self
@@ -509,11 +579,12 @@ class StagingBuffer:
         queue, on the thread that owns _pending."""
         while not self._stop.is_set():
             with self._mutate_lock:
-                taken = self._take_pending(B) if len(self._pending) >= B else None
-                self._packing = taken is not None
-            if taken is None:
+                # in the same hold as the take: between here and the ready
+                # put the batch lives only in this thread's locals
+                items, staleness, traces = self._next_batch_items(B)
+                self._packing = items is not None
+            if items is None:
                 break
-            items, traces = taken
             t_pack = time.perf_counter()
             try:
                 batch, buf, lease = self._pack(items)
@@ -530,6 +601,8 @@ class StagingBuffer:
                     self._stats["dropped_bad"] += len(items)
                 self._packing = False
                 continue
+            if staleness is not None:
+                batch = batch._replace(behavior_staleness=np.asarray(staleness, np.float32))
             if self._tracer is not None:
                 self._tracer.hop_batch("pack", traces)
             with self._stats_lock:
@@ -537,6 +610,8 @@ class StagingBuffer:
                 self._stats["rows_packed"] += len(items)
                 if "pack_wall_s" in self._stats:
                     self._stats["pack_wall_s"] += time.perf_counter() - t_pack
+                if staleness is not None:
+                    self._stats["rows_replayed"] += sum(1 for x in staleness if x > 0)
             while not self._stop.is_set():
                 try:
                     self._ready.put((batch, buf, traces, lease), timeout=0.2)
@@ -555,55 +630,144 @@ class StagingBuffer:
             del self._pending_traces[:n]
         return items, traces
 
-    def _pack(self, items: List):
-        """(TrainBatch of views, buf, lease): the items packed into a fresh
-        pinned transfer buffer (lease None), or row-sharded over the pool
-        into a ring slot (the lease the learner releases once the slot's
-        copy has completed)."""
-        if self._pool is not None:
-            return self._pack_sharded(items)
-        buf, out = self._fused_io.alloc_transfer()
-        if self._lib is not None:
-            from dotaclient_tpu_torch import native
+    def _next_batch_items(self, B: int):
+        """(items, staleness list or None, trace refs or None) for one
+        batch, or (None, None, None) while too little is pending. With
+        replay, up to `replay.ratio` of the batch comes from the reservoir
+        (never waited for: a short reservoir means more fresh rows), and
+        every row is stamped with its behavior-policy staleness (fresh
+        rows 0)."""
+        if self._reservoir is None:
+            if len(self._pending) < B:
+                return None, None, None
+            items, traces = self._take_pending(B)
+            return items, None, traces
+        now_v = self.version_fn()
+        self._reservoir.expire(now_v)
+        k = min(self._replay_target, self._reservoir.occupancy)
+        if len(self._pending) < B - k:
+            return None, None, None
+        items, traces = self._take_pending(B - k)
+        staleness = [0.0] * len(items)
+        for payload, version, meta in self._reservoir.sample(k, now_v):
+            items.append(payload)
+            staleness.append(float(max(now_v - version, 0)))
+            if self._tracer is not None:
+                ref = None
+                if meta is not None:
+                    # a fresh copy per re-emit: one resident entry can sit
+                    # in several batches the learner hops concurrently
+                    ref = TraceRef(meta.trace_id, meta.birth, last_t=meta.last_t)
+                    self._tracer.hop("replay_reemit", ref)
+                traces.append(ref)
+        return items, staleness, traces
 
-            p = self.cfg.policy
-            native.pack_frames(self._lib, items, self.cfg.seq_len, p.lstm_hidden, p.aux_heads, self._obs_bf16, out)
-        else:
-            fill_rollouts(out, items, self.cfg.seq_len)
-        return out, buf, None
-
-    def _pack_sharded(self, items: List):
-        """N workers each fill a disjoint contiguous row range of one
-        re-zeroed ring slot; any split is bitwise the single-call pack."""
-        B, T = len(items), self.cfg.seq_len
+    def _acquire_slot(self):
+        """The next free ring slot (blocks: every slot out is the ring's
+        backpressure); _StagingStopped once stop() lands."""
         t0 = time.perf_counter()
         slot = None
         while slot is None:
             if self._stop.is_set():
                 raise _StagingStopped()
-            slot = self._ring.acquire(timeout=0.2)  # backpressure: every slot out
+            slot = self._ring.acquire(timeout=0.2)
         with self._stats_lock:
             self._stats["pack_ring_wait_s"] += time.perf_counter() - t0
-        out = slot.batch
+        return slot
+
+    def _pack(self, items: List):
+        """(TrainBatch, payload, lease): the items packed into the views of
+        fresh pinned transfer buffers (lease None), row-sharded over the
+        pool into a ring slot (the lease the learner releases once the
+        slot's copy has completed), landed as assembled rows in a ring
+        slot, or, without fused_io, into a dense TrainBatch (payload
+        None)."""
+        if self._assemble_spec is not None:
+            return self._pack_assembled(items)
+        if self._pool is not None:
+            return self._pack_sharded(items)
+        if self._fused_io is None:
+            out = self._dense_out(len(items))
+            self._pack_rows(out, items)
+            return self._dense_finish(out), None, None
+        buf, out = self._fused_io.alloc_transfer()
+        self._pack_rows(out, items)
+        return out, buf, None
+
+    def _pack_rows(self, out: TrainBatch, items: List, row_offset: int = 0, total_rows: Optional[int] = None) -> None:
+        """Pack `items` into rows [row_offset, row_offset + len(items)) of
+        the pre-zeroed `out`: one native call, or fill_rollouts."""
         if self._lib is not None:
             from dotaclient_tpu_torch import native
 
-            lib, p, obs_bf16 = self._lib, self.cfg.policy, self._obs_bf16
-
-            def task(off, cnt):
-                native.pack_frames(lib, items[off : off + cnt], T, p.lstm_hidden, p.aux_heads, obs_bf16, out,
-                                   row_offset=off, total_rows=B)
+            p = self.cfg.policy
+            native.pack_frames(self._lib, items, self.cfg.seq_len, p.lstm_hidden, p.aux_heads, self._obs_bf16, out,
+                               row_offset=row_offset, total_rows=total_rows)
         else:
+            fill_rollouts(out, items, self.cfg.seq_len, row_offset=row_offset)
 
-            def task(off, cnt):
-                fill_rollouts(out, items[off : off + cnt], T, row_offset=off)
+    def _dense_out(self, B: int) -> TrainBatch:
+        """A zeroed dense batch for the tree path; the native packer casts
+        obs to bf16 in its copy, so its float obs leaves are uint16 words."""
+        p = self.cfg.policy
+        out = zeros_train_batch(B, self.cfg.seq_len, p.lstm_hidden, p.aux_heads)
+        if self._lib is not None and self._obs_bf16:
+            out = out._replace(obs=out.obs._replace(**{
+                f: np.zeros(v.shape, np.uint16) for f, v in out.obs._asdict().items() if v.dtype == np.float32
+            }))
+        return out
 
-        thunks = [(lambda o=off, c=cnt: task(o, c)) for off, cnt in shard_rows(B, self._pool.n)]
+    def _dense_finish(self, out: TrainBatch) -> TrainBatch:
+        """The packed dense batch with obs in the compute dtype: uint16 words
+        as bf16 tensors (native), or cast_obs_to_compute_dtype (Python);
+        bitwise the same either way."""
+        if self._lib is not None and self._obs_bf16:
+            return out._replace(obs=out.obs._replace(**{
+                f: bf16_tensor(v) for f, v in out.obs._asdict().items() if v.dtype == np.uint16
+            }))
+        return cast_obs_to_compute_dtype(self.cfg, out)
+
+    def _pack_sharded(self, items: List):
+        """N workers each fill a disjoint contiguous row range of one
+        re-zeroed ring slot (or, without fused_io, of one fresh dense
+        batch); any split is bitwise the single-call pack."""
+        B = len(items)
+        if self._fused_io is None:
+            out, slot = self._dense_out(B), None
+        else:
+            slot = self._acquire_slot()
+            out = slot.batch
+        thunks = [(lambda o=off, c=cnt: self._pack_rows(out, items[o : o + c], row_offset=o, total_rows=B))
+                  for off, cnt in shard_rows(B, self._pool.n)]
         err = self._pool.run_tasks(thunks, self._stop)
         if err is not None:
-            slot.release()  # nothing downstream will release a failed batch's slot
+            if slot is not None:
+                slot.release()  # nothing downstream will release a failed batch's slot
             raise err
+        if slot is None:
+            return self._dense_finish(out), None, None
         return out, slot.payload, slot
+
+    def _pack_assembled(self, items: List):
+        """Assembled intake: every item is an AssembledRow whose payload
+        already holds the RowLayout bytes, so a batch is a ring-slot
+        acquire, one concat of the rows and one bulk copy (one per dtype
+        group in group mode): no parse, scatter or cast. Bitwise the
+        classic pack of the same frames, since the shard ran the same row
+        encoder over the same bytes."""
+        slot = self._acquire_slot()
+        n = len(items)
+        raw = np.frombuffer(b"".join(row.payload for row in items), np.uint8).reshape(n, self._fused_io.row_bytes)
+        payload = slot.payload
+        if isinstance(payload, dict):
+            # group mode: each group is a column range of the stacked rows
+            for key, t in payload.items():
+                u8 = t.view(torch.uint8).numpy()
+                off = self._fused_io.layout.seg_off[key]
+                u8[:n] = raw[:, off : off + u8.shape[1]]
+        else:
+            payload.numpy()[:n] = raw
+        return slot.batch, payload, slot
 
     def _parse(self, frame: bytes):
         """Python-path parse → ((Rollout, version, L, H, actor_id,
@@ -626,7 +790,89 @@ class StagingBuffer:
         """Snapshot of the dead-letter ring (newest last)."""
         return list(self._quarantine)
 
+    def _offer_replay(self, item, frame: bytes, version: int, current_version: int, ref=None) -> bool:
+        """Admit one would-be-stale item into the reservoir, keyed by the
+        |TD-error| of its actor-stamped values (the native path pays a
+        deserialize here, only for frames that were waste before). `ref`
+        rides the entry, so a re-emit continues the trace."""
+        try:
+            rollout = item if isinstance(item, Rollout) else deserialize_rollout(frame)
+        except (ValueError, KeyError):
+            return False
+        from dotaclient_tpu_torch.replay import td_error_priority
+
+        priority = td_error_priority(rollout.rewards, rollout.behavior_value, rollout.dones, self.cfg.ppo.gamma)
+        admitted = self._reservoir.offer(item, version, priority, len(frame), current_version, meta=ref)
+        if admitted and ref is not None and self._tracer is not None:
+            self._tracer.hop("replay_admit", ref)
+        return admitted
+
+    def _ingest_assembled(self, rows: List[AssembledRow]) -> None:
+        """_ingest for assembled intake: the rows were parsed, layout-checked
+        (layout_crc) and fence-checked upstream, so admission is sidecar
+        bookkeeping (staleness on the shard-stamped version, episodes from
+        last_done, trace hops, heartbeats). A payload of the wrong length
+        is quarantined under "layout"."""
+        version_now = self.version_fn()
+        min_version = version_now - self.cfg.ppo.max_staleness
+        spec = self._assemble_spec
+        consumed = len(rows)
+        dropped_stale = dropped_bad = quarantined = episodes = 0
+        ep_ret = 0.0
+        now = time.monotonic()
+        tr = self._tracer
+        wire_bytes = wire_bf16 = wire_f32 = 0
+        for row in rows:
+            wire_bytes += len(row.payload)
+            if len(row.payload) != spec.row_bytes:
+                dropped_bad += 1
+                quarantined += 1
+                self._quarantine_put(row.payload, "layout")
+                continue
+            # the obs wire dtype is the block's negotiated layout
+            if spec.obs_bf16:
+                wire_bf16 += 1
+            else:
+                wire_f32 += 1
+            self._actor_seen[row.actor_id] = now
+            if len(self._actor_seen) > 4096:
+                cutoff = now - self.heartbeat_window_s
+                self._actor_seen = {a: t for a, t in self._actor_seen.items() if t >= cutoff}
+            ref = None
+            if tr is not None and (row.trace_id or row.birth_time):
+                ref = TraceRef(row.trace_id, row.birth_time)
+                tr.hop("consume", ref)  # from birth: serialize + shard assembly + block wire
+            if row.version < min_version:
+                dropped_stale += 1
+                continue
+            if row.last_done:
+                episodes += 1
+                ep_ret += row.episode_return
+            self._pending.append(row)
+            if tr is not None:
+                if ref is not None:
+                    tr.hop("staging_admit", ref)
+                self._pending_traces.append(ref)
+        self._count_ingest(consumed, dropped_stale, dropped_bad, quarantined, episodes, ep_ret, wire_bytes,
+                           wire_bf16, wire_f32)
+
+    def _count_ingest(self, consumed, dropped_stale, dropped_bad, quarantined, episodes, ep_ret, wire_bytes,
+                      wire_bf16, wire_f32) -> None:
+        with self._stats_lock:
+            self._stats["consumed"] += consumed
+            self._stats["dropped_stale"] += dropped_stale
+            self._stats["dropped_bad"] += dropped_bad
+            self._stats["quarantined"] += quarantined
+            self._stats["episodes"] += episodes
+            self._stats["episode_return_sum"] += ep_ret
+            self._stats["wire_bytes"] += wire_bytes
+            self._stats["wire_frames_obs_bf16"] += wire_bf16
+            self._stats["wire_frames_obs_f32"] += wire_f32
+            self._intake_frames -= consumed
+
     def _ingest(self, frames: List[bytes]) -> None:
+        if self._assemble_spec is not None:
+            return self._ingest_assembled(frames)
         version_now = self.version_fn()
         min_version = version_now - self.cfg.ppo.max_staleness
         H = self.cfg.policy.lstm_hidden
@@ -706,6 +952,10 @@ class StagingBuffer:
                 if ref is not None:
                     tr.hop("consume", ref)  # from birth: serialize + broker + wire
             if version < min_version:
+                # with replay, a frame within replay.max_staleness goes to
+                # the reservoir; one past it is a stale drop all the same
+                if self._reservoir is not None and self._offer_replay(item, frames[i], version, version_now, ref=ref):
+                    continue
                 dropped_stale += 1
                 continue
             if L and last_done > 0:
@@ -716,17 +966,8 @@ class StagingBuffer:
                 if ref is not None:
                     tr.hop("staging_admit", ref)
                 self._pending_traces.append(ref)
-        with self._stats_lock:
-            self._stats["consumed"] += consumed
-            self._stats["dropped_stale"] += dropped_stale
-            self._stats["dropped_bad"] += dropped_bad
-            self._stats["quarantined"] += quarantined
-            self._stats["episodes"] += episodes
-            self._stats["episode_return_sum"] += ep_ret
-            self._stats["wire_bytes"] += wire_bytes
-            self._stats["wire_frames_obs_bf16"] += wire_bf16
-            self._stats["wire_frames_obs_f32"] += wire_f32
-            self._intake_frames -= consumed
+        self._count_ingest(consumed, dropped_stale, dropped_bad, quarantined, episodes, ep_ret, wire_bytes,
+                           wire_bf16, wire_f32)
 
     # -- learner side ----------------------------------------------------
 
@@ -758,18 +999,20 @@ class StagingBuffer:
                 continue
 
     def get_batch(self, timeout: Optional[float] = None, cancel=None) -> Optional[TrainBatch]:
-        """One packed batch as numpy views of its transfer buffer, or None
-        on timeout (the lease contract of get_batch_groups holds)."""
+        """One packed batch (views of its transfer buffers, or a dense
+        batch without fused_io), or None on timeout (the lease contract of
+        get_batch_groups holds)."""
         return self.get_batch_groups(timeout, cancel)[0]
 
     def get_batch_groups(self, timeout: Optional[float] = None, cancel=None):
-        """(TrainBatch views, buf): the packed batch and the pinned
-        [B, row_bytes] u8 buffer its leaves view, ready to ship; (None,
-        None) on timeout. `last_batch_trace` is set to the batch's trace
-        refs and `last_batch_lease` to its ring slot (None on the classic
-        path, where every batch has its own fresh buffer). The caller
-        releases a lease only once the buffer's copy has completed;
-        holding leases is the ring's backpressure."""
+        """(TrainBatch, payload): the packed batch and the pinned transfer
+        payload its leaves view (the [B, row_bytes] u8 buffer or the group
+        dict; None for a dense batch), ready to ship; (None, None) on
+        timeout. `last_batch_trace` is set to the batch's trace refs and
+        `last_batch_lease` to its ring slot (None where every batch has its
+        own fresh buffers). The caller releases a lease only once the
+        payload's copy has completed; holding leases is the ring's
+        backpressure."""
         try:
             batch, buf, traces, lease = self._get_ready(timeout, cancel=cancel)
         except queue.Empty:
@@ -782,28 +1025,38 @@ class StagingBuffer:
 
     def snapshot_state(self, timeout: float = 10.0) -> Optional[dict]:
         """A consistent image of the host state for the full-state aux
-        manifest: the pending (popped, not yet packed) frames as wire
-        bytes, in order. The mutate lock excludes the consumer's mutation
-        sites, so the cut is never a half-formed batch. None when the lock
-        is not had within `timeout` (the checkpoint then goes state-only).
-        Pool mode: frames in the intake queue are not in the cut (at most 4
+        manifest: the pending (popped, not yet packed) items as wire bytes
+        (one-row DTB1 blocks in assembled mode), in order, and the
+        reservoir's snapshot. The mutate lock excludes the consumer's
+        mutation sites, so the cut is never a half-formed batch (the take
+        and the reservoir sample share one hold). None when the lock is not
+        had within `timeout` (the checkpoint then goes state-only). Pool
+        mode: frames in the intake queue are not in the cut (at most 4
         drains); a SIGTERM drain trains them out before its final save."""
         if not self._mutate_lock.acquire(timeout=timeout):
             return None
         try:
-            return {"pending": [bytes(self._item_encode(it)) for it in self._pending]}
+            snap: dict = {"pending": [bytes(self._item_encode(it)) for it in self._pending]}
+            if self._reservoir is not None:
+                snap["reservoir"] = self._reservoir.snapshot()
+            return snap
         finally:
             self._mutate_lock.release()
 
     def restore_state(self, snap: dict) -> Dict[str, int]:
-        """Before start() only: re-inject checkpointed pending frames ahead
+        """Before start() only: re-inject checkpointed pending items ahead
         of anything the broker will deliver, so batches form in the
-        pre-kill order. Returns counts for the resume_* scalars."""
+        pre-kill order, and rebuild the reservoir (its entries and its
+        sampling stream). Returns counts for the resume_* scalars
+        ("reservoir" with replay on)."""
         restored = [self._item_decode(b) for b in snap.get("pending", [])]
         self._pending = restored
         if self._tracer is not None:
             self._pending_traces = [None] * len(restored)  # trace refs are process-local
-        return {"pending": len(restored)}
+        counts = {"pending": len(restored)}
+        if self._reservoir is not None:
+            counts["reservoir"] = self._reservoir.restore(snap["reservoir"]) if "reservoir" in snap else 0
+        return counts
 
     def _residual_frames(self, max_items: int):
         """Frames a fabric broker's pop threads took off the shards before
@@ -847,7 +1100,12 @@ class StagingBuffer:
         if self._intake is not None and self._intake.unfinished_tasks:
             return False
         with self._mutate_lock:
-            if self._packing or len(self._pending) >= self.cfg.batch_size:
+            if self._packing:
+                return False
+            need = self.cfg.batch_size
+            if self._reservoir is not None:
+                need -= min(self._replay_target, self._reservoir.occupancy)
+            if len(self._pending) >= need:
                 return False
         if not self._ready.empty():
             return False
@@ -912,6 +1170,14 @@ class StagingBuffer:
         cutoff = time.monotonic() - self.heartbeat_window_s
         seen = dict(self._actor_seen)
         out["active_actors"] = sum(1 for t in seen.values() if t >= cutoff)
+        if self._reservoir is not None:
+            for k, v in self._reservoir.stats().items():
+                out[f"replay_{k}"] = v
+            # the share of packed rows served from the reservoir
+            out["replay_hit_ratio"] = out["rows_replayed"] / max(out["rows_packed"], 1)
+        if self._ring is not None:
+            out["pack_ring_depth"] = float(self._ring.depth)
+            out["pack_ring_occupancy"] = float(self._ring.occupancy)
         if self._pool is not None:
             # the parallel feed's scoreboard (staging_pack_* once the
             # learner logs them)
@@ -920,8 +1186,6 @@ class StagingBuffer:
             for i in range(self._pool.n):
                 out[f"pack_worker_busy_s_{i}"] = round(busy[i], 4)
                 out[f"pack_worker_stall_s_{i}"] = round(stall[i], 4)
-            out["pack_ring_depth"] = float(self._ring.depth)
-            out["pack_ring_occupancy"] = float(self._ring.occupancy)
             out["pack_rows_per_s"] = out["rows_packed"] / max(out["pack_wall_s"], 1e-9)
         return out
 

@@ -36,8 +36,12 @@ Shard binary: `python -m dotaclient_tpu_torch.transport.fabric` runs one
 shard (a BrokerServer with the priority-admission flags), the process
 k8s/broker.yaml's StatefulSet runs per pod. Its one stdout line names
 the bound port: `fabric shard listening on HOST:PORT (...)`.
-In-network batch assembly (`--broker.assemble true`, GET_BLOCK) is not
-ported (ROADMAP A.10f).
+- In-network batch assembly: a shard run with `--broker.assemble true`
+  packs every admitted frame into the learner's row layout and serves
+  DTB1 blocks (transport/tcp.py GET_BLOCK); a learner with
+  `--staging.assemble true` calls `enable_assembled_consume`, and its pop
+  threads then take blocks, fence each row by the stamp in its sidecar
+  and hand AssembledRows to staging. k8s/broker.yaml pins it off.
 """
 
 from __future__ import annotations
@@ -53,7 +57,7 @@ from typing import Dict, List, Optional, Tuple
 
 from dotaclient_tpu_torch.transport.base import Broker, BrokerShedError, RetryPolicy
 from dotaclient_tpu_torch.transport.base import connect as _connect
-from dotaclient_tpu_torch.transport.serialize import peek_rollout_actor_id
+from dotaclient_tpu_torch.transport.serialize import deserialize_block, peek_rollout_actor_id
 
 _log = logging.getLogger(__name__)
 
@@ -72,8 +76,6 @@ FENCE_WINDOW = 512
 # The fan-in queue's bound, and the most frames one pop takes from a shard.
 FANIN_DEPTH = 4096
 POP_BATCH = 64
-
-_ASSEMBLY = "DTB1 in-network batch assembly (GET_BLOCK) is not ported yet (ROADMAP A.10f)"
 
 
 def wrap_fabric(payload: bytes, key: int, boot: int, epoch: int, seq: int) -> bytes:
@@ -204,6 +206,9 @@ class FabricBroker(Broker):
         self._pop_threads: List[threading.Thread] = []
         self._fanin_started = False
         self._fanin_lock = threading.Lock()
+        # a BlockSpec once enable_assembled_consume has run: the pop threads
+        # then take DTB1 blocks, and the fan-in carries AssembledRows
+        self._block_spec = None
         self._shard_popped = [0] * len(endpoints)
         self._shard_starved_s = [0.0] * len(endpoints)
         self._mid_pop = [False] * len(endpoints)
@@ -336,7 +341,17 @@ class FabricBroker(Broker):
     # ----------------------------------------------------------- consume
 
     def enable_assembled_consume(self, spec) -> None:
-        raise NotImplementedError(_ASSEMBLY)
+        """Switch this consumer's fan-in to shard-assembled DTB1 blocks of
+        `spec`'s row layout (serialize.BlockSpec); consumed items become
+        AssembledRows. Before the first consume only, and every consumed
+        shard must be tcp:// (GET_BLOCK is a tcp broker op)."""
+        with self._fanin_lock:
+            if self._fanin_started:
+                raise RuntimeError("enable_assembled_consume after fan-in started")
+            bad = [self.endpoints[i] for i in self._my_shards() if not self.endpoints[i].startswith("tcp://")]
+            if bad:
+                raise ValueError(f"assembled consume needs tcp:// shards, got {bad}")
+            self._block_spec = spec
 
     def _ensure_fanin(self) -> None:
         with self._fanin_lock:
@@ -373,7 +388,12 @@ class FabricBroker(Broker):
                 self._mid_pop[i] = True
             try:
                 try:
-                    frames = self._shard(i).consume_experience(max_items=POP_BATCH, timeout=0.2)
+                    shard = self._shard(i)
+                    if self._block_spec is not None:
+                        _, frames = deserialize_block(shard.consume_block(self._block_spec, max_rows=POP_BATCH,
+                                                                          timeout=0.2))
+                    else:
+                        frames = shard.consume_experience(max_items=POP_BATCH, timeout=0.2)
                 except (ConnectionError, OSError, ValueError):
                     self._mark_down(i)
                     with self._meters_lock:
@@ -389,11 +409,18 @@ class FabricBroker(Broker):
                 with self._meters_lock:
                     self._shard_popped[i] += len(frames)
                 for f in frames:
-                    env = peek_fabric(f)
-                    if env is not None:
-                        if not self._fence.admit(*env):
+                    if self._block_spec is not None:
+                        # an assembled row's fence stamp rides its sidecar
+                        # (boot 0: un-enveloped, always admitted); the route
+                        # key is its actor_id, as publish derives it
+                        if f.boot and not self._fence.admit(f.actor_id, f.boot, f.epoch, f.seq):
                             continue
-                        f = f[_ENV.size :]
+                    else:
+                        env = peek_fabric(f)
+                        if env is not None:
+                            if not self._fence.admit(*env):
+                                continue
+                            f = f[_ENV.size :]
                     while not self._stop.is_set():
                         try:
                             self._fanin.put(f, timeout=0.2)
@@ -548,10 +575,12 @@ def shard_metrics_source(server):
     """The shard binary's scrape source: its BrokerServer ledger as the
     un-indexed broker_shard_* gauges (enqueued = popped + dropped +
     evicted_low + resident at any quiescent point), and the assembly
-    station's broker_assemble_* ledger, all zero on the port (A.10f)."""
+    station's broker_assemble_* ledger (all zero unless armed; admitted =
+    packed + reject + bypassed + dropped + resident)."""
 
     def source():
         led = server.ledger()
+        asm = server.assemble_ledger()
         out = {
             "broker_shard_enqueued_total": float(led["enqueued"]),
             "broker_shard_popped_total": float(led["popped"]),
@@ -562,10 +591,11 @@ def shard_metrics_source(server):
             "broker_shard_resident": float(led["resident"]),
             "broker_shard_depth": float(led["resident"]),
         }
-        for k in ("rows_admitted_total", "rows_packed_total", "rows_reject_total", "rows_bypassed_total",
-                  "rows_dropped_total", "rows_resident", "blocks_built_total", "blocks_served_total",
-                  "block_bytes_total", "cpu_s_total"):
-            out[f"broker_assemble_{k}"] = 0.0
+        for k in ("rows_admitted", "rows_packed", "rows_reject", "rows_bypassed", "rows_dropped", "blocks_built",
+                  "blocks_served", "block_bytes"):
+            out[f"broker_assemble_{k}_total"] = float(asm[k])
+        out["broker_assemble_rows_resident"] = float(asm["rows_resident"])
+        out["broker_assemble_cpu_s_total"] = round(float(asm["cpu_s"]), 6)
         return out
 
     return source
@@ -590,14 +620,14 @@ def main(argv=None):
     p.add_argument("--prio_half_life_s", type=float, default=8.0,
                    help="age half-life of the eviction priority decay, seconds")
     p.add_argument("--broker.assemble", dest="broker_assemble", type=_parse_bool, default=False,
-                   help="in-network batch assembly (DTB1 blocks): not ported, true refuses")
+                   help="in-network batch assembly: pack admitted frames into the learner's row layout and "
+                   "serve DTB1 blocks to GET_BLOCK consumers (flip the learners' --staging.assemble first)")
     p.add_argument("--metrics_port", type=int, default=0,
                    help="/metrics (broker_shard_* ledger gauges), /healthz, /debug/flight (0 = none)")
     args = p.parse_args(argv)
-    if args.broker_assemble:
-        raise NotImplementedError(_ASSEMBLY)
     server = BrokerServer(args.host, args.port, args.maxlen, shed_high=args.shed_high, shed_low=args.shed_low,
-                          priority_shed=args.priority, prio_half_life_s=args.prio_half_life_s).start()
+                          priority_shed=args.priority, prio_half_life_s=args.prio_half_life_s,
+                          assemble=args.broker_assemble).start()
     obs_http = None
     if args.metrics_port != 0:
         # a shard without --metrics_port never imports the obs package
@@ -611,8 +641,9 @@ def main(argv=None):
                                      flight_provider=recorder.snapshot).start()
     shed = f", shed {args.shed_high}/{args.shed_low}" if args.shed_high else ""
     prio = ", priority admission" if args.priority else ""
+    asm = ", assemble" if args.broker_assemble else ""
     obs_note = f", obs :{obs_http.port}" if obs_http is not None else ""
-    print(f"fabric shard listening on {args.host}:{server.port} (queue bound {args.maxlen}{shed}{prio}{obs_note})",
+    print(f"fabric shard listening on {args.host}:{server.port} (queue bound {args.maxlen}{shed}{prio}{asm}{obs_note})",
           flush=True)
     try:
         while True:

@@ -22,6 +22,10 @@ array <u16 name length, name, u8 ndim, u32 × ndim shape, u8 dtype code,
 raw bytes>. Legacy DTW1 has no boot_epoch (read as 0) and is emitted only
 with `legacy_dtw1`.
 
+DTB1 blocks carry rows a fabric shard pre-packed in the learner's row
+layout (in-network assembly; the layout is written out above
+`BLOCK_MAGIC`).
+
 numpy has no bfloat16 here, so bf16 obs leaves are CPU `torch.bfloat16`
 tensors, and the f32 → bf16 cast is written out on the uint32 view
 (`f32_to_bf16_bits`): round to nearest even, NaN quieted to sign | 0x7fc0,
@@ -402,6 +406,121 @@ def deserialize_obs(data: bytes, offset: int = 0, obs_bf16: bool = False) -> Tup
 
 
 # ----------------------------------------------------------------- weights
+
+# --- DTB1: blocks of pre-packed batch rows (in-network assembly) ---------
+#
+# A fabric shard running --broker.assemble packs each admitted frame once
+# into the learner's single-buffer row layout (parallel/fused_io.py
+# RowLayout) and serves consumers whole blocks of rows with a per-row
+# sidecar, so the learner's host side is a row concat.
+#
+# Block layout (little-endian):
+#   magic  b'DTB1'
+#   u8     fmt        (1)
+#   u16    n_rows
+#   u16    seq_len    (T; rows are padded to T steps, obs carry T+1)
+#   u16    lstm_hidden
+#   u8     flags      (bit0: aux targets; bit1: obs staged in bf16)
+#   u32    row_bytes  (RowLayout.row_bytes)
+#   u32    layout_crc (RowLayout.layout_crc; a consumer refuses any other)
+#   n_rows x 52-byte sidecar: model_version, actor_id, episode_return,
+#          trace_id, birth_time, priority, the fabric fence stamp
+#          (boot/epoch/seq; boot 0 marks an un-enveloped row, always
+#          admitted) and row_flags (bit0: the row's last step ended an
+#          episode)
+#   n_rows x row_bytes packed row payload.
+
+BLOCK_MAGIC = b"DTB1"
+_BLK = struct.Struct("<4sBHHHBII")
+_BLK_SIDE = struct.Struct("<IIfQdfQIII")
+_BLK_FLAG_AUX = 1
+_BLK_FLAG_OBS_BF16 = 2
+_BLK_ROW_DONE = 1
+_BLK_FMT = 1
+
+
+class BlockSpec(NamedTuple):
+    """What two processes must agree on for a packed row to be portable
+    between them. The consumer sends its spec in GET_BLOCK; the shard
+    writes its own into every block header."""
+
+    seq_len: int
+    lstm_hidden: int
+    with_aux: bool
+    obs_bf16: bool
+    row_bytes: int
+    layout_crc: int
+
+
+class AssembledRow(NamedTuple):
+    """One pre-packed batch row and its sidecar: a DTR frame after the
+    shard's assembly. `payload` is RowLayout.row_bytes long; the fence
+    stamp is the FAB1 envelope the frame arrived under (boot 0 = none)."""
+
+    payload: bytes
+    version: int
+    actor_id: int = 0
+    episode_return: float = 0.0
+    trace_id: int = 0
+    birth_time: float = 0.0
+    priority: float = 0.0
+    boot: int = 0
+    epoch: int = 0
+    seq: int = 0
+    last_done: bool = False
+
+
+def block_spec_flags(spec: BlockSpec) -> int:
+    """The u8 flags a BlockSpec encodes to (block header and GET_BLOCK)."""
+    return (_BLK_FLAG_AUX if spec.with_aux else 0) | (_BLK_FLAG_OBS_BF16 if spec.obs_bf16 else 0)
+
+
+def serialize_block(spec: BlockSpec, rows: List[AssembledRow]) -> bytes:
+    parts = [_BLK.pack(BLOCK_MAGIC, _BLK_FMT, len(rows), spec.seq_len, spec.lstm_hidden, block_spec_flags(spec),
+                       spec.row_bytes, spec.layout_crc)]
+    for r in rows:
+        parts.append(_BLK_SIDE.pack(
+            r.version & 0xFFFFFFFF, r.actor_id & 0xFFFFFFFF, float(r.episode_return), r.trace_id & 0xFFFFFFFFFFFFFFFF,
+            float(r.birth_time), float(r.priority), r.boot & 0xFFFFFFFFFFFFFFFF, r.epoch & 0xFFFFFFFF,
+            r.seq & 0xFFFFFFFF, _BLK_ROW_DONE if r.last_done else 0,
+        ))
+    for r in rows:
+        if len(r.payload) != spec.row_bytes:
+            raise ValueError(f"block row payload {len(r.payload)}B != row_bytes {spec.row_bytes}")
+        parts.append(bytes(r.payload))
+    return b"".join(parts)
+
+
+def peek_block_spec(data: bytes) -> Optional[BlockSpec]:
+    """The BlockSpec of a DTB1 header, or None if `data` is not a block."""
+    if len(data) < _BLK.size or data[:4] != BLOCK_MAGIC:
+        return None
+    _, fmt, _, T, H, flags, row_bytes, crc = _BLK.unpack_from(data)
+    if fmt != _BLK_FMT:
+        return None
+    return BlockSpec(T, H, bool(flags & _BLK_FLAG_AUX), bool(flags & _BLK_FLAG_OBS_BF16), row_bytes, crc)
+
+
+def deserialize_block(data: bytes) -> Tuple[BlockSpec, List[AssembledRow]]:
+    spec = peek_block_spec(data)
+    if spec is None:
+        raise ValueError("not a DTB1 block")
+    n = _BLK.unpack_from(data)[2]
+    need = _BLK.size + n * _BLK_SIDE.size + n * spec.row_bytes
+    if len(data) != need:
+        raise ValueError(f"block length {len(data)} != expected {need} ({n} rows)")
+    rows: List[AssembledRow] = []
+    pay0 = _BLK.size + n * _BLK_SIDE.size
+    for i in range(n):
+        version, actor_id, ep_ret, trace_id, birth, prio, boot, epoch, seq, rflags = _BLK_SIDE.unpack_from(
+            data, _BLK.size + i * _BLK_SIDE.size)
+        off = pay0 + i * spec.row_bytes
+        rows.append(AssembledRow(data[off : off + spec.row_bytes], version, actor_id, ep_ret, trace_id, birth, prio,
+                                 boot, epoch, seq, bool(rflags & _BLK_ROW_DONE)))
+    return spec, rows
+
+
+# --- weights --------------------------------------------------------------
 
 _DTYPES = {0: np.float32, 1: np.int32, 2: np.uint8}
 _CODES = {np.dtype(dt): code for code, dt in _DTYPES.items()}

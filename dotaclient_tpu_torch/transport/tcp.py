@@ -16,9 +16,12 @@ Framing: every message is  u32 payload_len | u8 type | payload.
   0x07 PUB_EXP2  payload = experience frame            → 0x81 ack | 0x86 shed
   0x08 PUB_EXPP  payload = f32 priority + frame        → 0x81 ack | 0x86 shed
   0x09 STATS2    no payload                            → 0x88 reply
-  0x0A GET_BLOCK DTB1 in-network assembly: not ported (ROADMAP A.10f); the
-                 server closes the connection, as an unarmed reference
-                 shard does.
+  0x0A GET_BLOCK payload = u16 max_rows, f32 timeout, u16 seq_len,
+                 u16 lstm_hidden, u8 flags, u32 row_bytes, u32 layout_crc
+                 (the consumer's BlockSpec)             → 0x89 reply. Only a
+                 shard armed with `assemble` answers; any other closes the
+                 connection, and an armed shard whose row layout differs
+                 from the spec closes it too.
   0x81 ack       empty (a client detects a dead broker by the missing ack)
   0x82 reply     u16 count, then per frame u32 len + bytes
   0x84 reply     u32 seq (0 = nothing newer), frame bytes
@@ -26,12 +29,22 @@ Framing: every message is  u32 payload_len | u8 type | payload.
   0x86 shed      empty: refused at admission, not enqueued
   0x87 reply     u32 x6: depth, dropped, shed, enqueued, popped, reply_lost
   0x88 reply     u32 x8: the six above, evicted_low, priority_mode
+  0x89 reply     one DTB1 block (serialize.serialize_block; 0 rows when the
+                 wait expired empty)
 
 Admission control (shed_high/shed_low, 0 = off): from depth >= shed_high
 the broker refuses experience publishes until the queue drains to
 <= shed_low (hysteresis). With priority admission on, a PUB_EXPP arriving
 while shedding evicts the lowest-effective-priority resident (priority
 halving every prio_half_life_s of residence) when the newcomer beats it.
+
+In-network batch assembly (`assemble`): a third deque in lockstep with
+the queue holds each resident's (priority, packed row). Rows are packed
+at admission once the first GET_BLOCK has named the consumer's spec, and
+the backlog from before it at block build (transport/assemble.py). Every
+row admitted while armed is exactly one of packed (served in a block),
+reject, bypassed (a classic CONSUME took it), dropped (drop-oldest or
+priority eviction) or resident: `assemble_ledger`.
 
 The client keeps two connections, one for experience and one for
 weights, so a long blocking consume never stalls a weight poll.
@@ -55,11 +68,16 @@ _TYPE = struct.Struct("<B")
 PUB_EXP, CONSUME, PUB_W, GET_W, DEPTH, STATS, PUB_EXP2 = 0x01, 0x02, 0x03, 0x04, 0x05, 0x06, 0x07
 PUB_EXPP, STATS2, GET_BLOCK = 0x08, 0x09, 0x0A
 R_ACK, R_CONSUME, R_GET_W, R_DEPTH, R_SHED, R_STATS, R_STATS2 = 0x81, 0x82, 0x84, 0x85, 0x86, 0x87, 0x88
+R_BLOCK = 0x89
+_GETBLK = struct.Struct("<HfHHBII")
 
 MAX_FRAME = 256 * 1024 * 1024
 _POLL_SLICE = 30.0  # max per-request server-side wait when blocking forever
 
-_ASSEMBLY = "DTB1 in-network batch assembly (GET_BLOCK) is not ported yet (ROADMAP A.10f)"
+# The assembly deque's entry for a frame that failed assembly: resident so
+# the deques stay in lockstep, counted as a reject when a block pops it,
+# still served to a classic CONSUME (whose learner quarantines it).
+_ASM_REJECT = object()
 
 
 # --------------------------------------------------------------------- server
@@ -78,9 +96,8 @@ class BrokerServer:
         priority_shed: bool = False,
         prio_half_life_s: float = 8.0,
         assemble: bool = False,
+        assemble_native: bool = True,
     ):
-        if assemble:
-            raise NotImplementedError(_ASSEMBLY)
         if shed_high and shed_low >= shed_high:
             raise ValueError(f"shed_low={shed_low} must be below shed_high={shed_high} (hysteresis band)")
         self.host, self.port, self.maxlen = host, port, maxlen
@@ -92,6 +109,22 @@ class BrokerServer:
         self.prio_half_life_s = prio_half_life_s
         self._prio_meta: Optional[collections.deque] = collections.deque(maxlen=maxlen) if priority_shed else None
         self.evicted_low = 0
+        # Assembly: (priority, entry) per resident, in lockstep with
+        # `experience`; entry None (not packed yet), an AssembledRow or
+        # _ASM_REJECT. None when unarmed: no per-publish work.
+        self.assemble = assemble
+        self.assemble_native = assemble_native
+        self._assembler = None  # transport.assemble.RowAssembler, built by the first GET_BLOCK
+        self._asm_meta: Optional[collections.deque] = collections.deque(maxlen=maxlen) if assemble else None
+        self.asm_rows_admitted = 0
+        self.asm_rows_packed = 0
+        self.asm_rows_reject = 0
+        self.asm_rows_bypassed = 0
+        self.asm_rows_dropped = 0
+        self.asm_blocks_built = 0
+        self.asm_blocks_served = 0
+        self.asm_block_bytes = 0
+        self.asm_cpu_s = 0.0
         self.experience: collections.deque = collections.deque(maxlen=maxlen)
         self.dropped = 0
         # Conservation ledger (loop-thread-written): every experience frame a
@@ -162,9 +195,16 @@ class BrokerServer:
     def _enqueue(self, frame: bytes, priority: float) -> None:
         if len(self.experience) == self.experience.maxlen:
             self.dropped += 1
+            if self._asm_meta is not None:
+                self.asm_rows_dropped += 1
         self.experience.append(frame)
         if self._prio_meta is not None:
             self._prio_meta.append((priority, time.monotonic()))
+        if self._asm_meta is not None:
+            # packed here, on the shard tier, once a consumer's spec is known
+            entry = self._assemble_row(frame, priority) if self._assembler is not None else None
+            self._asm_meta.append((priority, entry))
+            self.asm_rows_admitted += 1
         self.enqueued_total += 1
         if self.first_enqueue_t is None:
             self.first_enqueue_t = time.monotonic()
@@ -186,6 +226,9 @@ class BrokerServer:
                     if idx >= 0 and priority > min_eff:
                         del self.experience[idx]
                         del self._prio_meta[idx]
+                        if self._asm_meta is not None:
+                            del self._asm_meta[idx]
+                            self.asm_rows_dropped += 1
                         self.evicted_low += 1
                         admitted = True
                 if admitted:
@@ -219,6 +262,9 @@ class BrokerServer:
                     frames.append(self.experience.popleft())
                     if self._prio_meta is not None:
                         self._prio_meta.popleft()
+                    if self._asm_meta is not None:
+                        self._asm_meta.popleft()
+                        self.asm_rows_bypassed += 1
                 self.popped_total += len(frames)
             out = [struct.pack("<H", len(frames))]
             for f in frames:
@@ -232,7 +278,7 @@ class BrokerServer:
                 self.reply_lost_frames += len(frames)
                 raise
         elif mtype == GET_BLOCK:
-            raise ValueError(_ASSEMBLY)
+            await self._get_block(payload, writer)
         elif mtype == STATS:
             await self._reply(writer, R_STATS, struct.pack("<6I", *self._counters()))
         elif mtype == STATS2:
@@ -255,6 +301,88 @@ class BrokerServer:
             await self._reply(writer, R_DEPTH, struct.pack("<II", len(self.experience), self.dropped))
         else:
             raise ValueError(f"unknown message type {mtype:#x}")
+
+    async def _get_block(self, payload: bytes, writer: asyncio.StreamWriter) -> None:
+        """Pop up to max_rows residents as one DTB1 block of packed rows.
+        An unarmed shard raises, which closes the connection: a learner
+        with assembled intake against it fails loudly, never hangs."""
+        if not self.assemble:
+            raise ValueError("GET_BLOCK against a shard without --broker.assemble")
+        max_rows, timeout, *want = _GETBLK.unpack(payload)
+        self._ensure_assembler(*want)
+        async with self._cond:
+            if not self.experience and timeout > 0:
+                self.consume_waiters += 1
+                try:
+                    await asyncio.wait_for(self._cond.wait_for(lambda: len(self.experience) > 0), timeout)
+                except asyncio.TimeoutError:
+                    pass
+                finally:
+                    self.consume_waiters -= 1
+            popped = []  # (frame, priority, entry)
+            while self.experience and len(popped) < max_rows:
+                f = self.experience.popleft()
+                if self._prio_meta is not None:
+                    self._prio_meta.popleft()
+                prio, entry = self._asm_meta.popleft()
+                popped.append((f, prio, entry))
+            self.popped_total += len(popped)
+        rows = []
+        for f, prio, entry in popped:
+            if entry is None:  # the backlog from before the spec: pack now, same encoder
+                entry = self._assemble_row(f, prio)
+            if entry is _ASM_REJECT:
+                self.asm_rows_reject += 1
+            else:
+                rows.append(entry)
+        if self.priority_shed:
+            # highest priority first (stable); the pop itself is FIFO, as CONSUME's
+            rows.sort(key=lambda r: -r.priority)
+        from dotaclient_tpu_torch.transport.serialize import serialize_block
+
+        block = serialize_block(self._assembler.spec, rows)
+        self.asm_rows_packed += len(rows)
+        self.asm_blocks_built += 1
+        try:
+            await self._reply(writer, R_BLOCK, block)
+        except BaseException:
+            # rows popped for a reply that never completed leave with this
+            # broker, counted, as CONSUME's
+            self.reply_lost_frames += len(popped)
+            raise
+        self.asm_blocks_served += 1
+        self.asm_block_bytes += len(block)
+
+    def _assemble_row(self, frame: bytes, priority: float):
+        """The frame's AssembledRow, or _ASM_REJECT for one the classic
+        ingest would reject too; the CPU it takes is metered."""
+        t0 = time.monotonic()
+        try:
+            return self._assembler.assemble(frame, priority)
+        except ValueError:
+            return _ASM_REJECT
+        finally:
+            self.asm_cpu_s += time.monotonic() - t0
+
+    def _ensure_assembler(self, T: int, H: int, flags: int, row_bytes: int, crc: int) -> None:
+        """Build the RowAssembler from the first GET_BLOCK's spec, and check
+        that this shard packs exactly the requested layout: a schema drift
+        between shard and learner, or a second consumer with another spec,
+        closes the connection instead of serving bytes the consumer would
+        scramble."""
+        from dotaclient_tpu_torch.transport.serialize import _BLK_FLAG_AUX, _BLK_FLAG_OBS_BF16, block_spec_flags
+
+        if self._assembler is None:
+            from dotaclient_tpu_torch.transport.assemble import RowAssembler
+
+            t0 = time.monotonic()
+            self._assembler = RowAssembler(T, H, bool(flags & _BLK_FLAG_AUX), bool(flags & _BLK_FLAG_OBS_BF16),
+                                           use_native=self.assemble_native)
+            self.asm_cpu_s += time.monotonic() - t0
+        spec = self._assembler.spec
+        mine = (spec.seq_len, spec.lstm_hidden, block_spec_flags(spec), spec.row_bytes, spec.layout_crc)
+        if mine != (T, H, flags, row_bytes, crc):
+            raise ValueError(f"DTB1 spec mismatch: shard assembles {mine}, consumer wants {(T, H, flags, row_bytes, crc)}")
 
     def _counters(self):
         return (len(self.experience), self.dropped, self.shed_total, self.enqueued_total, self.popped_total,
@@ -324,6 +452,25 @@ class BrokerServer:
             "reply_lost": self.reply_lost_frames,
             "evicted_low": self.evicted_low,
             "resident": len(self.experience),
+        }
+
+    def assemble_ledger(self) -> dict:
+        """The assembly station's conservation counters (all zero when
+        unarmed). At any quiescent point `rows_admitted == rows_packed +
+        rows_reject + rows_bypassed + rows_dropped + rows_resident`; a kill
+        leaves its rows resident (or reply_lost in the classic ledger),
+        never unaccounted."""
+        return {
+            "rows_admitted": self.asm_rows_admitted,
+            "rows_packed": self.asm_rows_packed,
+            "rows_reject": self.asm_rows_reject,
+            "rows_bypassed": self.asm_rows_bypassed,
+            "rows_dropped": self.asm_rows_dropped,
+            "rows_resident": len(self.experience) if self.assemble else 0,
+            "blocks_built": self.asm_blocks_built,
+            "blocks_served": self.asm_blocks_served,
+            "block_bytes": self.asm_block_bytes,
+            "cpu_s": self.asm_cpu_s,
         }
 
     def stop(self):
@@ -469,7 +616,27 @@ class TcpBroker(Broker):
         return frames
 
     def consume_block(self, spec, max_rows: int, timeout: Optional[float] = None) -> bytes:
-        raise NotImplementedError(_ASSEMBLY)
+        """GET_BLOCK: up to `max_rows` shard-assembled rows as one DTB1
+        block (raw bytes; the caller deserializes). `spec` is the
+        consumer's serialize.BlockSpec; a shard that cannot serve it closes
+        the connection. consume_experience's timeout semantics; a 0-row
+        block means the wait expired empty."""
+        from dotaclient_tpu_torch.transport.serialize import block_spec_flags
+
+        deadline = None if timeout is None else time.monotonic() + timeout
+        while True:
+            wait = _POLL_SLICE if deadline is None else max(0.0, deadline - time.monotonic())
+            slice_wait = min(wait, _POLL_SLICE)
+            payload = self._exp.request(
+                GET_BLOCK,
+                _GETBLK.pack(max_rows, slice_wait, spec.seq_len, spec.lstm_hidden, block_spec_flags(spec),
+                             spec.row_bytes, spec.layout_crc),
+                R_BLOCK,
+                read_timeout=slice_wait + 10.0,
+            )
+            (count,) = struct.unpack_from("<H", payload, 5)  # the block header's n_rows
+            if count or (deadline is not None and time.monotonic() >= deadline):
+                return payload
 
     def publish_weights(self, data: bytes) -> None:
         self._w.request(PUB_W, data, R_ACK)

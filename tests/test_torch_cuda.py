@@ -813,3 +813,44 @@ def test_control_plane_and_fleetd_binaries_watch_a_server_on_the_card(cuda, tmp_
                 if ln.startswith("import time:") and "|" in ln]
         assert "dotaclient_tpu_torch" in mods
         assert not [m for m in mods if m.split(".")[0] in ("torch", "numpy", "jax")], name
+
+
+def _modes_base():
+    from dotaclient_tpu_torch.config import LearnerConfig
+
+    return LearnerConfig(batch_size=32, seq_len=8, policy=_loop_cfg().policy)
+
+
+def test_transfer_paths_train_bitwise_the_single_buffer_on_the_card(cuda, tmp_path):
+    """chip_smoke.py's phase-17 turn (a) at a small shape: the groups and
+    tree learners end bitwise the single buffer's (or within phase 6's
+    bounds), one recurrence launch per step, 1 / 4 / one-per-leaf copies."""
+    import chip_smoke
+
+    out = chip_smoke._transfer_paths_turn(cuda, "test", str(tmp_path), _modes_base())
+    assert [out[p]["copies_per_step"] for p in ("single", "groups")] == [1, 4] and out["tree"]["copies_per_step"] > 4
+    assert all(p["launches"] == 2 * chip_smoke.DATA_MODE_STEPS for p in out.values())
+
+
+def test_replay_learner_on_the_card_restores_its_reservoir_bitwise(cuda, tmp_path):
+    """Turn (b): the replay learner replays aged frames (hit ratio within
+    replay.ratio), its step holds phase 6's bounds of the plain arm, and a
+    full-state restore continues bitwise."""
+    import chip_smoke
+
+    out = chip_smoke._replay_turn(cuda, "test", str(tmp_path), _modes_base())
+    assert out["rows_replayed"] > 0 and out["launches"] == chip_smoke.REPLAY_STEPS and out["restored_entries"] >= 0
+
+
+def test_assembled_learner_on_the_card_is_bitwise_the_classic_pack(cuda, tmp_path):
+    """Turn (c) with three armed shard processes and four producers: rows
+    and params bitwise the classic pack's, each shard's ledger exact, an
+    unarmed shard refused."""
+    import chip_smoke
+
+    base = _modes_base()
+    flags = ["--batch_size", str(base.batch_size), "--seq_len", str(base.seq_len)]
+    for k in ("unit_embed_dim", "lstm_hidden", "mlp_hidden", "dtype"):
+        flags += [f"--policy.{k}", str(getattr(base.policy, k))]
+    out = chip_smoke._assembly_turn(cuda, "test", str(tmp_path), base, producer_flags=flags)
+    assert out["rows_checked"] == chip_smoke.ASM_PARITY_STEPS * base.batch_size and len(out["ledgers"]) == 3

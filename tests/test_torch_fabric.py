@@ -151,7 +151,7 @@ def test_boot_is_u64_milliseconds_and_routing_pins_a_trajectory():
     assert {s.pop() for s in shards.values()} == set(urls)
     for aid in range(12):
         assert fb.route_endpoint(_frame(aid)) == urls[tfab.rendezvous_order(aid, urls)[0]]
-    with pytest.raises(NotImplementedError, match="A.10f"):
+    with pytest.raises(ValueError, match="needs tcp:// shards"):  # mem:// has no assembly tier
         fb.enable_assembled_consume(None)
     fb.close()
 
@@ -334,7 +334,9 @@ def test_the_shard_binary_takes_the_broker_manifest_s_flags():
     """`python -m dotaclient_tpu_torch.transport.fabric` with
     k8s/broker.yaml's args (and an ephemeral port): priority admission
     on, /metrics carries the shard ledger, /healthz 200, /debug/flight a
-    snapshot with the ledger section; `--broker.assemble true` refuses."""
+    snapshot with the ledger section and the broker_assemble_* ledger at
+    zero; `--broker.assemble true` arms the shard (its ready line says
+    so)."""
     mport = _free_port()
     proc = subprocess.Popen(
         [sys.executable, "-m", "dotaclient_tpu_torch.transport.fabric", "--host", "127.0.0.1", "--port", "0",
@@ -354,11 +356,18 @@ def test_the_shard_binary_takes_the_broker_manifest_s_flags():
         assert scraped["dotaclient_broker_shard_enqueued_total"] == 1.0
         assert scraped["dotaclient_broker_shard_popped_total"] == 1.0
         assert scraped["dotaclient_broker_shard_resident"] == 0.0
+        assert scraped["dotaclient_broker_assemble_rows_admitted_total"] == 0.0
         assert urllib.request.urlopen(f"http://127.0.0.1:{mport}/healthz", timeout=10).status == 200
         flight = json.loads(urllib.request.urlopen(f"http://127.0.0.1:{mport}/debug/flight", timeout=10).read())
         assert flight["role"] == "fabric_shard" and flight["sections"]["ledger"]["enqueued"] == 1
     finally:
         proc.kill()
         proc.wait(timeout=10)
-    with pytest.raises(NotImplementedError, match="A.10f"):
-        tfab.main(["--port", "0", "--broker.assemble", "true"])
+    proc = subprocess.Popen([sys.executable, "-m", "dotaclient_tpu_torch.transport.fabric", "--host", "127.0.0.1",
+                             "--port", "0", "--broker.assemble", "true"], cwd=REPO, stdout=subprocess.PIPE, text=True)
+    try:
+        line = proc.stdout.readline()
+        assert "fabric shard listening" in line and ", assemble" in line, line
+    finally:
+        proc.kill()
+        proc.wait(timeout=10)

@@ -44,6 +44,7 @@ from dotaclient_tpu_torch.models import policy as P
 from dotaclient_tpu_torch.ops import batch as tbatch
 from dotaclient_tpu_torch.ops.action_dist import Action
 from dotaclient_tpu_torch.parallel import train_step as ts
+from dotaclient_tpu_torch.parallel.fused_io import TreeBatchIO
 from dotaclient_tpu_torch.runtime import learner as tlearner
 from dotaclient_tpu_torch.runtime.checkpoint import Checkpointer, SchemaMismatchError
 from dotaclient_tpu_torch.transport import memory as tmem
@@ -112,17 +113,33 @@ UNPORTED_METRIC_KEYS = set()
 
 
 def test_port_learner_matches_the_jax_learner_over_three_steps(tmp_path):
-    tcfg = _tcfg("ln_port", tmp_path, publish_every=1)
+    _learner_vs_jax(tmp_path)
+
+
+# The transfer paths besides the single buffer: the per-leaf tree and the
+# four dtype groups, each in both learners.
+MODES = {"tree": dict(fused_h2d=False), "groups": dict(fused_single_h2d=False)}
+
+
+@pytest.mark.parametrize("mode", sorted(MODES))
+def test_data_mode_learners_match_the_jax_learner(tmp_path, mode):
+    tl = _learner_vs_jax(tmp_path, **MODES[mode])
+    assert (tl.fused_io is None) == (mode == "tree")
+    assert tl.fused_io is None or not tl.fused_io.single_mode
+
+
+def _learner_vs_jax(tmp_path, **mode):
+    tcfg = _tcfg("ln_port", tmp_path, publish_every=1, **mode)
     jcfg = JLearnerConfig(batch_size=B, seq_len=T, policy=JPolicyConfig(**POL, dtype="float32"),
                           ppo=JPPOConfig(max_staleness=1000), log_dir=str(tmp_path / "ln_jax"), metrics_every=2,
-                          publish_every=1)
+                          publish_every=1, **mode)
     frames = frames_for(tcfg, 3)
     jmem.reset("ln_jax")
     jbroker = jmem.MemoryBroker("ln_jax")
     for f in frames:
         jbroker.publish_experience(f)
     jl = JLearner(jcfg, jmem.MemoryBroker("ln_jax"), mesh=jmesh.make_mesh("dp=1", devices=jax.devices()[:1]))
-    tl, tbroker = _port_learner("ln_port", tmp_path, frames)
+    tl, tbroker = _port_learner("ln_port", tmp_path, frames, **mode)
     # the JAX learner's initial state, carried across by flax name
     net = load_named(P.PolicyNet(tcfg.policy, device="cpu"), flatten_params(jl.state.params))
     tl.state = ts.TrainState(net, load_named_adam(_jax_adam_named(jl.state.opt_state), net), 0)
@@ -164,6 +181,7 @@ def test_port_learner_matches_the_jax_learner_over_three_steps(tmp_path):
             assert t_rec[k] == j_rec[k], k
         for k in ("env_steps_per_sec", "time_step_s", "pipeline_overlap_ratio", "pipeline_device_idle_s"):
             assert np.isfinite(t_rec[k]), k
+    return tl
 
 
 def _state_words(state):
@@ -306,10 +324,6 @@ def test_metrics_logger_and_histogram_scalars_match_the_reference(tmp_path):
 
 
 REFUSED = [
-    ("staging.assemble", True, "A.10f"),
-    ("replay.enabled", True, "A.10g"),
-    ("fused_h2d", False, "A.10b"),
-    ("fused_single_h2d", False, "A.10b"),
     ("multihost", True, "A.14"),
     ("profile_port", 9999, "A.13b"),
     ("policy.tf_sp_axis", "sp", "A.14"),
@@ -327,15 +341,50 @@ def test_unported_modes_are_refused(tmp_path, field, value, item):
         tlearner.Learner(cfg, tmem.MemoryBroker("ln_refuse"), device="cpu")
 
 
+# The four data modes the learner once refused: each now picks its path
+# (assembled intake against a broker with no DTB1 op raises, as the
+# reference's does).
+DATA_MODES = [("staging.assemble", True), ("replay.enabled", True), ("fused_h2d", False),
+              ("fused_single_h2d", False)]
+
+
+@pytest.mark.parametrize("field,value", DATA_MODES, ids=[r[0] for r in DATA_MODES])
+def test_unported_modes_are_refused_no_more_for_the_data_modes(tmp_path, field, value):
+    cfg = _tcfg("ln_modes", tmp_path)
+    obj, *path = [cfg] + field.split(".")
+    for name in path[:-1]:
+        obj = getattr(obj, name)
+    setattr(obj, path[-1], value)
+    cfg.replay.max_staleness = 2 * cfg.ppo.max_staleness  # the reservoir's window must exceed the fresh one
+    tmem.reset("ln_modes")
+    if field == "staging.assemble":
+        with pytest.raises(ValueError, match="DTB1"):
+            tlearner.Learner(cfg, tmem.MemoryBroker("ln_modes"), device="cpu")
+        return
+    ln = tlearner.Learner(cfg, tmem.MemoryBroker("ln_modes"), device="cpu")
+    try:
+        if field == "fused_single_h2d":
+            assert ln.fused_io is ln.io and not ln.fused_io.single_mode
+        else:  # the tree path: dense staging, one copy per leaf
+            assert ln.fused_io is None and isinstance(ln.io, TreeBatchIO)
+            assert (ln.staging._reservoir is not None) == (field == "replay.enabled")
+    finally:
+        ln.close()
+
+
 def test_every_unported_mode_is_tested_and_their_settings_do_not_parse():
     """The refusal table is config.UNPORTED, one entry per mode (the
     learner has every flag of it); settings that only unported modes read
-    are not flags, so they fail to parse instead of doing nothing."""
+    are not flags, so they fail to parse instead of doing nothing. The
+    replay tuning parses, with the reference's defaults."""
     assert {r[0] for r in REFUSED} == set(unported_flags(LearnerConfig()))
-    assert set(UNPORTED) == set(unported_flags(LearnerConfig()))
-    for argv in (["--replay.ratio", "0.5"], ["--replay.alpha", "0.5"], ["--coordinator", "h:1"]):
+    assert set(UNPORTED) == set(unported_flags(LearnerConfig())) == {"multihost", "profile_port", "policy.tf_sp_axis"}
+    for argv in (["--coordinator", "h:1"], ["--num_processes", "2"], ["--policy.tf_sp_mode", "ring"]):
         with pytest.raises(SystemExit):
             parse_config(LearnerConfig(), argv)
+    cfg = parse_config(LearnerConfig(), ["--replay.ratio", "0.5", "--replay.alpha", "0.5"])
+    assert (cfg.replay.ratio, cfg.replay.alpha) == (0.5, 0.5)
+    assert dataclasses.asdict(LearnerConfig().replay) == dataclasses.asdict(JLearnerConfig().replay)
 
 
 def _assert_same_fields(ours, ref, path=""):

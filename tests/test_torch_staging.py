@@ -295,18 +295,20 @@ def test_a_layout_mismatch_kills_the_consumer_and_the_getter_reraises():
 
 
 def test_staging_refuses_what_is_not_ported():
+    """What is left to refuse: a mode of config.UNPORTED, and the data
+    modes on a topology they cannot run on (the reference's own errors)."""
     _, tcfg = _cfgs("float32", False)
     tio = _io_pair(*_cfgs("float32", False))[1]
     b = tmem.MemoryBroker("st_refuse")
-    cases = [
-        (dataclasses.replace(tcfg, staging=dataclasses.replace(tcfg.staging, assemble=True)), "A.10f"),
-        (dataclasses.replace(tcfg, replay=dataclasses.replace(tcfg.replay, enabled=True)), "A.10g"),
-    ]
-    for cfg, item in cases:
-        with pytest.raises(NotImplementedError, match=item):
-            tstaging.StagingBuffer(cfg, b, fused_io=tio)
-    with pytest.raises(ValueError, match="single transfer buffer"):
-        tstaging.StagingBuffer(tcfg, b)
+    with pytest.raises(NotImplementedError, match="A.14"):
+        tstaging.StagingBuffer(dataclasses.replace(tcfg, multihost=True), b, fused_io=tio)
+    with pytest.raises(ValueError, match="DTB1"):
+        tstaging.StagingBuffer(dataclasses.replace(tcfg, staging=dataclasses.replace(tcfg.staging, assemble=True)), b,
+                               fused_io=tio)
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        tstaging.StagingBuffer(dataclasses.replace(tcfg, replay=dataclasses.replace(tcfg.replay, enabled=True)), b,
+                               fused_io=tio)
+    assert tstaging.StagingBuffer(tcfg, b).get_batch(timeout=0.01) is None  # dense staging for the tree path
     with pytest.raises(ValueError, match="pack_workers must be >= 1"):
         tstaging.StagingBuffer(dataclasses.replace(tcfg, staging=dataclasses.replace(tcfg.staging, pack_workers=0)), b,
                                fused_io=tio)

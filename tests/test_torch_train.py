@@ -312,9 +312,10 @@ def test_builders_refuse_what_the_port_does_not_have():
                                                                                   tf_sp_axis="sp")), "cpu")
     with pytest.raises(ValueError, match="use build_train_step"):
         ts.build_single_train_step(dataclasses.replace(tcfg, fused_h2d=False), "cpu")
-    with pytest.raises(NotImplementedError, match="grouped four-buffer"):
-        ts.build_single_train_step(dataclasses.replace(tcfg, fused_single_h2d=False), "cpu")
-    with pytest.raises(ValueError, match="replay reservoir"):
-        ts.build_single_train_step(dataclasses.replace(tcfg, replay=ReplayConfig(enabled=True)), "cpu")
+    with pytest.raises(ValueError, match="use build_train_step"):
+        ts.build_fused_train_step(dataclasses.replace(tcfg, fused_h2d=False), "cpu")
+    for build in (ts.build_single_train_step, ts.build_fused_train_step):
+        with pytest.raises(ValueError, match="replay reservoir"):  # the reference's own rule
+            build(dataclasses.replace(tcfg, replay=ReplayConfig(enabled=True)), "cpu")
     with pytest.raises(ValueError, match="must divide by ppo.minibatches"):
         ts.build_train_step(dataclasses.replace(tcfg, ppo=PPOConfig(minibatches=4)), "cpu")
