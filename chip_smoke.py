@@ -137,15 +137,26 @@ Phases, in order; any failure exits non-zero:
               shard processes (rows and params bitwise the classic pack,
               each shard's assembly ledger exact, loop ms classic vs
               assembled with four producer processes, an unarmed shard
-              refused) (see phase_data_modes).
+              refused) (see phase_data_modes);
+18. multihost — the multi-process learner (parallel/dist.py): the
+              learner binary with --multihost at world 1 (NCCL) bitwise
+              the plain binary; two ranks sharing the card over gloo (NCCL
+              refuses two ranks on one device), params bitwise equal after
+              every step, against one process at the global batch, a 2x2
+              reuse step with a KL stop; k8s/learner-multihost.yaml's args
+              at world 2 over three shards through a SIGTERM drain (no
+              frame on both ranks, the ledgers exact, rank 0 alone
+              publishing and pushing the mirror) and a restart with rank
+              1's disk empty (see phase_multihost).
 Each path of the main path (serving, learner forward, each train step,
 the reuse step, the learner loop, the manifest learner, the fabric
 learner, the serve manifest, the actors' closed loop, the fleet's loop,
-the skill run, the chaos soak, the learner lives and each data mode)
-is driven with the kernels' launch counters zeroed just before it and
-read just after (the serve manifest's servers, the actor processes, the
-league service and the evaluator are processes of their own, which start
-at 0 and report their count).
+the skill run, the chaos soak, the learner lives, each data mode and
+each multihost turn) is driven with the kernels' launch counters zeroed
+just before it and read just after (the serve manifest's servers, the
+actor processes, the league service, the evaluator and the multihost
+ranks are processes of their own, which start at 0 and report their
+count).
 The last lines are the transformer line, one JSON object per kernel, the
 card line, and {"ok": true, "device": {...}}.
 """
@@ -155,6 +166,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import logging
+import math
 import os
 import queue
 import shutil
@@ -5361,11 +5373,544 @@ def phase_data_modes(device, card: str, base=None, producer_flags=()):
     return dict(launches=launches, paths=paths, replay=replay, assembly=assembly, seconds=time.perf_counter() - t0)
 
 
+# ---------------------------------------------------------------- phase 18
+MH_MANIFEST = os.path.join(ROOT, "k8s", "learner-multihost.yaml")
+MH_WORLD1_STEPS = 5  # turn (a)
+MH_STEPS = 3  # turns (b) and (c)
+MH_JOIN_S = 120  # every rank process's join timeout
+MH_KL_STOP = 1e-9  # the reuse turn's KL stop: fires after the first update
+
+
+def _mh_digest(net) -> str:
+    """sha256 of the params' bytes (a device sync)."""
+    import hashlib
+
+    from dotaclient_tpu_torch.transport.params import named_tensors
+
+    with torch.no_grad():
+        flat = torch.cat([p.detach().reshape(-1) for p in named_tensors(net).values()])
+    return hashlib.sha256(flat.cpu().numpy().tobytes()).hexdigest()
+
+
+def _mh_record(learner, L):
+    """Wrap `learner._step`: per step, its metrics (host floats), the
+    recurrence launches it made, its ms to a device sync and a digest of
+    the params after it."""
+    rec = dict(metrics=[], launches=[], digests=[], ms=[])
+    step = learner._step
+
+    def recording(payload):
+        n0, t0 = L.LAUNCHES, time.perf_counter()
+        metrics = step(payload)
+        if learner.device.type == "cuda":
+            torch.cuda.synchronize(learner.device)
+        rec["ms"].append(1e3 * (time.perf_counter() - t0))
+        rec["launches"].append(L.LAUNCHES - n0)
+        rec["metrics"].append({k: float(v) for k, v in metrics.items()})
+        rec["digests"].append(_mh_digest(learner.state.net))
+        return metrics
+
+    learner._step = recording
+    return rec
+
+
+def _mh_cfg(flags):
+    from dotaclient_tpu_torch.config import LearnerConfig, parse_config
+
+    return parse_config(LearnerConfig(), ["--metrics_every", "1", "--ppo.max_staleness", str(1 << 30), *flags])
+
+
+def mh_rank_main(argv) -> int:
+    """`chip_smoke.py --mh-rank RANK WORLD PORT BROKER_PORT DIR [flags]`: one
+    rank of phase 18 (b), joined over gloo on the card (NCCL refuses two
+    ranks on one device). Trains MH_STEPS steps from its tcp:// broker,
+    then a 2×2 reuse step with a KL stop from a mem:// hub of its own;
+    writes DIR/rankR.json (per step: metrics, launches, params digest; the
+    publishes) and, on rank 0, DIR/state0.npz (params and Adam state)."""
+    from dotaclient_tpu_torch.ops import lstm as L
+    from dotaclient_tpu_torch.parallel.dist import init_distributed
+    from dotaclient_tpu_torch.runtime.learner import Learner
+    from dotaclient_tpu_torch.transport import memory as tmem
+    from dotaclient_tpu_torch.transport.base import connect
+    from dotaclient_tpu_torch.transport.params import named_adam_state, named_params
+
+    rank, world, port, bport, d = int(argv[0]), int(argv[1]), int(argv[2]), int(argv[3]), argv[4]
+    cfg = _mh_cfg([*argv[5:], "--multihost", "true", "--coordinator", f"127.0.0.1:{port}", "--num_processes",
+                   str(world), "--process_id", str(rank), "--log_dir", os.path.join(d, f"logs{rank}")])
+    device = torch.device("cpu") if cfg.platform == "cpu" else torch.device("cuda", 0)
+    dist = init_distributed(cfg, device, backend="gloo")
+    # the gradient all-reduce's own time: the work queued before it is
+    # waited for first, so the wait is not counted as the collective's
+    collective_ms = []
+    all_reduce = dist.all_reduce_
+
+    def timed_all_reduce(t):
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        out = all_reduce(t)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        collective_ms.append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    dist.all_reduce_ = timed_all_reduce
+    out = {}
+    try:
+        for turn, ppo, steps in (("step", {}, MH_STEPS), ("reuse", dict(epochs=2, minibatches=2, kl_stop=MH_KL_STOP), 1)):
+            tcfg = dataclasses.replace(cfg, ppo=dataclasses.replace(cfg.ppo, **ppo))
+            if turn == "step":
+                broker = connect(f"tcp://127.0.0.1:{bport}")
+            else:
+                half = dataclasses.replace(cfg, batch_size=cfg.batch_size // world)
+                tmem.reset(f"mh_reuse_{rank}")
+                broker = tmem.MemoryBroker(f"mh_reuse_{rank}")
+                for f in rollout_frames(half, 1, seed0=500 + rank):
+                    broker.publish_experience(f)
+            learner = Learner(tcfg, broker, device, dist)
+            rec = _mh_record(learner, L)
+            collective_ms.clear()
+            try:
+                done = learner.run(num_steps=steps, batch_timeout=60.0, max_idle=3)
+            finally:
+                learner.close()
+            rec.update(done=done, published=learner.publisher.published, weights=broker.poll_weights() is not None,
+                       env_steps=learner.env_steps_done, collective_ms=list(collective_ms))
+            out[turn] = rec
+            if turn == "step" and rank == 0:
+                np.savez(os.path.join(d, "state0.npz"), **dict(named_params(learner.state.net)),
+                         **{f"adam/{n}": a for n, a in named_adam_state(learner.state.opt_state)})
+            broker.close()
+    finally:
+        dist.close()
+    _write_json(os.path.join(d, f"rank{rank}.json"), out)
+    return 0
+
+
+def _mh_spawn(args, log: str):
+    """A process of this script with `args`, its output in the file `log`."""
+    with open(log, "w") as out:
+        return subprocess.Popen([sys.executable, os.path.abspath(__file__), *args], cwd=ROOT, stdout=out,
+                                stderr=subprocess.STDOUT)
+
+
+def _mh_join(procs, logs, what: str, timeout: float = MH_JOIN_S) -> None:
+    """Join every rank process within `timeout` (all stopped either way);
+    a rank that timed out or exited non-zero fails with its log's end."""
+    deadline = time.monotonic() + timeout
+    try:
+        for p in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 1.0))
+    except subprocess.TimeoutExpired:
+        raise SystemExit(f"multihost {what}: a rank did not finish within {timeout:.0f} s")
+    finally:
+        for p in procs:
+            stop_process(p)
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise SystemExit(f"multihost {what}: rank {r} exited {p.returncode}:\n{open(log).read()[-2500:]}")
+
+
+def _mh_world1(device, card: str, flags):
+    """(a): the learner binary's main with --multihost at world 1 (NCCL on
+    a card) over tcp://, then without --multihost, each fed the same
+    MH_WORLD1_STEPS batches: params bitwise, one launch per step each."""
+    from dotaclient_tpu_torch.ops import lstm as L
+    from dotaclient_tpu_torch.runtime import learner as tlearner
+    from dotaclient_tpu_torch.transport.params import named_params
+    from dotaclient_tpu_torch.transport.tcp import TcpBroker
+
+    cfg = _mh_cfg(flags)
+    frames = _stamped(rollout_frames(cfg, MH_WORLD1_STEPS, seed0=300), cfg.batch_size)
+    arms = {}
+    for arm in ("multihost", "plain"):
+        proc, bport = start_tcp_broker()
+        try:
+            pub = TcpBroker("127.0.0.1", bport)
+            for f in frames:
+                pub.publish_experience(f)
+            pub.close()
+            argv = [*flags, "--broker_url", f"tcp://127.0.0.1:{bport}", "--train_steps", str(MH_WORLD1_STEPS),
+                    "--ppo.max_staleness", str(1 << 30)]
+            if arm == "multihost":
+                argv += ["--multihost", "true", "--coordinator", f"127.0.0.1:{_free_port()}", "--num_processes", "1",
+                         "--process_id", "0", "--mesh_shape", "dp=-1"]
+            torch.cuda.synchronize()
+            L.LAUNCHES = 0  # this arm's main path starts here
+            t0 = time.perf_counter()
+            learner = tlearner.main(argv)
+            torch.cuda.synchronize()
+            arms[arm] = dict(launches=L.LAUNCHES, wall_s=time.perf_counter() - t0, version=learner.version,
+                             params=[a.tobytes() for _, a in named_params(learner.state.net)])
+            learner.broker.close()
+        finally:
+            stop_process(proc)
+    bitwise = arms["multihost"]["params"] == arms["plain"]["params"]
+    if not bitwise or any(a["launches"] != MH_WORLD1_STEPS or a["version"] != MH_WORLD1_STEPS for a in arms.values()):
+        raise SystemExit(f"multihost (a): params bitwise {bitwise}, "
+                         f"{ {k: (a['launches'], a['version']) for k, a in arms.items()} } (launches, version)")
+    backend = "NCCL" if device.type == "cuda" else "gloo"
+    res = dict(backend=backend, steps=MH_WORLD1_STEPS, launches=arms["multihost"]["launches"],
+               plain_launches=arms["plain"]["launches"], wall_s={k: a["wall_s"] for k, a in arms.items()})
+    print(f"multihost (a): the learner binary with --multihost at world 1 ({backend}, tcp:// rendezvous and broker): "
+          f"{MH_WORLD1_STEPS} steps, params bitwise the plain binary's over the same frames; {res['launches']} / "
+          f"{res['plain_launches']} kernel launches | {card}", flush=True)
+    return res
+
+
+def _mh_two_ranks(device, card: str, flags, tmp: str):
+    """(b): two ranks on the one card over gloo, each fed its half of
+    MH_STEPS seeded global batches through its own tcp:// broker. After
+    every step the ranks' params are bitwise equal; rank 1 publishes
+    nothing; one launch per step on each rank; rank 0's state against a
+    single-process learner fed [rank 0's half ‖ rank 1's half] within phase
+    6's kernel-vs-plain bounds; the reuse turn's ppo_updates_done equal."""
+    from dotaclient_tpu_torch.ops import lstm as L
+    from dotaclient_tpu_torch.parallel.train_step import TrainState, init_train_state
+    from dotaclient_tpu_torch.runtime.learner import Learner
+    from dotaclient_tpu_torch.transport import memory as tmem
+    from dotaclient_tpu_torch.transport.params import load_named, load_named_adam
+    from dotaclient_tpu_torch.transport.tcp import TcpBroker
+
+    cfg = _mh_cfg(flags)
+    world, B = 2, cfg.batch_size
+    half = dataclasses.replace(cfg, batch_size=B // world)
+    halves = [_stamped(rollout_frames(half, MH_STEPS, seed0=400 + 10 * r), B // world) for r in range(world)]
+    brokers, procs = [], []
+    port = _free_port()
+    try:
+        for r in range(world):
+            proc, bport = start_tcp_broker()
+            brokers.append(proc)
+            pub = TcpBroker("127.0.0.1", bport)
+            for f in halves[r]:
+                pub.publish_experience(f)
+            pub.close()
+            procs.append(_mh_spawn(["--mh-rank", str(r), str(world), str(port), str(bport), tmp, *flags],
+                                   os.path.join(tmp, f"rank{r}.log")))
+        t0 = time.perf_counter()
+        _mh_join(procs, [os.path.join(tmp, f"rank{r}.log") for r in range(world)], "(b)")
+        wall_s = time.perf_counter() - t0
+    finally:
+        for p in brokers:
+            stop_process(p)
+    ranks = [_read_json(os.path.join(tmp, f"rank{r}.json")) for r in range(world)]
+    problems = []
+    for turn in ("step", "reuse"):
+        a, b = ranks[0][turn], ranks[1][turn]
+        if a["digests"] != b["digests"]:
+            problems.append(f"{turn}: params differ between the ranks after steps "
+                            f"{[i + 1 for i, (x, y) in enumerate(zip(a['digests'], b['digests'])) if x != y]}")
+        if device.type == "cuda" and (a["launches"] != b["launches"] or any(n != a["launches"][0] for n in a["launches"])):
+            problems.append(f"{turn}: recurrence launches per step {a['launches']} / {b['launches']}")
+        if not a["weights"] or b["weights"] or b["published"]:
+            problems.append(f"{turn}: rank 0 weights {a['weights']}, rank 1 weights {b['weights']} and {b['published']} "
+                            f"publishes")
+    if device.type == "cuda" and ranks[0]["step"]["launches"] != [1] * MH_STEPS:
+        problems.append(f"step launches {ranks[0]['step']['launches']}, expected one per step")
+    updates = [r["reuse"]["metrics"][0]["ppo_updates_done"] for r in ranks]
+    if updates[0] != updates[1] or ranks[0]["reuse"]["metrics"][0]["ppo_kl_stopped"] != 1.0:
+        problems.append(f"reuse: ppo_updates_done {updates}, kl_stopped {ranks[0]['reuse']['metrics'][0]}")
+    if problems:
+        raise SystemExit(f"multihost (b): {problems}")
+
+    # one process at the global batch, fed [rank 0's half ‖ rank 1's half] per batch
+    name = "chip_mh_single"
+    tmem.reset(name)
+    hub = tmem.MemoryBroker(name, maxlen=4 * B * MH_STEPS)
+    for i in range(MH_STEPS):
+        for r in range(world):
+            for f in halves[r][i * (B // world) : (i + 1) * (B // world)]:
+                hub.publish_experience(f)
+    single = Learner(cfg, tmem.MemoryBroker(name), device)
+    rec = _mh_record(single, L)
+    try:
+        single.run(num_steps=MH_STEPS, batch_timeout=60.0, max_idle=3)
+    finally:
+        single.close()
+    saved = np.load(os.path.join(tmp, "state0.npz"))
+    net = init_train_state(cfg, device).net
+    load_named(net, [(n, saved[n]) for n in saved.files if not n.startswith("adam/")])
+    state0 = TrainState(net, load_named_adam([(n[5:], saved[n]) for n in saved.files if n.startswith("adam/")], net),
+                        MH_STEPS)
+    as_t = lambda ms: [{k: torch.tensor(v) for k, v in m.items()} for m in ms]  # noqa: E731
+    worst = compare_arms("multihost (b) vs one process", state0, single.state, as_t(ranks[0]["step"]["metrics"]),
+                         as_t(rec["metrics"]), MH_STEPS, cfg.ppo.lr)
+    # the all-reduces' ms per step (the loss moments and the gradient bucket, host-staged
+    # over gloo) against the step's own ms to a device sync, on rank 0, from the second step
+    step_ms = ranks[0]["step"]["ms"][1:]
+    coll_ms = sum(ranks[0]["step"]["collective_ms"][2:]) / max(len(step_ms), 1)
+    res = dict(backend="gloo", steps=MH_STEPS, wall_s=wall_s, launches=[r["step"]["launches"] for r in ranks],
+               step_ms=[r["step"]["ms"] for r in ranks], all_reduce_ms_per_step=coll_ms,
+               all_reduce_share=coll_ms / statistics.median(step_ms) if step_ms else None,
+               reuse_launches=[r["reuse"]["launches"] for r in ranks], reuse_updates=updates[0],
+               rank0_published=ranks[0]["step"]["published"], worst=worst,
+               env_steps=[r["step"]["env_steps"] for r in ranks])
+    print(f"multihost (b): two ranks on one card over gloo (NCCL refuses two ranks on one device), {B // world} rows "
+          f"each of {MH_STEPS} global batches of {B}: params bitwise equal on both ranks after every step, rank 1 "
+          f"published 0 frames, recurrence launches per step {res['launches']}; against one process at B={B}: "
+          f"{ {k: float(f'{v:.3g}') for k, v in worst.items()} } (phase 6's bounds); 2x2 reuse with kl_stop "
+          f"{MH_KL_STOP}: {updates} updates on the two ranks, launches {res['reuse_launches']}; rank 0's step "
+          f"{[round(x, 2) for x in res['step_ms'][0]]} ms to a sync (each step fenced), its all-reduces "
+          f"{coll_ms:.3f} ms per step, {res['all_reduce_share']} of the step; ranks' wall {wall_s:.1f} s | {card}",
+          flush=True)
+    return res
+
+
+def mh_binary_main(argv) -> int:
+    """`chip_smoke.py --mh-binary RANK DIR [learner flags]`: one rank of
+    phase 18 (c), the learner binary's main over gloo (two ranks share the
+    card). DIR/bootR.json holds the version and resume scalars as run()
+    starts; DIR/rankR.json, at exit, the launches, the fabric's and
+    staging's ledgers, every (key, boot, seq) the fence admitted, the
+    publishes and the mirror's counters."""
+    from dotaclient_tpu_torch.ops import lstm as L
+    from dotaclient_tpu_torch.runtime import learner as tlearner
+    from dotaclient_tpu_torch.transport import fabric as tfab
+
+    rank, d, flags = int(argv[0]), argv[1], argv[2:]
+    admitted = []
+    admit = tfab.ShardFence.admit
+
+    def recording(fence, key, boot, epoch, seq):
+        ok = admit(fence, key, boot, epoch, seq)
+        if ok:
+            admitted.append((key, boot, seq))
+        return ok
+
+    tfab.ShardFence.admit = recording
+    run = tlearner.Learner.run
+
+    def reporting_run(self, *a, **kw):
+        _write_json(os.path.join(d, f"boot{rank}.json"), dict(version=self.version, resume=self.resume_info,
+                                                              world=self.dist.world, rank=self.dist.rank))
+        return run(self, *a, **kw)
+
+    tlearner.Learner.run = reporting_run
+    L.LAUNCHES = 0  # this rank's main path starts here
+    learner = tlearner.main(flags, backend="gloo")
+    _write_json(os.path.join(d, f"rank{rank}.json"), dict(
+        version=learner.version, launches=L.LAUNCHES, admitted=admitted, fabric=learner.broker.fabric_stats(),
+        staging=learner.staging.stats(), published=learner.publisher.published,
+        mirror=learner.checkpointer.mirror_stats(), checkpoint_dir=learner.cfg.checkpoint_dir))
+    learner.broker.close()
+    return 0
+
+
+def _mh_manifest_flags(args, tmp: str, rank: int, url: str, port: int, ckpt: str, extra=()):
+    """k8s/learner-multihost.yaml's args for rank `rank` here, cut as phase
+    9 cuts k8s/learner.yaml's: local /ckpt, /logs and a mirror directory
+    shared by the ranks, a metrics port of its own, checkpoints every 2
+    steps and a metrics window every step; the shard list goes to phase
+    10's local shards; the rendezvous on this host."""
+    rdir = os.path.join(tmp, f"rank{rank}_{port}")
+    swaps = {"--broker_url": url, "--checkpoint_remote_dir": os.path.join(tmp, "mirror"),
+             "--checkpoint_dir": ckpt, "--log_dir": os.path.join(rdir, "logs"),
+             "--obs.dump_dir": os.path.join(rdir, "logs"), "--obs.profile_dir": os.path.join(rdir, "logs"),
+             "--obs.metrics_port": str(_free_port()), "--checkpoint_every": "2"}
+    out = list(args)
+    for flag, value in swaps.items():
+        out[out.index(flag) + 1] = value
+    return out + ["--metrics_every", "1", "--coordinator", f"127.0.0.1:{port}", "--num_processes", "2",
+                  "--process_id", str(rank), *extra]
+
+
+def _mh_ranks(args, tmp: str, url: str, ckpts, extra=()):
+    """Both ranks of the manifest's binary (`--mh-binary`), on a fresh
+    rendezvous port: (processes, logs, flags, metrics ports)."""
+    port = _free_port()
+    flags = [_mh_manifest_flags(args, tmp, r, url, port, ckpts[r], extra) for r in range(2)]
+    logs = [os.path.join(tmp, f"rank{r}_{port}.log") for r in range(2)]
+    for r in range(2):
+        if os.path.exists(os.path.join(tmp, f"boot{r}.json")):
+            os.remove(os.path.join(tmp, f"boot{r}.json"))
+    procs = [_mh_spawn(["--mh-binary", str(r), tmp, *f], log) for r, (f, log) in enumerate(zip(flags, logs))]
+    return procs, logs, flags, [int(f[f.index("--obs.metrics_port") + 1]) for f in flags]
+
+
+def _mh_manifest(device, card: str, tmp: str, extra=(), producers: int = 4):
+    """(c): k8s/learner-multihost.yaml's args at world 2 over phase 10's
+    three local shards fed by `producers` producer processes with MH_STEPS
+    global batches and half of one; once both ranks are at v{MH_STEPS}, or
+    the feed is done and the versions settled (a rank may hold more of the
+    frames than the other), a SIGTERM drain of both: the rank left without
+    a batch takes its part of the other's steps on padding rows, and both
+    exit 0 at one version, at least MH_STEPS, durable. No (key,
+    seq) reaches both ranks; the fan-in and staging ledgers are exact on
+    each rank; each shard's ledger holds; only rank 0 pushed the mirror;
+    compute_mfu divides by two cards' peak. Then both ranks restart, rank
+    1 with an empty /ckpt: it resumes at rank 0's step."""
+    from dotaclient_tpu_torch.config import LearnerConfig, parse_config
+    from dotaclient_tpu_torch.ops.flops import device_peak_flops
+    from dotaclient_tpu_torch.runtime.checkpoint import Checkpointer
+    from dotaclient_tpu_torch.runtime.learner import decode_aux
+
+    args = manifest_args(MH_MANIFEST)
+    shards = start_fabric_shards(3)
+    try:
+        url = ",".join(f"tcp://127.0.0.1:{p}" for _, p, _ in shards)
+        ckpts = [os.path.join(tmp, f"ck{r}") for r in range(2)]
+        cfg = parse_config(LearnerConfig(), _mh_manifest_flags(args, tmp, 0, url, 0, ckpts[0], extra))
+        B = cfg.batch_size
+        share = B // producers
+        pdir = os.path.join(tmp, "prod")
+        procs, ranks_p = [], []
+        try:
+            t0 = time.perf_counter()
+            ranks_p, logs, flags, mports = _mh_ranks(args, tmp, url, ckpts, extra)
+            _wait(lambda: all(os.path.exists(os.path.join(tmp, f"boot{r}.json")) for r in range(2))
+                  or any(p.poll() is not None for p in ranks_p), 180, "both ranks to start")
+            # once both ranks consume, unpaced: a rank's staging holds what it
+            # popped, so a feed paced by the version could starve the other
+            procs = _start_producers(url, pdir, producers, MH_STEPS * share + share // 2, share, lead=10 ** 6,
+                                     extra=["--batch_size", str(B), *extra])
+            seen = {"v": None, "t": time.monotonic()}
+
+            def settled():
+                if any(p.poll() is not None for p in ranks_p):
+                    return True
+                try:
+                    v = [_scrape(m).get("obs_learner_version", -1) for m in mports]
+                except OSError:
+                    return False
+                if v != seen["v"]:
+                    seen.update(v=v, t=time.monotonic())
+                done = all(s.get("done") for s in _producer_status(pdir, producers))
+                return min(v) >= MH_STEPS or (done and time.monotonic() - seen["t"] > 5)
+
+            _wait(settled, 300, f"both ranks to reach v{MH_STEPS}", procs)
+            for p in ranks_p:
+                p.send_signal(signal.SIGTERM)
+            _mh_join(ranks_p, logs, "(c) drain")
+            wall_s = time.perf_counter() - t0
+        finally:
+            for p in procs + ranks_p:
+                stop_process(p)
+        ranks = [_read_json(os.path.join(tmp, f"rank{r}.json")) for r in range(2)]
+        shard_led = [_scrape(m) for _, _, m in shards]
+        problems = []
+        keys = [set(map(tuple, r["admitted"])) for r in ranks]
+        if keys[0] & keys[1]:
+            problems.append(f"{len(keys[0] & keys[1])} (key, seq) delivered to both ranks")
+        versions = [r["version"] for r in ranks]
+        if versions[0] != versions[1] or versions[0] < MH_STEPS:
+            problems.append(f"versions {versions}")
+        pending = []
+        for r, st in enumerate(ranks):
+            f, s = st["fabric"], st["staging"]
+            popped = sum(f[f"broker_shard_{i}_popped_total"] for i in range(3))
+            delivered = f["fanin_delivered_total"]
+            ck = st["checkpoint_dir"]
+            aux_path = os.path.join(ck, f"aux_{st['version']}.bin")
+            if not os.path.exists(aux_path) or Checkpointer(ck).latest_step() != st["version"]:
+                problems.append(f"rank {r}: drained at v{st['version']}, steps on disk {Checkpointer(ck).all_steps()}")
+                continue
+            pending.append(len(decode_aux(open(aux_path, "rb").read())["staging"]["pending"]))
+            if popped != delivered + f["fanin_fence_dropped_total"] + f["fanin_dup_dropped_total"]:
+                problems.append(f"rank {r}: fan-in popped {popped} vs {f}")
+            if len(st["admitted"]) != delivered or delivered != s["rows_packed"] + pending[-1] + s["dropped_stale"] + \
+                    s["dropped_bad"]:
+                problems.append(f"rank {r}: delivered {delivered} vs trained {s['rows_packed']} + aux {pending[-1]} + "
+                                f"stale {s['dropped_stale']} + bad {s['dropped_bad']}")
+            if device.type == "cuda" and st["launches"] != st["version"]:
+                problems.append(f"rank {r}: {st['launches']} recurrence launches over {st['version']} steps")
+        for i, led in enumerate(shard_led):
+            if led["broker_shard_enqueued_total"] != led["broker_shard_popped_total"] + \
+                    led["broker_shard_dropped_total"] + led["broker_shard_evicted_low_total"] + \
+                    led["broker_shard_resident"]:
+                problems.append(f"shard {i} ledger {led}")
+        if not ranks[0]["mirror"].get("mirrored") or ranks[1]["mirror"] or ranks[1]["published"]:
+            problems.append(f"mirror rank 0 {ranks[0]['mirror']}, rank 1 {ranks[1]['mirror']}; rank 1 published "
+                            f"{ranks[1]['published']}")
+        windows = [[json.loads(x) for x in open(os.path.join(f[f.index("--log_dir") + 1], "metrics.jsonl"))]
+                   for f in flags]
+        peak = device_peak_flops(device)
+        mfu = [[w.get("compute_mfu") for w in ws] for ws in windows]
+        for ws in windows:
+            for w in ws:
+                if peak is not None and not math.isclose(w["compute_flops_per_sec"] / w["compute_mfu"], 2 * peak,
+                                                         rel_tol=1e-9):
+                    problems.append(f"compute_mfu {w['compute_mfu']}: not compute_flops_per_sec over two cards' peak")
+        if problems:
+            raise SystemExit(f"multihost (c): {problems}")
+
+        # the restart: rank 1's /ckpt empty, the shards drained; both SIGTERMed once run() starts
+        _drain_shards(shards)
+        ranks_p, logs, _, _ = _mh_ranks(args, tmp, url, [ckpts[0], os.path.join(tmp, "ck1_empty")], extra)
+        try:
+            _wait(lambda: all(os.path.exists(os.path.join(tmp, f"boot{r}.json")) for r in range(2))
+                  or any(p.poll() is not None for p in ranks_p), 180, "both ranks to restore")
+            for p in ranks_p:
+                p.send_signal(signal.SIGTERM)
+            _mh_join(ranks_p, logs, "(c) restart")
+        finally:
+            for p in ranks_p:
+                stop_process(p)
+    finally:
+        for proc, _, _ in shards:
+            stop_process(proc)
+    boots = [_read_json(os.path.join(tmp, f"boot{r}.json")) for r in range(2)]
+    restored = [b["resume"].get("resume_restored_step") for b in boots]
+    if boots[0]["version"] != boots[1]["version"] or restored[0] != restored[1] or restored[0] != versions[0]:
+        raise SystemExit(f"multihost (c): the restart with rank 1's /ckpt empty: {boots} (drained at {versions})")
+    ms = [[_window_ms(w) for w in ws] for ws in windows]
+    res = dict(steps=versions[0], wall_s=wall_s, launches=[r["launches"] for r in ranks], window_ms=ms, mfu=mfu,
+               trained=[r["staging"]["rows_packed"] for r in ranks], aux_pending=pending,
+               delivered=[r["fabric"]["fanin_delivered_total"] for r in ranks], mirror=ranks[0]["mirror"],
+               restart=dict(version=boots[0]["version"], restored_step=restored[0]))
+    print(f"multihost (c): k8s/learner-multihost.yaml's args at world 2 (gloo, one card), its three-shard "
+          f"--broker_url on local shards with {producers} producer processes: v{versions[0]} at the SIGTERM drain, "
+          f"both ranks exit 0 with it durable; no (key, seq) on both ranks; delivered {res['delivered']} = trained "
+          f"{res['trained']} + aux {pending} (+ stale, bad); only rank 0 pushed the mirror {ranks[0]['mirror']}; "
+          f"launches {res['launches']}; window ms per step {[[round(x, 1) for x in m] for m in ms]}; compute_mfu "
+          f"{mfu} (over two cards' peak: on one shared card about half its use); the restart with rank 1's /ckpt "
+          f"empty resumed both at step {restored[0]} (v{boots[0]['version']}) | {card}", flush=True)
+    return res
+
+
+def phase_multihost(device, card: str, flags=("--batch_size", "256", "--seq_len", "16"), extra=()):
+    """Phase 18: the multi-process learner (parallel/dist.py), (a) the
+    world-1 binary against the plain one, (b) two ranks on the one card
+    over gloo against one process at the global batch, (c) the multi-host
+    manifest at world 2 through a drain and a restart. Each zeroes the
+    recurrence counter itself before its main path."""
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_multihost_")
+    try:
+        world1 = _mh_world1(device, card, list(flags))
+        os.makedirs(os.path.join(tmp, "b"))
+        two = _mh_two_ranks(device, card, list(flags), os.path.join(tmp, "b"))
+        os.makedirs(os.path.join(tmp, "c"))
+        manifest = _mh_manifest(device, card, os.path.join(tmp, "c"), extra=list(extra))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = world1["launches"] + sum(map(sum, two["launches"])) + sum(map(sum, two["reuse_launches"])) + \
+        sum(manifest["launches"])
+    res = dict(world1=world1, two_ranks=two, manifest=manifest, launches=launches, phase_s=time.perf_counter() - t0)
+    print(f"multihost: phase {res['phase_s']:.1f} s, {launches} recurrence launches | {card}", flush=True)
+    return res
+
+
 # ----------------------------------------------------------------- probes
-# `python3 chip_smoke.py --probe profile|tree_h2d|replay_h2d` measures one question
+# `python3 chip_smoke.py --probe profile|profile_buffers|profile_pools|profile_arms|tree_h2d|replay_h2d` measures one question
 # each and checks nothing; the smoke never runs them.
-PROBE_WINDOWS = 24  # profiler windows of PROBE_WINDOW_S, alternating plain / synchronized stop
+# `--probe profile`: PROBE_WINDOWS POST /profile windows of PROBE_WINDOW_S;
+# `--probe profile_buffers`: PROBE_BUFFER_WINDOWS more with CUPTI's device
+# buffer set to PROBE_DEVICE_BUFFER bytes first (run it with kineto's
+# KINETO_CONFIG naming a file that sets ACTIVITIES_MAX_GPU_BUFFER_SIZE_MB:
+# kineto prints the limit it took in its config dump).
+PROBE_WINDOWS = 48
+# `--probe profile_arms`: the endpoint's windows in turns with other ways
+# to take one (see _probe_profile)
+PROBE_ARMS = ("endpoint", "nosync", "all_threads", "flush")
+PROBE_BUFFER_WINDOWS = 16
 PROBE_WINDOW_S = 1.0
+PROBE_DEVICE_BUFFER = 64 << 20  # CUPTI_ACTIVITY_ATTR_DEVICE_BUFFER_SIZE (CUPTI's default: 3 MiB)
+# `--probe profile_pools`: CUPTI's device buffer pool and profiling semaphore
+# pool raised (CUPTI_ACTIVITY_ATTR_DEVICE_BUFFER_POOL_LIMIT = 2,
+# _PROFILING_SEMAPHORE_POOL_SIZE = 3, _PROFILING_SEMAPHORE_POOL_LIMIT = 4)
+PROBE_POOL_WINDOWS = 32
+PROBE_POOL_ATTRS = {2: 4096, 3: 1 << 20, 4: 4096}
 PROBE_STEPS = 10  # steps per tree-H2D arm (one metrics window)
 
 
@@ -5384,6 +5929,8 @@ def _trace_census(path: str) -> dict:
     lcorr = {e.get("args", {}).get("correlation"): names.get(e.get("tid"), e.get("tid")) for e in launches}
     thread = lambda e: str(names.get(e.get("tid"), e.get("tid")))  # noqa: E731
     ts = [e["ts"] for e in kernels]
+    end = max((e["ts"] for e in launches), default=0.0)
+    orphans = [e for e in launches if e.get("args", {}).get("correlation") not in kcorr]
     return dict(kernels=len(kernels), lstm=sum("lstm_" in e.get("name", "") for e in kernels),
                 lstm_launch_threads=Counter(str(lcorr.get(e.get("args", {}).get("correlation"), "none"))
                                             for e in kernels if "lstm_" in e.get("name", "")),
@@ -5394,16 +5941,61 @@ def _trace_census(path: str) -> dict:
                                                  for e in kernels),
                 kernels_by_stream=Counter(str(e.get("args", {}).get("stream")) for e in kernels),
                 kernel_span_ms=(max(ts) - min(ts)) / 1e3 if ts else 0.0,
+                # the first launches without a kernel: call, thread, ms before the window's last launch
+                orphan_detail=[(e.get("name"), thread(e), round((end - e["ts"]) / 1e3, 3)) for e in orphans[:5]],
                 cpu_ops_by_thread=Counter(thread(e) for e in events if e.get("cat") == "cpu_op"))
 
 
-def _probe_profile(device) -> None:
-    """PROBE_WINDOWS profiler windows over phase 9's manifest learner fed by
-    a producer thread, from a thread that is not the loop's (as the HTTP
-    handler's): even windows through the learner's ProfileCapture, odd ones
-    the same capture with the device synchronized before the stop. Prints
-    each trace's census."""
+def _cupti():
+    """The CUPTI library torch's profiler loaded (from /proc/self/maps), or
+    None."""
+    import ctypes
+
+    for line in open("/proc/self/maps"):
+        if "libcupti" in line and "/" in line:
+            return ctypes.CDLL(line.split()[-1])
+    return None
+
+
+def _cupti_dropped(lib, streams=()) -> dict:
+    """cuptiActivityGetNumDroppedRecords (CUPTI resets each count on read)
+    for the global queue, and for the current context's `streams` (CUPTI
+    stream ids, as the trace's kernel events name them): {"rc":
+    CUptiResult, "dropped": n, "streams": {id: n}}."""
+    import ctypes
+
+    if lib is None:
+        return {"rc": None, "dropped": None}
+    n = ctypes.c_size_t(0)
+    rc = lib.cuptiActivityGetNumDroppedRecords(None, ctypes.c_uint32(0), ctypes.byref(n))
+    out = {"rc": rc, "dropped": n.value, "streams": {}}
+    ctx = ctypes.c_void_p()
+    if streams and ctypes.CDLL("libcuda.so.1").cuCtxGetCurrent(ctypes.byref(ctx)) == 0 and ctx.value:
+        for sid in streams:
+            m = ctypes.c_size_t(0)
+            r = lib.cuptiActivityGetNumDroppedRecords(ctx, ctypes.c_uint32(int(sid)), ctypes.byref(m))
+            out["streams"][str(sid)] = m.value if r == 0 else f"rc {r}"
+    return out
+
+
+def _probe_profile(device, windows: int = PROBE_WINDOWS, attrs=None, arms=("endpoint",)) -> None:
+    """`windows` POST /profile windows on the learner's own surface
+    (ProfileCapture as shipped: the device synchronized before the stop,
+    a window whose trace lost a launch's kernel answered 500) over phase
+    9's manifest learner fed by a producer thread. `attrs` ({CUPTI
+    activity attribute: size_t value}) are set before the first window. `arms` other than "endpoint" take their windows in turns with
+    it, each a torch.profiler window from this thread (not the loop's, as
+    the HTTP handler's): "nosync" stops without a device sync,
+    "all_threads" records every thread's CPU ops (torch's
+    profile_all_threads), "flush" forces CUPTI to flush its buffers
+    (cuptiActivityFlushAll(CUPTI_ACTIVITY_FLAG_FLUSH_FORCED)) after the
+    sync, before the stop. Prints each window's
+    census, its lost launches (lost_kernel_launches), its HTTP code and
+    CUPTI's dropped-record count read after it, then the totals by arm."""
+    import ctypes
+
     from dotaclient_tpu_torch.config import LearnerConfig, parse_config
+    from dotaclient_tpu_torch.obs.compute import lost_kernel_launches
     from dotaclient_tpu_torch.ops import lstm as L
     from dotaclient_tpu_torch.transport import memory as tmem
 
@@ -5415,7 +6007,8 @@ def _probe_profile(device) -> None:
             pass
 
     tmp = tempfile.mkdtemp(prefix="chip_probe_profile_")
-    cfg = parse_config(LearnerConfig(), local_manifest(manifest_args(), tmp, "mem://probe", _free_port()))
+    port = _free_port()
+    cfg = parse_config(LearnerConfig(), local_manifest(manifest_args(), tmp, "mem://probe", port))
     cfg = dataclasses.replace(cfg, ppo=dataclasses.replace(cfg.ppo, max_staleness=1 << 30))
     tmem.reset("chip_probe_profile")
     learner = _manifest_learner(cfg, "chip_probe_profile", [], device)
@@ -5425,9 +6018,34 @@ def _probe_profile(device) -> None:
 
     def run():
         try:
-            out["done"] = learner.run(num_steps=4000, batch_timeout=1.0, max_idle=2)
+            out["done"] = learner.run(num_steps=10 ** 6, batch_timeout=1.0, max_idle=2)
         except TimeoutError:
             out["done"] = learner.version
+
+    lib = _cupti()
+    totals = {arm: dict(windows=0, lossy=0, answered_500=0, partial_200=0, dropped=0) for arm in arms}
+    for attr, value in (attrs or {}).items():
+        size = ctypes.c_size_t(value)
+        width = ctypes.c_size_t(ctypes.sizeof(size))
+        totals[f"attr_{attr}_rc"] = lib.cuptiActivitySetAttribute(attr, ctypes.byref(width), ctypes.byref(size))
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+
+    def direct_window(arm: str, path: str) -> str:
+        kw = {}
+        if arm.startswith("all_threads"):
+            kw["experimental_config"] = torch._C._profiler._ExperimentalConfig(profile_all_threads=True)
+        os.makedirs(path)
+        prof = torch.profiler.profile(activities=acts, **kw)
+        prof.start()
+        time.sleep(PROBE_WINDOW_S)
+        if arm != "nosync":
+            torch.cuda.synchronize(device)
+        if arm == "flush" and lib is not None:
+            lib.cuptiActivityFlushAll(ctypes.c_uint32(1))
+        prof.stop()
+        trace = os.path.join(path, "trace.json")
+        prof.export_chrome_trace(trace)
+        return trace
 
     runner = threading.Thread(target=run, daemon=True)
     producer.start()
@@ -5435,36 +6053,41 @@ def _probe_profile(device) -> None:
     try:
         while learner.version < 12 and runner.is_alive():
             time.sleep(0.01)
-        for w in range(PROBE_WINDOWS):
-            sync = w % 2 == 1
+        for w in range(windows):
+            arm = arms[w % len(arms)]
             v0, n0, t0 = learner.version, L.LAUNCHES, time.perf_counter()
-            if sync:
-                path = os.path.join(tmp, f"sync_{w}")
-                os.makedirs(path)
-                prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                                          torch.profiler.ProfilerActivity.CUDA])
-                prof.start()
-                time.sleep(PROBE_WINDOW_S)
-                torch.cuda.synchronize()
-                prof.stop()
-                trace = os.path.join(path, "trace.json")
-                prof.export_chrome_trace(trace)
+            if arm == "endpoint":
+                code, body = _http("POST", f"http://127.0.0.1:{port}/profile?seconds={PROBE_WINDOW_S}")
+                reply = json.loads(body) if body.startswith("{") else {"error": body}
+                trace = (os.path.join(reply["trace_dir"], "trace.json") if code == 200
+                         else reply.get("error", "").rsplit("(", 1)[-1].rstrip(")"))
             else:
-                try:
-                    path, _ = learner.obs.profiler.capture(PROBE_WINDOW_S)
-                    trace = os.path.join(path, "trace.json")
-                except RuntimeError as e:
-                    trace = str(e).rsplit("(", 1)[-1].rstrip(")")
-            census = _trace_census(trace)
-            census.update(window=w, sync=sync, wall_s=round(time.perf_counter() - t0, 3),
-                          steps=learner.version - v0, launches=L.LAUNCHES - n0)
+                code, reply = None, {}
+                trace = direct_window(arm, os.path.join(tmp, f"{arm}_{w}"))
+            lib = lib or _cupti()
+            whole = os.path.exists(trace)
+            census = _trace_census(trace) if whole else {}
+            lost = lost_kernel_launches(trace) if whole else {"no trace": -1}
+            dropped = _cupti_dropped(lib, census.get("kernels_by_stream", {}).keys() or ("7",))
+            census.update(window=w, arm=arm, http=code, error=reply.get("error", "")[:200], lost=lost,
+                          cupti=dropped, wall_s=round(time.perf_counter() - t0, 3), steps=learner.version - v0,
+                          launches=L.LAUNCHES - n0)
+            t = totals[arm]
+            t["windows"] += 1
+            t["lossy"] += bool(lost)
+            t["answered_500"] += code == 500
+            t["partial_200"] += code == 200 and bool(lost)
+            t["dropped"] += dropped["dropped"] or 0
             print("probe profile " + json.dumps(census), flush=True)
+            if whole:
+                shutil.rmtree(os.path.dirname(trace), ignore_errors=True)
     finally:
         producer.stop_event.set()
         producer.join(timeout=10)
         runner.join(timeout=60)
         learner.close()
         shutil.rmtree(tmp, ignore_errors=True)
+    print("probe profile totals " + json.dumps(totals), flush=True)
 
 
 def _pinned_tree_transfer(io, one_copy: bool):
@@ -5608,7 +6231,7 @@ def _probe_replay_h2d(device) -> None:
 
 
 def probe_main(argv) -> int:
-    """`--probe profile|tree_h2d|replay_h2d ...`: run the named probes on the card."""
+    """`--probe profile|profile_buffers|profile_pools|profile_arms|tree_h2d|replay_h2d ...`: run the named probes on the card."""
     if not torch.cuda.is_available():
         print("probe: no CUDA device", file=sys.stderr)
         return 1
@@ -5617,7 +6240,10 @@ def probe_main(argv) -> int:
     _kernels.build_all()
     device = torch.device("cuda", 0)
     print(f"device: {gpu_line()} | torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
-    probes = {"profile": _probe_profile, "tree_h2d": _probe_tree_h2d, "replay_h2d": _probe_replay_h2d}
+    probes = {"profile": _probe_profile, "tree_h2d": _probe_tree_h2d, "replay_h2d": _probe_replay_h2d,
+              "profile_buffers": lambda dev: _probe_profile(dev, PROBE_BUFFER_WINDOWS, {0: PROBE_DEVICE_BUFFER}),
+              "profile_pools": lambda dev: _probe_profile(dev, PROBE_POOL_WINDOWS, PROBE_POOL_ATTRS),
+              "profile_arms": lambda dev: _probe_profile(dev, PROBE_WINDOWS * 4 // 3, arms=PROBE_ARMS)}
     for name in argv:
         probes[name](device)
     return 0
@@ -5693,6 +6319,8 @@ def main() -> int:
     marks.append(("16", time.perf_counter()))
     modes = phase_data_modes(device, card)  # zeroes the counter itself before each path
     marks.append(("17", time.perf_counter()))
+    multihost = phase_multihost(device, card)  # zeroes the counter itself before each path; ranks count their own
+    marks.append(("18", time.perf_counter()))
 
     main_case = cases[0]
     kernels = [
@@ -5746,6 +6374,8 @@ def main() -> int:
             "chaos": chaos,
             "launches_data_modes": modes["launches"],
             "data_modes": modes,
+            "launches_multihost": multihost["launches"],
+            "multihost": multihost,
         }
     ]
     spans = ", ".join(f"{name} {t1 - t0:.1f}" for (_, t0), (name, t1) in zip(marks, marks[1:]))
@@ -5777,4 +6407,8 @@ if __name__ == "__main__":
         sys.exit(fleet_evaluator_main(sys.argv[2:]))
     if sys.argv[1:2] == ["--probe"]:
         sys.exit(probe_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--mh-rank"]:
+        sys.exit(mh_rank_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--mh-binary"]:
+        sys.exit(mh_binary_main(sys.argv[2:]))
     sys.exit(main())

@@ -446,8 +446,8 @@ class HandoffConfig:
 @dataclass
 class LearnerConfig:
     """The learner binary's flags (reference: dotaclient_tpu/config.py
-    LearnerConfig). The port runs on one device: `mesh_shape` takes the
-    specs that resolve to one (parallel/mesh.py)."""
+    LearnerConfig). `mesh_shape` takes the specs whose dp axis covers the
+    processes, one card each (parallel/mesh.py)."""
 
     batch_size: int = 256  # sequences per train step
     seq_len: int = 16  # rollout chunk length = LSTM truncation window
@@ -473,7 +473,7 @@ class LearnerConfig:
     log_dir: str = ""
     # Param init and the reuse step's per-step shuffle stream.
     seed: int = 0
-    mesh_shape: str = "dp=-1"  # "dp=-1", "dp=1", "dp=1,tp=1": one device
+    mesh_shape: str = "dp=-1"  # dp = the process count; tp / sp of 2+ refuse (A.14b)
     # The C++ batch packer on the staging path (dotaclient_tpu_torch/native);
     # False takes the Python path. A failed build raises.
     native_packer: bool = True
@@ -492,7 +492,15 @@ class LearnerConfig:
     profile_port: int = 0
     # "" = the CUDA device; "cpu" runs the learner on the host.
     platform: str = ""
+    # One learner process per card, data parallel over the processes
+    # (parallel/dist.py): every process runs this binary with its own
+    # process_id; batch_size stays global.
     multihost: bool = False
+    # Each resolves independently: "" / -1 defer to torch's env rendezvous
+    # (MASTER_ADDR:MASTER_PORT, WORLD_SIZE, RANK).
+    coordinator: str = ""  # host:port of process 0
+    num_processes: int = -1
+    process_id: int = -1
     # Stop after this many train steps (0 = run forever).
     train_steps: int = 0
 
@@ -637,9 +645,8 @@ class FleetConfig:
 # and the inference server refuse them from this one table; a flag
 # applies to the configs that have it.
 UNPORTED = {
-    "multihost": (bool, "multi-process data parallelism", "A.14"),
     "profile_port": (bool, "the deprecated always-on profiler server (use POST /profile)", "A.13b"),
-    "policy.tf_sp_axis": (bool, "sequence-parallel attention (ring / Ulysses)", "A.14"),
+    "policy.tf_sp_axis": (bool, "sequence-parallel attention (ring / Ulysses)", "A.14b"),
 }
 
 # The actor binary's modes that are not ported, in UNPORTED's form: Actor

@@ -329,7 +329,7 @@ def main(argv=None):
     # --obs.metrics_port adds the standard standalone surface too.
     obs = ObsRuntime.create(cfg.obs, role="control")
     if obs is not None and cfg.obs.metrics_port not in (0, int(cfg.control.port)):
-        obs.serve_metrics([plane.stats])
+        obs.serve_metrics([plane.stats], device=None)  # no net, no torch: no profiler
     print(
         json.dumps(
             {

@@ -500,7 +500,7 @@ def main(argv=None):
     service = LeagueService(cfg).start()
     obs = ObsRuntime.create(cfg.obs, role="league")
     if obs is not None and cfg.obs.metrics_port not in (0, int(cfg.league.port)):
-        obs.serve_metrics([service.stats])
+        obs.serve_metrics([service.stats], device=None)  # no net, no torch: no profiler
     print(
         json.dumps(
             {

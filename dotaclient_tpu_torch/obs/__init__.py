@@ -107,26 +107,31 @@ class ObsRuntime:
         return self.watchdog
 
     def serve_metrics(self, sources: List[Callable[[], Dict[str, float]]],
-                      health_provider: Optional[Callable[[], Dict]] = None, device="cpu") -> Optional[MetricsHTTPServer]:
+                      health_provider: Optional[Callable[[], Dict]] = None, *,
+                      device) -> Optional[MetricsHTTPServer]:
         """Start /metrics when cfg.metrics_port > 0, with the tracer's and
         the watchdog's scalars added to `sources`, /healthz, GET
-        /debug/flight and POST /profile (captures land in profile_dir, else
-        dump_dir, else cwd)."""
+        /debug/flight and POST /profile, which traces `device`, the one the
+        caller's nets run on (captures land in profile_dir, else dump_dir,
+        else cwd). `device=None` (a tier that steps no net and never loads
+        torch) wires no profiler: POST /profile answers 404."""
         if self.cfg.metrics_port <= 0:
             return None
-        from dotaclient_tpu_torch.obs.compute import ProfileCapture
 
         def _watchdog_scalars() -> Dict[str, float]:
             wd = self.watchdog  # one read: close() may null it meanwhile
             return wd.scalars() if wd is not None else {}
 
-        self.profiler = ProfileCapture(self.cfg.profile_dir or self.cfg.dump_dir,
-                                       max_seconds=self.cfg.profile_max_seconds, device=device)
+        if device is not None:
+            from dotaclient_tpu_torch.obs.compute import ProfileCapture
+
+            self.profiler = ProfileCapture(self.cfg.profile_dir or self.cfg.dump_dir,
+                                           max_seconds=self.cfg.profile_max_seconds, device=device)
         self.server = MetricsHTTPServer(
             self.cfg.metrics_port,
             list(sources) + [self.tracer.scalars, _watchdog_scalars],
             health_provider=health_provider,
-            profile_handler=self.profiler.capture,
+            profile_handler=self.profiler.capture if self.profiler is not None else None,
             flight_provider=self.recorder.snapshot,
         ).start()
         return self.server

@@ -286,13 +286,49 @@ class MfuAccountant:
 # ------------------------------------------------------------- profiler
 
 
+def _trace_events(path: str) -> list:
+    opener = gzip.open if path.endswith(".gz") else open
+    with opener(path, "rt") as f:
+        return json.load(f).get("traceEvents", [])
+
+
 def trace_kernel_names(path: str) -> List[str]:
     """Names of the device kernels in a Chrome trace written by
     torch.profiler (events of category "kernel")."""
-    opener = gzip.open if path.endswith(".gz") else open
-    with opener(path, "rt") as f:
-        events = json.load(f).get("traceEvents", [])
-    return [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    return [e.get("name", "") for e in _trace_events(path) if e.get("cat") == "kernel"]
+
+
+# The runtime and driver calls that enqueue one device kernel each (CUPTI
+# may add a version suffix, `_v7000`).
+KERNEL_LAUNCH_CALLS = frozenset({"cudaLaunchKernel", "cudaLaunchKernelExC", "cudaLaunchCooperativeKernel",
+                                 "cuLaunchKernel", "cuLaunchKernelEx"})
+# Launches this close to the window's first or last launch call are not
+# checked: at the start CUPTI can record a launch call before it traces the
+# kernel, and at the end a kernel may run after the profiler stopped.
+LAUNCH_EDGE_MS = 50.0
+
+
+def lost_kernel_launches(path: str, edge_ms: float = LAUNCH_EDGE_MS) -> Dict[str, int]:
+    """The kernel launches of a torch.profiler Chrome trace whose kernel
+    the trace lacks (matched by the `correlation` arg), counted by the name
+    of the launching thread; launches in the first and last `edge_ms` of
+    the window are left out. Empty for a whole trace."""
+    events = _trace_events(path)
+    names = {e.get("tid"): e.get("args", {}).get("name") for e in events
+             if e.get("ph") == "M" and e.get("name") == "thread_name"}
+    kernels = {e.get("args", {}).get("correlation") for e in events if e.get("cat") == "kernel"}
+    launches = [e for e in events if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and e.get("name", "").split("_v")[0] in KERNEL_LAUNCH_CALLS]
+    if not launches:
+        return {}
+    first = min(e["ts"] for e in launches) + 1e3 * edge_ms
+    last = max(e["ts"] for e in launches) - 1e3 * edge_ms
+    lost: Dict[str, int] = {}
+    for e in launches:
+        if first <= e["ts"] <= last and e.get("args", {}).get("correlation") not in kernels:
+            thread = str(names.get(e.get("tid")) or e.get("tid"))
+            lost[thread] = lost.get(thread, 0) + 1
+    return lost
 
 
 class ProfileCapture:
@@ -303,13 +339,16 @@ class ProfileCapture:
     its own thread: CUPTI traces every kernel the process launches on the
     card, whichever thread launched it.
 
-    On the card a window whose trace holds no device kernel is an error,
-    never an empty success."""
+    On the card a window is whole or an error, never a partial success:
+    the device is synchronized before the profiler stops, and a trace with
+    no device kernel, or with kernel launches whose kernel it lacks (a
+    launching thread's records lost), raises."""
 
-    def __init__(self, out_dir: str, max_seconds: float = 60.0, device="cpu"):
+    def __init__(self, out_dir: str, max_seconds: float = 60.0, *, device):
         self.out_dir = out_dir or os.getcwd()
         self.max_seconds = max_seconds
-        self.cuda = torch.device(device).type == "cuda"
+        self.device = torch.device(device)
+        self.cuda = self.device.type == "cuda"
         self._lock = threading.Lock()
         self.captures_done = 0
         self.last_path: Optional[str] = None
@@ -318,7 +357,8 @@ class ProfileCapture:
         """Trace for `seconds` (clamped to [0.1, max_seconds]) and return
         (trace dir, window traced). Raises ValueError on a non-finite
         request, CaptureBusyError when a capture is in flight and
-        RuntimeError when a card's window traced no kernel."""
+        RuntimeError when a card's window traced no kernel or lost the
+        kernels of some launches."""
         seconds = float(seconds)
         if not math.isfinite(seconds):
             raise ValueError(f"seconds must be finite, got {seconds!r}")
@@ -340,12 +380,20 @@ class ProfileCapture:
             prof.start()
             try:
                 time.sleep(seconds)
+                if self.cuda:
+                    torch.cuda.synchronize(self.device)  # the window's kernels have run
             finally:
                 prof.stop()
             trace = os.path.join(path, "trace.json")
             prof.export_chrome_trace(trace)
-            if self.cuda and not trace_kernel_names(trace):
-                raise RuntimeError(f"profiler capture of {seconds:.1f}s traced no device kernel ({trace})")
+            if self.cuda:
+                if not trace_kernel_names(trace):
+                    raise RuntimeError(f"profiler capture of {seconds:.1f}s traced no device kernel ({trace})")
+                lost = lost_kernel_launches(trace)
+                if lost:
+                    raise RuntimeError(f"profiler capture of {seconds:.1f}s is partial: {sum(lost.values())} kernel "
+                                       f"launches have no kernel in the trace, by launching thread "
+                                       f"{json.dumps(lost, sort_keys=True)} ({trace})")
             self.captures_done += 1
             self.last_path = path
             _log.info("profiler capture (%.1fs) written to %s", seconds, path)

@@ -81,3 +81,17 @@ def device_peak_flops(device) -> Optional[float]:
     if device.type != "cuda":
         return None
     return peak_flops_for(torch.cuda.get_device_name(device))
+
+
+def aggregate_peak_flops(peaks) -> Optional[float]:
+    """The MFU denominator of a step data parallel over several cards: the
+    sum of every rank's device_peak_flops (one entry per rank, None or NaN
+    where its device has no table entry). None when any rank's is missing:
+    a partial sum would overstate utilization (the reference's
+    aggregate_peak_flops over its device list)."""
+    total = 0.0
+    for peak in peaks:
+        if peak is None or peak != peak:
+            return None
+        total += peak
+    return total or None

@@ -2,8 +2,9 @@
 local half of dotaclient_tpu/ops/ring_attention.py).
 
 The reference also shards the time axis over a mesh axis (ring attention
-over ppermute, Ulysses over all-to-all). That needs more than one device
-and is not ported (ROADMAP A.14): a mesh with the axis raises here.
+over ppermute, Ulysses over all-to-all). That needs the time axis split
+over a group of ranks and is not ported (ROADMAP A.14b): a mesh with the
+axis raises here.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ def attend(
     key axis exceeds it, dense else. Sequence parallelism (a mesh given
     together with `sp_axis`) raises NotImplementedError."""
     if mesh is not None and sp_axis:
-        raise NotImplementedError(f"sequence-parallel attention over {sp_axis!r} is not ported yet (ROADMAP A.14)")
+        raise NotImplementedError(f"sequence-parallel attention over {sp_axis!r} is not ported yet (ROADMAP A.14b)")
     if kv_block and k.shape[-3] > kv_block:
         return A.blockwise_causal_attention(q, k, v, q_pos, k_pos, kv_block)
     return A.causal_attention(q, k, v, q_pos, k_pos)

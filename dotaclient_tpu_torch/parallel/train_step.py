@@ -1,10 +1,14 @@
-"""The PPO train step on one device (torch twin of
-dotaclient_tpu/parallel/train_step.py, without the mesh).
+"""The PPO train step (torch twin of dotaclient_tpu/parallel/train_step.py).
 
 consume → teacher-forced re-eval → GAE → PPO backward → global-norm clip
 → Adam, then the caller publishes `weights_frame(state)`. The reference
 compiles this into one SPMD program over a device mesh; here it is eager
-PyTorch on one GPU (data parallelism is a later slice). The batch reaches
+PyTorch, one process per card. Data parallel over `dist`'s ranks
+(parallel/dist.py), each rank steps on its B / N rows of the global batch:
+the loss statistics are global (ops/ppo.py), each update all-reduces one
+flat bucket of the gradients and the metrics before the clip, so the clip,
+`grad_norm` and every metric are global and every rank applies the same
+update to the same params. The batch reaches
 the step as a tree of tensors (build_train_step), or as transfer buffers
 the step unpacks: four dtype groups (build_fused_train_step) or one u8
 buffer (build_single_train_step). Two shapes of step, as in the reference:
@@ -31,7 +35,9 @@ from dotaclient_tpu_torch.models.policy import PolicyNet, check_arch, init_param
 from dotaclient_tpu_torch.ops.batch import TrainBatch, tree_map, zeros_train_batch
 from dotaclient_tpu_torch.ops.clip_adam import AdamState, ClipAdam
 from dotaclient_tpu_torch.ops.ppo import ppo_loss, ppo_minibatch_loss, precompute_reuse
+from dotaclient_tpu_torch.parallel.dist import Dist
 from dotaclient_tpu_torch.parallel.fused_io import FusedBatchIO
+from dotaclient_tpu_torch.parallel.mesh import local_config
 from dotaclient_tpu_torch.runtime.staging import cast_obs_to_compute_dtype
 from dotaclient_tpu_torch.transport.params import named_params, named_tensors
 from dotaclient_tpu_torch.transport.serialize import serialize_weights
@@ -61,17 +67,23 @@ def weights_frame(state: TrainState, boot_epoch: int = 0) -> bytes:
     return serialize_weights(named_params(state.net), version=state.step, boot_epoch=boot_epoch)
 
 
-def _update(net, opt: ClipAdam, opt_state: AdamState, loss_fn: Callable):
+def _update(net, opt: ClipAdam, opt_state: AdamState, loss_fn: Callable, dist: Dist):
     """One gradient step: loss_fn() → (loss, metrics); grads by autograd
-    (a param the loss does not reach gets zeros, as jax.grad gives);
-    clip + Adam in place. Returns (opt_state', metrics with grad_norm,
-    the global norm before the clip)."""
+    (a param the loss does not reach gets zeros, as jax.grad gives); across
+    ranks one all-reduce of a flat bucket of the grads and the metrics;
+    clip + Adam in place. Returns (opt_state', metrics with grad_norm, the
+    global norm before the clip)."""
     params = named_tensors(net)
     loss, metrics = loss_fn()
     grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
-    grads = {n: torch.zeros_like(p) if g is None else g for (n, p), g in zip(params.items(), grads)}
-    opt_state, g_norm = opt.apply(params, grads, opt_state)
+    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params.values(), grads)]
     metrics = {k: v.detach() for k, v in metrics.items()}
+    if dist.world > 1:
+        bucket = torch.cat([g.reshape(-1).float() for g in grads] + [torch.stack(list(metrics.values())).float()])
+        parts = dist.all_reduce_(bucket).split([g.numel() for g in grads] + [len(metrics)])
+        grads = [x.view_as(g).to(g.dtype) for x, g in zip(parts, grads)]
+        metrics = dict(zip(metrics, parts[-1].unbind()))
+    opt_state, g_norm = opt.apply(params, dict(zip(params, grads)), opt_state)
     metrics["grad_norm"] = g_norm
     return opt_state, metrics
 
@@ -93,33 +105,44 @@ def epoch_permutations(cfg: LearnerConfig, step: int, device=None) -> torch.Tens
     return perms.to(resolve_device(device))
 
 
-def build_train_step(cfg: LearnerConfig, device=None):
+def build_train_step(cfg: LearnerConfig, device=None, dist: Optional[Dist] = None):
     """`step(state, batch) -> (state', metrics)` over a TrainBatch of
-    tensors on `device` (ops.batch.as_tensors). The reuse step also takes
-    `perms` ([epochs][B] indices) to replay given shuffles. Either policy
-    family; sequence parallelism (`policy.tf_sp_axis`) is refused."""
+    tensors on `device` (ops.batch.as_tensors): the whole batch, or this
+    rank's B / N rows of it with `dist`. The reuse step also takes `perms`
+    ([epochs][B] indices into the global batch) to replay given shuffles.
+    Either policy family; sequence parallelism (`policy.tf_sp_axis`) is
+    refused."""
     check_arch(cfg.policy)
     refuse_unported(cfg, ("policy.tf_sp_axis",))
+    dist = dist if dist is not None else Dist()
+    dp = dist.world
+    if cfg.batch_size % dp:
+        raise ValueError(f"batch_size={cfg.batch_size} must be divisible by the mesh dp axis ({dp}); adjust "
+                         f"--batch_size or --mesh_shape")
     R, M = cfg.ppo.epochs, cfg.ppo.minibatches
     if R < 1 or M < 1:
         raise ValueError(f"ppo.epochs={R} and ppo.minibatches={M} must be >= 1")
     if cfg.batch_size % M:
         raise ValueError(f"batch_size={cfg.batch_size} must divide by ppo.minibatches={M}")
+    if (cfg.batch_size // M) % dp:
+        raise ValueError(f"minibatch size {cfg.batch_size // M} (batch_size/minibatches) must divide by the mesh dp "
+                         f"axis ({dp}) so each update stays dp-sharded")
     opt = make_optimizer(cfg)
     device = resolve_device(device)
+    all_reduce = dist.all_reduce_ if dp > 1 else None
 
     if R * M == 1:
 
         def step_fn(state: TrainState, batch: TrainBatch):
-            loss_fn = lambda: ppo_loss(state.net, batch, cfg.ppo)
-            opt_state, metrics = _update(state.net, opt, state.opt_state, loss_fn)
+            loss_fn = lambda: ppo_loss(state.net, batch, cfg.ppo, all_reduce=all_reduce)
+            opt_state, metrics = _update(state.net, opt, state.opt_state, loss_fn, dist)
             return TrainState(state.net, opt_state, state.step + 1), metrics
 
         return step_fn
-    return _build_reuse_step_fn(cfg, opt, device)
+    return _build_reuse_step_fn(cfg, opt, device, dist)
 
 
-def _build_reuse_step_fn(cfg: LearnerConfig, opt: ClipAdam, device):
+def _build_reuse_step_fn(cfg: LearnerConfig, opt: ClipAdam, device, dist: Dist):
     """The sample-reuse step: R epochs × M minibatches per consumed batch.
 
     Advantages and returns are frozen by one pre-update forward
@@ -131,25 +154,37 @@ def _build_reuse_step_fn(cfg: LearnerConfig, opt: ClipAdam, device):
     each update then waits for its approx_kl (one device sync per
     minibatch, and none when kl_stop is 0). Metrics are summed over the
     updates that ran, then averaged; `ppo_updates_done` and
-    `ppo_kl_stopped` say how many ran and whether the stop fired."""
+    `ppo_kl_stopped` say how many ran and whether the stop fired.
+
+    Across N ranks the permutation is the reference's global one (the
+    same generator on every rank): each rank precomputes its own rows,
+    the frozen batch is gathered in rank order (the global batch), and rank
+    k trains on the k-th of N equal parts of each minibatch. The
+    minibatch's statistics are global (ops/ppo.py), its gradient and
+    metrics all-reduced, so the KL stop reads the global approx_kl and every
+    rank stops after the same update."""
     R, M, B = cfg.ppo.epochs, cfg.ppo.minibatches, cfg.batch_size
+    share = B // M // dist.world  # rows of each minibatch on this rank
+    lo = dist.rank * share
     kl_stop = cfg.ppo.kl_stop
     keys = _metric_keys(cfg)
+    all_reduce = dist.all_reduce_ if dist.world > 1 else None
 
     def step_fn(state: TrainState, batch: TrainBatch, perms: Optional[Sequence[torch.Tensor]] = None):
-        rb = precompute_reuse(state.net, batch, cfg.ppo)
+        rb = dist.all_gather_rows(precompute_reuse(state.net, batch, cfg.ppo))
         if perms is None:
             perms = epoch_permutations(cfg, state.step, device)
         opt_state, n_upd, active = state.opt_state, 0, True
         summed: Dict[str, torch.Tensor] = {}
         for e in range(R):
             perm = torch.as_tensor(perms[e], device=batch.mask.device)
-            shuf = tree_map(lambda x: x.index_select(0, perm), rb)
             for m in range(M):
                 if not active:
                     break
-                mb = tree_map(lambda x: x[m * (B // M) : (m + 1) * (B // M)], shuf)
-                opt_state, mm = _update(state.net, opt, opt_state, lambda: ppo_minibatch_loss(state.net, mb, cfg.ppo))
+                rows = perm[m * (B // M) + lo : m * (B // M) + lo + share]
+                mb = tree_map(lambda x: x.index_select(0, rows), rb)
+                opt_state, mm = _update(state.net, opt, opt_state,
+                                        lambda: ppo_minibatch_loss(state.net, mb, cfg.ppo, all_reduce=all_reduce), dist)
                 summed = {k: summed[k] + mm[k] for k in keys} if summed else {k: mm[k] for k in keys}
                 n_upd += 1
                 if kl_stop > 0 and not mm["approx_kl"].item() <= kl_stop:  # NaN stops too, as in the reference
@@ -173,20 +208,20 @@ def batch_template(cfg: LearnerConfig) -> TrainBatch:
     )
 
 
-def _build_fused(cfg: LearnerConfig, device, single: bool):
+def _build_fused(cfg: LearnerConfig, device, single: bool, dist: Optional[Dist]):
     """The two fused-transfer builders' shared body: one FusedBatchIO of
-    the staged template in the requested layout, and build_train_step's
-    step behind its unpack."""
+    the staged template in the requested layout, sized at this rank's
+    B / N rows, and build_train_step's step behind its unpack."""
     if not cfg.fused_h2d:
         raise ValueError("fused_h2d=False: the batch crosses as a tree of tensors; use build_train_step")
-    step_fn = build_train_step(cfg, device)
+    step_fn = build_train_step(cfg, device, dist)
     if cfg.replay.enabled:
         raise ValueError(
             "fused H2D transfer is incompatible with the replay reservoir: the per-row "
             "behavior_staleness stamp is not part of the dtype-grouped transfer layout; "
             "use build_train_step"
         )
-    io = FusedBatchIO(batch_template(cfg), device, single=single)
+    io = FusedBatchIO(batch_template(local_config(cfg, dist.world if dist is not None else 1)), device, single=single)
     unpack = io.unpack_single if single else io.unpack
 
     def step(state: TrainState, payload, *perms):
@@ -195,22 +230,24 @@ def _build_fused(cfg: LearnerConfig, device, single: bool):
     return step, io
 
 
-def build_fused_train_step(cfg: LearnerConfig, device=None):
+def build_fused_train_step(cfg: LearnerConfig, device=None, dist: Optional[Dist] = None):
     """Returns (step, io): the train step over the batch as FOUR
-    dtype-grouped [B, cols] buffers (`fused_single_h2d` off). Host side:
+    dtype-grouped [B, cols] buffers (`fused_single_h2d` off; B / N rows
+    on each of `dist`'s ranks). Host side:
     `payload = io.consume(*io.transfer(io.pack_transfer(batch)))`, one copy per
     group on the io's side stream; the step unpacks with column views
     (FusedBatchIO.unpack) and runs build_train_step's step."""
-    return _build_fused(cfg, device, single=False)
+    return _build_fused(cfg, device, single=False, dist=dist)
 
 
-def build_single_train_step(cfg: LearnerConfig, device=None):
+def build_single_train_step(cfg: LearnerConfig, device=None, dist: Optional[Dist] = None):
     """Returns (step, io): the train step over the batch as ONE
-    [B, row_bytes] u8 buffer on the device, the reference's default
-    learner path (fused_h2d and fused_single_h2d). Host side:
+    [B, row_bytes] u8 buffer on the device (B / N rows on each of
+    `dist`'s ranks), the reference's default learner path (fused_h2d and
+    fused_single_h2d). Host side:
     `payload = io.consume(*io.transfer(io.pack_transfer(
     cast_obs_to_compute_dtype(cfg, batch))))`, the copy on the io's side
     stream and the current stream ordered after it; then
     `step(state, payload)`, which unpacks with views
     (FusedBatchIO.unpack_single) and runs build_train_step's step."""
-    return _build_fused(cfg, device, single=True)
+    return _build_fused(cfg, device, single=True, dist=dist)

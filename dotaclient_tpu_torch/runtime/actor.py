@@ -1078,7 +1078,7 @@ class VectorActor:
         across slots (None = forever). With --obs.enabled and a
         metrics_port, the actor_* gauges export on /metrics."""
         if self.obs is not None:
-            self.obs.serve_metrics([self.stats])
+            self.obs.serve_metrics([self.stats], device=next(self.params.parameters()).device)
         try:
             done = 0
             async for _ in self.episode_stream():

@@ -20,7 +20,8 @@ Full-state mode adds, beside the steps:
 
 The remote mirror (`remote_dir`) copies each finished step, its aux
 manifest, the high-water file and the schema to another POSIX path (a
-mounted bucket, for one); a marker file lands last, so a reader never
+mounted bucket, for one; only a `remote_push` checkpointer writes it, and
+every one reads it); a marker file lands last, so a reader never
 trusts a half-copied step. A restore pulls the newest complete remote step
 when it is newer than the local one (a fresh pod with an empty disk). A
 URL scheme (`gs://...`) is refused: the port has no object-store client.
@@ -93,7 +94,10 @@ def _is_url(path: str) -> bool:
 
 
 class Checkpointer:
-    def __init__(self, directory: str, max_to_keep: int = 5, remote_dir: str = ""):
+    def __init__(self, directory: str, max_to_keep: int = 5, remote_dir: str = "", remote_push: bool = True):
+        """`remote_push=False` makes the remote read-only for this process:
+        restores still pull the newest complete step, saves never mirror up
+        (the learner's ranks but 0, as the reference's processes but 0)."""
         if _is_url(remote_dir):
             raise ValueError(
                 f"checkpoint_remote_dir={remote_dir!r} has a URL scheme: the port mirrors checkpoints "
@@ -108,7 +112,7 @@ class Checkpointer:
         # backlog while local GC deletes the queued steps).
         self._mirror_pool = (
             concurrent.futures.ThreadPoolExecutor(max_workers=1, thread_name_prefix="ckpt-mirror")
-            if self._remote is not None else None
+            if self._remote is not None and remote_push else None
         )
         self._mirror_cond = threading.Condition()
         self._mirror_pending: Optional[int] = None

@@ -53,6 +53,18 @@ phases (the serial loop fences each step with a CUDA event), MFU, /metrics,
 /healthz, POST /profile and the watchdog, under the reference's meter
 names (obs/registry.py).
 
+Multi-process (`--multihost`, parallel/dist.py): one learner process per
+card, `batch_size` global. Each rank's staging packs B / N rows from the
+shared broker, the train step all-reduces (parallel/train_step.py), and
+every rank ends each step with the same params. Rank 0 alone publishes
+weights and pushes the checkpoint mirror; every rank can pull it. After
+the restore the ranks must agree on the resume step, and the version
+counter takes the global published high-water mark. Before each step the
+ranks agree over the host group whether to take it (`_agree`): a rank
+whose drain has trained out all it held takes its part of the others'
+steps with a batch of padding rows (no real step, so it adds nothing to
+any sum), and every rank stops together.
+
 Modes the port does not have yet are refused at construction with
 NotImplementedError naming their ROADMAP item (config.UNPORTED), never
 substituted.
@@ -62,6 +74,7 @@ from __future__ import annotations
 
 import json
 import logging
+import math
 import os
 import queue
 import signal
@@ -77,11 +90,13 @@ from dotaclient_tpu_torch import resolve_device
 from dotaclient_tpu_torch.config import LearnerConfig, refuse_unported
 from dotaclient_tpu_torch.obs import ObsRuntime
 from dotaclient_tpu_torch.obs.compute import fence
-from dotaclient_tpu_torch.ops.flops import device_peak_flops, train_step_flops
-from dotaclient_tpu_torch.parallel.mesh import one_device_mesh
+from dotaclient_tpu_torch.ops.flops import aggregate_peak_flops, device_peak_flops, train_step_flops
+from dotaclient_tpu_torch.parallel.dist import Dist, init_distributed
 from dotaclient_tpu_torch.parallel.fused_io import TreeBatchIO
+from dotaclient_tpu_torch.parallel.mesh import local_config, resolve_mesh
 from dotaclient_tpu_torch.parallel.train_step import (
     TrainState,
+    batch_template,
     build_fused_train_step,
     build_single_train_step,
     build_train_step,
@@ -533,10 +548,20 @@ class PrefetchLane:
             t.join(timeout=10)
 
 
+# The ranks' votes before each step (Learner._agree): stop now (abort,
+# deadline, a failing rank), trained out (drain complete), no batch yet,
+# a batch in hand.
+_STOP, _DONE, _IDLE, _BATCH = 0, 1, 2, 3
+
+
 class Learner:
-    def __init__(self, cfg: LearnerConfig, broker: Broker, device=None):
+    def __init__(self, cfg: LearnerConfig, broker: Broker, device=None, dist: Optional[Dist] = None):
+        """`dist`: this process's rank among the data-parallel learner
+        processes (parallel/dist.py init_distributed); None is a single
+        process."""
         refuse_unported(cfg)
-        one_device_mesh(cfg.mesh_shape)
+        self.dist = dist if dist is not None else Dist()
+        resolve_mesh(cfg.mesh_shape, self.dist.world)
         self.cfg = cfg
         self.broker = broker
         self.device = resolve_device(device)
@@ -549,10 +574,16 @@ class Learner:
         self.fused_io = None
         if cfg.fused_h2d and not cfg.replay.enabled:
             build = build_single_train_step if cfg.fused_single_h2d else build_fused_train_step
-            self.train_step, self.fused_io = build(cfg, self.device)
+            self.train_step, self.fused_io = build(cfg, self.device, self.dist)
             self.io = self.fused_io
         else:
-            self.train_step, self.io = build_train_step(cfg, self.device), TreeBatchIO(self.device)
+            self.train_step, self.io = build_train_step(cfg, self.device, self.dist), TreeBatchIO(self.device)
+        if self.dist.world > 1 and cfg.broker_url.startswith("mem://"):
+            _log.warning("multihost with mem:// broker: in-process queues cannot span hosts — fine for tests, wrong "
+                         "for production (use tcp:// shared by all hosts)")
+        # this rank's share of the batch: what its staging packs
+        self._local_cfg = local_config(cfg, self.dist.world)
+        self._null_payload = None  # padding rows for a trained-out rank's part of a step
         self.version = 0
         # Drawn once per learner process and stamped into every weight
         # frame: subscribers detect a restart by the epoch changing.
@@ -561,7 +592,7 @@ class Learner:
         # None when obs is off: every obs touchpoint is one `is not None`.
         self.obs = ObsRuntime.create(cfg.obs, role="learner")
         self.staging = StagingBuffer(
-            cfg, broker, version_fn=lambda: self.version, fused_io=self.fused_io,
+            self._local_cfg, broker, version_fn=lambda: self.version, fused_io=self.fused_io,
             tracer=self.obs.tracer if self.obs is not None else None,
             recorder=self.obs.recorder if self.obs is not None else None,
         )
@@ -585,7 +616,10 @@ class Learner:
         self.metrics = MetricsLogger(cfg.log_dir)
         self._boot_monotonic = time.monotonic()
         if self.obs is not None:
-            compute = self.obs.attach_compute(train_step_flops(cfg), device_peak_flops(self.device),
+            # the global step's FLOPs over the sum of every rank's peak
+            peak = device_peak_flops(self.device)
+            peaks = self.dist.host_all_gather(math.nan if peak is None else peak)
+            compute = self.obs.attach_compute(train_step_flops(cfg), aggregate_peak_flops(peaks),
                                               overlap=self._prefetch_enabled)
             self.train_step = compute.wrap_train_step(self.train_step)
             self.obs.serve_metrics([self._surface_scalars], health_provider=self._health,
@@ -605,8 +639,11 @@ class Learner:
             self._copier = StateCopier(self.state)
             self._ckpt_worker = CheckpointWorker(self._copier.to_host, self._save_full)
         self.checkpointer = None
+        self._pending_hwm: Optional[int] = None  # the full-state restore's high-water, bumped below
         if cfg.checkpoint_dir:
-            self.checkpointer = Checkpointer(cfg.checkpoint_dir, remote_dir=cfg.checkpoint_remote_dir)
+            # every rank pulls the mirror; rank 0 alone pushes it
+            self.checkpointer = Checkpointer(cfg.checkpoint_dir, remote_dir=cfg.checkpoint_remote_dir,
+                                             remote_push=self.dist.is_primary)
             t_restore = time.monotonic()
             restored = self.checkpointer.restore_latest(self.state)
             if restored is not None:
@@ -615,6 +652,8 @@ class Learner:
                 _log.info("restored checkpoint at step %d", self.version)
                 if cfg.ckpt.full_state:
                     self._restore_full_state(t_restore)
+        if self.dist.world > 1:
+            self._agree_on_resume()
         if self.obs is not None:
             # last: the restore's version write is the watchdog's baseline,
             # not its first heartbeat
@@ -667,7 +706,10 @@ class Learner:
 
     def publish_weights(self) -> None:
         """Publish the current params synchronously (version 0 before the
-        first batch, so actors align at once)."""
+        first batch, so actors align at once). Rank 0 alone publishes: one
+        fan-out per version."""
+        if not self.dist.is_primary:
+            return
         frame = serialize_weights(
             named_params(self.state.net), version=self.version, boot_epoch=self.boot_epoch,
             legacy_dtw1=self.cfg.publish_legacy_dtw1,
@@ -737,6 +779,12 @@ class Learner:
         file_hwm = self.checkpointer.published_hwm()
         if file_hwm is not None:
             hwm = max(hwm, file_hwm)
+        if self.dist.world > 1:
+            # Ranks but 0 never publish, so they hold no high-water file:
+            # the resume-step check compares the un-bumped steps, then every
+            # rank takes the same global-maximum bump (_agree_on_resume).
+            self._pending_hwm = hwm
+            hwm = self.version
         bump = hwm - self.version
         if bump > 0:
             _log.info("resume: version counter %d -> %d (published high-water)", self.version, hwm)
@@ -748,6 +796,26 @@ class Learner:
             "resume_pending_frames": float(counts["pending"]),
             "resume_restore_wall_s": round(time.monotonic() - t_restore, 3),
         }
+
+    def _agree_on_resume(self) -> None:
+        """Every rank must resume at the same step (a rank restored from an
+        older checkpoint would train other params in the same collectives);
+        then every rank bumps its version counter to the global published
+        high-water mark, since staleness filtering is per-rank host work."""
+        steps = [int(s) for s in self.dist.host_all_gather(self.version)]
+        if len(set(steps)) != 1:
+            raise RuntimeError(
+                f"multihost restore mismatch: per-process resume steps {steps} — restore every host from the same "
+                f"checkpoint (shared checkpoint_dir or remote mirror) before starting"
+            )
+        if not self.cfg.ckpt.full_state:
+            return
+        pending = self.version if self._pending_hwm is None else self._pending_hwm
+        hwm = int(max(self.dist.host_all_gather(pending)))
+        if hwm > self.version:
+            self._resume_scalars["resume_version_hwm_bump"] = float(hwm - self.version)
+            _log.info("resume: version counter %d -> %d (global published high-water)", self.version, hwm)
+            self.version = hwm
 
     @property
     def resume_info(self) -> dict:
@@ -873,7 +941,7 @@ class Learner:
         """Publish and checkpoint cadence, on the loop thread after the
         version counter advanced."""
         cfg = self.cfg
-        if self.version % cfg.publish_every == 0:
+        if self.version % cfg.publish_every == 0 and self.dist.is_primary:
             self.publisher.submit(self.flattener.flatten_on_device(self.state.net), self.version)
         if self.checkpointer is not None and self.version % cfg.checkpoint_every == 0:
             self.checkpoint()
@@ -921,6 +989,37 @@ class Learner:
             self.metrics.flush()
         return done_steps
 
+    def _stopping(self, deadline) -> bool:
+        return self._abort.is_set() or (deadline is not None and time.monotonic() >= deadline)
+
+    def _agree(self, vote: int) -> int:
+        """What every rank does next, from every rank's vote (_STOP, _DONE,
+        _IDLE or _BATCH): _STOP when any rank must stop or all are trained
+        out; _BATCH, take the step, when a rank holds a batch and none is
+        still waiting for one; else _IDLE, wait. One host all-gather across
+        ranks; a single process decides alone."""
+        votes = [int(v) for v in self.dist.host_all_gather(vote)]
+        if _STOP in votes or all(v == _DONE for v in votes):
+            return _STOP
+        if _IDLE in votes or _BATCH not in votes:
+            return _IDLE
+        return _BATCH
+
+    def _give_up(self, error: BaseException):
+        """Raise `error` on this rank after telling the others to stop."""
+        if self.dist.world > 1:
+            self._agree(_STOP)
+        raise error
+
+    def _padding_payload(self):
+        """A transfer of this rank's B / N rows, all padding (no real step,
+        so it adds nothing to any sum): a trained-out rank's part of a step
+        the other ranks take."""
+        if self._null_payload is None:
+            rows = batch_template(self._local_cfg)
+            self._null_payload = rows if self.fused_io is None else self.fused_io.pack_transfer(rows)
+        return self.io.transfer(self._null_payload)
+
     def _run_serial(self, num_steps, batch_timeout, max_idle, deadline, _bt) -> int:
         """The serial fetch-after-step loop (learner.prefetch false). With
         the obs phase timer each step is fenced by a CUDA event on the
@@ -936,24 +1035,30 @@ class Learner:
         win_wait += w
         win_put += p
         while num_steps is None or done_steps < num_steps:
-            if self._abort.is_set():
+            if self._stopping(deadline):
+                vote = _STOP
+            elif next_batch is not None:
+                vote = _BATCH
+            else:
+                vote = _DONE if self._drain.is_set() and self.staging.drained() else _IDLE
+            decision = self._agree(vote)
+            if decision == _STOP:
                 break
-            if deadline is not None and time.monotonic() >= deadline:
-                break
-            if next_batch is None:
-                if self._drain.is_set():
-                    if self.staging.drained():
-                        break
-                else:
-                    idle += 1
-                    if max_idle is not None and idle >= max_idle:
-                        raise TimeoutError(f"no batch for {idle} consecutive {batch_timeout:.0f}s waits — producers dead or stalled")
-                    _log.warning("no batch within %.0fs; waiting", batch_timeout)
-                next_batch, next_env_steps, w, p, next_trace = self._fetch_next(_bt())
-                win_wait += w
-                win_put += p
+            if decision == _IDLE:
+                if next_batch is None:  # a held batch waits for the other ranks' next votes
+                    if not self._drain.is_set():
+                        idle += 1
+                        if max_idle is not None and idle >= max_idle:
+                            self._give_up(TimeoutError(f"no batch for {idle} consecutive {batch_timeout:.0f}s waits — "
+                                                       f"producers dead or stalled"))
+                        _log.warning("no batch within %.0fs; waiting", batch_timeout)
+                    next_batch, next_env_steps, w, p, next_trace = self._fetch_next(_bt())
+                    win_wait += w
+                    win_put += p
                 continue
             idle = 0
+            if next_batch is None:  # trained out: padding rows for this rank's part of the step
+                next_batch, next_env_steps, next_trace = self._padding_payload(), 0, None
             t_pass = time.perf_counter()
             metrics = self._step(next_batch)
             if timer is not None:
@@ -1014,48 +1119,56 @@ class Learner:
         win_env_steps = win_steps = 0
         t_win = time.perf_counter()
         idle = 0
+        held = None  # a batch (or the lane's last "exhausted") kept across the ranks' waits
+        votes = {"batch": _BATCH, "idle": _IDLE, "exhausted": _DONE}
         try:
             while num_steps is None or done_steps < num_steps:
-                item = None
-                t_take0 = time.perf_counter()
-                while item is None:
-                    if self._abort.is_set():
-                        break
-                    if deadline is not None and time.monotonic() >= deadline:
-                        break
+                item, held = held, None
+                if item is None or item.kind == "exhausted":  # a held batch's wait runs on
+                    t_take0 = time.perf_counter()
+                while item is None and not self._stopping(deadline):
                     try:
                         item = lane.get(timeout=0.2)
                     except queue.Empty:
                         continue
-                if item is None:
-                    break  # abort / deadline
+                if item is not None and item.kind == "error":
+                    self._give_up(item.error)
+                vote = _STOP if item is None or self._stopping(deadline) else votes[item.kind]
+                decision = self._agree(vote)
                 take_s = time.perf_counter() - t_take0
-                if item.kind == "error":
-                    raise item.error
-                if item.kind == "exhausted":
-                    break  # drain complete: every batch the lane held is trained
-                win_take += take_s
-                win_wait += item.wait_s
-                if timer is not None:
-                    # the exposed wait for a prefetched batch (starvation
-                    # reads loud here, idle items included)
-                    timer.add("fetch", take_s)
-                if item.kind == "idle":
+                if decision == _STOP:
+                    break  # abort / deadline, or drain complete: every batch the lane held is trained
+                if decision == _IDLE and vote != _IDLE:
+                    held = item  # a batch waits for the other ranks'; a trained-out lane stays so
+                    continue
+                if vote != _DONE:
+                    win_take += take_s
+                    win_wait += item.wait_s
+                    if timer is not None:
+                        # the exposed wait for a prefetched batch (starvation
+                        # reads loud here, idle items included)
+                        timer.add("fetch", take_s)
+                if decision == _IDLE:
                     if self._drain.is_set():
                         continue
                     idle += 1
                     if max_idle is not None and idle >= max_idle:
-                        raise TimeoutError(f"no batch for {idle} consecutive {batch_timeout:.0f}s waits — producers dead or stalled")
+                        self._give_up(TimeoutError(f"no batch for {idle} consecutive {batch_timeout:.0f}s waits — "
+                                                   f"producers dead or stalled"))
                     _log.warning("no batch within %.0fs; waiting", batch_timeout)
                     continue
                 idle = 0
-                win_put += item.put_s
-                metrics = self._step(item.batch)
-                self._trace_apply(item.trace)
+                if vote == _DONE:  # trained out: padding rows for this rank's part of the step
+                    held, payload, env_steps, trace = item, self._padding_payload(), 0, None
+                else:
+                    payload, env_steps, trace = item.batch, item.env_steps, item.trace
+                    win_put += item.put_s
+                metrics = self._step(payload)
+                self._trace_apply(trace)
                 self.version += 1
                 done_steps += 1
-                self.env_steps_done += item.env_steps
-                win_env_steps += item.env_steps
+                self.env_steps_done += env_steps
+                win_env_steps += env_steps
                 win_steps += 1
                 last = num_steps is not None and done_steps >= num_steps
                 t_host = time.perf_counter()
@@ -1152,40 +1265,55 @@ class Learner:
         self.metrics.close()
 
 
-def main(argv=None):
+def main(argv=None, backend: Optional[str] = None):
+    """The learner binary. With `--multihost` this process joins the
+    data-parallel ranks first (parallel/dist.py; `backend` None picks NCCL
+    on a card)."""
     from dotaclient_tpu_torch.config import parse_config
     from dotaclient_tpu_torch.transport.base import RetryPolicy
     from dotaclient_tpu_torch.transport.base import connect as broker_connect
 
     logging.basicConfig(level=logging.INFO)
     cfg = parse_config(LearnerConfig(), argv)
-    broker = broker_connect(cfg.broker_url, retry=RetryPolicy.from_config(cfg.retry))
-    if cfg.broker_shards:
-        # a learner of several consuming a disjoint shard subset: only a
-        # shard-list broker_url has shards to pick
-        restrict = getattr(broker, "restrict_consume_shards", None)
-        if restrict is None:
-            raise ValueError(f"--broker_shards={cfg.broker_shards!r} needs a broker fabric (comma-separated "
-                             f"--broker_url shard list); got {cfg.broker_url!r}")
-        restrict([int(s) for s in cfg.broker_shards.split(",") if s.strip()])
-    if cfg.chaos.enabled:
-        # a gated import: with chaos off the package never loads and the
-        # broker is the production object
-        from dotaclient_tpu_torch.chaos import wrap_broker
-
-        broker = wrap_broker(broker, cfg.chaos)
-    learner = Learner(cfg, broker, device="cpu" if cfg.platform == "cpu" else None)
-    if cfg.ckpt.drain_on_sigterm:
-        # after the Learner (and its obs runtime's SIGTERM dump trigger)
-        learner.install_drain_handler()
-    _log.info("learner up: device=%s mesh=%s batch=%dx%d", learner.device, cfg.mesh_shape, cfg.batch_size, cfg.seq_len)
+    device = "cpu" if cfg.platform == "cpu" else None
+    dist = None
+    if cfg.multihost:
+        # before the broker and the Learner, as the reference initializes
+        # jax.distributed before any backend touch
+        dist = init_distributed(cfg, device, backend=backend)
+        device = dist.device
     try:
-        learner.run(num_steps=cfg.train_steps or None)
-        if learner.drain_requested and not learner.aborted:
-            learner.drain_save()
-            _log.info("SIGTERM drain complete at version %d; exiting 0", learner.version)
+        broker = broker_connect(cfg.broker_url, retry=RetryPolicy.from_config(cfg.retry))
+        if cfg.broker_shards:
+            # a learner of several consuming a disjoint shard subset: only a
+            # shard-list broker_url has shards to pick
+            restrict = getattr(broker, "restrict_consume_shards", None)
+            if restrict is None:
+                raise ValueError(f"--broker_shards={cfg.broker_shards!r} needs a broker fabric (comma-separated "
+                                 f"--broker_url shard list); got {cfg.broker_url!r}")
+            restrict([int(s) for s in cfg.broker_shards.split(",") if s.strip()])
+        if cfg.chaos.enabled:
+            # a gated import: with chaos off the package never loads and the
+            # broker is the production object
+            from dotaclient_tpu_torch.chaos import wrap_broker
+
+            broker = wrap_broker(broker, cfg.chaos)
+        learner = Learner(cfg, broker, device=device, dist=dist)
+        if cfg.ckpt.drain_on_sigterm:
+            # after the Learner (and its obs runtime's SIGTERM dump trigger)
+            learner.install_drain_handler()
+        _log.info("learner up: device=%s mesh=%s batch=%dx%d rank %d of %d", learner.device, cfg.mesh_shape,
+                  cfg.batch_size, cfg.seq_len, learner.dist.rank, learner.dist.world)
+        try:
+            learner.run(num_steps=cfg.train_steps or None)
+            if learner.drain_requested and not learner.aborted:
+                learner.drain_save()
+                _log.info("SIGTERM drain complete at version %d; exiting 0", learner.version)
+        finally:
+            learner.close()
     finally:
-        learner.close()
+        if dist is not None:
+            dist.close()
     return learner
 
 

@@ -1331,7 +1331,8 @@ class RemoteFleet:
 
     async def run(self, num_episodes: Optional[int] = None) -> None:
         if self.obs is not None:
-            self.obs.serve_metrics([self.stats])
+            # the local fallback's net is the one this process steps
+            self.obs.serve_metrics([self.stats], device=self.fallback.device if self.fallback is not None else None)
         try:
             done = 0
             async for _ in self.episode_stream():

@@ -537,7 +537,7 @@ def main(argv=None):
         from dotaclient_tpu_torch.obs import ObsRuntime
 
         obs = ObsRuntime.create(cfg.obs, role="carry-store")
-        obs.serve_metrics([server.stats])
+        obs.serve_metrics([server.stats], device=None)  # no net, no torch: no profiler
     ready = {"serving": True, "port": server.port}
     if cfg.stores:
         # validate + surface the declared shard ring at boot: a ring the

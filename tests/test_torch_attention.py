@@ -97,7 +97,7 @@ def test_attend_dispatch_matches_jax(kv_block):
 def test_attend_refuses_sequence_parallelism():
     (_, (tq, tk, tv)) = _qkv(4, 2, 2, "float32")
     pos = torch.zeros((B, 2), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.14"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A.14b"):
         RA.attend(tq, tk, tv, pos, pos, mesh=object(), sp_axis="sp")
 
 

@@ -854,3 +854,81 @@ def test_assembled_learner_on_the_card_is_bitwise_the_classic_pack(cuda, tmp_pat
         flags += [f"--policy.{k}", str(getattr(base.policy, k))]
     out = chip_smoke._assembly_turn(cuda, "test", str(tmp_path), base, producer_flags=flags)
     assert out["rows_checked"] == chip_smoke.ASM_PARITY_STEPS * base.batch_size and len(out["ledgers"]) == 3
+
+
+def test_two_ranks_on_the_card_step_as_one_process(cuda, tmp_path):
+    """Two learner ranks sharing the card over gloo (NCCL refuses two ranks
+    on one device), each on its half of the global batch (rank 0's rows
+    mostly padding), through tests/torch_multihost_worker.py: both ranks'
+    params bitwise equal; the all-reduced gradient and every metric against
+    the single-process step on the card at the global batch within f32 1e-4
+    of each leaf's largest value (sums in another order; cuBLAS picks its
+    algorithm by shape), params within 2e-2·lr per update."""
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    import numpy as np
+
+    from dotaclient_tpu_torch.ops import batch as tbatch
+    from dotaclient_tpu_torch.ops.clip_adam import ClipAdam
+    from dotaclient_tpu_torch.parallel import train_step as ts
+    from dotaclient_tpu_torch.transport.params import load_named, named_params
+
+    sys.path.insert(0, os.path.dirname(__file__))
+    import torch_multihost_worker as W
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    named = named_params(ts.init_train_state(W.step_config({}), "cpu").net)
+    inp = {"param_names": np.array([n for n, _ in named]), **{f"param/{n}": a for n, a in named}}
+    batches, perms = {}, {}
+    for i, (case, ppo, _) in enumerate(W.STEP_CASES):
+        b = tbatch.make_train_batch(W.step_config(ppo), 40 + i)
+        mask = b.mask.copy()
+        mask[: W.B // 2, 1:] = 0.0
+        b = b._replace(mask=mask, rewards=b.rewards * mask, dones=b.dones * mask)
+        batches[case] = b
+        inp.update({f"{case}/batch/{k}": np.asarray(x) for k, x in enumerate(tbatch.tree_flatten(b)[0])})
+        if ppo.get("epochs", 1) > 1:
+            perms[case] = [p.numpy() for p in ts.epoch_permutations(W.step_config(ppo), 0, "cpu")]
+            inp.update({f"{case}/perm/{e}": p for e, p in enumerate(perms[case])})
+    np.savez(tmp_path / "input.npz", **inp)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = [subprocess.Popen([sys.executable, os.path.join(repo, "tests", "torch_multihost_worker.py"), "steps", str(r),
+                               "2", str(port), str(tmp_path), "cuda:0"], cwd=repo, env=dict(os.environ, PYTHONPATH=repo))
+             for r in range(2)]
+    try:
+        for p in procs:
+            assert p.wait(timeout=120) == 0
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    a, b = (dict(np.load(tmp_path / f"steps_{r}.npz")) for r in range(2))
+    assert a.keys() == b.keys() and all(np.array_equal(a[k], b[k]) for k in a)
+    apply = ClipAdam.apply
+    for case, ppo, padding in W.STEP_CASES:
+        if padding:
+            continue
+        cfg = W.step_config(ppo)
+        state = ts.init_train_state(cfg, cuda)
+        load_named(state.net, named)
+        seen = []
+        ClipAdam.apply = lambda self, p, g, s, seen=seen: (seen.append({n: x.cpu().numpy() for n, x in g.items()}),
+                                                            apply(self, p, g, s))[1]
+        try:
+            args = (perms[case],) if case in perms else ()
+            state, metrics = ts.build_train_step(cfg, cuda)(state, tbatch.as_tensors(batches[case], cuda), *args)
+        finally:
+            ClipAdam.apply = apply
+        for k, v in metrics.items():
+            got = float(a[f"{case}/metric/{k}"])
+            assert abs(got - v.item()) <= 1e-4 * max(1.0, abs(v.item())), (case, k)
+        for n, g in seen[0].items():
+            assert np.abs(a[f"{case}/grad/{n}"] - g).max() <= 1e-4 * max(np.abs(g).max(), 1e-8), (case, n)
+        updates = int(a[f"{case}/updates"])
+        for n, p in named_params(state.net):
+            assert np.abs(a[f"{case}/param/{n}"] - p).max() <= 2e-2 * cfg.ppo.lr * updates, (case, n)

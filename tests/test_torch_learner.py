@@ -324,9 +324,8 @@ def test_metrics_logger_and_histogram_scalars_match_the_reference(tmp_path):
 
 
 REFUSED = [
-    ("multihost", True, "A.14"),
     ("profile_port", 9999, "A.13b"),
-    ("policy.tf_sp_axis", "sp", "A.14"),
+    ("policy.tf_sp_axis", "sp", "A.14b"),
 ]
 
 
@@ -378,10 +377,11 @@ def test_every_unported_mode_is_tested_and_their_settings_do_not_parse():
     are not flags, so they fail to parse instead of doing nothing. The
     replay tuning parses, with the reference's defaults."""
     assert {r[0] for r in REFUSED} == set(unported_flags(LearnerConfig()))
-    assert set(UNPORTED) == set(unported_flags(LearnerConfig())) == {"multihost", "profile_port", "policy.tf_sp_axis"}
-    for argv in (["--coordinator", "h:1"], ["--num_processes", "2"], ["--policy.tf_sp_mode", "ring"]):
-        with pytest.raises(SystemExit):
-            parse_config(LearnerConfig(), argv)
+    assert set(UNPORTED) == set(unported_flags(LearnerConfig())) == {"profile_port", "policy.tf_sp_axis"}
+    with pytest.raises(SystemExit):
+        parse_config(LearnerConfig(), ["--policy.tf_sp_mode", "ring"])
+    cfg = parse_config(LearnerConfig(), ["--coordinator", "h:1", "--num_processes", "2", "--process_id", "1"])
+    assert (cfg.coordinator, cfg.num_processes, cfg.process_id) == ("h:1", 2, 1)
     cfg = parse_config(LearnerConfig(), ["--replay.ratio", "0.5", "--replay.alpha", "0.5"])
     assert (cfg.replay.ratio, cfg.replay.alpha) == (0.5, 0.5)
     assert dataclasses.asdict(LearnerConfig().replay) == dataclasses.asdict(JLearnerConfig().replay)
@@ -429,7 +429,7 @@ def test_main_chaos_enabled_wraps_the_broker_and_refuses_a_fabric(monkeypatch, u
     refused with the reference's reason."""
     seen = {}
 
-    def fake_learner(cfg, broker, device=None):
+    def fake_learner(cfg, broker, device=None, dist=None):
         seen["broker"] = broker
         raise _BrokerSeen
 
@@ -633,8 +633,13 @@ def test_the_learner_manifest_parses_and_builds_a_port_learner(tmp_path):
 
 
 def test_a_mesh_beyond_one_device_is_refused(tmp_path):
+    """A single process is a world of one: dp=2 does not cover it
+    (ValueError, as parse_mesh_spec), and a tp axis of two is refused
+    naming A.14b."""
     cfg = _tcfg("ln_mesh", tmp_path, mesh_shape="dp=2")
-    with pytest.raises(NotImplementedError, match="ROADMAP A.14"):
+    with pytest.raises(ValueError, match="does not cover 1 devices"):
         tlearner.Learner(cfg, tmem.MemoryBroker("ln_mesh"), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP A.14b"):
+        tlearner.Learner(_tcfg("ln_mesh", tmp_path, mesh_shape="dp=1,tp=2"), tmem.MemoryBroker("ln_mesh"), device="cpu")
     assert tlearner.Learner(_tcfg("ln_mesh", tmp_path, mesh_shape="dp=1,tp=1"), tmem.MemoryBroker("ln_mesh"),
                             device="cpu").version == 0

@@ -35,7 +35,7 @@ from dotaclient_tpu_torch.obs.http import MetricsHTTPServer, render_prometheus
 from dotaclient_tpu_torch.obs.trace import PipelineTracer, TraceRef
 from dotaclient_tpu_torch.obs.watchdog import Watchdog
 from dotaclient_tpu_torch.ops import flops as tflops
-from dotaclient_tpu_torch.parallel.mesh import one_device_mesh, parse_mesh_spec
+from dotaclient_tpu_torch.parallel.mesh import parse_mesh_spec, resolve_mesh
 from dotaclient_tpu_torch.runtime import learner as tlearner
 from dotaclient_tpu_torch.transport import memory as tmem
 from dotaclient_tpu_torch.transport.serialize import stamp_rollout_trace
@@ -70,17 +70,22 @@ def test_peak_table_names_only_the_h100_sxm():
 @pytest.mark.parametrize("spec", ["dp=-1", "dp=1", "dp=1,tp=1", "tp=-1,dp=1", " dp = -1 "])
 def test_one_device_specs_parse_as_the_reference(spec):
     assert parse_mesh_spec(spec, 1) == j_parse_mesh_spec(spec, 1)
-    assert one_device_mesh(spec) == j_parse_mesh_spec(spec, 1)
+    assert resolve_mesh(spec, 1) == j_parse_mesh_spec(spec, 1)
 
 
 def test_mesh_specs_beyond_one_device_are_refused():
+    """Over the world size (one process per card): dp covers the ranks; a
+    tp axis of two or more is refused naming A.14b; a spec that does not
+    cover the ranks raises ValueError, as parse_mesh_spec does."""
     for spec, n in (("dp=4,tp=2", 8), ("dp=-1,tp=2", 8), ("dp=2", 2)):
         assert parse_mesh_spec(spec, n) == j_parse_mesh_spec(spec, n)
-        with pytest.raises(NotImplementedError, match="ROADMAP A.14"):
-            one_device_mesh(spec)
-    for spec in ("dp=-1,tp=-1", "dp=x", "dp=0"):
+    for spec, n in (("dp=4,tp=2", 8), ("dp=-1,tp=2", 8)):
+        with pytest.raises(NotImplementedError, match="ROADMAP A.14b"):
+            resolve_mesh(spec, n)
+    assert resolve_mesh("dp=2", 2) == j_parse_mesh_spec("dp=2", 2)
+    for spec in ("dp=-1,tp=-1", "dp=x", "dp=0", "dp=2"):
         with pytest.raises(ValueError):
-            one_device_mesh(spec)
+            resolve_mesh(spec, 1)
 
 
 def test_render_prometheus_is_byte_equal():
@@ -232,7 +237,7 @@ def _post(url):
 
 def test_scrape_surface_routes(tmp_path):
     health = {"ok": True}
-    cap = tcompute.ProfileCapture(str(tmp_path), max_seconds=0.5)
+    cap = tcompute.ProfileCapture(str(tmp_path), max_seconds=0.5, device="cpu")
     server = MetricsHTTPServer(0, [lambda: {"loss": 0.25, "bad": math.nan}, lambda: 1 / 0],
                                health_provider=lambda: dict(health), profile_handler=cap.capture).start()
     base = f"http://127.0.0.1:{server.port}"
@@ -258,6 +263,98 @@ def test_scrape_surface_routes(tmp_path):
         assert code == 500 and "no kernels" in body["error"]
     finally:
         server.stop()
+
+
+def _launch_trace(path, lost_thread_kernels: bool):
+    """A torch.profiler-shaped Chrome trace: two launching threads, each
+    with 3 kernel launches (driver and runtime names), a launch in the
+    window's first ms whose kernel CUPTI did not trace and one in its last
+    ms whose kernel had not run. With `lost_thread_kernels` the second
+    thread's kernels are missing."""
+    events = [{"ph": "M", "name": "thread_name", "tid": 1, "args": {"name": "loop"}},
+              {"ph": "M", "name": "thread_name", "tid": 2, "args": {"name": "autograd"}},
+              {"ph": "X", "cat": "cuda_runtime", "name": "cudaLaunchKernel", "tid": 2, "ts": 0.8e5,
+               "args": {"correlation": 98}}]
+    corr = 0
+    for tid, name in ((1, "cudaLaunchKernel"), (2, "cudaLaunchKernelExC_v11060")):
+        for i in range(3):
+            corr += 1
+            events.append({"ph": "X", "cat": "cuda_runtime", "name": name, "tid": tid, "ts": 1e5 * corr,
+                           "args": {"correlation": corr}})
+            if not (lost_thread_kernels and tid == 2):
+                events.append({"ph": "X", "cat": "kernel", "name": f"k{corr}", "ts": 1e5 * corr + 5,
+                               "args": {"correlation": corr}})
+    events.append({"ph": "X", "cat": "cuda_runtime", "name": "cudaMemcpyAsync", "tid": 1, "ts": 6.5e5,
+                   "args": {"correlation": 99}})
+    events.append({"ph": "X", "cat": "cuda_driver", "name": "cuLaunchKernel", "tid": 1, "ts": 6.6e5,
+                   "args": {"correlation": 100}})
+    with open(path, "w") as f:
+        json.dump({"traceEvents": events}, f)
+
+
+def test_lost_kernel_launches_are_counted_by_launching_thread(tmp_path):
+    """Each kernel launch is matched to its kernel by correlation id; a copy
+    is no launch, and a launch within an edge of the window is not checked
+    (CUPTI may not trace the first kernels; the last may run after the
+    stop)."""
+    whole, partial = str(tmp_path / "whole.json"), str(tmp_path / "partial.json")
+    _launch_trace(whole, False)
+    _launch_trace(partial, True)
+    assert tcompute.lost_kernel_launches(whole) == {}
+    assert tcompute.lost_kernel_launches(partial) == {"autograd": 3}
+    assert tcompute.lost_kernel_launches(whole, edge_ms=0.0) == {"autograd": 1, "loop": 1}
+    assert len(tcompute.trace_kernel_names(partial)) == 3
+
+
+def test_a_partial_profile_window_is_never_a_200(tmp_path, monkeypatch):
+    """On the card a window whose trace lost a launching thread's kernels
+    raises, and POST /profile answers 500 naming the lost launches per
+    thread; a whole window answers 200. (The card's profiler is stood in
+    for by one that writes the trace; the device sync is a no-op here.)"""
+    lossy = {"on": True}
+
+    class FakeProfile:
+        def __init__(self, activities):
+            self.activities = activities
+
+        def start(self):
+            pass
+
+        def stop(self):
+            pass
+
+        def export_chrome_trace(self, path):
+            _launch_trace(path, lossy["on"])
+
+    monkeypatch.setattr(tcompute.torch.profiler, "profile", FakeProfile)
+    monkeypatch.setattr(tcompute.torch.cuda, "synchronize", lambda device=None: None)
+    cap = tcompute.ProfileCapture(str(tmp_path), max_seconds=0.2, device="cpu")
+    cap.cuda = True
+    server = MetricsHTTPServer(0, [lambda: {}], profile_handler=cap.capture).start()
+    try:
+        code, body = _post(f"http://127.0.0.1:{server.port}/profile?seconds=0.1")
+        assert code == 500 and "partial" in body["error"] and '{"autograd": 3}' in body["error"]
+        assert cap.captures_done == 0
+        lossy["on"] = False
+        code, body = _post(f"http://127.0.0.1:{server.port}/profile?seconds=0.1")
+        assert code == 200 and cap.captures_done == 1
+    finally:
+        server.stop()
+
+
+def test_a_surface_with_no_device_wires_no_profiler():
+    """serve_metrics takes the caller's device: None (a tier that steps no
+    net) serves /metrics and answers POST /profile 404."""
+    from dotaclient_tpu_torch.obs import ObsRuntime
+
+    rt = ObsRuntime(ObsConfig(enabled=True, metrics_port=_free_port()), role="control")
+    server = rt.serve_metrics([lambda: {"x": 1.0}], device=None)
+    try:
+        assert rt.profiler is None
+        assert _get(f"http://127.0.0.1:{server.port}/metrics")[0] == 200
+        assert _post(f"http://127.0.0.1:{server.port}/profile?seconds=0.1")[0] == 404
+    finally:
+        rt.close()
 
 
 def test_flight_recorder_dumps_sections_and_chains_sigterm(tmp_path):

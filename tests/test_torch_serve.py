@@ -854,7 +854,7 @@ def test_batcher_resumes_a_ticks_requesters_before_the_next_tick():
 
 
 REFUSED_SERVE = [
-    ("policy.tf_sp_axis", "sp", "A.14"),
+    ("policy.tf_sp_axis", "sp", "A.14b"),
 ]
 
 

@@ -300,8 +300,9 @@ def test_staging_refuses_what_is_not_ported():
     _, tcfg = _cfgs("float32", False)
     tio = _io_pair(*_cfgs("float32", False))[1]
     b = tmem.MemoryBroker("st_refuse")
-    with pytest.raises(NotImplementedError, match="A.14"):
-        tstaging.StagingBuffer(dataclasses.replace(tcfg, multihost=True), b, fused_io=tio)
+    with pytest.raises(NotImplementedError, match="A.14b"):
+        tstaging.StagingBuffer(dataclasses.replace(tcfg, policy=dataclasses.replace(tcfg.policy, tf_sp_axis="sp")), b,
+                               fused_io=tio)
     with pytest.raises(ValueError, match="DTB1"):
         tstaging.StagingBuffer(dataclasses.replace(tcfg, staging=dataclasses.replace(tcfg.staging, assemble=True)), b,
                                fused_io=tio)
