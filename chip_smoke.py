@@ -614,31 +614,44 @@ def phase_learner(device, net, cfg):
 
 
 def profile_device(fn, label: str, top: int = 8):
-    """One call of `fn` under torch.profiler: device kernels by self time
-    and the device's busy share of the (profiled) wall time. Returns
-    (busy ms, wall ms, device kernel launches)."""
+    """One call of `fn` traced through CUPTI's activity API (obs/cupti.py,
+    the route POST /profile takes): device kernels by time and the
+    device's busy share of the traced wall time. Returns (busy ms, wall
+    ms, device kernel launches)."""
+    from collections import defaultdict
+
+    from dotaclient_tpu_torch.obs import cupti
+
     fn()
     torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    wall = []
+
+    def traced():
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    launches = sum(e.count for e in kernels)
+        wall.append((time.perf_counter() - t0) * 1e3)
+
+    kernels, _, _ = cupti.activity_trace().window(0.0, traced)
+    wall_ms = wall[0]
+    by_name = defaultdict(lambda: [0.0, 0])
+    for k in kernels:
+        by_name[k.name][0] += (k.end_ns - k.start_ns) / 1e6
+        by_name[k.name][1] += 1
+    busy_ms = sum(ms for ms, _ in by_name.values())
+    launches = len(kernels)
     print(f"{label} profile: {launches} device kernels, device busy {busy_ms:.3f} ms of {wall_ms:.3f} ms wall "
-          f"({100 * busy_ms / wall_ms:.1f}%; wall includes profiler overhead)", flush=True)
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
-        print(f"  {e.self_device_time_total / 1e3:8.4f} ms  x{e.count:<4d} {e.key[:100]}")
+          f"({100 * busy_ms / wall_ms:.1f}%; wall includes the recording's overhead)", flush=True)
+    for name, (ms, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]:
+        print(f"  {ms:8.4f} ms  x{count:<4d} {cupti.demangle(name)[:100]}")
     return busy_ms, wall_ms, launches
 
 
-def compare_arms(label, state_k, state_p, metrics_k, metrics_p, updates, lr):
+def compare_arms(label, state_k, state_p, metrics_k, metrics_p, updates, lr, param_lr=None):
     """Kernel arm against plain arm: every metric finite and within its
     tolerance, Adam's mu and nu leaf by leaf, params within
-    PARAM_LR_PER_UPDATE·lr·updates. Returns the worst readings."""
+    `param_lr`·lr·updates (PARAM_LR_PER_UPDATE by default). Returns the
+    worst readings."""
     from dotaclient_tpu_torch.transport.params import named_params
 
     worst = {}
@@ -667,9 +680,10 @@ def compare_arms(label, state_k, state_p, metrics_k, metrics_p, updates, lr):
                              f"(tol {tol})")
     worst["params"] = max(float(np.abs(a - b).max()) for (_, a), (_, b) in zip(named_params(state_k.net),
                                                                                named_params(state_p.net)))
-    param_tol = PARAM_LR_PER_UPDATE * lr * updates
+    param_lr = PARAM_LR_PER_UPDATE if param_lr is None else param_lr
+    param_tol = param_lr * lr * updates
     if not worst["params"] <= param_tol:
-        raise SystemExit(f"{label}: params differ by {worst['params']} > {PARAM_LR_PER_UPDATE}·lr·updates = {param_tol}")
+        raise SystemExit(f"{label}: params differ by {worst['params']} > {param_lr}·lr·updates = {param_tol}")
     return worst
 
 
@@ -5381,33 +5395,36 @@ MH_JOIN_S = 120  # every rank process's join timeout
 MH_KL_STOP = 1e-9  # the reuse turn's KL stop: fires after the first update
 
 
-def _mh_digest(net) -> str:
-    """sha256 of the params' bytes (a device sync)."""
+def _mh_digest(state) -> str:
+    """sha256 of the whole params' bytes (a device sync; under tp a gather
+    every tp rank takes part in)."""
     import hashlib
 
-    from dotaclient_tpu_torch.transport.params import named_tensors
+    from dotaclient_tpu_torch.parallel.train_step import whole_params
 
     with torch.no_grad():
-        flat = torch.cat([p.detach().reshape(-1) for p in named_tensors(net).values()])
+        flat = torch.cat([p.detach().reshape(-1) for p in whole_params(state).values()])
     return hashlib.sha256(flat.cpu().numpy().tobytes()).hexdigest()
 
 
-def _mh_record(learner, L):
+def _mh_record(learner, L, gather_ms=None):
     """Wrap `learner._step`: per step, its metrics (host floats), the
-    recurrence launches it made, its ms to a device sync and a digest of
-    the params after it."""
-    rec = dict(metrics=[], launches=[], digests=[], ms=[])
+    recurrence launches it made, its ms to a device sync, the ms of the tp
+    gathers it made (`gather_ms`, the list a timed gather appends to) and a
+    digest of the params after it."""
+    rec = dict(metrics=[], launches=[], digests=[], ms=[], gather_ms=[])
     step = learner._step
 
     def recording(payload):
-        n0, t0 = L.LAUNCHES, time.perf_counter()
+        n0, g0, t0 = L.LAUNCHES, len(gather_ms or ()), time.perf_counter()
         metrics = step(payload)
         if learner.device.type == "cuda":
             torch.cuda.synchronize(learner.device)
         rec["ms"].append(1e3 * (time.perf_counter() - t0))
         rec["launches"].append(L.LAUNCHES - n0)
+        rec["gather_ms"].append(sum((gather_ms or [])[g0:]))
         rec["metrics"].append({k: float(v) for k, v in metrics.items()})
-        rec["digests"].append(_mh_digest(learner.state.net))
+        rec["digests"].append(_mh_digest(learner.state))
         return metrics
 
     learner._step = recording
@@ -5422,17 +5439,20 @@ def _mh_cfg(flags):
 
 def mh_rank_main(argv) -> int:
     """`chip_smoke.py --mh-rank RANK WORLD PORT BROKER_PORT DIR [flags]`: one
-    rank of phase 18 (b), joined over gloo on the card (NCCL refuses two
-    ranks on one device). Trains MH_STEPS steps from its tcp:// broker,
-    then a 2×2 reuse step with a KL stop from a mem:// hub of its own;
-    writes DIR/rankR.json (per step: metrics, launches, params digest; the
-    publishes) and, on rank 0, DIR/state0.npz (params and Adam state)."""
+    rank of phase 18 (b) and 19 (a), joined over gloo on the card (NCCL
+    refuses two ranks on one device). Trains MH_STEPS steps from its tcp://
+    broker, then a 2×2 reuse step with a KL stop from a mem:// hub of its
+    own; writes DIR/rankR.json (per step: metrics, launches, tp gather ms,
+    params digest; the publishes; the bytes of params and Adam moments it
+    holds and their whole size) and, on rank 0, DIR/state0.npz (whole params
+    and Adam state)."""
     from dotaclient_tpu_torch.ops import lstm as L
     from dotaclient_tpu_torch.parallel.dist import init_distributed
+    from dotaclient_tpu_torch.runtime.checkpoint import state_arrays
     from dotaclient_tpu_torch.runtime.learner import Learner
     from dotaclient_tpu_torch.transport import memory as tmem
     from dotaclient_tpu_torch.transport.base import connect
-    from dotaclient_tpu_torch.transport.params import named_adam_state, named_params
+    from dotaclient_tpu_torch.transport.params import adam_moments, named_tensors
 
     rank, world, port, bport, d = int(argv[0]), int(argv[1]), int(argv[2]), int(argv[3]), argv[4]
     cfg = _mh_cfg([*argv[5:], "--multihost", "true", "--coordinator", f"127.0.0.1:{port}", "--num_processes",
@@ -5441,20 +5461,24 @@ def mh_rank_main(argv) -> int:
     dist = init_distributed(cfg, device, backend="gloo")
     # the gradient all-reduce's own time: the work queued before it is
     # waited for first, so the wait is not counted as the collective's
-    collective_ms = []
-    all_reduce = dist.all_reduce_
+    collective_ms, gather_ms = [], []
 
-    def timed_all_reduce(t):
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        t0 = time.perf_counter()
-        out = all_reduce(t)
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        collective_ms.append(1e3 * (time.perf_counter() - t0))
-        return out
+    def timed(fn, into):
+        def run(*a, **kw):
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            into.append(1e3 * (time.perf_counter() - t0))
+            return out
 
-    dist.all_reduce_ = timed_all_reduce
+        return run
+
+    dp, tp = dist.group("dp"), dist.group("tp")  # the step's groups are these objects
+    dp.all_reduce_ = timed(dp.all_reduce_, collective_ms)
+    tp.all_gather = timed(tp.all_gather, gather_ms)
     out = {}
     try:
         for turn, ppo, steps in (("step", {}, MH_STEPS), ("reuse", dict(epochs=2, minibatches=2, kl_stop=MH_KL_STOP), 1)):
@@ -5468,7 +5492,9 @@ def mh_rank_main(argv) -> int:
                 for f in rollout_frames(half, 1, seed0=500 + rank):
                     broker.publish_experience(f)
             learner = Learner(tcfg, broker, device, dist)
-            rec = _mh_record(learner, L)
+            rec = _mh_record(learner, L, gather_ms)
+            held = {**named_tensors(learner.state.net), **adam_moments(learner.state.opt_state)}
+            rec["held_bytes"] = sum(t.numel() * t.element_size() for t in held.values())
             collective_ms.clear()
             try:
                 done = learner.run(num_steps=steps, batch_timeout=60.0, max_idle=3)
@@ -5476,10 +5502,12 @@ def mh_rank_main(argv) -> int:
                 learner.close()
             rec.update(done=done, published=learner.publisher.published, weights=broker.poll_weights() is not None,
                        env_steps=learner.env_steps_done, collective_ms=list(collective_ms))
+            arrays = state_arrays(learner.state)  # whole leaves: under tp a gather on every rank
+            rec["whole_bytes"] = sum(a.nbytes for n, a in arrays.items() if n not in ("count", "step"))
             out[turn] = rec
             if turn == "step" and rank == 0:
-                np.savez(os.path.join(d, "state0.npz"), **dict(named_params(learner.state.net)),
-                         **{f"adam/{n}": a for n, a in named_adam_state(learner.state.opt_state)})
+                np.savez(os.path.join(d, "state0.npz"), **{n: a for n, a in arrays.items() if n.startswith("params/")},
+                         **{f"adam/{n}": a for n, a in arrays.items() if n == "count" or n[:3] in ("mu/", "nu/")})
             broker.close()
     finally:
         dist.close()
@@ -5558,13 +5586,14 @@ def _mh_world1(device, card: str, flags):
     return res
 
 
-def _mh_two_ranks(device, card: str, flags, tmp: str):
-    """(b): two ranks on the one card over gloo, each fed its half of
-    MH_STEPS seeded global batches through its own tcp:// broker. After
-    every step the ranks' params are bitwise equal; rank 1 publishes
-    nothing; one launch per step on each rank; rank 0's state against a
-    single-process learner fed [rank 0's half ‖ rank 1's half] within phase
-    6's kernel-vs-plain bounds; the reuse turn's ppo_updates_done equal."""
+def _mh_two_ranks(device, card: str, flags, tmp: str, mesh: str = "dp=-1", label: str = "multihost (b)"):
+    """(b): two ranks on the one card over gloo, laid over `mesh`, each fed
+    its half of MH_STEPS seeded global batches through its own tcp://
+    broker. After every step the ranks' (whole) params are bitwise equal;
+    rank 1 publishes nothing; one launch per step on each rank; rank 0's
+    state against a single-process learner fed [rank 0's half ‖ rank 1's
+    half] within phase 6's kernel-vs-plain bounds; the reuse turn's
+    ppo_updates_done equal."""
     from dotaclient_tpu_torch.ops import lstm as L
     from dotaclient_tpu_torch.parallel.train_step import TrainState, init_train_state
     from dotaclient_tpu_torch.runtime.learner import Learner
@@ -5586,10 +5615,10 @@ def _mh_two_ranks(device, card: str, flags, tmp: str):
             for f in halves[r]:
                 pub.publish_experience(f)
             pub.close()
-            procs.append(_mh_spawn(["--mh-rank", str(r), str(world), str(port), str(bport), tmp, *flags],
-                                   os.path.join(tmp, f"rank{r}.log")))
+            procs.append(_mh_spawn(["--mh-rank", str(r), str(world), str(port), str(bport), tmp, *flags,
+                                    "--mesh_shape", mesh], os.path.join(tmp, f"rank{r}.log")))
         t0 = time.perf_counter()
-        _mh_join(procs, [os.path.join(tmp, f"rank{r}.log") for r in range(world)], "(b)")
+        _mh_join(procs, [os.path.join(tmp, f"rank{r}.log") for r in range(world)], label)
         wall_s = time.perf_counter() - t0
     finally:
         for p in brokers:
@@ -5612,7 +5641,7 @@ def _mh_two_ranks(device, card: str, flags, tmp: str):
     if updates[0] != updates[1] or ranks[0]["reuse"]["metrics"][0]["ppo_kl_stopped"] != 1.0:
         problems.append(f"reuse: ppo_updates_done {updates}, kl_stopped {ranks[0]['reuse']['metrics'][0]}")
     if problems:
-        raise SystemExit(f"multihost (b): {problems}")
+        raise SystemExit(f"{label}: {problems}")
 
     # one process at the global batch, fed [rank 0's half ‖ rank 1's half] per batch
     name = "chip_mh_single"
@@ -5634,7 +5663,7 @@ def _mh_two_ranks(device, card: str, flags, tmp: str):
     state0 = TrainState(net, load_named_adam([(n[5:], saved[n]) for n in saved.files if n.startswith("adam/")], net),
                         MH_STEPS)
     as_t = lambda ms: [{k: torch.tensor(v) for k, v in m.items()} for m in ms]  # noqa: E731
-    worst = compare_arms("multihost (b) vs one process", state0, single.state, as_t(ranks[0]["step"]["metrics"]),
+    worst = compare_arms(f"{label} vs one process", state0, single.state, as_t(ranks[0]["step"]["metrics"]),
                          as_t(rec["metrics"]), MH_STEPS, cfg.ppo.lr)
     # the all-reduces' ms per step (the loss moments and the gradient bucket, host-staged
     # over gloo) against the step's own ms to a device sync, on rank 0, from the second step
@@ -5645,7 +5674,11 @@ def _mh_two_ranks(device, card: str, flags, tmp: str):
                all_reduce_share=coll_ms / statistics.median(step_ms) if step_ms else None,
                reuse_launches=[r["reuse"]["launches"] for r in ranks], reuse_updates=updates[0],
                rank0_published=ranks[0]["step"]["published"], worst=worst,
-               env_steps=[r["step"]["env_steps"] for r in ranks])
+               env_steps=[r["step"]["env_steps"] for r in ranks], held_bytes=[r["step"]["held_bytes"] for r in ranks],
+               whole_bytes=ranks[0]["step"]["whole_bytes"], gather_ms=[r["step"]["gather_ms"] for r in ranks],
+               single_ms=rec["ms"])
+    if mesh != "dp=-1":
+        return res
     print(f"multihost (b): two ranks on one card over gloo (NCCL refuses two ranks on one device), {B // world} rows "
           f"each of {MH_STEPS} global batches of {B}: params bitwise equal on both ranks after every step, rank 1 "
           f"published 0 frames, recurrence launches per step {res['launches']}; against one process at B={B}: "
@@ -5728,7 +5761,8 @@ def _mh_ranks(args, tmp: str, url: str, ckpts, extra=()):
     return procs, logs, flags, [int(f[f.index("--obs.metrics_port") + 1]) for f in flags]
 
 
-def _mh_manifest(device, card: str, tmp: str, extra=(), producers: int = 4):
+def _mh_manifest(device, card: str, tmp: str, extra=(), producers: int = 4, per_step: int = 1,
+                 label: str = "multihost (c)"):
     """(c): k8s/learner-multihost.yaml's args at world 2 over phase 10's
     three local shards fed by `producers` producer processes with MH_STEPS
     global batches and half of one; once both ranks are at v{MH_STEPS}, or
@@ -5781,7 +5815,7 @@ def _mh_manifest(device, card: str, tmp: str, extra=(), producers: int = 4):
             _wait(settled, 300, f"both ranks to reach v{MH_STEPS}", procs)
             for p in ranks_p:
                 p.send_signal(signal.SIGTERM)
-            _mh_join(ranks_p, logs, "(c) drain")
+            _mh_join(ranks_p, logs, f"{label} drain")
             wall_s = time.perf_counter() - t0
         finally:
             for p in procs + ranks_p:
@@ -5812,7 +5846,7 @@ def _mh_manifest(device, card: str, tmp: str, extra=(), producers: int = 4):
                     s["dropped_bad"]:
                 problems.append(f"rank {r}: delivered {delivered} vs trained {s['rows_packed']} + aux {pending[-1]} + "
                                 f"stale {s['dropped_stale']} + bad {s['dropped_bad']}")
-            if device.type == "cuda" and st["launches"] != st["version"]:
+            if device.type == "cuda" and st["launches"] != per_step * st["version"]:
                 problems.append(f"rank {r}: {st['launches']} recurrence launches over {st['version']} steps")
         for i, led in enumerate(shard_led):
             if led["broker_shard_enqueued_total"] != led["broker_shard_popped_total"] + \
@@ -5832,7 +5866,7 @@ def _mh_manifest(device, card: str, tmp: str, extra=(), producers: int = 4):
                                                          rel_tol=1e-9):
                     problems.append(f"compute_mfu {w['compute_mfu']}: not compute_flops_per_sec over two cards' peak")
         if problems:
-            raise SystemExit(f"multihost (c): {problems}")
+            raise SystemExit(f"{label}: {problems}")
 
         # the restart: rank 1's /ckpt empty, the shards drained; both SIGTERMed once run() starts
         _drain_shards(shards)
@@ -5842,7 +5876,7 @@ def _mh_manifest(device, card: str, tmp: str, extra=(), producers: int = 4):
                   or any(p.poll() is not None for p in ranks_p), 180, "both ranks to restore")
             for p in ranks_p:
                 p.send_signal(signal.SIGTERM)
-            _mh_join(ranks_p, logs, "(c) restart")
+            _mh_join(ranks_p, logs, f"{label} restart")
         finally:
             for p in ranks_p:
                 stop_process(p)
@@ -5852,13 +5886,13 @@ def _mh_manifest(device, card: str, tmp: str, extra=(), producers: int = 4):
     boots = [_read_json(os.path.join(tmp, f"boot{r}.json")) for r in range(2)]
     restored = [b["resume"].get("resume_restored_step") for b in boots]
     if boots[0]["version"] != boots[1]["version"] or restored[0] != restored[1] or restored[0] != versions[0]:
-        raise SystemExit(f"multihost (c): the restart with rank 1's /ckpt empty: {boots} (drained at {versions})")
+        raise SystemExit(f"{label}: the restart with rank 1's /ckpt empty: {boots} (drained at {versions})")
     ms = [[_window_ms(w) for w in ws] for ws in windows]
     res = dict(steps=versions[0], wall_s=wall_s, launches=[r["launches"] for r in ranks], window_ms=ms, mfu=mfu,
                trained=[r["staging"]["rows_packed"] for r in ranks], aux_pending=pending,
                delivered=[r["fabric"]["fanin_delivered_total"] for r in ranks], mirror=ranks[0]["mirror"],
                restart=dict(version=boots[0]["version"], restored_step=restored[0]))
-    print(f"multihost (c): k8s/learner-multihost.yaml's args at world 2 (gloo, one card), its three-shard "
+    print(f"{label}: k8s/learner-multihost.yaml's args{' + ' + ' '.join(extra) if extra else ''} at world 2 (gloo, one card), its three-shard "
           f"--broker_url on local shards with {producers} producer processes: v{versions[0]} at the SIGTERM drain, "
           f"both ranks exit 0 with it durable; no (key, seq) on both ranks; delivered {res['delivered']} = trained "
           f"{res['trained']} + aux {pending} (+ stale, bad); only rank 0 pushed the mirror {ranks[0]['mirror']}; "
@@ -5891,32 +5925,233 @@ def phase_multihost(device, card: str, flags=("--batch_size", "256", "--seq_len"
     return res
 
 
+# ---------------------------------------------------------------- phase 19
+# (b): scripts/bench_tf.py's widest shape (d_model 128, 2 layers, 4 heads,
+# context 256, so seq_len 255) at its batch, bf16 compute, split over sp=2
+MP_SP_CONTEXT = 256
+MP_SP_BATCH = 64
+MP_SP_STEPS = 2  # the first against one process, both for the ranks' equality and the ms
+# Params after (b)'s first step, in units of lr: Adam's first update moves
+# each element by lr·g/(|g|+eps), at most lr, so two arms differ by at most
+# 2·lr whatever their gradients. In bf16 an element whose gradient is near
+# zero can take the other sign when the attention sums in another order (a
+# CPU rehearsal at width 16 read 1.58·lr); Adam's moments, held to
+# TOL_MOMENT, are what see the gradients.
+MP_SP_PARAM_LR = 2.0
+# (c): the transformer family through the multi-host manifest at dp=1,sp=2
+# (16 frames, 8 per rank)
+MP_TF_FLAGS = ("--policy.arch", "transformer", "--policy.tf_sp_axis", "sp", "--mesh_shape", "dp=1,sp=2",
+               "--seq_len", "15")
+
+
+def _mp_cfg(shape, mode: str = "ring", sp: bool = True):
+    """The (b) learner config: `shape` {"context", "batch", "policy": extra
+    PolicyConfig fields} (MP_SP_* by default)."""
+    from dotaclient_tpu_torch.config import LearnerConfig, PolicyConfig
+
+    return LearnerConfig(batch_size=shape["batch"], seq_len=shape["context"] - 1,
+                         mesh_shape="dp=1,sp=2" if sp else "dp=-1",
+                         policy=PolicyConfig(arch="transformer", tf_context=shape["context"],
+                                             tf_sp_axis="sp" if sp else "", tf_sp_mode=mode, **shape.get("policy", {})))
+
+
+def _mp_batch(cfg, i: int, device, rows=None):
+    """Global batch i (seeded), obs in the compute dtype, through the
+    learner's tree-path transfer (the sp path's); `rows` (lo, hi) cuts a
+    rank's share."""
+    from dotaclient_tpu_torch.ops.batch import make_train_batch, tree_map
+    from dotaclient_tpu_torch.parallel.fused_io import TreeBatchIO
+    from dotaclient_tpu_torch.runtime.staging import cast_obs_to_compute_dtype
+
+    batch = cast_obs_to_compute_dtype(cfg, make_train_batch(cfg, 700 + i))
+    if rows is not None:
+        batch = tree_map(lambda x: x[rows[0] : rows[1]], batch)
+    io = TreeBatchIO(device)
+    return io.consume(*io.transfer(batch))
+
+
+def _mp_steps(cfg, step, state, device, rows, moved=None):
+    """MP_SP_STEPS steps from `state`, each fenced: (the whole state's
+    arrays after the first step, record of the metrics, ms, the collective
+    bytes of each step, params digests; the peak memory on a card)."""
+    from dotaclient_tpu_torch.runtime.checkpoint import state_arrays
+
+    cuda = device.type == "cuda"
+    rec = dict(metrics=[], ms=[], moved=[], digests=[])
+    if cuda:
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+    for i in range(MP_SP_STEPS):
+        batch = _mp_batch(cfg, i, device, rows)
+        before, t0 = dict(moved or {}), time.perf_counter()
+        state, metrics = step(state, batch)
+        if cuda:
+            torch.cuda.synchronize(device)
+        rec["ms"].append(1e3 * (time.perf_counter() - t0))
+        rec["moved"].append({k: v - before[k] for k, v in (moved or {}).items()})
+        rec["metrics"].append({k: float(v) for k, v in metrics.items()})
+        rec["digests"].append(_mh_digest(state))
+        if i == 0:
+            first = state_arrays(state)
+    rec["peak"] = torch.cuda.max_memory_allocated(device) if cuda else 0
+    return first, rec
+
+
+def mp_rank_main(argv) -> int:
+    """`chip_smoke.py --mp-rank RANK WORLD PORT DIR`: one rank of phase 19
+    (b), joined over gloo (on the card unless DIR/shape.json says "cpu").
+    For each sp mode, MP_SP_STEPS transformer train steps at dp=1,sp=WORLD
+    on this rank's rows of the seeded global batches; writes
+    DIR/rankR.json (per step: metrics, ms, the bytes this rank sent by kind
+    of collective, params digest; the peak memory) and, on rank 0,
+    DIR/state_<mode>.npz."""
+    from dotaclient_tpu_torch.ops.ring_attention import SP_MODES
+    from dotaclient_tpu_torch.parallel import train_step as ts
+    from dotaclient_tpu_torch.parallel.dist import init_distributed
+
+    rank, world, port, d = int(argv[0]), int(argv[1]), int(argv[2]), argv[3]
+    shape = _read_json(os.path.join(d, "shape.json"))
+    device = torch.device("cpu") if shape.get("platform") == "cpu" else torch.device("cuda", 0)
+    base = dataclasses.replace(_mp_cfg(shape), multihost=True, coordinator=f"127.0.0.1:{port}", num_processes=world,
+                               process_id=rank)
+    dist = init_distributed(base, device, backend="gloo")
+    sp = dist.group("sp")
+    moved = {"shift": 0, "all_to_all": 0, "all_gather": 0}  # bytes this rank sent
+
+    def counting(kind, fn):
+        share = {"shift": 1.0, "all_to_all": (sp.size - 1) / sp.size, "all_gather": sp.size - 1}[kind]
+
+        def run(t, *a, **kw):
+            moved[kind] += int(t.numel() * t.element_size() * share)
+            return fn(t, *a, **kw)
+
+        return run
+
+    for kind in moved:
+        setattr(sp, kind, counting(kind, getattr(sp, kind)))
+    out = {}
+    share = base.batch_size // world
+    try:
+        for mode in SP_MODES:
+            cfg = dataclasses.replace(base, policy=dataclasses.replace(base.policy, tf_sp_mode=mode))
+            first, rec = _mp_steps(cfg, ts.build_train_step(cfg, device, dist), ts.init_train_state(cfg, device),
+                                   device, (rank * share, (rank + 1) * share), moved)
+            out[mode] = rec
+            if rank == 0:
+                np.savez(os.path.join(d, f"state_{mode}.npz"), **first)
+    finally:
+        dist.close()
+    _write_json(os.path.join(d, f"rank{rank}.json"), out)
+    return 0
+
+
+def _mp_sequence(device, card: str, tmp: str, world: int = 2, shape=None):
+    """(b): the transformer split over sp=`world` ranks sharing the card
+    (gloo), ring then Ulysses, against one process at the global batch
+    within phase 12's bounds after the first step (compare_arms: TOL_LEARNER
+    and TOL_GRAD_NORM are phase 12's limits for blockwise against dense
+    attention, which also hold one step); the ranks bitwise equal after
+    every step; each rank's peak memory against the one process's;
+    the bytes each rank sends per step."""
+    from dotaclient_tpu_torch.ops.ring_attention import SP_MODES
+    from dotaclient_tpu_torch.parallel import train_step as ts
+    from dotaclient_tpu_torch.transport.params import load_named, load_named_adam
+
+    shape = dict(context=MP_SP_CONTEXT, batch=MP_SP_BATCH) if shape is None else shape
+    _write_json(os.path.join(tmp, "shape.json"), dict(shape, platform=device.type))
+    port = _free_port()
+    logs = [os.path.join(tmp, f"mp{r}.log") for r in range(world)]
+    t0 = time.perf_counter()
+    _mh_join([_mh_spawn(["--mp-rank", str(r), str(world), str(port), tmp], log) for r, log in enumerate(logs)], logs,
+             "model parallel (b)")
+    wall_s = time.perf_counter() - t0
+    ranks = [_read_json(os.path.join(tmp, f"rank{r}.json")) for r in range(world)]
+    cfg = _mp_cfg(shape, sp=False)
+    first, rec1 = _mp_steps(cfg, ts.build_train_step(cfg, device), ts.init_train_state(cfg, device), device, None)
+    as_t = lambda ms: [{k: torch.tensor(v) for k, v in m.items()} for m in ms]  # noqa: E731
+
+    def loaded(arrays):
+        net = ts.init_train_state(cfg, device).net
+        load_named(net, [(n, arrays[n]) for n in arrays if n.startswith("params/")])
+        adam = load_named_adam([(n, arrays[n]) for n in arrays if n == "count" or n[:3] in ("mu/", "nu/")], net)
+        return ts.TrainState(net, adam, 1)
+
+    one = loaded(first)
+    res = dict(world=world, wall_s=wall_s, one=dict(ms=rec1["ms"], peak=rec1["peak"]), modes={})
+    for mode in SP_MODES:
+        recs = [r[mode] for r in ranks]
+        if any(r["digests"] != recs[0]["digests"] for r in recs):
+            raise SystemExit(f"model parallel (b) {mode}: the ranks' params differ after a step")
+        state = loaded(dict(np.load(os.path.join(tmp, f"state_{mode}.npz"))))
+        worst = compare_arms(f"model parallel (b) {mode} vs one process", state, one, as_t(recs[0]["metrics"][:1]),
+                             as_t(rec1["metrics"][:1]), 1, cfg.ppo.lr, param_lr=MP_SP_PARAM_LR)
+        sent = recs[0]["moved"][-1]
+        res["modes"][mode] = dict(worst=worst, ms=[r["ms"] for r in recs], peak=[r["peak"] for r in recs],
+                                  sent_per_step=sent)
+        print(f"model parallel (b) {mode}: transformer d_model {cfg.policy.lstm_hidden}, {cfg.policy.tf_layers} layers, "
+              f"{cfg.policy.tf_heads} heads, seq_len {cfg.seq_len} x batch {cfg.batch_size} ({cfg.policy.dtype}) over "
+              f"sp={world} ranks sharing the card (gloo): params bitwise equal on the ranks after every step; against "
+              f"one process { {k: float(f'{v:.3g}') for k, v in worst.items()} } (phase 12's bounds); peak memory per "
+              f"rank {[round(r['peak'] / 2**20, 1) for r in recs]} MiB vs one process {rec1['peak'] / 2**20:.1f} MiB; "
+              f"rank 0 sent {sent} bytes in its last step (ring hops 'shift', Ulysses 'all_to_all', positions and "
+              f"outputs 'all_gather'); ms per step {[[round(x, 1) for x in r['ms']] for r in recs]} vs one process "
+              f"{[round(x, 1) for x in rec1['ms']]} | {card}", flush=True)
+    return res
+
+
+def phase_model_parallel(device, card: str, flags=("--batch_size", "256", "--seq_len", "16"), extra=(), shape=None):
+    """Phase 19: tensor and sequence parallelism over rank groups, two
+    ranks sharing the card over gloo: (a) the flagship LSTM at dp=1,tp=2
+    against one process (each rank holds half of the sharded leaves and
+    their moments; one recurrence launch per step per rank, on the
+    gathered W_h), (b) the transformer at bench_tf's widest shape over
+    sp=2, ring and Ulysses, against one process, (c) the learner binary
+    with the transformer at dp=1,sp=2 through the multi-host manifest's
+    drain and restart. The ranks count their own launches."""
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_model_parallel_")
+    try:
+        for part in "abc":
+            os.makedirs(os.path.join(tmp, part))
+        tp = _mh_two_ranks(device, card, list(flags), os.path.join(tmp, "a"), mesh="dp=1,tp=2",
+                           label="model parallel (a)")
+        if not all(h < tp["whole_bytes"] for h in tp["held_bytes"]):
+            raise SystemExit(f"model parallel (a): ranks hold {tp['held_bytes']} bytes of the whole {tp['whole_bytes']}")
+        gather = [statistics.median(g) for g in tp["gather_ms"]]
+        print(f"model parallel (a): flagship LSTM (B=256 x 16, 128-wide, bf16) at dp=1,tp=2, two ranks on one card "
+              f"(gloo): params bitwise equal on both ranks after every step; against one process "
+              f"{ {k: float(f'{v:.3g}') for k, v in tp['worst'].items()} } (phase 6's bounds); params + Adam moments "
+              f"held per rank {tp['held_bytes']} bytes vs {tp['whole_bytes']} at tp=1; recurrence launches per step "
+              f"{tp['launches']} (on the gathered W_h); tp gathers {gather} ms per step (median, host-staged); step "
+              f"{[[round(x, 1) for x in r] for r in tp['step_ms']]} ms vs one process "
+              f"{[round(x, 1) for x in tp['single_ms']]} | {card}", flush=True)
+        seq = _mp_sequence(device, card, os.path.join(tmp, "b"), shape=shape)
+        binary = _mh_manifest(device, card, os.path.join(tmp, "c"), extra=[*MP_TF_FLAGS, *extra], per_step=0,
+                              label="model parallel (c)")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = sum(map(sum, tp["launches"])) + sum(map(sum, tp["reuse_launches"])) + sum(binary["launches"])
+    res = dict(tp=tp, sp=seq, binary=binary, launches=launches, phase_s=time.perf_counter() - t0)
+    print(f"model parallel: phase {res['phase_s']:.1f} s, {launches} recurrence launches | {card}", flush=True)
+    return res
+
+
 # ----------------------------------------------------------------- probes
-# `python3 chip_smoke.py --probe profile|profile_buffers|profile_pools|profile_arms|tree_h2d|replay_h2d` measures one question
-# each and checks nothing; the smoke never runs them.
-# `--probe profile`: PROBE_WINDOWS POST /profile windows of PROBE_WINDOW_S;
-# `--probe profile_buffers`: PROBE_BUFFER_WINDOWS more with CUPTI's device
-# buffer set to PROBE_DEVICE_BUFFER bytes first (run it with kineto's
-# KINETO_CONFIG naming a file that sets ACTIVITIES_MAX_GPU_BUFFER_SIZE_MB:
-# kineto prints the limit it took in its config dump).
+# `python3 chip_smoke.py --probe profile|profile_kineto|tree_h2d|replay_h2d`
+# measures one question each and checks nothing; the smoke never runs them.
+# `--probe profile`: PROBE_WINDOWS POST /profile windows of PROBE_WINDOW_S
+# over phase 9's learner (CUPTI's records through obs/cupti.py);
+# `--probe profile_kineto`: as many torch.profiler windows from the probe's
+# thread, the route POST /profile took before (kineto), in a process of its
+# own: CUPTI keeps one set of buffer callbacks per process.
 PROBE_WINDOWS = 48
-# `--probe profile_arms`: the endpoint's windows in turns with other ways
-# to take one (see _probe_profile)
-PROBE_ARMS = ("endpoint", "nosync", "all_threads", "flush")
-PROBE_BUFFER_WINDOWS = 16
 PROBE_WINDOW_S = 1.0
-PROBE_DEVICE_BUFFER = 64 << 20  # CUPTI_ACTIVITY_ATTR_DEVICE_BUFFER_SIZE (CUPTI's default: 3 MiB)
-# `--probe profile_pools`: CUPTI's device buffer pool and profiling semaphore
-# pool raised (CUPTI_ACTIVITY_ATTR_DEVICE_BUFFER_POOL_LIMIT = 2,
-# _PROFILING_SEMAPHORE_POOL_SIZE = 3, _PROFILING_SEMAPHORE_POOL_LIMIT = 4)
-PROBE_POOL_WINDOWS = 32
-PROBE_POOL_ATTRS = {2: 4096, 3: 1 << 20, 4: 4096}
 PROBE_STEPS = 10  # steps per tree-H2D arm (one metrics window)
 
 
 def _trace_census(path: str) -> dict:
-    """Kernels and launch calls of one torch.profiler Chrome trace, by the
-    CPU thread that launched them (correlation ids) and by stream."""
+    """Kernels and launch calls of one Chrome trace, by the CPU thread
+    that launched them (correlation ids) and by stream."""
     from collections import Counter
 
     with open(path) as f:
@@ -5929,71 +6164,71 @@ def _trace_census(path: str) -> dict:
     lcorr = {e.get("args", {}).get("correlation"): names.get(e.get("tid"), e.get("tid")) for e in launches}
     thread = lambda e: str(names.get(e.get("tid"), e.get("tid")))  # noqa: E731
     ts = [e["ts"] for e in kernels]
-    end = max((e["ts"] for e in launches), default=0.0)
-    orphans = [e for e in launches if e.get("args", {}).get("correlation") not in kcorr]
     return dict(kernels=len(kernels), lstm=sum("lstm_" in e.get("name", "") for e in kernels),
-                lstm_launch_threads=Counter(str(lcorr.get(e.get("args", {}).get("correlation"), "none"))
-                                            for e in kernels if "lstm_" in e.get("name", "")),
                 launches_by_thread=Counter(thread(e) for e in launches),
                 launches_without_kernel=Counter(thread(e) for e in launches
                                                 if e.get("args", {}).get("correlation") not in kcorr),
                 kernels_by_launch_thread=Counter(str(lcorr.get(e.get("args", {}).get("correlation"), "none"))
                                                  for e in kernels),
                 kernels_by_stream=Counter(str(e.get("args", {}).get("stream")) for e in kernels),
-                kernel_span_ms=(max(ts) - min(ts)) / 1e3 if ts else 0.0,
-                # the first launches without a kernel: call, thread, ms before the window's last launch
-                orphan_detail=[(e.get("name"), thread(e), round((end - e["ts"]) / 1e3, 3)) for e in orphans[:5]],
-                cpu_ops_by_thread=Counter(thread(e) for e in events if e.get("cat") == "cpu_op"))
+                kernel_span_ms=(max(ts) - min(ts)) / 1e3 if ts else 0.0)
 
 
-def _cupti():
-    """The CUPTI library torch's profiler loaded (from /proc/self/maps), or
-    None."""
+def _process_streams(learner, device) -> dict:
+    """CUPTI's stream id of every stream the learner's threads launch on:
+    the default (loop) stream, the current stream, the batch io's side
+    stream and the async checkpoint's (once it exists). {label: id}."""
     import ctypes
 
-    for line in open("/proc/self/maps"):
-        if "libcupti" in line and "/" in line:
-            return ctypes.CDLL(line.split()[-1])
-    return None
+    from dotaclient_tpu_torch.obs import cupti
+
+    lib = cupti._load()
+    handles = {"default": torch.cuda.default_stream(device), "current": torch.cuda.current_stream(device),
+               "io": getattr(learner.io, "_stream", None),
+               "ckpt": getattr(learner._copier, "_stream", None) if learner._copier is not None else None}
+    ctx = ctypes.c_void_p()
+    if ctypes.CDLL("libcuda.so.1").cuCtxGetCurrent(ctypes.byref(ctx)) != 0 or not ctx.value:
+        return {}
+    out = {}
+    for label, stream in handles.items():
+        sid = ctypes.c_uint32(0)
+        if stream is not None and lib.cuptiGetStreamIdEx(ctx, ctypes.c_void_p(stream.cuda_stream), ctypes.c_uint8(0),
+                                                         ctypes.byref(sid)) == 0:
+            out[label] = sid.value
+    return out
 
 
-def _cupti_dropped(lib, streams=()) -> dict:
+def _cupti_dropped(streams=()) -> dict:
     """cuptiActivityGetNumDroppedRecords (CUPTI resets each count on read)
     for the global queue, and for the current context's `streams` (CUPTI
-    stream ids, as the trace's kernel events name them): {"rc":
-    CUptiResult, "dropped": n, "streams": {id: n}}."""
+    stream ids): {"dropped": n, "streams": {id: n}}."""
     import ctypes
 
-    if lib is None:
-        return {"rc": None, "dropped": None}
+    from dotaclient_tpu_torch.obs import cupti
+
+    lib = cupti._load()
     n = ctypes.c_size_t(0)
-    rc = lib.cuptiActivityGetNumDroppedRecords(None, ctypes.c_uint32(0), ctypes.byref(n))
-    out = {"rc": rc, "dropped": n.value, "streams": {}}
+    lib.cuptiActivityGetNumDroppedRecords(None, ctypes.c_uint32(0), ctypes.byref(n))
+    out = {"dropped": n.value, "streams": {}}
     ctx = ctypes.c_void_p()
     if streams and ctypes.CDLL("libcuda.so.1").cuCtxGetCurrent(ctypes.byref(ctx)) == 0 and ctx.value:
         for sid in streams:
             m = ctypes.c_size_t(0)
-            r = lib.cuptiActivityGetNumDroppedRecords(ctx, ctypes.c_uint32(int(sid)), ctypes.byref(m))
-            out["streams"][str(sid)] = m.value if r == 0 else f"rc {r}"
+            if lib.cuptiActivityGetNumDroppedRecords(ctx, ctypes.c_uint32(int(sid)), ctypes.byref(m)) == 0:
+                out["streams"][str(sid)] = m.value
     return out
 
 
-def _probe_profile(device, windows: int = PROBE_WINDOWS, attrs=None, arms=("endpoint",)) -> None:
-    """`windows` POST /profile windows on the learner's own surface
-    (ProfileCapture as shipped: the device synchronized before the stop,
-    a window whose trace lost a launch's kernel answered 500) over phase
-    9's manifest learner fed by a producer thread. `attrs` ({CUPTI
-    activity attribute: size_t value}) are set before the first window. `arms` other than "endpoint" take their windows in turns with
-    it, each a torch.profiler window from this thread (not the loop's, as
-    the HTTP handler's): "nosync" stops without a device sync,
-    "all_threads" records every thread's CPU ops (torch's
-    profile_all_threads), "flush" forces CUPTI to flush its buffers
-    (cuptiActivityFlushAll(CUPTI_ACTIVITY_FLAG_FLUSH_FORCED)) after the
-    sync, before the stop. Prints each window's
+def _probe_profile(device, route: str = "endpoint", windows: int = PROBE_WINDOWS) -> None:
+    """`windows` trace windows over phase 9's manifest learner fed by a
+    producer thread: `route` "endpoint" takes each by POST /profile on the
+    learner's own surface (as shipped: CUPTI's records, the device
+    synchronized before the stop, a window whose trace lost a launch's
+    kernel answered 500), "kineto" by a torch.profiler window from this
+    thread (the device synchronized before the stop). Prints each window's
     census, its lost launches (lost_kernel_launches), its HTTP code and
-    CUPTI's dropped-record count read after it, then the totals by arm."""
-    import ctypes
-
+    CUPTI's dropped-record count on the global queue and on every stream
+    the learner launches on, then the totals."""
     from dotaclient_tpu_torch.config import LearnerConfig, parse_config
     from dotaclient_tpu_torch.obs.compute import lost_kernel_launches
     from dotaclient_tpu_torch.ops import lstm as L
@@ -6022,31 +6257,9 @@ def _probe_profile(device, windows: int = PROBE_WINDOWS, attrs=None, arms=("endp
         except TimeoutError:
             out["done"] = learner.version
 
-    lib = _cupti()
-    totals = {arm: dict(windows=0, lossy=0, answered_500=0, partial_200=0, dropped=0) for arm in arms}
-    for attr, value in (attrs or {}).items():
-        size = ctypes.c_size_t(value)
-        width = ctypes.c_size_t(ctypes.sizeof(size))
-        totals[f"attr_{attr}_rc"] = lib.cuptiActivitySetAttribute(attr, ctypes.byref(width), ctypes.byref(size))
+    totals = dict(route=route, windows=0, lossy=0, answered_500=0, partial_200=0, dropped=0, dropped_streams=0,
+                  lstm_launches=0, lstm_kernels=0)
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-
-    def direct_window(arm: str, path: str) -> str:
-        kw = {}
-        if arm.startswith("all_threads"):
-            kw["experimental_config"] = torch._C._profiler._ExperimentalConfig(profile_all_threads=True)
-        os.makedirs(path)
-        prof = torch.profiler.profile(activities=acts, **kw)
-        prof.start()
-        time.sleep(PROBE_WINDOW_S)
-        if arm != "nosync":
-            torch.cuda.synchronize(device)
-        if arm == "flush" and lib is not None:
-            lib.cuptiActivityFlushAll(ctypes.c_uint32(1))
-        prof.stop()
-        trace = os.path.join(path, "trace.json")
-        prof.export_chrome_trace(trace)
-        return trace
-
     runner = threading.Thread(target=run, daemon=True)
     producer.start()
     runner.start()
@@ -6054,30 +6267,37 @@ def _probe_profile(device, windows: int = PROBE_WINDOWS, attrs=None, arms=("endp
         while learner.version < 12 and runner.is_alive():
             time.sleep(0.01)
         for w in range(windows):
-            arm = arms[w % len(arms)]
             v0, n0, t0 = learner.version, L.LAUNCHES, time.perf_counter()
-            if arm == "endpoint":
+            if route == "endpoint":
                 code, body = _http("POST", f"http://127.0.0.1:{port}/profile?seconds={PROBE_WINDOW_S}")
                 reply = json.loads(body) if body.startswith("{") else {"error": body}
                 trace = (os.path.join(reply["trace_dir"], "trace.json") if code == 200
                          else reply.get("error", "").rsplit("(", 1)[-1].rstrip(")"))
             else:
                 code, reply = None, {}
-                trace = direct_window(arm, os.path.join(tmp, f"{arm}_{w}"))
-            lib = lib or _cupti()
+                path = os.path.join(tmp, f"kineto_{w}")
+                os.makedirs(path)
+                with torch.profiler.profile(activities=acts) as prof:
+                    time.sleep(PROBE_WINDOW_S)
+                    torch.cuda.synchronize(device)
+                trace = os.path.join(path, "trace.json")
+                prof.export_chrome_trace(trace)
             whole = os.path.exists(trace)
             census = _trace_census(trace) if whole else {}
             lost = lost_kernel_launches(trace) if whole else {"no trace": -1}
-            dropped = _cupti_dropped(lib, census.get("kernels_by_stream", {}).keys() or ("7",))
-            census.update(window=w, arm=arm, http=code, error=reply.get("error", "")[:200], lost=lost,
-                          cupti=dropped, wall_s=round(time.perf_counter() - t0, 3), steps=learner.version - v0,
-                          launches=L.LAUNCHES - n0)
-            t = totals[arm]
-            t["windows"] += 1
-            t["lossy"] += bool(lost)
-            t["answered_500"] += code == 500
-            t["partial_200"] += code == 200 and bool(lost)
-            t["dropped"] += dropped["dropped"] or 0
+            streams = _process_streams(learner, device)
+            dropped = _cupti_dropped(set(census.get("kernels_by_stream", {})) | {str(v) for v in streams.values()})
+            census.update(window=w, route=route, http=code, error=reply.get("error", "")[:200], lost=lost,
+                          cupti=dropped, process_streams=streams, wall_s=round(time.perf_counter() - t0, 3),
+                          steps=learner.version - v0, launches=L.LAUNCHES - n0)
+            totals["windows"] += 1
+            totals["lossy"] += bool(lost)
+            totals["answered_500"] += code == 500
+            totals["partial_200"] += code == 200 and bool(lost)
+            totals["dropped"] += dropped["dropped"]
+            totals["dropped_streams"] += sum(dropped["streams"].values())
+            totals["lstm_launches"] += census["launches"]
+            totals["lstm_kernels"] += census.get("lstm", 0)
             print("probe profile " + json.dumps(census), flush=True)
             if whole:
                 shutil.rmtree(os.path.dirname(trace), ignore_errors=True)
@@ -6231,7 +6451,8 @@ def _probe_replay_h2d(device) -> None:
 
 
 def probe_main(argv) -> int:
-    """`--probe profile|profile_buffers|profile_pools|profile_arms|tree_h2d|replay_h2d ...`: run the named probes on the card."""
+    """`--probe profile|profile_kineto|tree_h2d|replay_h2d ...`: run the named probes on the card (the two
+    profile probes each in a process of its own)."""
     if not torch.cuda.is_available():
         print("probe: no CUDA device", file=sys.stderr)
         return 1
@@ -6240,10 +6461,8 @@ def probe_main(argv) -> int:
     _kernels.build_all()
     device = torch.device("cuda", 0)
     print(f"device: {gpu_line()} | torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
-    probes = {"profile": _probe_profile, "tree_h2d": _probe_tree_h2d, "replay_h2d": _probe_replay_h2d,
-              "profile_buffers": lambda dev: _probe_profile(dev, PROBE_BUFFER_WINDOWS, {0: PROBE_DEVICE_BUFFER}),
-              "profile_pools": lambda dev: _probe_profile(dev, PROBE_POOL_WINDOWS, PROBE_POOL_ATTRS),
-              "profile_arms": lambda dev: _probe_profile(dev, PROBE_WINDOWS * 4 // 3, arms=PROBE_ARMS)}
+    probes = {"profile": _probe_profile, "profile_kineto": lambda dev: _probe_profile(dev, "kineto"),
+              "tree_h2d": _probe_tree_h2d, "replay_h2d": _probe_replay_h2d}
     for name in argv:
         probes[name](device)
     return 0
@@ -6321,6 +6540,8 @@ def main() -> int:
     marks.append(("17", time.perf_counter()))
     multihost = phase_multihost(device, card)  # zeroes the counter itself before each path; ranks count their own
     marks.append(("18", time.perf_counter()))
+    model_parallel = phase_model_parallel(device, card)  # ranks count their own launches
+    marks.append(("19", time.perf_counter()))
 
     main_case = cases[0]
     kernels = [
@@ -6376,6 +6597,8 @@ def main() -> int:
             "data_modes": modes,
             "launches_multihost": multihost["launches"],
             "multihost": multihost,
+            "launches_model_parallel": model_parallel["launches"],
+            "model_parallel": model_parallel,
         }
     ]
     spans = ", ".join(f"{name} {t1 - t0:.1f}" for (_, t0), (name, t1) in zip(marks, marks[1:]))
@@ -6411,4 +6634,6 @@ if __name__ == "__main__":
         sys.exit(mh_rank_main(sys.argv[2:]))
     if sys.argv[1:2] == ["--mh-binary"]:
         sys.exit(mh_binary_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--mp-rank"]:
+        sys.exit(mp_rank_main(sys.argv[2:]))
     sys.exit(main())

@@ -40,9 +40,15 @@ class PolicyConfig:
     # Actor KV-cache capacity; past it the cache wraps into a sliding
     # window. The default leaves one slot over the default rollout_len 16.
     tf_context: int = 17
-    # Sequence parallelism over a mesh axis of this name (not ported;
-    # refused).
+    # Learner-side sequence parallelism: the mesh axis ("" = off) whose
+    # ranks split the unroll's time axis (ops/ring_attention.py); the
+    # unrolled frame count (seq_len+1) must divide by its size. The LSTM
+    # family ignores it.
     tf_sp_axis: str = ""
+    # Its collective pattern: "ring" (K/V rotate one hop per step, no head
+    # constraint) or "ulysses" (two all-to-alls to head-sharded attention;
+    # needs tf_heads divisible by the sp axis). Same function either way.
+    tf_sp_mode: str = "ring"
     # Key-block size of the blockwise (streaming-softmax) attention in the
     # learner unroll: intermediates [N, T, block] instead of [N, T, T] at a
     # time (in training, together with tf_remat). 0 = dense; engages only
@@ -473,7 +479,7 @@ class LearnerConfig:
     log_dir: str = ""
     # Param init and the reuse step's per-step shuffle stream.
     seed: int = 0
-    mesh_shape: str = "dp=-1"  # dp = the process count; tp / sp of 2+ refuse (A.14b)
+    mesh_shape: str = "dp=-1"  # e.g. "dp=2,sp=2" over 4 processes; -1 = all remaining processes
     # The C++ batch packer on the staging path (dotaclient_tpu_torch/native);
     # False takes the Python path. A failed build raises.
     native_packer: bool = True
@@ -646,7 +652,6 @@ class FleetConfig:
 # applies to the configs that have it.
 UNPORTED = {
     "profile_port": (bool, "the deprecated always-on profiler server (use POST /profile)", "A.13b"),
-    "policy.tf_sp_axis": (bool, "sequence-parallel attention (ring / Ulysses)", "A.14b"),
 }
 
 # The actor binary's modes that are not ported, in UNPORTED's form: Actor

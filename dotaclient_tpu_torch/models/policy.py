@@ -227,9 +227,16 @@ class PolicyNet(nn.Module):
         else:
             self.core = PolicyCore(cfg, resolve_device(device))
 
-    def forward(self, state, obs: F.Observation, unroll: bool = False):
+    def forward(self, state, obs: F.Observation, unroll: bool = False, sp=None):
+        """`sp` (an ops.ring_attention.SeqParallel, transformer unroll
+        only): this rank computes its time block of the chunk, and the
+        outputs come back gathered over the sp group."""
         if tuple(obs.unit_feats.shape[-2:]) != (F.MAX_UNITS, F.UNIT_FEATURES):
             raise ValueError(f"unit_feats must end in {(F.MAX_UNITS, F.UNIT_FEATURES)}, got {tuple(obs.unit_feats.shape)}")
+        if sp is not None:
+            if self.cfg.arch != "transformer":
+                raise ValueError(f"sequence parallelism is for the transformer family, not arch={self.cfg.arch!r}")
+            return self.core(state, obs, unroll, sp=sp)
         return self.core(state, obs, unroll)
 
 

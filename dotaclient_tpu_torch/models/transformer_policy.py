@@ -9,7 +9,12 @@ wire stay family-agnostic:
 - unroll (learner): teacher-forced causal attention over the whole
   [B, T, ...] chunk. The passed state is ignored: context is chunk-local,
   and the actor resets its cache at every chunk boundary
-  (models.policy.reset_between_chunks).
+  (models.policy.reset_between_chunks). With sequence parallelism (`sp`,
+  an ops.ring_attention.SeqParallel) each sp rank runs the trunk, the
+  blocks and the heads on its own block of the frames, at their global
+  positions, the attention spanning the ranks; the per-token outputs are
+  then gathered along time, so what follows (GAE, the loss) sees the
+  whole chunk on every sp rank.
 
 The observation trunk and the heads are the LSTM family's
 (`TransformerPolicyCore` is `PolicyCore` with the temporal core swapped).
@@ -30,7 +35,7 @@ from torch.utils.checkpoint import checkpoint
 
 from dotaclient_tpu_torch import resolve_device
 from dotaclient_tpu_torch.config import PolicyConfig
-from dotaclient_tpu_torch.models.policy import Dense, PolicyCore, _dtype
+from dotaclient_tpu_torch.models.policy import Dense, PolicyCore, PolicyOutput, _dtype, action_heads, obs_trunk
 from dotaclient_tpu_torch.ops import attention as A
 from dotaclient_tpu_torch.ops import ring_attention as RA
 
@@ -126,9 +131,10 @@ class Block(nn.Module):
         self.mlp_down = Dense(4 * D, D, dtype, device)
         self.gelu = Gelu(dtype)
 
-    def forward(self, x: torch.Tensor, positions: torch.Tensor, cache=None):
+    def forward(self, x: torch.Tensor, positions: torch.Tensor, cache=None, sp=None):
         """x [B, T, D] f32, positions [B, T] int32. cache=None: causal
-        self-attention over T (unroll); returns (x', None). Otherwise
+        self-attention over T (unroll; with `sp`, this rank's time block of
+        it); returns (x', None). Otherwise
         cache = (k_cache [B, C, N, Dh], v_cache, cache_pos [B, C] already
         holding this token's position, write [B, C] bool one-hot), T = 1:
         the fresh K/V are written at `write` and the query attends over
@@ -145,7 +151,8 @@ class Block(nn.Module):
         v = v.reshape(v.shape[:-1] + (N, Dh))
         new_cache = None
         if cache is None:
-            attn = RA.attend(q, k, v, positions, positions, kv_block=self.kv_block)
+            group, mode = (sp.group, sp.mode) if sp is not None else (None, "ring")
+            attn = RA.attend(q, k, v, positions, positions, group, mode, kv_block=self.kv_block)
         else:
             k_cache, v_cache, cache_pos, write = cache
             sel = write[:, :, None, None]  # [B, C, 1, 1]
@@ -177,17 +184,19 @@ class TransformerCore(nn.Module):
     def blocks(self):
         return [getattr(self, f"block{i}") for i in range(self.cfg.tf_layers)]
 
-    def forward(self, carry, x: torch.Tensor, unroll: bool = False):
+    def forward(self, carry, x: torch.Tensor, unroll: bool = False, sp=None):
         if unroll:
             B, T = x.shape[0], x.shape[1]
-            positions = torch.arange(T, dtype=torch.int32, device=x.device).expand(B, T)
+            # global positions: sp rank s holds frames [s·T, (s+1)·T)
+            first = sp.group.index * T if sp is not None else 0
+            positions = torch.arange(first, first + T, dtype=torch.int32, device=x.device).expand(B, T)
             h = x.float()
             for block in self.blocks():
                 if self.cfg.tf_remat:
                     # activations recomputed in the backward instead of stored (nn.remat)
-                    h, _ = checkpoint(block, h, positions, use_reentrant=False)
+                    h, _ = checkpoint(block, h, positions, None, sp, use_reentrant=False)
                 else:
-                    h, _ = block(h, positions)
+                    h, _ = block(h, positions, sp=sp)
             return carry, h
 
         if not isinstance(carry, KVCache):
@@ -215,3 +224,17 @@ class TransformerPolicyCore(PolicyCore):
     def add_temporal_core(self, cfg: PolicyConfig, device) -> str:
         self.tf = TransformerCore(cfg, device)
         return "tf"
+
+    def forward(self, carry, obs, unroll: bool = False, sp=None):
+        if sp is None or not unroll:
+            return super().forward(carry, obs, unroll)
+        T = obs.unit_feats.shape[1] // sp.group.size
+        local = type(obs)(*(x.narrow(1, sp.group.index * T, T) for x in obs))
+        trunk, unit_emb = obs_trunk(self, local)
+        carry, out = self.tf(carry, trunk, unroll=True, sp=sp)
+        pol = action_heads(self, out, unit_emb, local)
+        parts = list(pol.dist) + [pol.value] + (list(pol.aux) if pol.aux is not None else [])
+        parts = RA.gather_time(sp.group, parts)
+        n = len(pol.dist)
+        aux = type(pol.aux)(*parts[n + 1 :]) if pol.aux is not None else None
+        return carry, PolicyOutput(dist=type(pol.dist)(*parts[:n]), value=parts[n], aux=aux)

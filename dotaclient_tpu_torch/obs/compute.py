@@ -16,7 +16,9 @@ capture.
                     compute_recompiles_total (a batch-shape bug upstream).
 - MfuAccountant     model-FLOPs utilization from ops/flops.py against the
                     device's peak.
-- ProfileCapture    on-demand torch.profiler windows for POST /profile.
+- ProfileCapture    on-demand trace windows for POST /profile: on the card
+                    CUPTI's records straight (obs/cupti.py), on the CPU
+                    torch.profiler's.
 
 Everything logs through the MetricsLogger stream under the compute_* names
 of obs/registry.py.
@@ -293,8 +295,8 @@ def _trace_events(path: str) -> list:
 
 
 def trace_kernel_names(path: str) -> List[str]:
-    """Names of the device kernels in a Chrome trace written by
-    torch.profiler (events of category "kernel")."""
+    """Names of the device kernels in a Chrome trace (events of category
+    "kernel", as torch.profiler and obs/cupti.py write them)."""
     return [e.get("name", "") for e in _trace_events(path) if e.get("cat") == "kernel"]
 
 
@@ -309,8 +311,8 @@ LAUNCH_EDGE_MS = 50.0
 
 
 def lost_kernel_launches(path: str, edge_ms: float = LAUNCH_EDGE_MS) -> Dict[str, int]:
-    """The kernel launches of a torch.profiler Chrome trace whose kernel
-    the trace lacks (matched by the `correlation` arg), counted by the name
+    """The kernel launches of a Chrome trace (torch.profiler's or
+    obs/cupti.py's) whose kernel the trace lacks (matched by the `correlation` arg), counted by the name
     of the launching thread; launches in the first and last `edge_ms` of
     the window are left out. Empty for a whole trace."""
     events = _trace_events(path)
@@ -333,16 +335,19 @@ def lost_kernel_launches(path: str, edge_ms: float = LAUNCH_EDGE_MS) -> Dict[str
 
 class ProfileCapture:
     """On-demand trace windows for POST /profile?seconds=N. One capture at
-    a time; each lands as a Chrome trace (`trace.json`, torch.profiler's
-    export) in its own `profile_<stamp>/` directory under `out_dir`. The
-    HTTP handler's thread runs the window while the learner loop runs on
-    its own thread: CUPTI traces every kernel the process launches on the
-    card, whichever thread launched it.
+    a time; each lands as a Chrome trace (`trace.json`) in its own
+    `profile_<stamp>/` directory under `out_dir`. The HTTP handler's
+    thread runs the window while the learner loop runs on its own thread.
+    On the card the trace is CUPTI's kernel and runtime / driver call
+    records of every thread, taken through its activity API without kineto
+    (obs/cupti.py: kineto windows lost launching threads' kernel records);
+    on the CPU it is torch.profiler's.
 
     On the card a window is whole or an error, never a partial success:
-    the device is synchronized before the profiler stops, and a trace with
-    no device kernel, or with kernel launches whose kernel it lacks (a
-    launching thread's records lost), raises."""
+    the device is synchronized before the recording stops, and a trace
+    with no device kernel, with kernel launches whose kernel it lacks (a
+    launching thread's records lost), or with records CUPTI dropped,
+    raises."""
 
     def __init__(self, out_dir: str, max_seconds: float = 60.0, *, device):
         self.out_dir = out_dir or os.getcwd()
@@ -373,20 +378,17 @@ class ProfileCapture:
                 path = os.path.join(self.out_dir, f"profile_{stamp}_{n}")
                 n += 1
             os.makedirs(path)
-            acts = [torch.profiler.ProfilerActivity.CPU]
-            if self.cuda:
-                acts.append(torch.profiler.ProfilerActivity.CUDA)
-            prof = torch.profiler.profile(activities=acts)
-            prof.start()
-            try:
-                time.sleep(seconds)
-                if self.cuda:
-                    torch.cuda.synchronize(self.device)  # the window's kernels have run
-            finally:
-                prof.stop()
             trace = os.path.join(path, "trace.json")
-            prof.export_chrome_trace(trace)
             if self.cuda:
+                from dotaclient_tpu_torch.obs import cupti
+
+                # the window's kernels have run before the recording stops
+                kernels, calls, dropped = cupti.activity_trace().window(
+                    seconds, lambda: torch.cuda.synchronize(self.device))
+                cupti.write_chrome_trace(trace, kernels, calls)
+                if dropped:
+                    raise RuntimeError(f"profiler capture of {seconds:.1f}s is partial: CUPTI dropped {dropped} "
+                                       f"records ({trace})")
                 if not trace_kernel_names(trace):
                     raise RuntimeError(f"profiler capture of {seconds:.1f}s traced no device kernel ({trace})")
                 lost = lost_kernel_launches(trace)
@@ -394,6 +396,10 @@ class ProfileCapture:
                     raise RuntimeError(f"profiler capture of {seconds:.1f}s is partial: {sum(lost.values())} kernel "
                                        f"launches have no kernel in the trace, by launching thread "
                                        f"{json.dumps(lost, sort_keys=True)} ({trace})")
+            else:
+                with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+                    time.sleep(seconds)
+                prof.export_chrome_trace(trace)
             self.captures_done += 1
             self.last_path = path
             _log.info("profiler capture (%.1fs) written to %s", seconds, path)

@@ -3,7 +3,8 @@
 Each source under `dotaclient_tpu_torch/csrc/` compiles into its own
 shared library with a plain C interface and is loaded with ctypes: the
 CUDA kernels (`*.cu`) with `nvcc` for `sm_90a` (no PyTorch headers, so a
-build takes seconds), the host C++ batch packer (`*.cc`) with `g++`.
+build takes seconds), the host C++ (`*.cc`: the batch packer, CUPTI's
+activity buffers) with `g++`.
 Libraries land in `build/torch_kernels/` at the repository root
 (git-ignored), named by a hash of the source and flags, so an edited
 source rebuilds. Nothing is built at import: the first call that needs a
@@ -48,6 +49,18 @@ KERNELS = {
             "lstm_recurrence_error_string": ([_I], ctypes.c_char_p),
         },
     ),
+    # CUPTI's activity buffers (obs/cupti.py): the two callbacks CUPTI calls
+    # are passed by address; the rest are called from Python
+    "cupti_buffers": (
+        "cupti_buffers.cc",
+        {
+            "dt_cupti_held": ([], _I64),
+            "dt_cupti_take": ([_P, _P, _I64], _I64),
+            "dt_cupti_release": ([_P], None),
+            # next_record, buffer, valid, cap, 8 column outputs
+            "dt_cupti_parse": ([_P, _P, ctypes.c_uint64, _I64] + [_P] * 8, _I64),
+        },
+    ),
     "packer": (
         "packer.cc",
         {
@@ -89,7 +102,7 @@ def _compiler(name: str) -> str:
         return _nvcc()
     found = shutil.which("g++")
     if found is None:
-        raise RuntimeError("g++ not found: the native batch packer needs a C++17 compiler on PATH")
+        raise RuntimeError(f"g++ not found: {KERNELS[name][0]} needs a C++17 compiler on PATH")
     return found
 
 

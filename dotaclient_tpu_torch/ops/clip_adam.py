@@ -14,11 +14,17 @@ The state keeps optax's (count, mu, nu), keyed by the flax param names, so
 it carries across from an optax state (transport/params.py). Every op is a
 multi-tensor (`torch._foreach_*`) call and the clip decision stays on the
 device: an update does not wait for the host.
+
+Under tensor parallelism (parallel/train_step.py) a tp rank keeps its
+column slice of each sharded leaf and of its moments: the caller passes the
+global norm of the whole gradient (`g_norm`) and the slices, and every op
+after the norm is elementwise, so each slice's update is bitwise that
+slice of the unsharded update.
 """
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -44,16 +50,24 @@ class ClipAdam:
         device = params[names[0]].device
         return AdamState(torch.zeros((), dtype=torch.int32, device=device), zeros(), zeros())
 
+    @staticmethod
+    def global_norm(grads) -> torch.Tensor:
+        """sqrt(Σ Σ g²) over a list of tensors (optax.global_norm)."""
+        return torch.stack(torch._foreach_norm(list(grads))).square().sum().sqrt()
+
     def update(
-        self, grads: Dict[str, torch.Tensor], state: AdamState
+        self, grads: Dict[str, torch.Tensor], state: AdamState, g_norm: Optional[torch.Tensor] = None
     ) -> Tuple[Dict[str, torch.Tensor], AdamState, torch.Tensor]:
         """optax's `update(grads, state)`: returns (updates, state', g_norm),
-        g_norm being the global norm before the clip."""
+        g_norm being the global norm before the clip: `g_norm` when given
+        (the whole gradient's, `grads` being slices of it), else the norm
+        of `grads`, in the state's name order."""
         names = list(state.mu)
         if sorted(grads) != names:
             raise ValueError(f"gradient names differ from the optimizer state's: {sorted(set(grads) ^ set(names))}")
         g = [grads[n] for n in names]
-        g_norm = torch.stack(torch._foreach_norm(g)).square().sum().sqrt()
+        if g_norm is None:
+            g_norm = self.global_norm(g)
         # t, or (t / g_norm) · max_norm: dividing and multiplying by 1 keeps t's bits
         keep = g_norm < self.max_norm
         one = torch.ones_like(g_norm)
@@ -76,10 +90,11 @@ class ClipAdam:
         return dict(zip(names, upd)), new_state, g_norm
 
     @torch.no_grad()
-    def apply(self, params: Dict[str, torch.Tensor], grads: Dict[str, torch.Tensor], state: AdamState):
+    def apply(self, params: Dict[str, torch.Tensor], grads: Dict[str, torch.Tensor], state: AdamState,
+              g_norm: Optional[torch.Tensor] = None):
         """update, then optax.apply_updates in place (p += u). Returns
         (state', g_norm)."""
-        upd, state, g_norm = self.update(grads, state)
+        upd, state, g_norm = self.update(grads, state, g_norm)
         names = list(upd)
         torch._foreach_add_([params[n] for n in names], [upd[n] for n in names])
         return state, g_norm

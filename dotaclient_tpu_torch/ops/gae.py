@@ -4,9 +4,10 @@ being the bootstrap value; padded steps contribute exactly nothing. The
 reverse-time scan is a Python loop over T (16 on the learner path).
 
 Across data-parallel ranks (parallel/dist.py) a masked statistic is taken
-over every rank's real steps, not over each rank's own:
+over every dp index's real steps, not over each rank's own:
 `global_masked_moments` reads the count, mean and std of the union
-through one all-reduce."""
+through one all-reduce over the dp group (the ranks of one dp index hold
+the same rows, so a sum over them would count each row again)."""
 
 from __future__ import annotations
 

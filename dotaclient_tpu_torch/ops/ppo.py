@@ -7,13 +7,17 @@ surrogate + PPO2-clipped value loss + entropy bonus (+ aux), all masked
 means over real steps. The metric keys are the reference's. Gradients
 come through autograd; the reference's stop_gradients are `detach()`.
 
-Data parallel across ranks (`all_reduce`, a sum over the ranks): every
+Data parallel across ranks (`all_reduce`, a sum over the dp group): every
 masked mean divides the rank's local masked sum by the GLOBAL count of
 real steps, and the advantages are normalized by the global mean and std
 (ops/gae.py global_masked_moments, one all-reduce in the forward). The
-loss and each metric are then this rank's share of the global value:
-summed over the ranks (train_step's gradient bucket) they are the
-reference's statistics over the global batch, or minibatch.
+loss and each metric are then this dp index's share of the global value:
+summed over the dp group (train_step's gradient bucket) they are the
+reference's statistics over the global batch, or minibatch. The ranks of
+one dp index (the model axes) hold the same rows, so the statistics never
+sum over them. `sp` (ops.ring_attention.SeqParallel) runs the transformer
+unroll split over time (models/transformer_policy.py); the outputs come
+back whole, so everything here is the same on every sp rank.
 """
 
 from __future__ import annotations
@@ -124,13 +128,14 @@ def _surrogate(
     return loss, metrics
 
 
-def ppo_loss(net, batch: TrainBatch, cfg: PPOConfig, aux_coef: float = 0.25, all_reduce: AllReduce = None):
+def ppo_loss(net, batch: TrainBatch, cfg: PPOConfig, aux_coef: float = 0.25, all_reduce: AllReduce = None, sp=None):
     """Returns (scalar loss, metrics dict). `net` is a PolicyNet and
     `batch` a TrainBatch of tensors on the net's device (ops.batch.as_tensors).
     One forward serves both GAE (detached) and the surrogate. `all_reduce`:
-    the batch is this rank's share of the global one (module doc)."""
+    the batch is this dp index's share of the global one; `sp`: the unroll
+    split over time (module doc)."""
     mask = batch.mask
-    _, out = net(batch.initial_state, batch.obs, unroll=True)
+    _, out = net(batch.initial_state, batch.obs, unroll=True, sp=sp)
     advantages, returns = gae(batch.rewards, out.value.detach(), batch.dones, mask, cfg.gamma, cfg.gae_lambda)
     return _surrogate(
         out,
@@ -165,11 +170,11 @@ class ReuseBatch(NamedTuple):
     staleness: Optional[torch.Tensor] = None  # [B] replay staleness stamp, or None
 
 
-def precompute_reuse(net, batch: TrainBatch, cfg: PPOConfig) -> ReuseBatch:
+def precompute_reuse(net, batch: TrainBatch, cfg: PPOConfig, sp=None) -> ReuseBatch:
     """One forward with the current (pre-update) params → frozen
     advantages/returns for the whole reuse loop."""
     with torch.no_grad():
-        _, out = net(batch.initial_state, batch.obs, unroll=True)
+        _, out = net(batch.initial_state, batch.obs, unroll=True, sp=sp)
         advantages, returns = gae(batch.rewards, out.value, batch.dones, batch.mask, cfg.gamma, cfg.gae_lambda)
     return ReuseBatch(
         obs=batch.obs,
@@ -185,11 +190,12 @@ def precompute_reuse(net, batch: TrainBatch, cfg: PPOConfig) -> ReuseBatch:
     )
 
 
-def ppo_minibatch_loss(net, mb: ReuseBatch, cfg: PPOConfig, aux_coef: float = 0.25, all_reduce: AllReduce = None):
+def ppo_minibatch_loss(net, mb: ReuseBatch, cfg: PPOConfig, aux_coef: float = 0.25, all_reduce: AllReduce = None,
+                       sp=None):
     """The reuse loop's per-update loss: a fresh forward on the minibatch,
     surrogate against the frozen advantages/returns (normalized over the
-    minibatch, every rank's share of it with `all_reduce`)."""
-    _, out = net(mb.initial_state, mb.obs, unroll=True)
+    minibatch, every dp index's share of it with `all_reduce`)."""
+    _, out = net(mb.initial_state, mb.obs, unroll=True, sp=sp)
     return _surrogate(
         out,
         mb.actions,

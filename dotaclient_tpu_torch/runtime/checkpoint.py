@@ -45,7 +45,7 @@ from typing import Dict, Optional
 import numpy as np
 
 from dotaclient_tpu_torch.env.featurizer import FEATURE_SCHEMA_VERSION
-from dotaclient_tpu_torch.transport.params import load_named, load_named_adam, named_adam_state, named_params
+from dotaclient_tpu_torch.transport.params import host_named, load_named, load_named_adam, state_tensors
 
 _log = logging.getLogger(__name__)
 
@@ -82,9 +82,10 @@ def _atomic_write(dst: Path, data: bytes) -> None:
 
 def state_arrays(state) -> Dict[str, np.ndarray]:
     """The arrays of one step: params, Adam state and `step`, read to the
-    host on the calling thread's current stream."""
-    arrays = dict(named_params(state.net))
-    arrays.update(named_adam_state(state.opt_state))
+    host on the calling thread's current stream; whole leaves, gathered
+    over the tp group under tensor parallelism (every tp rank calls it)."""
+    arrays = dict(host_named(state_tensors(state.net, state.opt_state, state.tp)))
+    arrays["count"] = np.asarray(int(state.opt_state.count), np.int32)
     arrays["step"] = np.asarray(int(state.step), np.int64)
     return arrays
 
@@ -119,6 +120,7 @@ class Checkpointer:
         self._mirror_inflight = False
         self._mirror_counts = {"mirrored": 0, "superseded": 0, "failures": 0}
         self._last_saved_step: Optional[int] = None
+        self.restored_from_remote = False  # the last restore_latest pulled its step from the mirror
         self._last_mirrored_step: Optional[int] = None
         self._aux_lock = threading.Lock()
         self._aux_counts = {"aux_written": 0, "aux_failures": 0}
@@ -362,12 +364,14 @@ class Checkpointer:
         """The newest step loaded into `template` (a TrainState whose net
         and Adam tensors take the values, on their device), or None when
         there is no checkpoint. A newer complete remote step is pulled
-        first. Raises SchemaMismatchError on a schema mismatch and
+        first (`restored_from_remote` then says so). Raises SchemaMismatchError on a schema mismatch and
         ValueError on a name or shape mismatch."""
         step = self.latest_step()
         remote_steps = self._remote_steps()
+        self.restored_from_remote = False
         if remote_steps and (step is None or max(remote_steps) > step):
             step = self.pull_latest_remote(remote_steps)
+            self.restored_from_remote = True
         if step is None:
             return None
         p = self._schema_path()

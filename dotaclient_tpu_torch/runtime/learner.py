@@ -54,16 +54,24 @@ phases (the serial loop fences each step with a CUDA event), MFU, /metrics,
 names (obs/registry.py).
 
 Multi-process (`--multihost`, parallel/dist.py): one learner process per
-card, `batch_size` global. Each rank's staging packs B / N rows from the
-shared broker, the train step all-reduces (parallel/train_step.py), and
-every rank ends each step with the same params. Rank 0 alone publishes
-weights and pushes the checkpoint mirror; every rank can pull it. After
-the restore the ranks must agree on the resume step, and the version
-counter takes the global published high-water mark. Before each step the
-ranks agree over the host group whether to take it (`_agree`): a rank
-whose drain has trained out all it held takes its part of the others'
-steps with a batch of padding rows (no real step, so it adds nothing to
-any sum), and every rank stops together.
+card, `batch_size` global, `--mesh_shape` laid over the ranks. Each rank's
+staging packs B / N rows from the shared broker; the train step gathers
+them over the ranks of one dp index, all-reduces its gradients and runs
+tensor and sequence parallelism over their groups
+(parallel/train_step.py), and every rank ends each step with the same
+params (under tp, the same whole params: each rank keeps its slices, and
+publishes and checkpoints gather them, so every rank takes part in those
+at the same versions). Rank 0 alone publishes weights and pushes the
+checkpoint mirror; every rank can pull it. A rank other than 0 that
+restored from the mirror takes the manifest's version high-water mark and
+env steps but not its pending frames: they were rank 0's, which
+re-injects them itself (the reference re-injects on every rank, training
+them twice). After the restore the ranks must agree on the resume step,
+and the version counter takes the global published high-water mark.
+Before each step the ranks agree over the host group whether to take it
+(`_agree`): a rank whose drain has trained out all it held takes its part
+of the others' steps with a batch of padding rows (no real step, so it
+adds nothing to any sum), and every rank stops together.
 
 Modes the port does not have yet are refused at construction with
 NotImplementedError naming their ROADMAP item (config.UNPORTED), never
@@ -101,12 +109,15 @@ from dotaclient_tpu_torch.parallel.train_step import (
     build_single_train_step,
     build_train_step,
     init_train_state,
+    is_sequence_parallel,
+    shard_state,
+    whole_params,
 )
 from dotaclient_tpu_torch.runtime.checkpoint import Checkpointer, state_arrays
 from dotaclient_tpu_torch.runtime.metrics import MetricsLogger
 from dotaclient_tpu_torch.runtime.staging import StagingBuffer
 from dotaclient_tpu_torch.transport.base import Broker
-from dotaclient_tpu_torch.transport.params import named_params, named_tensors
+from dotaclient_tpu_torch.transport.params import host_named, named_tensors, state_tensors
 from dotaclient_tpu_torch.transport.serialize import serialize_weights
 
 _log = logging.getLogger(__name__)
@@ -128,10 +139,11 @@ class ParamFlattener:
             self._slots.append((name, tuple(p.shape), off, p.numel()))
             off += p.numel()
 
-    def flatten_on_device(self, net: torch.nn.Module):
-        """(host f32 buffer, event or None); returns without waiting."""
+    def flatten_on_device(self, params: Dict[str, torch.Tensor]):
+        """(host f32 buffer, event or None) of the whole params by name
+        (train_step.whole_params); returns without waiting."""
         with torch.no_grad():
-            flat = torch.cat([p.detach().reshape(-1).float() for p in named_tensors(net).values()])
+            flat = torch.cat([p.detach().reshape(-1).float() for p in params.values()])
         if flat.device.type != "cuda":
             return flat, None  # a fresh tensor: the in-place update does not reach it
         host = torch.empty(flat.shape, dtype=torch.float32, pin_memory=True)
@@ -246,9 +258,7 @@ class StateCopier:
 
     @staticmethod
     def _tensors(state: TrainState) -> Dict[str, torch.Tensor]:
-        opt = state.opt_state
-        return {**named_tensors(state.net), **{f"mu/{n}": t for n, t in opt.mu.items()},
-                **{f"nu/{n}": t for n, t in opt.nu.items()}}
+        return state_tensors(state.net, state.opt_state, state.tp)
 
     def clone_on_device(self, state: TrainState):
         """(flat clone, count clone, step, event or None); no host wait."""
@@ -561,7 +571,11 @@ class Learner:
         process."""
         refuse_unported(cfg)
         self.dist = dist if dist is not None else Dist()
-        resolve_mesh(cfg.mesh_shape, self.dist.world)
+        axes = resolve_mesh(cfg.mesh_shape, self.dist.world)
+        wide = lambda a: {k: v for k, v in a.items() if v > 1}
+        if wide(axes) != wide(self.dist.axes):
+            raise ValueError(f"mesh_shape={cfg.mesh_shape!r} resolves to {axes}, but the ranks were laid over "
+                             f"{self.dist.axes}")
         self.cfg = cfg
         self.broker = broker
         self.device = resolve_device(device)
@@ -572,7 +586,7 @@ class Learner:
         # not in them), else the per-leaf tree: one train step either way.
         # `fused_io` is what staging packs into (None: dense batches).
         self.fused_io = None
-        if cfg.fused_h2d and not cfg.replay.enabled:
+        if cfg.fused_h2d and not is_sequence_parallel(cfg, self.dist.axes) and not cfg.replay.enabled:
             build = build_single_train_step if cfg.fused_single_h2d else build_fused_train_step
             self.train_step, self.fused_io = build(cfg, self.device, self.dist)
             self.io = self.fused_io
@@ -652,6 +666,8 @@ class Learner:
                 _log.info("restored checkpoint at step %d", self.version)
                 if cfg.ckpt.full_state:
                     self._restore_full_state(t_restore)
+        # after the restore, which reads whole leaves: this rank's tp slices
+        self.state = shard_state(self.state, self.dist)
         if self.dist.world > 1:
             self._agree_on_resume()
         if self.obs is not None:
@@ -707,11 +723,12 @@ class Learner:
     def publish_weights(self) -> None:
         """Publish the current params synchronously (version 0 before the
         first batch, so actors align at once). Rank 0 alone publishes: one
-        fan-out per version."""
+        fan-out per version (under tp every rank takes part in the gather)."""
+        params = whole_params(self.state)
         if not self.dist.is_primary:
             return
         frame = serialize_weights(
-            named_params(self.state.net), version=self.version, boot_epoch=self.boot_epoch,
+            host_named(params), version=self.version, boot_epoch=self.boot_epoch,
             legacy_dtw1=self.cfg.publish_legacy_dtw1,
         )
         self.broker.publish_weights(frame)
@@ -773,7 +790,13 @@ class Learner:
         counts = {"pending": 0}
         hwm = max(self.version, int(step))
         if aux is not None:
-            counts = self.staging.restore_state(aux.get("staging", {}))
+            snap = aux.get("staging", {})
+            if self.checkpointer.restored_from_remote and not self.dist.is_primary:
+                # the mirror's manifest is rank 0's: its frames are rank 0's to re-inject
+                _log.info("restored from the mirror: %d pending frames of rank 0's manifest left to rank 0",
+                          len(snap.get("pending", [])))
+            else:
+                counts = self.staging.restore_state(snap)
             hwm = max(hwm, int(aux.get("version_hwm", 0)))
             self.env_steps_done = int(aux.get("env_steps_done", 0))
         file_hwm = self.checkpointer.published_hwm()
@@ -941,8 +964,10 @@ class Learner:
         """Publish and checkpoint cadence, on the loop thread after the
         version counter advanced."""
         cfg = self.cfg
-        if self.version % cfg.publish_every == 0 and self.dist.is_primary:
-            self.publisher.submit(self.flattener.flatten_on_device(self.state.net), self.version)
+        if self.version % cfg.publish_every == 0:
+            params = whole_params(self.state)  # under tp a gather every rank takes part in
+            if self.dist.is_primary:
+                self.publisher.submit(self.flattener.flatten_on_device(params), self.version)
         if self.checkpointer is not None and self.version % cfg.checkpoint_every == 0:
             self.checkpoint()
 

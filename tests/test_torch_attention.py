@@ -12,6 +12,7 @@ from dotaclient_tpu.ops import attention as JA
 from dotaclient_tpu.ops import ring_attention as JRA
 from dotaclient_tpu_torch.ops import attention as A
 from dotaclient_tpu_torch.ops import ring_attention as RA
+from dotaclient_tpu_torch.parallel.dist import Group
 
 B, N, DH = 2, 2, 8
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -95,10 +96,17 @@ def test_attend_dispatch_matches_jax(kv_block):
 
 
 def test_attend_refuses_sequence_parallelism():
-    (_, (tq, tk, tv)) = _qkv(4, 2, 2, "float32")
-    pos = torch.zeros((B, 2), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.14b"):
-        RA.attend(tq, tk, tv, pos, pos, mesh=object(), sp_axis="sp")
+    """Over a group the dispatch takes the reference's modes and raises its
+    ValueError for any other (the collectives: tests/test_torch_model_parallel.py).
+    A group of one runs the pattern with no collective: local attention."""
+    (_, (tq, tk, tv)) = _qkv(4, 6, 6, "float32")
+    pos = torch.arange(6, dtype=torch.int32).expand(B, 6)
+    one = Group((0,), 0)
+    with pytest.raises(ValueError, match="unknown sp_mode 'bogus'"):
+        RA.attend(tq, tk, tv, pos, pos, one, "bogus")
+    dense = A.causal_attention(tq, tk, tv, pos, pos)
+    for mode in RA.SP_MODES:
+        assert torch.allclose(RA.attend(tq, tk, tv, pos, pos, one, mode, kv_block=4), dense, rtol=1e-6, atol=1e-6)
 
 
 def test_attention_gradients_match_between_dense_and_blockwise():

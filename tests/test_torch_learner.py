@@ -325,7 +325,6 @@ def test_metrics_logger_and_histogram_scalars_match_the_reference(tmp_path):
 
 REFUSED = [
     ("profile_port", 9999, "A.13b"),
-    ("policy.tf_sp_axis", "sp", "A.14b"),
 ]
 
 
@@ -377,9 +376,10 @@ def test_every_unported_mode_is_tested_and_their_settings_do_not_parse():
     are not flags, so they fail to parse instead of doing nothing. The
     replay tuning parses, with the reference's defaults."""
     assert {r[0] for r in REFUSED} == set(unported_flags(LearnerConfig()))
-    assert set(UNPORTED) == set(unported_flags(LearnerConfig())) == {"profile_port", "policy.tf_sp_axis"}
-    with pytest.raises(SystemExit):
-        parse_config(LearnerConfig(), ["--policy.tf_sp_mode", "ring"])
+    assert set(UNPORTED) == set(unported_flags(LearnerConfig())) == {"profile_port"}
+    cfg = parse_config(LearnerConfig(), ["--policy.tf_sp_axis", "sp", "--policy.tf_sp_mode", "ulysses"])
+    assert (cfg.policy.tf_sp_axis, cfg.policy.tf_sp_mode) == ("sp", "ulysses")
+    assert LearnerConfig().policy.tf_sp_mode == JLearnerConfig().policy.tf_sp_mode == "ring"
     cfg = parse_config(LearnerConfig(), ["--coordinator", "h:1", "--num_processes", "2", "--process_id", "1"])
     assert (cfg.coordinator, cfg.num_processes, cfg.process_id) == ("h:1", 2, 1)
     cfg = parse_config(LearnerConfig(), ["--replay.ratio", "0.5", "--replay.alpha", "0.5"])
@@ -633,13 +633,17 @@ def test_the_learner_manifest_parses_and_builds_a_port_learner(tmp_path):
 
 
 def test_a_mesh_beyond_one_device_is_refused(tmp_path):
-    """A single process is a world of one: dp=2 does not cover it
-    (ValueError, as parse_mesh_spec), and a tp axis of two is refused
-    naming A.14b."""
+    """A single process is a world of one: dp=2 and dp=1,tp=2 do not cover
+    it (ValueError, as parse_mesh_spec); tf_sp_axis naming no mesh axis is
+    the reference's ValueError; a mesh of size-1 axes runs."""
     cfg = _tcfg("ln_mesh", tmp_path, mesh_shape="dp=2")
     with pytest.raises(ValueError, match="does not cover 1 devices"):
         tlearner.Learner(cfg, tmem.MemoryBroker("ln_mesh"), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A.14b"):
+    with pytest.raises(ValueError, match="does not cover 1 devices"):
         tlearner.Learner(_tcfg("ln_mesh", tmp_path, mesh_shape="dp=1,tp=2"), tmem.MemoryBroker("ln_mesh"), device="cpu")
+    sp = _tcfg("ln_mesh", tmp_path)
+    sp = dataclasses.replace(sp, policy=dataclasses.replace(sp.policy, tf_sp_axis="sp"))
+    with pytest.raises(ValueError, match="names no axis of mesh"):
+        tlearner.Learner(sp, tmem.MemoryBroker("ln_mesh"), device="cpu")
     assert tlearner.Learner(_tcfg("ln_mesh", tmp_path, mesh_shape="dp=1,tp=1"), tmem.MemoryBroker("ln_mesh"),
                             device="cpu").version == 0

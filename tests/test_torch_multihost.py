@@ -311,22 +311,23 @@ def _manifest_args():
 def test_the_multihost_manifest_parses_and_its_mesh_rules_hold():
     """k8s/learner-multihost.yaml's args pass the port's parser and refusal
     table; its dp=-1 resolves to the world size. A spec that does not cover
-    the processes raises ValueError, a tp / sp axis of two or more and
-    policy.tf_sp_axis raise NotImplementedError naming A.14b, and the
-    batch splits as the reference's rules say."""
+    the processes, names no dp axis or puts an axis of size > 1 ahead of
+    it raises ValueError; tp and sp axes resolve over the world, dp-major;
+    policy.tf_sp_axis passes the table; and the batch splits as the
+    reference's rules say."""
     cfg = parse_config(LearnerConfig(), _manifest_args())
     refuse_unported(cfg)
     assert cfg.multihost and (cfg.coordinator, cfg.num_processes, cfg.process_id) == ("", -1, -1)
     assert resolve_mesh(cfg.mesh_shape, 2) == {"dp": 2} and resolve_mesh("tp=1,dp=-1", 4) == {"tp": 1, "dp": 4}
-    for spec in ("dp=3", "dp=1", "dp=-1,tp=-1", "dp=x"):
+    for spec in ("dp=3", "dp=1", "dp=-1,tp=-1", "dp=x", "dp=2,tp=2", "sp=2,dp=1", "tp=-1"):
         with pytest.raises(ValueError):
             resolve_mesh(spec, 2)
-    for spec in ("dp=2,tp=2", "dp=-1,tp=2", "sp=2,dp=1", "tp=-1"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A.14b"):
-            resolve_mesh(spec, 2)
+    assert resolve_mesh("dp=-1,tp=2", 2) == {"dp": 1, "tp": 2} and resolve_mesh("dp=1,sp=2", 2) == {"dp": 1, "sp": 2}
+    assert resolve_mesh("dp=2,sp=2", 4) == {"dp": 2, "sp": 2}
     sp = dataclasses.replace(cfg, policy=dataclasses.replace(cfg.policy, arch="transformer", tf_sp_axis="sp"))
-    with pytest.raises(NotImplementedError, match="ROADMAP A.14b"):
-        refuse_unported(sp)
+    refuse_unported(sp)
+    with pytest.raises(ValueError, match="tf_sp_axis='sp' names no axis of mesh"):
+        ts.build_train_step(sp, "cpu", Dist(world=2))
     small = dataclasses.replace(cfg, batch_size=10)
     with pytest.raises(ValueError, match=r"batch_size=10 must be divisible by the mesh dp axis \(4\)"):
         ts.build_train_step(small, "cpu", Dist(world=4))
@@ -355,10 +356,11 @@ def test_rendezvous_flags_defer_to_torch_env(monkeypatch):
     try:
         assert (dist.world, dist.rank, dist.is_primary) == (1, 0, True) and torch.distributed.is_initialized()
         t = torch.arange(3.0)
-        assert dist.all_reduce_(t) is t and torch.equal(t, torch.arange(3.0))
+        dp = dist.group("dp")
+        assert dp.size == 1 and dp.all_reduce_(t) is t and torch.equal(t, torch.arange(3.0))
         assert dist.host_all_gather(5) == [5.0]
         tree = (torch.ones(2, 3), None)
-        assert dist.all_gather_rows(tree) is tree
+        assert dp.all_gather_rows(tree) is tree
     finally:
         dist.close()
     assert not torch.distributed.is_initialized()

@@ -29,6 +29,7 @@ from dotaclient_tpu.ops import flops as jflops
 from dotaclient_tpu.parallel.mesh import parse_mesh_spec as j_parse_mesh_spec
 from dotaclient_tpu_torch.config import LearnerConfig, ObsConfig, PolicyConfig, PPOConfig, WatchdogConfig
 from dotaclient_tpu_torch.obs import compute as tcompute
+from dotaclient_tpu_torch.obs import cupti as tcupti
 from dotaclient_tpu_torch.obs import registry as tregistry
 from dotaclient_tpu_torch.obs.flight_recorder import FlightRecorder
 from dotaclient_tpu_torch.obs.http import MetricsHTTPServer, render_prometheus
@@ -38,6 +39,7 @@ from dotaclient_tpu_torch.ops import flops as tflops
 from dotaclient_tpu_torch.parallel.mesh import parse_mesh_spec, resolve_mesh
 from dotaclient_tpu_torch.runtime import learner as tlearner
 from dotaclient_tpu_torch.transport import memory as tmem
+from dotaclient_tpu_torch.transport.params import named_params
 from dotaclient_tpu_torch.transport.serialize import stamp_rollout_trace
 from test_torch_learner import B, POL, T, frames_for
 
@@ -74,15 +76,17 @@ def test_one_device_specs_parse_as_the_reference(spec):
 
 
 def test_mesh_specs_beyond_one_device_are_refused():
-    """Over the world size (one process per card): dp covers the ranks; a
-    tp axis of two or more is refused naming A.14b; a spec that does not
-    cover the ranks raises ValueError, as parse_mesh_spec does."""
-    for spec, n in (("dp=4,tp=2", 8), ("dp=-1,tp=2", 8), ("dp=2", 2)):
+    """Over the world size (one process per card): the spec covers the
+    ranks and resolves as the reference's parse does, tp and sp axes of two
+    or more included; a spec that does not cover the ranks raises
+    ValueError, as parse_mesh_spec does, and so do the reference's
+    multi-process rules (a dp axis, and none of size > 1 ahead of it)."""
+    for spec, n in (("dp=4,tp=2", 8), ("dp=-1,tp=2", 8), ("dp=2", 2), ("dp=2,sp=2", 4), ("dp=1,sp=2", 2)):
         assert parse_mesh_spec(spec, n) == j_parse_mesh_spec(spec, n)
-    for spec, n in (("dp=4,tp=2", 8), ("dp=-1,tp=2", 8)):
-        with pytest.raises(NotImplementedError, match="ROADMAP A.14b"):
-            resolve_mesh(spec, n)
-    assert resolve_mesh("dp=2", 2) == j_parse_mesh_spec("dp=2", 2)
+        assert resolve_mesh(spec, n) == j_parse_mesh_spec(spec, n)
+    for spec in ("sp=2,dp=4", "tp=-1"):
+        with pytest.raises(ValueError, match="multihost needs"):
+            resolve_mesh(spec, 8)
     for spec in ("dp=-1,tp=-1", "dp=x", "dp=0", "dp=2"):
         with pytest.raises(ValueError):
             resolve_mesh(spec, 1)
@@ -307,39 +311,122 @@ def test_lost_kernel_launches_are_counted_by_launching_thread(tmp_path):
 
 
 def test_a_partial_profile_window_is_never_a_200(tmp_path, monkeypatch):
-    """On the card a window whose trace lost a launching thread's kernels
-    raises, and POST /profile answers 500 naming the lost launches per
-    thread; a whole window answers 200. (The card's profiler is stood in
-    for by one that writes the trace; the device sync is a no-op here.)"""
-    lossy = {"on": True}
+    """On the card a window whose trace lost a launching thread's kernels,
+    or whose records CUPTI dropped, raises, and POST /profile answers 500
+    naming the lost launches per thread (or the dropped count); a whole
+    window answers 200. (The card's CUPTI recording is stood in for by one
+    that writes the trace; the device sync runs before its stop.)"""
+    state = {"lossy": True, "dropped": 0, "synced": 0}
 
-    class FakeProfile:
-        def __init__(self, activities):
-            self.activities = activities
+    class FakeTrace:
+        def window(self, seconds, before_stop=None):
+            before_stop()
+            return [], [], state["dropped"]
 
-        def start(self):
-            pass
-
-        def stop(self):
-            pass
-
-        def export_chrome_trace(self, path):
-            _launch_trace(path, lossy["on"])
-
-    monkeypatch.setattr(tcompute.torch.profiler, "profile", FakeProfile)
-    monkeypatch.setattr(tcompute.torch.cuda, "synchronize", lambda device=None: None)
+    monkeypatch.setattr(tcupti, "activity_trace", lambda: FakeTrace())
+    monkeypatch.setattr(tcupti, "write_chrome_trace", lambda path, k, c: _launch_trace(path, state["lossy"]))
+    monkeypatch.setattr(tcompute.torch.cuda, "synchronize",
+                        lambda device=None: state.update(synced=state["synced"] + 1))
     cap = tcompute.ProfileCapture(str(tmp_path), max_seconds=0.2, device="cpu")
     cap.cuda = True
     server = MetricsHTTPServer(0, [lambda: {}], profile_handler=cap.capture).start()
     try:
         code, body = _post(f"http://127.0.0.1:{server.port}/profile?seconds=0.1")
         assert code == 500 and "partial" in body["error"] and '{"autograd": 3}' in body["error"]
-        assert cap.captures_done == 0
-        lossy["on"] = False
+        assert cap.captures_done == 0 and state["synced"] == 1
+        state.update(lossy=False, dropped=2)
+        code, body = _post(f"http://127.0.0.1:{server.port}/profile?seconds=0.1")
+        assert code == 500 and "CUPTI dropped 2 records" in body["error"]
+        state["dropped"] = 0
         code, body = _post(f"http://127.0.0.1:{server.port}/profile?seconds=0.1")
         assert code == 200 and cap.captures_done == 1
     finally:
         server.stop()
+
+
+def test_cuptis_buffers_are_kept_and_read_in_c():
+    """csrc/cupti_buffers.cc, built with g++ as on the card, stands in for
+    CUPTI's side: a buffer handed out and given back is counted, queued
+    and taken; its kernel and runtime records (laid out at CUPTI's struct
+    offsets, walked by a stand-in for cuptiActivityGetNextRecord) read back
+    field for field, other kinds skipped."""
+    import ctypes
+
+    from dotaclient_tpu_torch.ops import _kernels
+
+    native = _kernels.load("cupti_buffers")
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    native.dt_cupti_buffer_requested.argtypes = [ctypes.POINTER(u8p), ctypes.POINTER(ctypes.c_size_t),
+                                                 ctypes.POINTER(ctypes.c_size_t)]
+    native.dt_cupti_buffer_completed.argtypes = [ctypes.c_void_p, ctypes.c_uint32, u8p, ctypes.c_size_t,
+                                                 ctypes.c_size_t]
+    buf, size, cap = u8p(), ctypes.c_size_t(), ctypes.c_size_t()
+    native.dt_cupti_buffer_requested(ctypes.byref(buf), ctypes.byref(size), ctypes.byref(cap))
+    assert size.value == 8 << 20 and ctypes.addressof(buf.contents) % 8 == 0 and native.dt_cupti_held() == 1
+
+    def put(off, fmt, *values):
+        import struct
+
+        struct.pack_into(fmt, (ctypes.c_uint8 * size.value).from_address(ctypes.addressof(buf.contents)), off, *values)
+
+    name = ctypes.create_string_buffer(b"_Z4lstmv")
+    put(0, "<IIQQIII", 5, 211, 1000, 1010, 7, 42, 3)  # runtime: cbid, start, end, process, thread, correlation
+    put(40, "<I", 6)  # another kind: skipped
+    put(80, "<I", 10)  # kernel
+    put(80 + 16, "<QQ", 1100, 1900)
+    put(80 + 40, "<I", 0)
+    put(80 + 48, "<I", 13)
+    put(80 + 92, "<I", 3)
+    put(80 + 104, "<Q", ctypes.addressof(name))
+    sizes = {5: 40, 6: 40, 10: 160}
+    valid = 80 + 160
+
+    @ctypes.CFUNCTYPE(ctypes.c_int, ctypes.c_void_p, ctypes.c_size_t, ctypes.POINTER(ctypes.c_void_p))
+    def next_record(base, n, record):
+        at = base if not record[0] else record[0] + sizes[ctypes.c_uint32.from_address(record[0]).value]
+        if at - base >= n:
+            return 12  # CUPTI_ERROR_MAX_LIMIT_REACHED
+        record[0] = at
+        return 0
+
+    native.dt_cupti_buffer_completed(None, 0, buf, size, valid)
+    assert native.dt_cupti_held() == 0
+    trace = tcupti.ActivityTrace.__new__(tcupti.ActivityTrace)
+    trace.native, trace._next_record = native, ctypes.cast(next_record, ctypes.c_void_p)
+    trace._names = {(tcupti.KIND_RUNTIME, 211): "cudaLaunchKernel_v7000"}
+    kernels, calls = trace._drain()
+    assert kernels == [tcupti.Kernel("_Z4lstmv", 1100, 1900, 0, 13, 3)]
+    assert calls == [tcupti.Call(tcupti.KIND_RUNTIME, "cudaLaunchKernel_v7000", 1000, 1010, 7, 42, 3)]
+    assert trace._drain() == ([], [])  # taken once, freed
+
+
+def test_the_cupti_route_writes_a_trace_the_detector_reads(tmp_path):
+    """obs/cupti.py's records as a Chrome trace in torch.profiler's
+    categories: kernels paired with their launch calls by correlation,
+    calls on their threads under Python's thread names, kernel names
+    demangled; a launch whose kernel record is missing is counted against
+    its thread. Without a CUPTI library the recorder refuses (OSError)."""
+    me = threading.current_thread()
+    tid = me.ident & 0xFFFFFFFF
+    mangled = "_Z20lstm_recurrence_stepPf"
+    calls = [tcupti.Call(tcupti.KIND_RUNTIME, "cudaLaunchKernel_v7000", int(t * 1e9), int(t * 1e9) + 10, 7, tid, c)
+             for c, t in enumerate((0.0, 0.1, 0.2, 0.3, 0.4), start=1)]
+    calls.append(tcupti.Call(tcupti.KIND_DRIVER, "cuLaunchKernel", int(0.25e9), int(0.25e9) + 5, 7, 99, 9))
+    kernels = [tcupti.Kernel(mangled, c.start_ns + 100, c.start_ns + 900, 0, 13, c.correlation) for c in calls]
+    path = str(tmp_path / "trace.json")
+    tcupti.write_chrome_trace(path, kernels, calls)
+    events = json.load(open(path))["traceEvents"]
+    assert {e["cat"] for e in events if e["ph"] == "X"} == {"kernel", "cuda_runtime", "cuda_driver"}
+    names = {e["tid"]: e["args"]["name"] for e in events if e["ph"] == "M"}
+    assert names == {tid: me.name, 99: "99"}
+    assert tcompute.trace_kernel_names(path) == ["lstm_recurrence_step(float*)"] * 6
+    assert tcompute.lost_kernel_launches(path) == {}
+    tcupti.write_chrome_trace(path, kernels[:2] + kernels[3:], calls)  # the 0.2 s launch's kernel lost
+    assert tcompute.lost_kernel_launches(path) == {me.name: 1}
+    assert tcupti.demangle("not_mangled") == "not_mangled"
+    if not any("libcupti" in line for line in open("/proc/self/maps")):
+        with pytest.raises(OSError, match="no CUPTI library"):
+            tcupti._load()
 
 
 def test_a_surface_with_no_device_wires_no_profiler():
@@ -422,8 +509,8 @@ def test_learner_with_obs_logs_registered_names_and_trains_as_without(tmp_path, 
         assert code == 200 and _get(f"http://127.0.0.1:{server.port}/healthz")[0] == 200
     finally:
         on.close()
-    assert [(n, a.tobytes()) for n, a in tlearner.named_params(on.state.net)] == [
-        (n, a.tobytes()) for n, a in tlearner.named_params(off.state.net)]
+    assert [(n, a.tobytes()) for n, a in named_params(on.state.net)] == [
+        (n, a.tobytes()) for n, a in named_params(off.state.net)]
     lines = [json.loads(x) for x in open(tmp_path / f"obs_on_{prefetch}" / "metrics.jsonl")]
     logged = set().union(*lines)
     scraped = {ln.split()[0][len("dotaclient_"):] for ln in body.splitlines() if not ln.startswith("#")}

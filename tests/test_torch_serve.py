@@ -20,6 +20,7 @@
 """
 
 import asyncio
+import dataclasses
 import json
 import socket
 import struct
@@ -853,22 +854,17 @@ def test_batcher_resumes_a_ticks_requesters_before_the_next_tick():
     assert events == ["tick", 0, 1, "tick", 2, 3, "tick", 4, 5]
 
 
-REFUSED_SERVE = [
-    ("policy.tf_sp_axis", "sp", "A.14b"),
-]
-
-
-@pytest.mark.parametrize("field,value,item", REFUSED_SERVE, ids=[r[0] for r in REFUSED_SERVE])
-def test_unported_serve_modes_are_refused(field, value, item):
-    cfg = InferenceConfig(serve=ServeConfig(port=0), policy=PolicyConfig(**SMALL), platform="cpu")
-    obj, *path = [cfg] + field.split(".")
-    for name in path[:-1]:
-        obj = getattr(obj, name)
-    setattr(obj, path[-1], value)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        tserver.InferenceServer(cfg)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        tserver.main(["--platform", "cpu", f"--{field}", str(value)])
+def test_the_server_reads_tf_sp_axis_as_the_reference_server():
+    """policy.tf_sp_axis is a learner setting: the reference's server takes
+    the flag and ignores it for the LSTM family it serves, and refuses
+    another family by its own rule; so does the port's."""
+    cfg = InferenceConfig(serve=ServeConfig(port=0), policy=PolicyConfig(**SMALL, tf_sp_axis="sp"), platform="cpu")
+    assert parse_config(InferenceConfig(), ["--policy.tf_sp_axis", "sp"]).policy.tf_sp_axis == "sp"
+    server = tserver.InferenceServer(cfg)
+    assert server.cfg.policy.tf_sp_axis == "sp"
+    tf = dataclasses.replace(cfg, policy=dataclasses.replace(cfg.policy, arch="transformer"))
+    with pytest.raises(ValueError, match="requires policy.arch='lstm'"):
+        tserver.InferenceServer(tf)
 
 
 class _BrokerSeen(Exception):
@@ -901,7 +897,7 @@ def test_main_chaos_enabled_wraps_the_weights_broker(monkeypatch):
 
 
 def test_every_unported_serve_mode_is_tested_and_the_defaults():
-    assert {r[0] for r in REFUSED_SERVE} == set(unported_flags(InferenceConfig()))
+    assert unported_flags(InferenceConfig()) == []
     with pytest.raises(NotImplementedError, match="ROADMAP A.10d3"):
         tserver.main(["--platform", "cpu", "--broker_url", "amqp://guest@localhost/"])
     cfg = parse_config(InferenceConfig(), ["--serve.max_batch", "8", "--retry.window_s", "3"])

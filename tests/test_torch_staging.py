@@ -295,14 +295,14 @@ def test_a_layout_mismatch_kills_the_consumer_and_the_getter_reraises():
 
 
 def test_staging_refuses_what_is_not_ported():
-    """What is left to refuse: a mode of config.UNPORTED, and the data
-    modes on a topology they cannot run on (the reference's own errors)."""
+    """What is left to refuse: the data modes on a topology they cannot run
+    on (the reference's own errors); policy.tf_sp_axis, ported, passes."""
     _, tcfg = _cfgs("float32", False)
     tio = _io_pair(*_cfgs("float32", False))[1]
     b = tmem.MemoryBroker("st_refuse")
-    with pytest.raises(NotImplementedError, match="A.14b"):
-        tstaging.StagingBuffer(dataclasses.replace(tcfg, policy=dataclasses.replace(tcfg.policy, tf_sp_axis="sp")), b,
-                               fused_io=tio)
+    # a learner setting staging does not read (the builders hold it to the mesh)
+    assert tstaging.StagingBuffer(dataclasses.replace(tcfg, policy=dataclasses.replace(tcfg.policy, tf_sp_axis="sp")),
+                                  b, fused_io=tio).get_batch(timeout=0.01) is None
     with pytest.raises(ValueError, match="DTB1"):
         tstaging.StagingBuffer(dataclasses.replace(tcfg, staging=dataclasses.replace(tcfg.staging, assemble=True)), b,
                                fused_io=tio)

@@ -307,7 +307,7 @@ def test_builders_refuse_what_the_port_does_not_have():
     _, tcfg = _configs("float32")
     with pytest.raises(ValueError, match="unknown policy family"):
         ts.build_train_step(dataclasses.replace(tcfg, policy=dataclasses.replace(tcfg.policy, arch="gru")), "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A.14b"):
+    with pytest.raises(ValueError, match="tf_sp_axis='sp' names no axis of mesh"):  # the reference's own rule
         ts.build_train_step(dataclasses.replace(tcfg, policy=dataclasses.replace(tcfg.policy, arch="transformer",
                                                                                   tf_sp_axis="sp")), "cpu")
     with pytest.raises(ValueError, match="use build_train_step"):

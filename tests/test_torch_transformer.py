@@ -288,8 +288,8 @@ def test_config_defaults_flags_and_refusals():
                                          "--policy.tf_remat", "true", "--policy.tf_context", "128"])
     assert (cfg.policy.arch, cfg.policy.tf_attn_block, cfg.policy.tf_remat, cfg.policy.tf_context) == (
         "transformer", 64, True, 128)
-    with pytest.raises(SystemExit):  # tf_sp_mode has no reader until A.14b
-        parse_config(LearnerConfig(), ["--policy.tf_sp_mode", "ulysses"])
+    assert ours.tf_sp_mode == ref.tf_sp_mode == "ring"
+    assert parse_config(LearnerConfig(), ["--policy.tf_sp_mode", "ulysses"]).policy.tf_sp_mode == "ulysses"
     with pytest.raises(ValueError, match="unknown policy family"):
         P.PolicyNet(PolicyConfig(arch="gru"), device="cpu")
     with pytest.raises(ValueError, match="must divide by tf_heads"):
@@ -297,7 +297,7 @@ def test_config_defaults_flags_and_refusals():
     with pytest.raises(ValueError, match="must be even"):
         P.PolicyNet(PolicyConfig(arch="transformer", lstm_hidden=12, tf_heads=4), device="cpu")
     sp = LearnerConfig(policy=PolicyConfig(arch="transformer", tf_sp_axis="sp"))
-    with pytest.raises(NotImplementedError, match="ROADMAP A.14b"):
+    with pytest.raises(ValueError, match="names no axis of mesh"):  # the reference's rule
         ts.build_train_step(sp, "cpu")
     # the inference server serves the LSTM family only, as the reference's does
     serve = InferenceConfig(serve=ServeConfig(port=0), policy=PolicyConfig(**TF), platform="cpu")
