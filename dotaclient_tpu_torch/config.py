@@ -357,7 +357,7 @@ class ActorConfig:
     # are handed to Actor / VectorActor as stubs instead).
     env_addr: str = "localhost:13337"
     # "internal": the framework's env messages; "valve": a real
-    # dotaservice's schema (not ported; refused, ROADMAP A.11d).
+    # dotaservice's schema (env/valve_adapter.py).
     env_dialect: str = "internal"
     broker_url: str = "mem://"
     rollout_len: int = 16  # steps per published experience chunk
@@ -654,12 +654,6 @@ UNPORTED = {
     "profile_port": (bool, "the deprecated always-on profiler server (use POST /profile)", "A.13b"),
 }
 
-# The actor binary's modes that are not ported, in UNPORTED's form: Actor
-# and the actor binary refuse them.
-ACTOR_UNPORTED = {
-    "env_dialect": (lambda v: v == "valve", "the valve dialect adapter (env/valve_adapter.py)", "A.11d"),
-}
-
 
 _ABSENT = object()
 
@@ -675,17 +669,17 @@ def flag_value(cfg, flag: str):
     return value
 
 
-def unported_flags(cfg, table=UNPORTED) -> list:
-    """The flags of `table` that `cfg`'s binary has."""
-    return [f for f in table if flag_value(cfg, f) is not _ABSENT]
+def unported_flags(cfg) -> list:
+    """The flags of UNPORTED that `cfg`'s binary has."""
+    return [f for f in UNPORTED if flag_value(cfg, f) is not _ABSENT]
 
 
-def refuse_unported(cfg, flags=None, table=UNPORTED) -> None:
+def refuse_unported(cfg, flags=None) -> None:
     """NotImplementedError, naming the ROADMAP item, for the first of
-    `flags` (default: every flag of `table` that `cfg` has) whose value
+    `flags` (default: every flag of UNPORTED that `cfg` has) whose value
     selects a mode the port does not have."""
-    for flag in unported_flags(cfg, table) if flags is None else flags:
-        selects, what, item = table[flag]
+    for flag in unported_flags(cfg) if flags is None else flags:
+        selects, what, item = UNPORTED[flag]
         value = flag_value(cfg, flag)
         if selects(value):
             raise NotImplementedError(f"{flag}={value!r} ({what}) is not ported yet (ROADMAP {item})")

@@ -12,7 +12,7 @@ from dotaclient_tpu_torch.protos.message import Field, Message
 class SummaryValue(Message):
     FIELDS = (
         Field(1, "tag", "string"),
-        Field(2, "simple_value", "float", explicit=True),  # a member of the `value` oneof
+        Field(2, "simple_value", "float", oneof="value"),
     )
 
 
@@ -25,6 +25,6 @@ class Event(Message):
     FIELDS = (
         Field(1, "wall_time", "double"),
         Field(2, "step", "int64"),
-        Field(3, "file_version", "string", explicit=True),  # members of the `what` oneof
-        Field(5, "summary", Summary),
+        Field(3, "file_version", "string", oneof="what"),
+        Field(5, "summary", Summary, oneof="what"),
     )

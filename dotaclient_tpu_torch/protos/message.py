@@ -1,8 +1,9 @@
-"""A proto3 message base and codec in pure Python: the subset of
+"""A proto2 / proto3 message base and codec in pure Python: the subset of
 `google.protobuf`'s message surface and wire format that the env messages
-(protos/worldstate.py, protos/dotaservice.py) and the TensorBoard event
-records (protos/event.py) use, with its value semantics, so the port needs
-neither `protobuf` nor `grpc`.
+(protos/worldstate.py, protos/dotaservice.py), the valve dialect's
+(protos/valve_worldstate.py, proto2, and protos/valve_dotaservice.py) and
+the TensorBoard event records (protos/event.py) use, with its value
+semantics, so the port needs neither `protobuf` nor `grpc`.
 
 Semantics kept from the upb runtime:
 - a float field stores its value rounded to f32 on assignment (an
@@ -11,11 +12,21 @@ Semantics kept from the upb runtime:
 - int32 / int64 / uint32 / uint64 fields take integers only (TypeError
   for a float), in range (ValueError otherwise); a negative int32 is
   written as the 10-byte varint of its 64-bit two's complement;
-- implicit presence: a scalar is written when it differs from its
-  default (a float when its bits do, so -0.0 is written), a repeated field
-  when it is not empty; a singular message field when it was set or any
-  change was made through it;
-- repeated int32 is written packed and read packed or not;
+- proto3 (`SYNTAX = "proto3"`, the default): implicit presence, a scalar
+  is written when it differs from its default (a float when its bits do,
+  so -0.0 is written); repeated scalars are written packed;
+- proto2 (`SYNTAX = "proto2"`): every singular field has presence, so a
+  scalar set to its default is written and `HasField` tells set from
+  unset; a field reads its declared default (`Field(..., default=)`)
+  until set; repeated scalars are written unpacked unless the field says
+  `packed=True`; an enum field with its `EnumType` is closed (ValueError
+  on assigning a value it lacks; a parse drops such a value);
+- a repeated field is written when it is not empty; a singular message
+  field when it was set or any change was made through it;
+- oneof members (`Field(..., oneof="group")`) have presence in either
+  syntax; setting one clears the others of its group, a parse keeps the
+  last one on the wire, `WhichOneof(group)` names the one set;
+- repeated scalars are read packed or not;
 - fields are written in field-number order; a parse skips unknown fields
   and merges a singular message field that occurs twice.
 """
@@ -25,7 +36,7 @@ from __future__ import annotations
 import math
 import operator
 import struct
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 _F32 = struct.Struct("<f")
 _F64 = struct.Struct("<d")
@@ -119,23 +130,54 @@ def _coercer(kind: str):
 
 class Field:
     """One field of a message: number, name, kind (a scalar kind or a
-    message class), whether it is repeated, and whether a scalar has
-    explicit presence."""
+    message class), whether it is repeated, its oneof group, its declared
+    default, whether a repeated scalar is packed (None: the syntax's rule)
+    and, for a closed (proto2) enum, its EnumType. The message class
+    settles presence, packing and the tag (`_settle`)."""
 
-    __slots__ = ("number", "name", "kind", "repeated", "explicit", "message", "coerce", "key")
+    __slots__ = ("number", "name", "kind", "repeated", "oneof", "default", "packed", "enum", "explicit", "message",
+                 "coerce", "key")
 
-    def __init__(self, number: int, name: str, kind, repeated: bool = False, explicit: bool = False):
+    def __init__(self, number: int, name: str, kind, repeated: bool = False, oneof: Optional[str] = None,
+                 default=None, packed: Optional[bool] = None, enum: Optional["EnumType"] = None):
         self.number = number
         self.name = name
         self.kind = kind
         self.repeated = repeated
-        # explicit presence (a oneof member): written whenever set, even
-        # to its default
-        self.explicit = explicit
+        self.oneof = oneof
         self.message = not isinstance(kind, str)
-        self.coerce = None if self.message else _coercer(kind)
-        wire = LEN if (self.message or (repeated and kind != "string")) else _KINDS[kind][0]
-        self.key = _varint_bytes((number << 3) | wire)
+        self.default = _KINDS[kind][1] if default is None and not self.message else default
+        self.packed = packed
+        self.enum = enum
+        self.explicit = False
+        self.coerce = None
+        self.key = b""
+
+    def _settle(self, syntax: str) -> None:
+        """Presence, packing, coercion and tag under the message's syntax."""
+        proto2 = syntax == "proto2"
+        scalar = not self.message
+        # explicit presence: written whenever set, even to its default
+        self.explicit = scalar and not self.repeated and (proto2 or self.oneof is not None)
+        if self.repeated and scalar and self.kind != "string" and self.packed is None:
+            self.packed = not proto2
+        if not (proto2 and scalar):
+            self.enum = None  # proto3 enums are open
+        if scalar:
+            self.coerce = _coercer(self.kind)
+            if self.enum is not None:
+                self.coerce = _closed(self.coerce, self.enum)
+        wire = LEN if (self.message or self.packed) else _KINDS[self.kind][0]
+        self.key = _varint_bytes((self.number << 3) | wire)
+
+
+def _closed(coerce, enum: "EnumType"):
+    def to_member(x):
+        v = coerce(x)
+        if v not in enum._names:
+            raise ValueError(f"Unknown enum value: {v}")
+        return v
+    return to_member
 
 
 class _Lazy:
@@ -197,6 +239,10 @@ class Repeated:
     def __getitem__(self, i):
         return self._items[i]
 
+    def __delitem__(self, i) -> None:
+        del self._items[i]
+        self._owner._touch()
+
     def __iter__(self):
         return iter(self._items)
 
@@ -224,6 +270,20 @@ def _put_varint(out: bytearray, n: int) -> None:
         out.append((n & 0x7F) | 0x80)
         n >>= 7
     out.append(n)
+
+
+def _put_scalar(out: bytearray, kind: str, v) -> None:
+    """One scalar's value bytes (its tag written by the caller)."""
+    if kind == "float":
+        out += _F32.pack(v)
+    elif kind == "double":
+        out += _F64.pack(v)
+    elif kind == "string":
+        raw = v.encode("utf-8")
+        _put_varint(out, len(raw))
+        out += raw
+    else:
+        _put_varint(out, int(v))
 
 
 def _get_varint(data, pos: int, end: int) -> Tuple[int, int]:
@@ -274,11 +334,12 @@ def _skip(data, pos: int, end: int, wire: int) -> int:
 
 
 class Message:
-    """Base of the port's proto3 messages. A subclass lists `FIELDS`
-    (Field objects); `__init_subclass__` installs each scalar's default as
-    a class attribute and a lazy container for each repeated or message
-    field, so an instance's __dict__ holds only what was set."""
+    """Base of the port's messages. A subclass lists `FIELDS` (Field
+    objects) and its `SYNTAX`; `__init_subclass__` installs each scalar's
+    default as a class attribute and a lazy container for each repeated or
+    message field, so an instance's __dict__ holds only what was set."""
 
+    SYNTAX = "proto3"
     FIELDS: Tuple[Field, ...] = ()
     _hook = None  # (parent, field name) while a lazily made child is unchanged
 
@@ -287,8 +348,12 @@ class Message:
         cls.FIELDS = tuple(sorted(cls.FIELDS, key=lambda f: f.number))
         cls._BY_NAME = {f.name: f for f in cls.FIELDS}
         cls._BY_NUMBER = {f.number: f for f in cls.FIELDS}
+        cls._ONEOFS = {}
         for f in cls.FIELDS:
-            setattr(cls, f.name, _Lazy(f) if (f.repeated or f.message) else _KINDS[f.kind][1])
+            f._settle(cls.SYNTAX)
+            setattr(cls, f.name, _Lazy(f) if (f.repeated or f.message) else f.default)
+            if f.oneof is not None:
+                cls._ONEOFS.setdefault(f.oneof, []).append(f.name)
 
     def __init__(self, **kw):
         for name, value in kw.items():
@@ -300,9 +365,10 @@ class Message:
             elif f.message:
                 if value is not None:
                     self._child(f).CopyFrom(value)
-                    self.__dict__.setdefault("_has", set()).add(name)
+                    self._present(f)
             else:
                 self.__dict__[name] = f.coerce(value)
+                self._present(f)
 
     def __setattr__(self, name, value) -> None:
         f = self._BY_NAME.get(name)
@@ -314,9 +380,22 @@ class Message:
         if f.repeated or f.message:
             raise AttributeError(f"Assignment not allowed to field {name!r} in protocol message object.")
         self.__dict__[name] = f.coerce(value)
+        self._present(f)
         self._touch()
 
     # --------------------------------------------------------------- state
+
+    def _present(self, f: Field) -> None:
+        """Field f was set: a message field becomes present, and the other
+        members of its oneof are cleared."""
+        d = self.__dict__
+        if f.message:
+            d.setdefault("_has", set()).add(f.name)
+        if f.oneof is not None:
+            for other in self._ONEOFS[f.oneof]:
+                if other != f.name:
+                    d.pop(other, None)
+                    d.get("_has", set()).discard(other)
 
     def _touch(self) -> None:
         """A change was made: a lazily made child becomes present in its
@@ -324,7 +403,7 @@ class Message:
         hook = self.__dict__.pop("_hook", None)
         if hook is not None:
             parent, name = hook
-            parent.__dict__.setdefault("_has", set()).add(name)
+            parent._present(parent._BY_NAME[name])
             parent._touch()
 
     def _child(self, f: Field) -> "Message":
@@ -334,13 +413,46 @@ class Message:
             self.__dict__[f.name] = child
         return child
 
+    def _is_set(self, f: Field) -> bool:
+        if f.message:
+            return f.name in self.__dict__.get("_has", ())
+        if f.explicit:
+            return f.name in self.__dict__
+        return self._wants(f, self.__dict__.get(f.name, f.default))
+
     def HasField(self, name: str) -> bool:
+        """A singular field's presence (a proto3 scalar outside a oneof:
+        whether it differs from its default), or whether a oneof group
+        has a member set."""
+        if name in self._ONEOFS:
+            return self.WhichOneof(name) is not None
         f = self._BY_NAME.get(name)
         if f is None or f.repeated:
             raise ValueError(f"Protocol message {type(self).__name__} has no singular {name!r} field.")
-        if f.message:
-            return name in self.__dict__.get("_has", ())
-        return self._wants(f, self.__dict__.get(name, _KINDS[f.kind][1]))
+        return self._is_set(f)
+
+    def WhichOneof(self, group: str) -> Optional[str]:
+        """The name of the member of oneof `group` that is set, or None."""
+        try:
+            names = self._ONEOFS[group]
+        except KeyError:
+            raise ValueError(f"Protocol message {type(self).__name__} has no oneof {group!r}.") from None
+        for name in names:
+            if self._is_set(self._BY_NAME[name]):
+                return name
+        return None
+
+    def ClearField(self, name: str) -> None:
+        """Unset a field (or a oneof group's member): it reads its default
+        and is not written."""
+        if name in self._ONEOFS:
+            name = self.WhichOneof(name)
+            if name is None:
+                return
+        if name not in self._BY_NAME:
+            raise ValueError(f"Protocol message {type(self).__name__} has no {name!r} field.")
+        self.__dict__.pop(name, None)
+        self.__dict__.get("_has", set()).discard(name)
 
     def Clear(self) -> None:
         hook = self.__dict__.get("_hook")
@@ -359,8 +471,8 @@ class Message:
         self.MergeFrom(other)
 
     def MergeFrom(self, other: "Message") -> None:
-        """proto3 merge: set scalars overwrite, repeated fields append,
-        message fields merge."""
+        """Set scalars overwrite, repeated fields append, message fields
+        merge; a oneof member set in `other` replaces this one's."""
         d, od = self.__dict__, other.__dict__
         for f in self.FIELDS:
             if f.name not in od:
@@ -371,9 +483,10 @@ class Message:
             elif f.message:
                 if f.name in od.get("_has", ()):
                     self._child(f).MergeFrom(od[f.name])
-                    d.setdefault("_has", set()).add(f.name)
+                    self._present(f)
             elif f.explicit or self._wants(f, od[f.name]):
                 d[f.name] = od[f.name]
+                self._present(f)
         self._touch()
 
     def __eq__(self, other) -> bool:
@@ -422,6 +535,10 @@ class Message:
                         out += f.key
                         _put_varint(out, len(body))
                         out += body
+                elif not f.packed:  # strings, and proto2's unpacked scalars
+                    for x in v:
+                        out += f.key
+                        _put_scalar(out, f.kind, x)
                 elif f.kind in ("float", "double"):
                     fmt = _F32 if f.kind == "float" else _F64
                     out += f.key
@@ -445,16 +562,7 @@ class Message:
                 out += body
             elif f.explicit or self._wants(f, v):
                 out += f.key
-                if f.kind == "float":
-                    out += _F32.pack(v)
-                elif f.kind == "double":
-                    out += _F64.pack(v)
-                elif f.kind == "string":
-                    raw = v.encode("utf-8")
-                    _put_varint(out, len(raw))
-                    out += raw
-                else:
-                    _put_varint(out, int(v))
+                _put_scalar(out, f.kind, v)
 
     def SerializeToString(self) -> bytes:
         out = bytearray()
@@ -487,8 +595,10 @@ class Message:
                     child._decode(data, pos, pos + n)
                     getattr(self, f.name)._items.append(child)
                 else:
+                    if f.oneof is not None and f.name not in d.get("_has", ()):
+                        d.pop(f.name, None)  # a member not set: the parse starts it afresh
                     self._child(f)._decode(data, pos, pos + n)
-                    d.setdefault("_has", set()).add(f.name)
+                    self._present(f)
                 pos += n
                 continue
             kind = f.kind
@@ -531,10 +641,14 @@ class Message:
                 except UnicodeDecodeError as e:
                     raise DecodeError(f"field {f.name}: invalid UTF-8") from e
                 pos += n
+            if f.enum is not None and value not in f.enum._names:
+                continue  # a closed enum drops a value it lacks
             if f.repeated:
                 getattr(self, f.name)._items.append(value)
             else:
                 d[f.name] = value
+                if f.oneof is not None:
+                    self._present(f)
         if pos != end:
             raise DecodeError("field overruns the message")
 

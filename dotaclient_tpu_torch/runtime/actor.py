@@ -47,7 +47,7 @@ import numpy as np
 import torch
 
 from dotaclient_tpu_torch import resolve_device
-from dotaclient_tpu_torch.config import ACTOR_UNPORTED, ActorConfig, PolicyConfig, refuse_unported
+from dotaclient_tpu_torch.config import ActorConfig, PolicyConfig
 from dotaclient_tpu_torch.env import featurizer as F
 from dotaclient_tpu_torch.env import heroes
 from dotaclient_tpu_torch.env import rewards as R
@@ -244,8 +244,13 @@ def rollout_priority_fn(broker: Broker):
 
 def connect_env_async(cfg: ActorConfig):
     """The network env stub for cfg.env_addr (gRPC; raises, naming grpc,
-    when it is not installed). The valve dialect never gets here: the
-    actor refuses it at boot (A.11d)."""
+    when it is not installed), shared by Actor and SelfPlayActor:
+    `--env_dialect valve` speaks a real dotaservice's schema through
+    env/valve_adapter.py, anything else the internal messages."""
+    if cfg.env_dialect == "valve":
+        from dotaclient_tpu_torch.env.valve_adapter import connect_valve_async
+
+        return connect_valve_async(cfg.env_addr)
     return connect_async(cfg.env_addr)
 
 
@@ -684,7 +689,6 @@ class Actor:
     _RETRYABLE_EPISODE_ERRORS: tuple = (EnvRpcError,)
 
     def __init__(self, cfg: ActorConfig, broker: Broker, actor_id: int = 0, stub=None, params=None, device=None):
-        refuse_unported(cfg, table=ACTOR_UNPORTED)
         _check_actor_policy(cfg)
         self.cfg = cfg
         self.broker = broker
@@ -1104,7 +1108,6 @@ def build_actors(cfg: ActorConfig, broker: Broker, make_stub=None) -> list:
 
     `make_stub()` gives each env slot an in-process env instead of a
     gRPC dial of cfg.env_addr."""
-    refuse_unported(cfg, table=ACTOR_UNPORTED)
     M = max(int(cfg.envs_per_process), 1)
     stub = make_stub if make_stub is not None else (lambda: None)
     remote_league = cfg.opponent == "league" and bool(cfg.serve.league)
@@ -1139,16 +1142,14 @@ def build_actors(cfg: ActorConfig, broker: Broker, make_stub=None) -> list:
 def main(argv=None):
     """`python -m dotaclient_tpu_torch.runtime.actor [--flags]`: the
     reference binary's flags and dispatch (build_actors). Dials the env at
-    --env_addr over gRPC (so it needs `grpc`, and says so at boot without
-    it) and publishes to --broker_url. Unported modes are refused at boot,
-    naming their ROADMAP item."""
+    --env_addr over gRPC in --env_dialect's schema (so it needs `grpc`, and
+    says so at boot without it) and publishes to --broker_url."""
     from dotaclient_tpu_torch.config import parse_config
     from dotaclient_tpu_torch.env.service import require_grpc
     from dotaclient_tpu_torch.transport.base import connect as broker_connect
 
     logging.basicConfig(level=logging.INFO)
     cfg = parse_config(ActorConfig(), argv)
-    refuse_unported(cfg, table=ACTOR_UNPORTED)
     require_grpc()
     broker = broker_connect(cfg.broker_url, retry=RetryPolicy.from_config(cfg.retry))
     if cfg.chaos.enabled:

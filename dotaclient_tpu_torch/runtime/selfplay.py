@@ -41,7 +41,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from dotaclient_tpu_torch.config import ACTOR_UNPORTED, ActorConfig, refuse_unported
+from dotaclient_tpu_torch.config import ActorConfig
 from dotaclient_tpu_torch.env import featurizer as F
 from dotaclient_tpu_torch.env import heroes
 from dotaclient_tpu_torch.env import rewards as R
@@ -114,7 +114,6 @@ class SelfPlayActor:
     ):
         if cfg.opponent not in ("self", "league"):
             raise ValueError(f"SelfPlayActor wants opponent 'self' or 'league', got {cfg.opponent!r}")
-        refuse_unported(cfg, table=ACTOR_UNPORTED)
         _check_actor_policy(cfg)
         self.cfg = cfg
         self.broker = broker

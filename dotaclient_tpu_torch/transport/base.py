@@ -7,11 +7,13 @@ Semantics every implementation honours:
 - weights: fanout with latest-wins; subscribers poll and only ever see
   the newest frame, never a backlog.
 
-Ported: `mem://<name>` (in-process), `tcp://host:port` (the framework's
+Schemes: `mem://<name>` (in-process), `tcp://host:port` (the framework's
 own broker, transport/tcp.py; its server is
-`python -m dotaclient_tpu_torch.transport.tcp_server`) and a
-comma-separated list of them, the broker fabric (transport/fabric.py; a
-shard is `python -m dotaclient_tpu_torch.transport.fabric`). The learner also
+`python -m dotaclient_tpu_torch.transport.tcp_server`), `amqp://...`
+(RabbitMQ through `pika`, transport/rmq.py, the reference deployment's
+broker) and a comma-separated list of them, the broker fabric
+(transport/fabric.py; a shard is
+`python -m dotaclient_tpu_torch.transport.fabric`). The learner also
 accepts any object with the `Broker` surface, so a test can hand it the
 reference package's broker and a JAX actor fleet can feed it.
 """
@@ -94,17 +96,16 @@ class Broker(abc.ABC):
 
 
 def connect(url: str, retry: Optional[RetryPolicy] = None, **kw) -> Broker:
-    """A broker for `url`. `retry` is the reconnect policy of tcp://;
-    mem:// has no connection to retry and ignores it. A comma-separated
-    list of urls is the broker fabric (transport/fabric.py: N shards behind
-    a rendezvous router with a fenced fan-in), imported only then, so a
-    single endpoint never loads it. amqp:// is ROADMAP A.10d3."""
+    """A broker for `url`. `retry` is the reconnect policy of tcp:// (and
+    of amqp://'s op-level retries); mem:// has no connection to retry and
+    ignores it. A comma-separated list of urls is the broker fabric
+    (transport/fabric.py: N shards behind a rendezvous router with a
+    fenced fan-in), imported only then, so a single endpoint never loads
+    it."""
     if "," in url:
         from dotaclient_tpu_torch.transport.fabric import FabricBroker, parse_fabric_endpoints
 
         return FabricBroker(parse_fabric_endpoints(url), retry=retry, **kw)
-    if url.startswith("amqp://"):
-        raise NotImplementedError(f"broker url {url!r}: amqp:// (RabbitMQ) is not ported yet (ROADMAP A.10d3)")
     if url.startswith("mem://"):
         from dotaclient_tpu_torch.transport.memory import MemoryBroker
 
@@ -116,4 +117,10 @@ def connect(url: str, retry: Optional[RetryPolicy] = None, **kw) -> Broker:
         if retry is not None:
             kw["retry"] = retry
         return TcpBroker(host or "127.0.0.1", int(port or 13370), **kw)
+    if url.startswith("amqp://"):
+        from dotaclient_tpu_torch.transport.rmq import RmqBroker
+
+        if retry is not None:
+            kw["retry"] = retry
+        return RmqBroker(url, **kw)
     raise ValueError(f"unknown broker url scheme: {url!r}")

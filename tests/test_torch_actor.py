@@ -35,7 +35,6 @@ from dotaclient_tpu.transport import base as jbase
 from dotaclient_tpu.transport import memory as jmem
 from dotaclient_tpu.transport import serialize as jser
 from dotaclient_tpu_torch.config import (
-    ACTOR_UNPORTED,
     ActorConfig,
     LearnerConfig,
     ObsConfig,
@@ -449,26 +448,42 @@ def test_env_rpc_errors_are_retried_with_the_capped_backoff(monkeypatch):
 # ------------------------------------------------------------ refusals
 
 
+# Modes the actor refused until they were ported: (flag, value, ROADMAP
+# item). Each now builds its actors and reaches its path.
 REFUSED = [
     ("env_dialect", "valve", "A.11d"),
 ]
 
 
 @pytest.mark.parametrize("flag,value,item", REFUSED)
-def test_unported_actor_modes_are_refused_naming_their_item(flag, value, item):
+def test_unported_actor_modes_are_refused_naming_their_item(flag, value, item, monkeypatch):
+    """The valve dialect is ported: Actor, VectorActor and the binary take
+    it, and the env stub an actor dials speaks the real dotaservice's
+    service (tests/test_torch_valve_adapter.py plays episodes over it)."""
+    from dotaclient_tpu_torch.env import service
+    from dotaclient_tpu_torch.env.valve_adapter import VALVE_SERVICE, ValveDotaServiceStub
+
     cfg = ActorConfig(platform="cpu", policy=PolicyConfig(**SMALL))
-    obj = cfg
-    path = flag.split(".")
-    for name in path[:-1]:
-        obj = getattr(obj, name)
-    setattr(obj, path[-1], value)
-    for build in (lambda: tactor.Actor(cfg, tmem.MemoryBroker("refuse")),
-                  lambda: tactor.VectorActor(cfg, tmem.MemoryBroker("refuse"), envs=2)):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            build()
-    argv = [f"--{flag}", str(value).lower() if isinstance(value, bool) else value, "--platform", "cpu"]
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        tactor.main(argv)
+    setattr(cfg, flag, value)
+    actor = tactor.Actor(cfg, tmem.MemoryBroker("refuse"))
+    vec = tactor.VectorActor(cfg, tmem.MemoryBroker("refuse"), envs=2)
+    assert actor.cfg.env_dialect == vec.cfg.env_dialect == "valve"
+
+    async def dial():
+        internal = tactor.connect_env_async(dataclasses.replace(cfg, env_dialect="internal"))
+        stub = tactor.connect_env_async(cfg)
+        await internal.channel.close()
+        await stub.channel.close()
+        return internal, stub
+
+    internal, stub = asyncio.run(dial())
+    assert isinstance(stub, ValveDotaServiceStub) and not isinstance(internal, ValveDotaServiceStub)
+    assert stub._calls["reset"]._method == f"/{VALVE_SERVICE}/reset".encode()
+    seen = []
+    monkeypatch.setattr(service, "require_grpc", lambda: None)
+    monkeypatch.setattr(tactor, "build_actors", lambda c, broker: seen.append(c) or [])
+    tactor.main([f"--{flag}", value, "--platform", "cpu", "--broker_url", "mem://refuse"])
+    assert [c.env_dialect for c in seen] == ["valve"]
 
 
 def test_main_chaos_enabled_wraps_the_broker(monkeypatch):
@@ -492,18 +507,20 @@ def test_main_chaos_enabled_wraps_the_broker(monkeypatch):
 
 
 def test_every_unported_actor_mode_is_tested_and_the_serve_client_flags_do_not_parse():
-    """Every refused mode has its case above. The remote client and
-    self-play are ported now: their flags parse to the reference's values
-    and select no refusal (the name is this test's since the flags were
-    unported)."""
-    assert {r[0] for r in REFUSED} == set(unported_flags(ActorConfig(), ACTOR_UNPORTED)) == set(ACTOR_UNPORTED)
+    """The actor has no unported mode left: the valve dialect (the case
+    above), the remote client and self-play parse to the reference's
+    values and select no refusal (the name is this test's since the flags
+    were unported)."""
+    assert unported_flags(ActorConfig()) == [] and {r[0] for r in REFUSED} == {"env_dialect"}
     for argv in (["--serve.cooldown_s", "5"], ["--serve.resume", "true"], ["--team_size", "5"],
                  ["--pfsp_mode", "even"], ["--serve.route", "load"], ["--serve.endpoint", "a:1,b:2"],
-                 ["--serve.league", "league:13410"], ["--opponent", "self"], ["--opponent", "league"]):
+                 ["--serve.league", "league:13410"], ["--opponent", "self"], ["--opponent", "league"],
+                 ["--env_dialect", "valve"]):
         ours, theirs = parse_config(ActorConfig(), argv), j_parse_config(JActorConfig(), argv)
         assert vars(ours.serve) == vars(theirs.serve)
-        assert (ours.team_size, ours.pfsp_mode, ours.opponent) == (theirs.team_size, theirs.pfsp_mode, theirs.opponent)
-        refuse_unported(ours, table=ACTOR_UNPORTED)
+        assert (ours.team_size, ours.pfsp_mode, ours.opponent, ours.env_dialect) == (
+            theirs.team_size, theirs.pfsp_mode, theirs.opponent, theirs.env_dialect)
+        refuse_unported(ours)
 
 
 def test_the_scripted_actor_manifest_parses_as_the_reference_does():

@@ -856,6 +856,26 @@ def test_assembled_learner_on_the_card_is_bitwise_the_classic_pack(cuda, tmp_pat
     assert out["rows_checked"] == chip_smoke.ASM_PARITY_STEPS * base.batch_size and len(out["ledgers"]) == 3
 
 
+def test_amqp_learner_on_the_card_is_bitwise_its_mem_run(cuda, tmp_path):
+    """chip_smoke.py's phase-20 turn (a) at a small shape, on the tests'
+    in-memory pika: the learner over amqp:// (frames published as it
+    trains) bitwise the mem:// learner after every step, one recurrence
+    launch per step, and the actor-side poll's DTW2 frame bitwise the
+    params."""
+    import sys
+
+    import chip_smoke
+
+    fake = chip_smoke.install_fake_pika()
+    try:
+        out = chip_smoke._amqp_parity_turn(cuda, "test", str(tmp_path), fake, _modes_base())
+    finally:
+        fake.reset()
+        sys.modules.pop("pika", None)
+    assert out["bitwise_per_step"] == [True] * chip_smoke.AMQP_STEPS
+    assert out["launches"] == out["mem_launches"] == chip_smoke.AMQP_STEPS == out["weights_version"]
+
+
 def test_two_ranks_on_the_card_step_as_one_process(cuda, tmp_path):
     """Two learner ranks sharing the card over gloo (NCCL refuses two ranks
     on one device), each on its half of the global batch (rank 0's rows

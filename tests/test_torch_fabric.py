@@ -197,6 +197,20 @@ def test_one_package_publishes_and_the_other_drains(direction):
             s.stop()
 
 
+def _until(cond, what: str, consume=None, cap: float = 120.0) -> None:
+    """Wait for the fabric's own progress (`cond()`), consuming meanwhile
+    through `consume` if given. The cap only turns a hang into a failure:
+    the test waits on the event, never on a wall-clock window."""
+    deadline = time.monotonic() + cap
+    while not cond():
+        if time.monotonic() >= deadline:
+            raise AssertionError(f"no progress in {cap} s: {what}")
+        if consume is not None:
+            consume()
+        else:
+            time.sleep(0.02)
+
+
 def test_failover_and_stale_resurrection_keep_the_ledger_exact():
     """Port shards, port fabric: the primary dies, the publish fails over
     with an epoch bump, the primary resurrects holding a stale-epoch copy;
@@ -215,8 +229,16 @@ def test_failover_and_stale_resurrection_keep_the_ledger_exact():
     assert successor.enqueued_total == 1
     env = tfab.peek_fabric(bytes(successor.experience[0]))
     assert env[2] == 1 and env[3] == 1
+    got = []
+
+    def consume():
+        got.extend(fb.consume_experience(8, timeout=0.2))
+
+    # the republish is delivered first, so the key's fence stands at epoch 1
+    _until(lambda: got, "the failover republish delivered", consume)
+    assert got == [data] and fb._fence.delivered == 1
     reborn = None
-    deadline = time.monotonic() + 10
+    deadline = time.monotonic() + 120
     while reborn is None:
         try:
             reborn = ttcp.BrokerServer("127.0.0.1", primary.port).start()
@@ -226,21 +248,20 @@ def test_failover_and_stale_resurrection_keep_the_ledger_exact():
             time.sleep(0.05)
     direct = ttcp.TcpBroker("127.0.0.1", reborn.port)
     direct.publish_experience(tfab.wrap_fabric(data, key=5, boot=fb._boot, epoch=0, seq=1))  # the stale copy
-    time.sleep(0.6)  # the cooldown passes: the reborn primary is polled again
-    got = _drain(fb, 1, timeout=5)
-    deadline = time.monotonic() + 5
-    while fb._fence.fence_dropped < 1 and time.monotonic() < deadline:
-        got.extend(fb.consume_experience(8, timeout=0.2))
+    # the fan-in polls the reborn primary again once its cooldown passed:
+    # its popped count moves, and the fence drops the stale copy
+    _until(lambda: fb.fabric_stats()[f"broker_shard_{order[0]}_popped_total"] >= 1, "the reborn primary polled",
+           consume)
+    _until(lambda: fb._fence.fence_dropped >= 1, "the stale copy fence-dropped", consume)
     fb.quiesce()
-    deadline = time.monotonic() + 5
-    while any(fb._mid_pop) and time.monotonic() < deadline:
-        time.sleep(0.02)
+    _until(lambda: not any(fb._mid_pop), "the pop threads idle")
     got.extend(fb.consume_residual(100))
     assert got.count(data) == 1 and fb.fanin_residual() == 0
     stats = fb.fabric_stats()
     popped = sum(stats[f"broker_shard_{i}_popped_total"] for i in range(2))
-    assert stats["fanin_fence_dropped_total"] >= 1 and stats["fanin_publish_failovers_total"] >= 1
+    assert stats["fanin_fence_dropped_total"] == 1 and stats["fanin_publish_failovers_total"] >= 1
     assert popped == stats["fanin_delivered_total"] + stats["fanin_fence_dropped_total"] + stats["fanin_dup_dropped_total"]
+    assert reborn.ledger()["popped"] == 1
     for s in (reborn, successor):
         led = s.ledger()
         assert led["enqueued"] == led["popped"] + led["dropped_oldest"] + led["evicted_low"] + led["resident"]

@@ -10,6 +10,7 @@ the port learner through the reference's broker and runs its weights."""
 import asyncio
 import dataclasses
 import json
+import sys
 import threading
 import time
 
@@ -398,7 +399,7 @@ def _assert_same_fields(ours, ref, path=""):
             assert a == b, f"{path}{f.name}"
 
 
-def test_main_parses_the_reference_flags_and_trains(tmp_path):
+def test_main_parses_the_reference_flags_and_trains(tmp_path, monkeypatch):
     argv = ["--broker_url", "mem://ln_main", "--platform", "cpu", "--train_steps", "2", "--batch_size", str(B),
             "--seq_len", str(T), "--policy.lstm_hidden", "16", "--policy.unit_embed_dim", "16", "--policy.mlp_hidden", "16",
             "--policy.dtype", "float32", "--learner.prefetch", "false", "--native_packer", "true",
@@ -413,8 +414,23 @@ def test_main_parses_the_reference_flags_and_trains(tmp_path):
     frame = watcher.poll_weights()
     assert frame[:4] == b"DTW1" and tser.deserialize_weights(frame)[1] == 2
     assert [r["step"] for r in _metric_lines(tmp_path / "main" / "metrics.jsonl")] == [2]
-    with pytest.raises(NotImplementedError, match="A.10d3"):
-        tlearner.main(["--broker_url", "amqp://guest@localhost/", "--platform", "cpu"])
+    # amqp:// is ported (A.10d3): the same run over RabbitMQ's fake pika
+    # ends at the same version, its DTW1 frame on the model fanout
+    from tests import fake_pika
+    from dotaclient_tpu_torch.transport.rmq import RmqBroker
+
+    monkeypatch.setitem(sys.modules, "pika", fake_pika)
+    fake_pika.reset()
+    url = "amqp://guest@localhost/"
+    feeder = RmqBroker(url)
+    for fr in frames_for(tcfg, 2):
+        feeder.publish_experience(fr)
+    amqp = tlearner.main([url if a == "mem://ln_main" else a for a in argv[:-4]] +
+                         ["--log_dir", str(tmp_path / "amqp"), "--publish_legacy_dtw1", "true"])
+    assert isinstance(amqp.broker, RmqBroker) and amqp.version == 2
+    frame = feeder.poll_weights()
+    assert frame[:4] == b"DTW1" and tser.deserialize_weights(frame)[1] == 2 and feeder.experience_depth() == 0
+    fake_pika.reset()
 
 
 class _BrokerSeen(Exception):

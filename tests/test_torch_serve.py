@@ -896,10 +896,29 @@ def test_main_chaos_enabled_wraps_the_weights_broker(monkeypatch):
     assert type(plain) is tmem.MemoryBroker
 
 
-def test_every_unported_serve_mode_is_tested_and_the_defaults():
+def test_every_unported_serve_mode_is_tested_and_the_defaults(monkeypatch):
     assert unported_flags(InferenceConfig()) == []
-    with pytest.raises(NotImplementedError, match="ROADMAP A.10d3"):
-        tserver.main(["--platform", "cpu", "--broker_url", "amqp://guest@localhost/"])
+    # amqp:// is ported (A.10d3): main hands the server an RmqBroker that
+    # polls the learner's weights off the model fanout (fake pika)
+    from tests import fake_pika
+    from dotaclient_tpu_torch.transport.rmq import RmqBroker
+
+    monkeypatch.setitem(sys.modules, "pika", fake_pika)
+    fake_pika.reset()
+    seen = []
+
+    def fake_server(cfg, broker, device=None, obs_runtime=None):
+        seen.append(broker)
+        raise _BrokerSeen
+
+    monkeypatch.setattr(tserver, "InferenceServer", fake_server)
+    url = "amqp://guest@localhost/"
+    with pytest.raises(_BrokerSeen):
+        tserver.main(["--platform", "cpu", "--broker_url", url])
+    (broker,) = seen
+    RmqBroker(url).publish_weights(b"DTW2-v1")
+    assert type(broker) is RmqBroker and broker.poll_weights() == b"DTW2-v1"
+    fake_pika.reset()
     cfg = parse_config(InferenceConfig(), ["--serve.max_batch", "8", "--retry.window_s", "3"])
     assert cfg.serve.max_batch == 8 and cfg.retry.window_s == 3.0 and cfg.platform == ""
     ref = JInferenceConfig()

@@ -209,7 +209,7 @@ def test_reconnect_after_server_restart():
             s.stop()
 
 
-def test_connect_schemes_and_refusals():
+def test_connect_schemes_and_refusals(monkeypatch):
     server = ttcp.BrokerServer("127.0.0.1", 0).start()
     try:
         b = tbase.connect(f"tcp://127.0.0.1:{server.port}")
@@ -225,8 +225,13 @@ def test_connect_schemes_and_refusals():
         server.stop()
     armed = ttcp.BrokerServer(assemble=True)  # assembly is ported: an armed server builds, with its ledger at 0
     assert armed.assemble and set(armed.assemble_ledger().values()) == {0}
-    with pytest.raises(NotImplementedError, match="ROADMAP A.10d3"):
-        tbase.connect("amqp://guest@localhost/")
+    from tests import fake_pika
+    from dotaclient_tpu_torch.transport.rmq import RmqBroker
+
+    monkeypatch.setitem(sys.modules, "pika", fake_pika)  # amqp:// is ported (A.10d3), on pika
+    fake_pika.reset()
+    assert isinstance(tbase.connect("amqp://guest@localhost/"), RmqBroker)
+    fake_pika.reset()
     with pytest.raises(ConnectionError):
         tbase.connect("tcp://127.0.0.1:1")  # dials at construction: a wrong URL fails fast
 

@@ -5,6 +5,7 @@ FIFO / latest-wins / shed behaviour, the connect refusals, the legacy
 DTW1 emit, and the explicit f32 → bf16 rounding against ml_dtypes."""
 
 import hashlib
+import sys
 
 import ml_dtypes
 import numpy as np
@@ -238,11 +239,13 @@ def test_port_hubs_are_separate_from_the_reference_hubs():
 
 
 @pytest.mark.parametrize("url", ["tcp://127.0.0.1:1", "amqp://guest@localhost/", "mem://a,mem://b", "tcp://h:1,tcp://h:2"])
-def test_connect_refuses_unported_brokers(url):
-    """amqp:// is refused, naming its ROADMAP item. tcp:// is ported
-    (tests/test_torch_tcp.py): it dials at construction, so a dead address
-    fails fast instead. A comma list builds the broker fabric
-    (tests/test_torch_fabric.py), which dials no shard until it is used."""
+def test_connect_refuses_unported_brokers(url, monkeypatch):
+    """No scheme is refused any more. amqp:// is ported
+    (tests/test_torch_rmq.py): it needs pika (the fake one here), and
+    without it says so. tcp:// (tests/test_torch_tcp.py) dials at
+    construction, so a dead address fails fast instead. A comma list
+    builds the broker fabric (tests/test_torch_fabric.py), which dials no
+    shard until it is used."""
     if url.startswith("tcp://") and "," not in url:
         with pytest.raises(ConnectionError):
             tbase.connect(url)
@@ -254,8 +257,18 @@ def test_connect_refuses_unported_brokers(url):
         assert isinstance(fb, FabricBroker) and fb.endpoints == url.split(",")
         fb.close()
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP A.10d3"):
-        tbase.connect(url)
+    from tests import fake_pika
+    from dotaclient_tpu_torch.transport.rmq import RmqBroker
+
+    if "pika" not in sys.modules:
+        with pytest.raises(ImportError, match="pika"):
+            tbase.connect(url)
+    monkeypatch.setitem(sys.modules, "pika", fake_pika)
+    fake_pika.reset()
+    b = tbase.connect(url)
+    b.publish_experience(b"x")
+    assert isinstance(b, RmqBroker) and b.consume_experience(4, timeout=1.0) == [b"x"]
+    fake_pika.reset()
 
 
 def test_connect_mem_and_unknown_scheme():
