@@ -120,9 +120,8 @@ Phases, in order; any failure exits non-zero:
 16. chaos   — the chaos soak's phases (scripts/chaos_soak.py run_soak) at
               the flagship policy with the soak's 16 x 8 batch and
               watermarks, three broker kills: every verdict true, 0
-              unaccounted frames, each kill's recovery time; then a
-              LearnerIncarnations turn (a term life, a kill life, the next
-              boot), one recurrence launch per learner step. Until this
+              unaccounted frames, each kill's recovery time, one
+              recurrence launch per learner step. Until this
               phase dotaclient_tpu_torch.chaos is in no process that
               reports its modules: the smoke's own, and phases 13-14's
               actors, servers, evaluator, shards, carry store, league
@@ -160,16 +159,34 @@ Phases, in order; any failure exits non-zero:
               closed (every frame trained once or left queued); 2 actors
               with --env_dialect valve on the card, through the valve stub
               and frontend over an in-process channel of wire bytes, feed
-              a learner step (see phase_amqp_valve).
+              a learner step (see phase_amqp_valve);
+21. soaks   — the twins of the reference's four other chaos soaks
+              (dotaclient_tpu_torch/scripts/) at the flagship policy and
+              their own batches: resume (a SIGTERM drain restored bitwise
+              and trained bit-exact against an uninterrupted run, a
+              SIGKILL resumed at the published high-water; a
+              LearnerIncarnations term and kill under real actors over
+              tcp://; the inertness subprocess), the broker fabric (shard
+              kills and a rolling restart with every generation's ledger
+              exact, the resurrection fence, two learners on disjoint
+              shards with B drained and resumed bit-exact), serve chaos
+              (the parity prefix bitwise under server kills, failover,
+              the local fallback engaged and released) and the serve
+              handoff (a rolling restart with the whole stream bitwise, no
+              abandon, p99 in the kill windows within 2,000 ms): every
+              verdict true (but the fabric's host-bound scaling bar), 0
+              unaccounted, one launch per learner step and none on any
+              other thread; four processes at once, beside phases 12
+              and 15 (see phase_soaks).
 Each path of the main path (serving, learner forward, each train step,
 the reuse step, the learner loop, the manifest learner, the fabric
 learner, the serve manifest, the actors' closed loop, the fleet's loop,
-the skill run, the chaos soak, the learner lives, each data mode, each
-multihost turn and each amqp:// and valve turn) is driven with the kernels' launch counters zeroed
+the skill run, the chaos soak, each data mode, each multihost turn, each
+amqp:// and valve turn and each of the four soaks) is driven with the kernels' launch counters zeroed
 just before it and read just after (the serve manifest's servers, the
-actor processes, the league service, the evaluator and the multihost
-ranks are processes of their own, which start at 0 and report their
-count).
+actor processes, the league service, the evaluator, the multihost
+ranks and the soaks are processes of their own, which start at 0 and
+report their count).
 The last lines are the transformer line, one JSON object per kernel, the
 card line, and {"ok": true, "device": {...}}.
 """
@@ -182,6 +199,7 @@ import logging
 import math
 import os
 import queue
+import random
 import shutil
 import signal
 import socket
@@ -1334,6 +1352,28 @@ def _free_port() -> int:
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
         return sock.getsockname()[1]
+
+
+def _restart_port() -> int:
+    """A free port below the kernel's ephemeral range, for a server killed
+    and restarted on the same port: while it is down, a port of the
+    ephemeral range can become the local port of any process's outgoing
+    connection, and the restart's bind then fails with EADDRINUSE (phase
+    14's server 1 has failed to restart so)."""
+    try:
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+            low = int(f.read().split()[0])
+    except (OSError, ValueError, IndexError):
+        low = 32768
+    for _ in range(200):
+        port = random.randrange(10000, low)
+        with socket.socket() as sock:
+            try:
+                sock.bind(("", port))
+            except OSError:
+                continue
+        return port
+    raise RuntimeError(f"no free port in 10000-{low - 1}")
 
 
 def local_manifest(args, tmp: str, broker_url: str, metrics_port: int, checkpoint_every: int = 10, extra=()) -> list:
@@ -4315,7 +4355,7 @@ def phase_fleet(device, card: str, actors_window_ms=None, policy=None, steps: in
                                            "dotaclient_tpu_torch.serve.handoff", *sflags], cwd=tmp,
                                           stdout=subprocess.PIPE, text=True, env=pyenv, stderr=err)
         store_port = json.loads(store_proc.stdout.readline())["port"]
-        sports = [_free_port(), _free_port()]
+        sports = [_restart_port(), _restart_port()]  # server 1 is restarted on its ports
         endpoints = ",".join(f"127.0.0.1:{p}" for p in sports)
         # the league service binary with league.yaml's args
         lflags = manifest_args(LEAGUE_MANIFEST)
@@ -4332,7 +4372,7 @@ def phase_fleet(device, card: str, actors_window_ms=None, policy=None, steps: in
         lport = lready["port"]
         league_url = f"http://127.0.0.1:{lport}"
         iargs = manifest_args(INFERENCE_MANIFEST)
-        sobs = [_free_port(), _free_port()]  # each server's obs port, the same in every life
+        sobs = [_restart_port(), _restart_port()]  # each server's obs port, the same in every life
 
         def server_flags(i):
             out = list(iargs)
@@ -4724,10 +4764,27 @@ NORTH_STAR_FIELDS = ["result", "opponent", "anchor", "final agent rating", "fina
 # Phase 15's short skill run: learner updates, updates per evaluation and
 # episodes per evaluation.
 SKILL_UPDATES, SKILL_PER_EVAL, SKILL_EPISODES = 4, 2, 2
-# Phase 16: the soak's actor and replayer processes, and the learner
-# lives' periodic checkpoint interval in steps.
+# Phase 16: the soak's actor and replayer threads.
 CHAOS_ACTORS = CHAOS_REPLAYERS = 2
-LIVES_CKPT_EVERY = 5
+
+
+class launches_by_thread:
+    """`with launches_by_thread() as by_thread:` zeroes ops/lstm.py's
+    per-thread tally of recurrence launches; on exit `by_thread` holds the
+    launches the body made, by thread name."""
+
+    def __enter__(self) -> dict:
+        from dotaclient_tpu_torch.ops import lstm as L
+
+        L.LAUNCHES_BY_THREAD.clear()
+        self.by_thread = {}
+        return self.by_thread
+
+    def __exit__(self, *exc):
+        from dotaclient_tpu_torch.ops import lstm as L
+
+        self.by_thread.update(L.LAUNCHES_BY_THREAD)
+        return False
 
 
 def phase_skill(card: str, platform: str = ""):
@@ -4742,13 +4799,7 @@ def phase_skill(card: str, platform: str = ""):
     from dotaclient_tpu_torch.ops import lstm as L
     from dotaclient_tpu_torch.scripts import train_north_star as ns
 
-    by_thread, evaluator_launches, pools = {}, [], []
-    real_kernel = L.lstm_kernel
-
-    def counting_kernel(*args):
-        name = threading.current_thread().name
-        by_thread[name] = by_thread.get(name, 0) + 1
-        return real_kernel(*args)
+    evaluator_launches, pools = [], []
 
     class CountingEvaluator(ns.Evaluator):
         def evaluate(self, params, n_episodes=10, version=0):
@@ -4763,21 +4814,22 @@ def phase_skill(card: str, platform: str = ""):
             pools.append(self)
             return super().start()
 
-    saved = (L.lstm_kernel, ns.Evaluator, ns.ActorPool)
-    L.lstm_kernel, ns.Evaluator, ns.ActorPool = counting_kernel, CountingEvaluator, RecordingPool
+    saved = (ns.Evaluator, ns.ActorPool)
+    ns.Evaluator, ns.ActorPool = CountingEvaluator, RecordingPool
     tmp = tempfile.mkdtemp(prefix="skill_")
     try:
         argv = ["--out_dir", tmp, "--max_updates", str(SKILL_UPDATES), "--updates_per_eval", str(SKILL_PER_EVAL),
                 "--eval_episodes", str(SKILL_EPISODES)] + (["--platform", platform] if platform else [])
         L.LAUNCHES = 0  # the skill run's main path starts here
         t0 = time.perf_counter()
-        rc = ns.main(argv)
+        with launches_by_thread() as by_thread:
+            rc = ns.main(argv)
         wall_s = time.perf_counter() - t0
         launches = L.LAUNCHES
         recs = [json.loads(line) for line in open(os.path.join(tmp, "metrics.jsonl"))]
         md = open(os.path.join(tmp, "NORTH_STAR.md")).read()
     finally:
-        L.lstm_kernel, ns.Evaluator, ns.ActorPool = saved
+        ns.Evaluator, ns.ActorPool = saved
         shutil.rmtree(tmp, ignore_errors=True)
     actor_launches = sum(n for name, n in by_thread.items() if name.startswith("actor-"))
     fields = re.findall(r"^- ([a-z ]+):", md, flags=re.M)
@@ -4802,125 +4854,15 @@ def phase_skill(card: str, platform: str = ""):
     return res
 
 
-def _learner_lives_turn(device, policy, platform: str):
-    """A LearnerIncarnations turn: a term life (drain, full-state save,
-    clean exit; the next boot restores its version and state bitwise), a
-    kill life (nothing saved at death; the next boot restores the last
-    periodic checkpoint, every LIVES_CKPT_EVERY steps, and the published
-    high-water keeps the version stamps monotonic), and every life's
-    staging intake balanced exactly. One recurrence launch per learner
-    step."""
-    from dotaclient_tpu_torch.chaos import LearnerIncarnations
-    from dotaclient_tpu_torch.config import LearnerConfig
-    from dotaclient_tpu_torch.ops import lstm as L
-    from dotaclient_tpu_torch.runtime.checkpoint import Checkpointer, state_arrays
-    from dotaclient_tpu_torch.runtime.learner import Learner
-    from dotaclient_tpu_torch.scripts.chaos_soak import _VERSION_AT, make_frames
-    from dotaclient_tpu_torch.transport import memory as mem
-    from dotaclient_tpu_torch.transport.base import connect
-
-    name = "chip_lives"
-    mem.reset(name)
-    tmp = tempfile.mkdtemp(prefix="lives_")
-
-    def cfg_():
-        cfg = LearnerConfig(batch_size=16, seq_len=8, policy=policy, checkpoint_dir=tmp, checkpoint_every=LIVES_CKPT_EVERY,
-                            publish_every=1, metrics_every=5, platform=platform)
-        cfg.ckpt.full_state = True
-        cfg.ckpt.async_save = True
-        return cfg
-
-    learners, boot_states = [], []
-
-    def make_learner():
-        learner = Learner(cfg_(), connect(f"mem://{name}"), device=device)
-        learners.append(learner)
-        boot_states.append(state_arrays(learner.state))  # before its loop starts
-        return learner
-
-    frames = make_frames(cfg_(), 64)
-    stop_feed = threading.Event()
-    pub = connect(f"mem://{name}")
-
-    def feeder():
-        i = 0
-        while not stop_feed.is_set():
-            learner = inc.learner
-            if pub.experience_depth() < 48:
-                for _ in range(16):
-                    fr = bytearray(frames[i % len(frames)])
-                    struct.pack_into("<I", fr, _VERSION_AT, learner.version if learner is not None else 0)
-                    pub.publish_experience(bytes(fr))
-                    i += 1
-            time.sleep(0.005)
-
-    def wait_version(v, what):
-        deadline = time.monotonic() + 120
-        while inc.learner.version < v and time.monotonic() < deadline:
-            time.sleep(0.01)
-        if inc.learner.version < v:
-            raise SystemExit(f"learner lives: {what} never reached version {v}")
-
-    L.LAUNCHES = 0  # the learner lives' main path starts here
-    inc = LearnerIncarnations(make_learner, run_kwargs={"batch_timeout": 1.0}).start()
-    feed = threading.Thread(target=feeder, daemon=True)
-    feed.start()
-    try:
-        wait_version(3, "the first life")
-        term = inc.kill(sig="term")
-        inc.restart()
-        drained, booted = state_arrays(learners[0].state), boot_states[1]
-        bitwise = drained.keys() == booted.keys() and all(
-            v.dtype == booted[k].dtype and v.tobytes() == booted[k].tobytes() for k, v in drained.items())
-        term_resume = inc.boots[-1]["resume_version"]
-        wait_version(term["version"] + LIVES_CKPT_EVERY + 2, "the second life")
-        kill = inc.kill(sig="kill")
-        hwm = Checkpointer(tmp).published_hwm()
-        inc.restart()
-        boot = dict(inc.boots[-1])
-        if inc.wait_first_step(timeout=60.0) is None:
-            raise SystemExit("learner lives: no step after the kill life's restart")
-    finally:
-        stop_feed.set()
-        feed.join(timeout=10)
-    totals = inc.final_ledger()
-    launches = L.LAUNCHES
-    shutil.rmtree(tmp, ignore_errors=True)
-    trained = sum(life["version"] - b["resume_version"] for life, b in zip(inc.lives, inc.boots))
-    balances = [life["consumed"] + life["resume_pending"] - life["dropped_stale"] - life["dropped_bad"]
-                - (life["rows_packed"] - life["rows_replayed"]) - life["pending_at_death"] - life["replay_admitted"]
-                for life in inc.lives]
-    restored = int(boot["resume"].get("resume_restored_step", -1))
-    res = dict(term=dict(version=term["version"], exit_clean=term["exit_clean"], resume_version=term_resume,
-                         restores_bitwise=bitwise, death_wall_s=term["death_wall_s"]),
-               kill=dict(version=kill["version"], exit_clean=kill["exit_clean"], published_hwm=hwm,
-                         resume_version=boot["resume_version"], restored_step=restored,
-                         hwm_bump=boot["resume"].get("resume_version_hwm_bump")),
-               lives=len(inc.lives), intake_balances=balances, trained_steps=trained, launches=launches,
-               consumed=totals["consumed"])
-    print("learner lives", json.dumps(res), flush=True)
-    if not (term["exit_clean"] and term_resume == term["version"] and bitwise):
-        raise SystemExit(f"learner lives: the term life did not drain and restore bitwise: {res['term']}")
-    if kill["exit_clean"] or not (restored <= kill["version"] and (restored % LIVES_CKPT_EVERY == 0 or restored == term["version"])):
-        raise SystemExit(f"learner lives: the kill life did not resume from its last periodic checkpoint: {res['kill']}")
-    if hwm is None or boot["resume_version"] != max(hwm, restored) or boot["resume_version"] < restored:
-        raise SystemExit(f"learner lives: the version stamps are not monotonic across the kill: {res['kill']}")
-    if any(balances) or len(inc.lives) != 3:
-        raise SystemExit(f"learner lives: staging intake unbalanced {balances}")
-    if launches != trained or trained <= 0:
-        raise SystemExit(f"learner lives: {launches} recurrence launches for {trained} learner steps")
-    return res
-
-
 def phase_chaos(device, card: str, policy=None, kills: str = "3:2,8:2,13:2", baseline_s: float = 6.0,
                 chaos_s: float = 18.0, overload_s: float = 8.0, platform: str = ""):
     """Phase 16: the chaos soak's three phases (scripts/chaos_soak.py
     run_soak) at --quick-like durations with three broker kills, at the
     flagship policy (128-wide, bf16 compute) and the soak's own 16 x 8
-    batch and watermarks (maxlen 256, shed 48/16); then a
-    LearnerIncarnations turn. Fails unless every verdict holds, no frame
-    is unaccounted, every kill recovered, and the learner launched the
-    recurrence once per step."""
+    batch and watermarks (maxlen 256, shed 48/16). Fails unless every
+    verdict holds, no frame is unaccounted, every kill recovered, and the
+    learner launched the recurrence once per step. (Its learner lives'
+    term and kill checks are phase 21's resume soak: see phase_soaks.)"""
     from dotaclient_tpu_torch.config import PolicyConfig
     from dotaclient_tpu_torch.ops import lstm as L
 
@@ -4954,7 +4896,6 @@ def phase_chaos(device, card: str, policy=None, kills: str = "3:2,8:2,13:2", bas
         raise SystemExit(f"chaos: {v['kills_executed']} kills executed, {len(kill_rows)} reported")
     if launches != art["learner"]["steps"]:
         raise SystemExit(f"chaos: {launches} recurrence launches for {art['learner']['steps']} learner steps")
-    res["lives"] = _learner_lives_turn(device, policy, platform)
     return res
 
 
@@ -6517,6 +6458,240 @@ def phase_amqp_valve(device, card: str, base=None) -> dict:
     return res
 
 
+# Phase 21: the four other chaos soaks' twins at the flagship policy, each
+# at its own batch sizes: resume, serve chaos and serve handoff with their
+# twin's SMOKE_CUT (a cut of --quick that keeps every event), the fabric at
+# --quick. Each soak runs in a process of its own (`--soak NAME`), all four
+# at once and beside phases 12 and 15 (main runs them inside phase_soaks);
+# each zeroes and reads its own launch counts.
+SOAK_NAMES = ("resume", "fabric", "serve_chaos", "serve_handoff")
+SOAK_JOIN_S = 300
+# The threads that run a learner in the soaks: the main thread (resume part
+# A, the fabric's arm 1 and B's second life, the serve soaks' live learner),
+# LearnerIncarnations' lives (resume part B) and the fabric's learners A and
+# B. Every other thread (servers, actors, fleets, the fallback) launches no
+# recurrence.
+SOAK_LEARNER_THREADS = frozenset(("MainThread", "learner-life", "fabric-learner-a", "fabric-learner-b"))
+# The recurrence's shapes in the soaks' learners at the flagship width
+# (B, seq_len + 1, H): resume part A 16 x 8; serve chaos 8 x 8; resume part
+# B, the fabric's learners and serve handoff 8 x 4. Held against the plain
+# scan before the soaks run.
+SOAK_KERNEL_SHAPES = ((16, 9, 128), (8, 9, 128), (8, 5, 128))
+
+
+def soak_launch_split(by_thread: dict) -> tuple:
+    """(launches on the soaks' learner threads, launches on any other)."""
+    mine = sum(n for t, n in by_thread.items() if t in SOAK_LEARNER_THREADS)
+    return mine, sum(by_thread.values()) - mine
+
+
+def _soak_check(name: str, res: dict, steps: int, by_thread: dict, extra_red=(), left_out=()) -> None:
+    """Fail the smoke on a false verdict (but those named in `left_out`),
+    an unaccounted frame, or launches that are not one per learner step on
+    the learners' threads and none elsewhere."""
+    learner_launches, other = soak_launch_split(by_thread)
+    res.update(steps=steps, launches=learner_launches + other, launches_other_threads=other,
+               launches_by_thread=dict(by_thread))
+    red = [k for k, v in res["verdict"].items() if isinstance(v, bool) and not v and k not in left_out]
+    red += list(extra_red)
+    if red or any(res["unaccounted"]):
+        raise SystemExit(f"soaks: {name}: red {red}, unaccounted {res['unaccounted']}")
+    if learner_launches != steps or other or steps <= 0:
+        raise SystemExit(f"soaks: {name}: {learner_launches} launches on learner threads for {steps} learner steps, "
+                         f"{other} on other threads ({by_thread})")
+
+
+def _soak_resume(policy, platform: str = "") -> dict:
+    """The resume soak's parts A and B in this process, part C's subprocess
+    beside them. Part A holds what phase 16's learner lives held: the term
+    life restores bitwise (its drained state's hash = the next boot's), the
+    kill life resumes at the published high-water mark, every life's
+    intake balances, one launch per step."""
+    from dotaclient_tpu_torch.scripts import resume_soak as R
+
+    args = R.cut_args(["--platform", platform])
+    t0 = time.perf_counter()
+    box = {}
+    part_c = threading.Thread(target=lambda: box.update(c=R.run_part_c(platform)), daemon=True, name="soak-part-c")
+    part_c.start()
+    with launches_by_thread() as by_thread:
+        a = R.run_part_a(args, policy)
+        t_a = time.perf_counter() - t0
+        b = R.run_part_b(args, policy)
+    part_c.join(timeout=600)
+    c = box.get("c", {"error": "part C did not finish"})
+    verdict = R.verdict_of(args, a, b, c)
+    kill, term = a["sigkill"], a["sigterm"]
+    res = dict(wall_s=round(time.perf_counter() - t0, 2), part_a_s=round(t_a, 2), verdict=verdict,
+               unaccounted=[a["conservation_killed"]["unaccounted_frames"],
+                            a["conservation_reference"]["unaccounted_frames"], b["conservation"]["unaccounted_frames"]],
+               term=dict(restore_bitwise=term["restore_bitwise"], parity_versions=term["parity_versions"],
+                         drain_wall_s=term["drain_wall_s"], restart_construct_s=term["restart_construct_s"],
+                         pending_preserved=term["pending_preserved"]),
+               kill=dict(published_hwm=kill["published_hwm"], resumed_at_version=kill["resumed_at_version"],
+                         restored_step=kill["restored_step"], hwm_bump=kill["version_hwm_bump"],
+                         loss_divergence_max=kill["post_kill_loss_divergence_max"]),
+               intake_balances=a["conservation_killed"]["intake_balances"] + b["conservation"]["intake_balances"],
+               recovery_s=[k["recovery_s"] for k in b["kills"]], part_b_kills=[k["sig"] for k in b["kills"]],
+               part_b_lives=len(b["lives"]), part_c={k: c.get(k) for k in ("ok", "version", "ckpt_files", "error")})
+    extra = []
+    if not term["restore_bitwise"]:
+        extra.append("term_restore_bitwise")
+    if not kill["published_hwm"] == kill["resumed_at_version"] == args.kill_at:
+        extra.append("kill_resumed_at_published_hwm")
+    _soak_check("resume", res, a["frame_schedule"]["steps_trained"] + R.part_b_steps(b), by_thread, extra)
+    return res
+
+
+def _soak_fabric(policy, platform: str = "") -> dict:
+    """The fabric soak's --quick run. Its scaling verdict (and the
+    all_green it feeds) is left out by name: the card's host arms the bar
+    over in-process shards that one interpreter's lock holds near 1x
+    (ROADMAP.md §C); the result shows it."""
+    from dotaclient_tpu_torch.scripts import soak_broker_fabric as F
+
+    t0 = time.perf_counter()
+    with launches_by_thread() as by_thread:
+        art = F.run_soak(F.parse_args(["--quick", "--platform", platform]), policy)
+    pk, tl = art["phase_kill"], art["phase_two_learner"]
+    kinds = [e.get("kind", "kill") for e in pk["recovery"]]
+    res = dict(wall_s=round(time.perf_counter() - t0, 2), verdict=art["verdict"], unaccounted=[pk["unaccounted"]],
+               left_out=list(F.HOST_BOUND_VERDICTS),
+               recovery_s=[e["recovery_s"] for e in pk["recovery"]], kinds=kinds,
+               max_publish_gap_s=pk["max_publish_gap_s"], generations=len(pk["shard_generations"]),
+               resurrection={k: art["phase_resurrection"][k] for k in ("fence_dropped", "failovers", "delivered")},
+               two_learner={k: tl[k] for k in ("drained_at_version", "pending_frames_saved", "resumed_at_version",
+                                               "bit_exact")},
+               host_probe=art["host_probe"]["scaling_3_over_1"],
+               scaling={k: art["phase_scaling"][k] for k in ("scaling_3_over_1", "required", "met", "excused_by_probe")})
+    extra = [] if ("kill" in kinds and kinds.count("rolling") == pk["shards"]) else ["kill_and_rolling_executed"]
+    _soak_check("fabric", res, tl["steps_trained"], by_thread, extra, left_out=F.HOST_BOUND_VERDICTS)
+    return res
+
+
+def _soak_serve(name: str, policy, platform: str = "") -> dict:
+    """The serve chaos (name "chaos") or the serve handoff ("handoff")
+    soak's run_soak, its fleet's envs in process (the card's machine has
+    no grpc)."""
+    from dotaclient_tpu_torch.scripts import soak_serve_chaos, soak_serve_handoff
+
+    mod = {"chaos": soak_serve_chaos, "handoff": soak_serve_handoff}[name]
+    args = mod.cut_args(["--platform", platform, "--env", "local"])
+    t0 = time.perf_counter()
+    with launches_by_thread() as by_thread:
+        art = mod.run_soak(args, policy)
+    res = dict(wall_s=round(time.perf_counter() - t0, 2), phase_s=art["wall_s"], verdict=art["verdict"],
+               unaccounted=[art["conservation"]["unaccounted_frames"]])
+    p1 = art["phase_1_parity"]
+    extra = []
+    if name == "chaos":
+        p2, p3 = art["phase_2_failover"], art["phase_3_fallback"]
+        res.update(parity_matched=p1["matched_frames_bitwise"], parity_inflight_failures=p1["inflight_step_failures"],
+                   parity_recovery_s=[k["recovery_s"] for k in p1["kills"] or []],
+                   failover_recovery_s=p2["client_recovery_s"], fallback_engage_delay_s=p3["engage_delay_s"],
+                   fallback_engagements=p3["engagements_total"], fallback_steps=p3["fallback_steps_total"],
+                   fallback_recovery_s=[k["recovery_s"] for k in p3["kills"] or []])
+        if not (p1["kills"] and p2["client_recovery_s"] and p3["engagements_total"] == 1 and p3["engaged_at_end"] == 0):
+            extra.append("parity_failover_fallback_events")
+    else:
+        lat, p2 = p1["latency"], art["phase_2_conservation"]
+        res.update(parity_matched=p1["matched_frames_bitwise"], parity_kills=p1["kills_executed"],
+                   resumed=[p1["episodes_resumed"], p2["episodes_resumed"]],
+                   abandoned=[p1["episodes_abandoned"], p2["episodes_abandoned"]],
+                   p99_ms_windows=lat["p99_ms_during_restart_windows"], window_samples=lat["window_samples"],
+                   p99_ms_rolling_overall=lat["p99_ms_rolling_arm_overall"], p99_ms_baseline=lat["p99_ms_baseline_arm"],
+                   conserve_kills=p2["kills_executed"],
+                   rolling_recovery_s=[k["recovery_s"] for k in (p1["rolling_recovery"] or [])])
+    _soak_check(f"serve {name}", res, art["learner_steps"], by_thread, extra)
+    return res
+
+
+SOAKS = {"resume": _soak_resume, "fabric": _soak_fabric, "serve_chaos": lambda p: _soak_serve("chaos", p),
+         "serve_handoff": lambda p: _soak_serve("handoff", p)}
+
+
+def soak_main(argv) -> int:
+    """`chip_smoke.py --soak NAME`: one of phase 21's soaks on the card at
+    the flagship policy; prints `soak NAME {json}` and exits 0, or prints
+    why it failed and exits 1."""
+    from dotaclient_tpu_torch.config import PolicyConfig
+
+    name = argv[0]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        res = SOAKS[name](PolicyConfig())
+    except SystemExit as e:
+        print(f"soak {name} failed: {e}", flush=True)
+        return 1
+    print(f"soak {name} {json.dumps(res)}", flush=True)
+    return 0
+
+
+def phase_soaks(device, card: str, beside=lambda: None) -> tuple:
+    """Phase 21: the twins of the reference's resume, broker-fabric, serve
+    chaos and serve handoff soaks (dotaclient_tpu_torch/scripts/), at the
+    flagship policy (128-wide, bf16 compute) and each soak's own batch
+    sizes, four processes at once (`--soak NAME`), while this process runs
+    `beside()` (the smoke's phases 12 and 15). The serve soaks' fleets step their
+    envs in process: the card's machine has no grpc. Fails if the kernel
+    misses its plain scan at a soak's shape, or a soak fails: a false
+    verdict, an unaccounted frame, a hash that is not bit-exact (each a
+    verdict), or launches that are not one per learner step on the
+    learners' threads and none elsewhere. Returns (the soaks' result,
+    beside's)."""
+    from dotaclient_tpu_torch.config import PolicyConfig
+    from dotaclient_tpu_torch.ops import lstm as L
+
+    t0 = time.perf_counter()
+    dtype = torch.bfloat16 if PolicyConfig().dtype == "bfloat16" else torch.float32
+    shapes = []
+    for B, T, H in SOAK_KERNEL_SHAPES:
+        ins = lstm_inputs(B, T, H, dtype, device, seed=B * T)
+        with torch.no_grad():
+            err = max((a - b).abs().max().item() for a, b in zip(L.lstm_kernel(*ins), L.lstm_scan(*ins)))
+        shapes.append(dict(shape=[B, T, H], max_abs_err=err))
+        if not err <= TOL_KERNEL[dtype]:
+            raise SystemExit(f"soaks: the kernel at {B}x{T}x{H} {dtype} misses its plain scan by {err}")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_soaks_")
+    logs = {n: os.path.join(tmp, f"{n}.log") for n in SOAK_NAMES}
+    procs = {n: _mh_spawn(["--soak", n], logs[n]) for n in SOAK_NAMES}
+    deadline = time.monotonic() + SOAK_JOIN_S
+    try:
+        t_beside = time.perf_counter()
+        beside_res = beside()
+        t_beside = time.perf_counter() - t_beside
+        for n, p in procs.items():
+            try:
+                p.wait(timeout=max(deadline - time.monotonic(), 1.0))
+            except subprocess.TimeoutExpired:
+                raise SystemExit(f"soaks: {n} did not finish within {SOAK_JOIN_S} s:\n{open(logs[n]).read()[-3000:]}")
+        res = {}
+        for n, p in procs.items():
+            text = open(logs[n]).read()
+            lines = [line for line in text.splitlines() if line.startswith(f"soak {n} {{")]
+            if p.returncode != 0 or not lines:
+                raise SystemExit(f"soaks: {n} exited {p.returncode}:\n{text[-3000:]}")
+            res[n] = json.loads(lines[-1][len(f"soak {n} "):])
+            print(lines[-1], flush=True)
+    finally:
+        for p in procs.values():
+            stop_process(p)
+        shutil.rmtree(tmp, ignore_errors=True)
+    for key in ("launches", "steps", "launches_other_threads"):
+        res[key] = sum(res[n][key] for n in SOAK_NAMES)
+    res["kernel_vs_plain"] = shapes
+    res["phase_s"] = round(time.perf_counter() - t0, 2)
+    res["beside_s"] = round(t_beside, 2)
+    if res["launches"] != res["steps"] or res["launches_other_threads"]:
+        raise SystemExit(f"soaks: {res['launches']} recurrence launches for {res['steps']} learner steps, "
+                         f"{res['launches_other_threads']} on other threads")
+    print(f"soaks: phase {res['phase_s']:.1f} s, {res['beside_s']:.1f} of it this process's own phases beside the "
+          "soaks (each soak's wall: " + ", ".join(f"{n} {res[n]['wall_s']:.1f}" for n in SOAK_NAMES)
+          + f" s), {res['launches']} recurrence launches for {res['steps']} learner steps | {card}", flush=True)
+    return res, beside_res
+
+
 # ----------------------------------------------------------------- probes
 # `python3 chip_smoke.py --probe profile|profile_kineto|tree_h2d|replay_h2d`
 # measures one question each and checks nothing; the smoke never runs them.
@@ -6907,14 +7082,16 @@ def main() -> int:
         for proc, _, _ in shards:
             stop_process(proc)
     marks.append(("10-11", time.perf_counter()))
-    transformer = phase_transformer(device, card)  # zeroes the counter itself; no path of it may launch the kernel
-    marks.append(("12", time.perf_counter()))
+    # phase 21's four soak processes (each counting its own launches by
+    # thread) run beside phases 12 and 15, which zero this process's
+    # counter themselves (no path of 12 may launch the kernel)
+    soaks, (transformer, skill) = phase_soaks(device, card,
+                                              beside=lambda: (phase_transformer(device, card), phase_skill(card)))
+    marks.append(("12 + 15 + 21", time.perf_counter()))
     actors = phase_actors(device, card, fabric_window_ms=fabric["fabric_window_ms"])  # zeroes the counter itself
     marks.append(("13", time.perf_counter()))
     fleet = phase_fleet(device, card, actors_window_ms=actors["window_ms_median"])  # zeroes the counter itself
     marks.append(("14", time.perf_counter()))
-    skill = phase_skill(card)  # zeroes the counter itself
-    marks.append(("15", time.perf_counter()))
     chaos = phase_chaos(device, card)  # zeroes the counter itself before each path; imports the chaos package
     marks.append(("16", time.perf_counter()))
     modes = phase_data_modes(device, card)  # zeroes the counter itself before each path
@@ -6974,7 +7151,6 @@ def main() -> int:
             "launches_skill": skill["launches"],
             "skill": skill,
             "launches_chaos": chaos["launches"],
-            "launches_learner_lives": chaos["lives"]["launches"],
             "chaos": chaos,
             "launches_data_modes": modes["launches"],
             "data_modes": modes,
@@ -6984,6 +7160,8 @@ def main() -> int:
             "model_parallel": model_parallel,
             "launches_amqp_valve": amqp_valve["launches"],
             "amqp_valve": amqp_valve,
+            "launches_soaks": soaks["launches"],
+            "soaks": soaks,
         }
     ]
     spans = ", ".join(f"{name} {t1 - t0:.1f}" for (_, t0), (name, t1) in zip(marks, marks[1:]))
@@ -7015,6 +7193,8 @@ if __name__ == "__main__":
         sys.exit(fleet_evaluator_main(sys.argv[2:]))
     if sys.argv[1:2] == ["--probe"]:
         sys.exit(probe_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--soak"]:
+        sys.exit(soak_main(sys.argv[2:]))
     if sys.argv[1:2] == ["--mh-rank"]:
         sys.exit(mh_rank_main(sys.argv[2:]))
     if sys.argv[1:2] == ["--mh-binary"]:

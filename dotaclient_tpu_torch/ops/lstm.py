@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from typing import Dict, NamedTuple, Tuple
 
 import torch
@@ -35,8 +36,10 @@ from dotaclient_tpu_torch.ops import _kernels
 LSTMState = Tuple[torch.Tensor, torch.Tensor]  # (c, h), each [B, H] f32
 
 # Launches of the CUDA kernel in this process; read and reset by callers
-# that must show a run went through the kernel.
+# that must show a run went through the kernel. LAUNCHES_BY_THREAD holds
+# the same launches by the launching thread's name (reset with .clear()).
 LAUNCHES = 0
+LAUNCHES_BY_THREAD: Dict[str, int] = {}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_THREADS = 1024
@@ -207,6 +210,8 @@ def lstm_kernel(x_proj, w_h, c0, h0):
         msg = lib.lstm_recurrence_error_string(rc).decode()
         raise RuntimeError(f"lstm_recurrence kernel launch failed: {msg} (cudaError {rc})")
     LAUNCHES += 1
+    name = threading.current_thread().name
+    LAUNCHES_BY_THREAD[name] = LAUNCHES_BY_THREAD.get(name, 0) + 1
     return h_seq, c_seq, c_T, h_T
 
 

@@ -448,23 +448,15 @@ def test_env_rpc_errors_are_retried_with_the_capped_backoff(monkeypatch):
 # ------------------------------------------------------------ refusals
 
 
-# Modes the actor refused until they were ported: (flag, value, ROADMAP
-# item). Each now builds its actors and reaches its path.
-REFUSED = [
-    ("env_dialect", "valve", "A.11d"),
-]
-
-
-@pytest.mark.parametrize("flag,value,item", REFUSED)
-def test_unported_actor_modes_are_refused_naming_their_item(flag, value, item, monkeypatch):
-    """The valve dialect is ported: Actor, VectorActor and the binary take
-    it, and the env stub an actor dials speaks the real dotaservice's
-    service (tests/test_torch_valve_adapter.py plays episodes over it)."""
+def test_valve_dialect_builds_and_dials(monkeypatch):
+    """The valve dialect (once refused, A.11d): Actor, VectorActor and the
+    binary take it, and the env stub an actor dials speaks the real
+    dotaservice's service (tests/test_torch_valve_adapter.py plays
+    episodes over it)."""
     from dotaclient_tpu_torch.env import service
     from dotaclient_tpu_torch.env.valve_adapter import VALVE_SERVICE, ValveDotaServiceStub
 
-    cfg = ActorConfig(platform="cpu", policy=PolicyConfig(**SMALL))
-    setattr(cfg, flag, value)
+    cfg = ActorConfig(platform="cpu", policy=PolicyConfig(**SMALL), env_dialect="valve")
     actor = tactor.Actor(cfg, tmem.MemoryBroker("refuse"))
     vec = tactor.VectorActor(cfg, tmem.MemoryBroker("refuse"), envs=2)
     assert actor.cfg.env_dialect == vec.cfg.env_dialect == "valve"
@@ -482,7 +474,7 @@ def test_unported_actor_modes_are_refused_naming_their_item(flag, value, item, m
     seen = []
     monkeypatch.setattr(service, "require_grpc", lambda: None)
     monkeypatch.setattr(tactor, "build_actors", lambda c, broker: seen.append(c) or [])
-    tactor.main([f"--{flag}", value, "--platform", "cpu", "--broker_url", "mem://refuse"])
+    tactor.main(["--env_dialect", "valve", "--platform", "cpu", "--broker_url", "mem://refuse"])
     assert [c.env_dialect for c in seen] == ["valve"]
 
 
@@ -511,7 +503,7 @@ def test_every_unported_actor_mode_is_tested_and_the_serve_client_flags_do_not_p
     above), the remote client and self-play parse to the reference's
     values and select no refusal (the name is this test's since the flags
     were unported)."""
-    assert unported_flags(ActorConfig()) == [] and {r[0] for r in REFUSED} == {"env_dialect"}
+    assert unported_flags(ActorConfig()) == []
     for argv in (["--serve.cooldown_s", "5"], ["--serve.resume", "true"], ["--team_size", "5"],
                  ["--pfsp_mode", "even"], ["--serve.route", "load"], ["--serve.endpoint", "a:1,b:2"],
                  ["--serve.league", "league:13410"], ["--opponent", "self"], ["--opponent", "league"],

@@ -42,9 +42,10 @@ def inputs(B, T, H, dtype, device, seed=0):
     "B,T,H",
     # B=128: a minibatch of the reuse step; H=48: a cluster of 3; H=40: the
     # per-thread design; H=1024: per-thread, W_h from global memory; 16x17x16:
-    # the skill run's learner (scripts/train_north_star.py)
+    # the skill run's learner (scripts/train_north_star.py); 16x9x128,
+    # 8x9x128, 8x5x128: the soaks' learners at the flagship width
     [(256, 17, 128), (128, 17, 128), (37, 17, 128), (5, 3, 32), (3, 1, 64), (9, 4, 256), (21, 5, 48), (4, 3, 40), (2, 2, 1024),
-     (16, 17, 16)],
+     (16, 17, 16), (16, 9, 128), (8, 9, 128), (8, 5, 128)],
 )
 def test_kernel_matches_scan(cuda, dtype, B, T, H):
     ins = inputs(B, T, H, dtype, cuda)
@@ -305,17 +306,67 @@ def test_learner_loop_launches_the_kernel_once_per_step(cuda, tmp_path):
 
 
 def test_learner_incarnations_term_then_kill_on_the_card(cuda):
-    """chaos/controller.py's LearnerIncarnations on the card, through
-    chip_smoke.py's own turn (it raises SystemExit on a failed check): a
-    term life drains and the next boot restores its version and state
-    bitwise; a kill life saves nothing at death and the next boot restores
-    the last periodic checkpoint at the published high-water; every life's
-    staging intake balances; one recurrence launch per learner step."""
+    """chaos/controller.py's LearnerIncarnations on the card, as the resume
+    soak's part B drives them (dotaclient_tpu_torch/scripts/resume_soak.py):
+    real actors over tcp:// while a ScheduleRunner drains one life with
+    SIGTERM and kills the next; both recover in budget, every life's intake
+    balances, no popped frame is unaccounted, and the learners' threads
+    launch the recurrence once per step while the actors' launch none."""
+    import chip_smoke
+    from dotaclient_tpu_torch.scripts import resume_soak as R
+
+    args = R.cut_args()
+    with chip_smoke.launches_by_thread() as by_thread:
+        b = R.run_part_b(args, _loop_cfg().policy)
+    assert [k["sig"] for k in b["kills"]] == ["term", "kill"] and len(b["lives"]) == 3
+    assert all(k["recovery_s"] is not None and k["recovery_s"] < args.recovery_budget_s for k in b["kills"])
+    assert b["conservation"]["unaccounted_frames"] == 0 and not any(b["conservation"]["intake_balances"])
+    assert chip_smoke.soak_launch_split(by_thread) == (R.part_b_steps(b), 0) and R.part_b_steps(b) > 0
+
+
+def _soak_policy():
+    return _loop_cfg().policy
+
+
+def test_resume_soak_on_the_card(cuda):
+    """The resume soak's twin as phase 21 runs it, at a 64/128/64 policy:
+    part A bit-exact after the drain (the drained state restored bitwise),
+    the kill life at the published high-water, part B's term and kill,
+    part C inert; one launch per learner step (chip_smoke raises on any)."""
     import chip_smoke
 
-    res = chip_smoke._learner_lives_turn(cuda, _loop_cfg().policy, "")
-    assert res["lives"] == 3 and res["term"]["restores_bitwise"] and not any(res["intake_balances"])
-    assert res["launches"] == res["trained_steps"] > 0
+    res = chip_smoke._soak_resume(_soak_policy())
+    assert res["verdict"]["sigterm_resume_bit_exact"] and res["term"]["restore_bitwise"]
+    assert res["kill"]["published_hwm"] == res["kill"]["resumed_at_version"] and res["part_c"]["ok"]
+    assert res["launches"] == res["steps"] > 0 and res["launches_other_threads"] == 0
+
+
+def test_fabric_soak_on_the_card(cuda):
+    """The broker-fabric soak's twin: shard kills and a rolling restart
+    with every generation exact, the resurrection fenced, learner B
+    bit-exact across its drain and restart on the card."""
+    import chip_smoke
+
+    from dotaclient_tpu_torch.scripts.soak_broker_fabric import HOST_BOUND_VERDICTS
+
+    res = chip_smoke._soak_fabric(_soak_policy())
+    held = {k: v for k, v in res["verdict"].items() if k not in HOST_BOUND_VERDICTS}
+    assert all((v is True) if isinstance(v, bool) else (v == 0) for v in held.values()), res["verdict"]
+    assert res["two_learner"]["bit_exact"]
+    assert res["launches"] == res["steps"] > 0 and res["launches_other_threads"] == 0
+
+
+@pytest.mark.parametrize("name", ["chaos", "handoff"])
+def test_serve_soaks_on_the_card(cuda, name):
+    """The serve chaos and serve handoff soaks' twins with servers, the
+    learner and the fallback on the card (the fleets' envs in process):
+    every verdict true, the parity prefix (chaos) or the whole stream
+    (handoff) bitwise, launches only on the learner's thread."""
+    import chip_smoke
+
+    res = chip_smoke._soak_serve(name, _soak_policy())
+    assert all(v for v in res["verdict"].values() if isinstance(v, bool)) and res["unaccounted"] == [0]
+    assert res["launches"] == res["steps"] > 0 and res["launches_other_threads"] == 0
 
 
 def test_a_ring_slot_goes_back_only_after_its_copy_retired(cuda):

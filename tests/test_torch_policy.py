@@ -246,7 +246,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     files = sorted((REPO / "dotaclient_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 10
     for new in ("transport/fabric.py", "serve/handoff.py", "protos/message.py", "env/service.py", "runtime/actor.py",
-                "chaos/schedule.py", "chaos/controller.py", "scripts/train_north_star.py", "scripts/chaos_soak.py"):
+                "chaos/schedule.py", "chaos/controller.py", "scripts/train_north_star.py", "scripts/chaos_soak.py",
+                "scripts/resume_soak.py", "scripts/soak_broker_fabric.py", "scripts/soak_serve_chaos.py",
+                "scripts/soak_serve_handoff.py"):
         assert REPO / "dotaclient_tpu_torch" / new in files
     grpc_sites = set()
     for path in files:

@@ -256,7 +256,7 @@ def test_5v5_mirror_is_one_b10_call_per_tick_and_publishes_per_hero():
     assert actor.rollouts_shed == actor.rollouts_failed == 0
 
 
-def test_selfplay_refuses_scripted_and_unported_modes():
+def test_selfplay_refuses_a_scripted_opponent_and_builds_the_valve_dialect():
     """A scripted opponent is refused, naming the flag; no mode is left
     unported, so the valve dialect builds."""
     cfg = ActorConfig(policy=POLICY, platform="cpu")

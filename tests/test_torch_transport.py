@@ -239,7 +239,7 @@ def test_port_hubs_are_separate_from_the_reference_hubs():
 
 
 @pytest.mark.parametrize("url", ["tcp://127.0.0.1:1", "amqp://guest@localhost/", "mem://a,mem://b", "tcp://h:1,tcp://h:2"])
-def test_connect_refuses_unported_brokers(url, monkeypatch):
+def test_connect_routes_every_scheme(url, monkeypatch):
     """No scheme is refused any more. amqp:// is ported
     (tests/test_torch_rmq.py): it needs pika (the fake one here), and
     without it says so. tcp:// (tests/test_torch_tcp.py) dials at
