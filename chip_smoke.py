@@ -177,12 +177,25 @@ Phases, in order; any failure exits non-zero:
               verdict true (but the fabric's host-bound scaling bar), 0
               unaccounted, one launch per learner step and none on any
               other thread; four processes at once, beside phases 12
-              and 15 (see phase_soaks).
+              and 15 (see phase_soaks);
+22. control soaks — the twins of the reference's fleet telemetry soak
+              (two shard processes, a rolling restart read as a fence, a
+              theft flagged within one poll window, the alert's bundle
+              from several processes, the control plane scaling on a
+              fleetd meter; no CUDA context in its process), its autoscale
+              soak (serve replicas on the card at the flagship policy
+              scaled 2→4→2, broker shards 2→4→2 and an actor pool up and
+              back under a rolling restart and a kill, every move
+              justified by its meters, no abandoned episode, no launch)
+              and its obs smoke (a flagship learner's and a server's whole
+              HTTP surface, POST /profile through CUPTI, fleetd's audit at
+              0 unaccounted, one launch per learner step); three processes
+              at once, beside phases 16 and 17 (see phase_control_soaks).
 Each path of the main path (serving, learner forward, each train step,
 the reuse step, the learner loop, the manifest learner, the fabric
 learner, the serve manifest, the actors' closed loop, the fleet's loop,
 the skill run, the chaos soak, each data mode, each multihost turn, each
-amqp:// and valve turn and each of the four soaks) is driven with the kernels' launch counters zeroed
+amqp:// and valve turn and each of the seven soaks) is driven with the kernels' launch counters zeroed
 just before it and read just after (the serve manifest's servers, the
 actor processes, the league service, the evaluator, the multihost
 ranks and the soaks are processes of their own, which start at 0 and
@@ -1348,18 +1361,16 @@ def manifest_args(path: str = MANIFEST, container: int = 0) -> list:
     return lists[container]
 
 
+_PORTS_DRAWN: set = set()
+
+
 def _free_port() -> int:
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        return sock.getsockname()[1]
-
-
-def _restart_port() -> int:
-    """A free port below the kernel's ephemeral range, for a server killed
-    and restarted on the same port: while it is down, a port of the
-    ephemeral range can become the local port of any process's outgoing
-    connection, and the restart's bind then fails with EADDRINUSE (phase
-    14's server 1 has failed to restart so)."""
+    """A free port below the kernel's ephemeral range, never one this
+    process drew before. A port drawn here is bound later, often by another
+    process, or again after a restart; a port of the ephemeral range can
+    meanwhile become the local port of any process's outgoing connection,
+    and the bind then fails with EADDRINUSE (phase 14's server 1 failed to
+    restart so, and an actor's /metrics to start)."""
     try:
         with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
             low = int(f.read().split()[0])
@@ -1367,11 +1378,14 @@ def _restart_port() -> int:
         low = 32768
     for _ in range(200):
         port = random.randrange(10000, low)
+        if port in _PORTS_DRAWN:
+            continue
         with socket.socket() as sock:
             try:
                 sock.bind(("", port))
             except OSError:
                 continue
+        _PORTS_DRAWN.add(port)
         return port
     raise RuntimeError(f"no free port in 10000-{low - 1}")
 
@@ -4355,7 +4369,7 @@ def phase_fleet(device, card: str, actors_window_ms=None, policy=None, steps: in
                                            "dotaclient_tpu_torch.serve.handoff", *sflags], cwd=tmp,
                                           stdout=subprocess.PIPE, text=True, env=pyenv, stderr=err)
         store_port = json.loads(store_proc.stdout.readline())["port"]
-        sports = [_restart_port(), _restart_port()]  # server 1 is restarted on its ports
+        sports = [_free_port(), _free_port()]  # server 1 is restarted on its ports
         endpoints = ",".join(f"127.0.0.1:{p}" for p in sports)
         # the league service binary with league.yaml's args
         lflags = manifest_args(LEAGUE_MANIFEST)
@@ -4372,7 +4386,7 @@ def phase_fleet(device, card: str, actors_window_ms=None, policy=None, steps: in
         lport = lready["port"]
         league_url = f"http://127.0.0.1:{lport}"
         iargs = manifest_args(INFERENCE_MANIFEST)
-        sobs = [_restart_port(), _restart_port()]  # each server's obs port, the same in every life
+        sobs = [_free_port(), _free_port()]  # each server's obs port, the same in every life
 
         def server_flags(i):
             out = list(iargs)
@@ -6485,10 +6499,12 @@ def soak_launch_split(by_thread: dict) -> tuple:
     return mine, sum(by_thread.values()) - mine
 
 
-def _soak_check(name: str, res: dict, steps: int, by_thread: dict, extra_red=(), left_out=()) -> None:
+def _soak_check(name: str, res: dict, steps: int, by_thread: dict, extra_red=(), left_out=(), trains=True) -> None:
     """Fail the smoke on a false verdict (but those named in `left_out`),
     an unaccounted frame, or launches that are not one per learner step on
-    the learners' threads and none elsewhere."""
+    the learners' threads and none elsewhere. A soak that trains nothing
+    (`trains` False) must count 0 steps and launch nothing; one that trains
+    must count steps."""
     learner_launches, other = soak_launch_split(by_thread)
     res.update(steps=steps, launches=learner_launches + other, launches_other_threads=other,
                launches_by_thread=dict(by_thread))
@@ -6496,7 +6512,7 @@ def _soak_check(name: str, res: dict, steps: int, by_thread: dict, extra_red=(),
     red += list(extra_red)
     if red or any(res["unaccounted"]):
         raise SystemExit(f"soaks: {name}: red {red}, unaccounted {res['unaccounted']}")
-    if learner_launches != steps or other or steps <= 0:
+    if learner_launches != steps or other or (steps > 0) != trains:
         raise SystemExit(f"soaks: {name}: {learner_launches} launches on learner threads for {steps} learner steps, "
                          f"{other} on other threads ({by_thread})")
 
@@ -6606,17 +6622,90 @@ def _soak_serve(name: str, policy, platform: str = "") -> dict:
     return res
 
 
+# Phase 22: the control-plane soaks' twins and the obs smoke, each in a
+# process of its own (`--soak NAME`), all three at once beside phases of this
+# process (main picks them). The fleet soak at --quick places nothing on the
+# card and must leave its process without a CUDA context; the autoscale soak
+# (SMOKE_CUT) serves the flagship policy from replicas on the card and trains
+# nothing; the obs smoke's learner trains its steps at the flagship policy.
+CONTROL_SOAK_NAMES = ("fleet_obs", "autoscale", "obs_smoke")
+CONTROL_SOAK_JOIN_S = 240
+
+
+def _soak_fleet_obs(policy=None, platform: str = "") -> dict:
+    """The fleet telemetry soak's --quick run (`policy` and `platform`
+    unused: nothing of it is placed on a device). Fails if the process holds
+    a CUDA context at the end."""
+    from dotaclient_tpu_torch.scripts import soak_fleet_obs as FO
+
+    with launches_by_thread() as by_thread:
+        art = FO.run_soak(FO.parse_args(["--quick", "--out", os.devnull]))
+    a, b = art["phase_a"], art["phase_b"]
+    res = dict(wall_s=art["wall_s"], verdict=art["verdict"],
+               unaccounted=[a["slo"]["fleet_unaccounted_frames"], b["slo"]["fleet_unaccounted_frames"] - FO.STEAL],
+               resident_at_kill=a["resident_at_kill"], fenced=a["slo"]["fleet_fenced_frames"],
+               polls_theft_to_flag=b["polls_at_detect"] - b["polls_at_steal"], bundle_pids=b["bundle_flight_pids"],
+               bundle_roles=b["bundle_flight_roles"], moves=[m["value"] for m in art["control"]["moves"]],
+               shard_ports=a["shard_ports"], cuda_initialized=torch.cuda.is_initialized())
+    _soak_check("fleet_obs", res, 0, by_thread, ["cuda_initialized"] if res["cuda_initialized"] else [], trains=False)
+    return res
+
+
+def _soak_autoscale(policy, platform: str = "") -> dict:
+    """The autoscale soak's SMOKE_CUT (every event of --quick) with its serve
+    replicas on `platform` serving `policy`; it trains nothing, so no
+    recurrence launch anywhere."""
+    from dotaclient_tpu_torch.scripts import soak_autoscale as AS
+
+    with launches_by_thread() as by_thread:
+        art = AS.run_soak(AS.cut_args(["--platform", platform]), policy)
+    totals, moves = art["producer_totals"], art["decisions"]["moves"]
+    res = dict(wall_s=art["wall_s"], verdict=art["verdict"], unaccounted=[s["unaccounted"] for s in art["broker_shards"]],
+               paths=art["replica_paths"], moves=len(moves), holds=art["decisions"]["holds"],
+               move_t=[round(m["t"] - moves[0]["t"], 2) for m in moves],
+               abandoned=totals["episodes_abandoned"], resumed=totals["episodes_resumed"],
+               episodes=totals["episodes_done"], serve_kills=art["serve_kills"],
+               recovery_s=[k.get("recovery_s") for k in art["chaos_recovery"] or []],
+               settled_s=art["timeline"][-1]["t"], discovery=art["discovery"])
+    _soak_check("autoscale", res, 0, by_thread, trains=False)
+    return res
+
+
+def _soak_obs_smoke(policy, platform: str = "") -> dict:
+    """The obs smoke with its learner and server on `platform` at `policy`:
+    `ok`, the profile answered, 0 unaccounted in its fleet, one launch per
+    learner step on the learner's thread."""
+    from dotaclient_tpu_torch.scripts import obs_smoke as OS
+
+    with launches_by_thread() as by_thread:
+        out = OS.run_smoke(policy, platform)
+    fleet = out.get("fleet", {})
+    res = dict(wall_s=out["wall_s"], verdict={"ok": out["ok"]},
+               unaccounted=[fleet.get("unaccounted_frames", -1)], profile_answer_s=out.get("profile_answer_s"),
+               profile_kernels=out.get("profile_kernels"), profile_error=out.get("profile_error"),
+               metrics_scalars=out.get("metrics_scalars"), fleet_polls=fleet.get("polls"),
+               serve_error=out["serve"].get("error"))
+    _soak_check("obs_smoke", res, out.get("steps", 0), by_thread)
+    return res
+
+
 SOAKS = {"resume": _soak_resume, "fabric": _soak_fabric, "serve_chaos": lambda p: _soak_serve("chaos", p),
-         "serve_handoff": lambda p: _soak_serve("handoff", p)}
+         "serve_handoff": lambda p: _soak_serve("handoff", p), "fleet_obs": _soak_fleet_obs,
+         "autoscale": _soak_autoscale, "obs_smoke": _soak_obs_smoke}
 
 
 def soak_main(argv) -> int:
-    """`chip_smoke.py --soak NAME`: one of phase 21's soaks on the card at
-    the flagship policy; prints `soak NAME {json}` and exits 0, or prints
+    """`chip_smoke.py --soak NAME`: one of phase 21's or 22's soaks on the
+    card at the flagship policy; prints `soak NAME {json}` and exits 0, or prints
     why it failed and exits 1."""
+    import faulthandler
+
     from dotaclient_tpu_torch.config import PolicyConfig
 
     name = argv[0]
+    # a soak that hangs leaves every thread's stack in its log before its
+    # phase gives up on it
+    faulthandler.dump_traceback_later((CONTROL_SOAK_JOIN_S if name in CONTROL_SOAK_NAMES else SOAK_JOIN_S) - 20)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     try:
@@ -6626,6 +6715,38 @@ def soak_main(argv) -> int:
         return 1
     print(f"soak {name} {json.dumps(res)}", flush=True)
     return 0
+
+
+def _soak_processes(names, join_s: float, beside, label: str) -> tuple:
+    """`chip_smoke.py --soak NAME` for every name at once, while this process
+    runs `beside()`; each soak's `soak NAME {json}` line. Returns (the soaks'
+    results by name, beside's result, beside's seconds)."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_soaks_")
+    logs = {n: os.path.join(tmp, f"{n}.log") for n in names}
+    procs = {n: _mh_spawn(["--soak", n], logs[n]) for n in names}
+    deadline = time.monotonic() + join_s
+    try:
+        t_beside = time.perf_counter()
+        beside_res = beside()
+        t_beside = time.perf_counter() - t_beside
+        for n, p in procs.items():
+            try:
+                p.wait(timeout=max(deadline - time.monotonic(), 1.0))
+            except subprocess.TimeoutExpired:
+                raise SystemExit(f"{label}: {n} did not finish within {join_s} s:\n{open(logs[n]).read()[-12000:]}")
+        res = {}
+        for n, p in procs.items():
+            text = open(logs[n]).read()
+            lines = [line for line in text.splitlines() if line.startswith(f"soak {n} {{")]
+            if p.returncode != 0 or not lines:
+                raise SystemExit(f"{label}: {n} exited {p.returncode}:\n{text[-3000:]}")
+            res[n] = json.loads(lines[-1][len(f"soak {n} "):])
+            print(lines[-1], flush=True)
+    finally:
+        for p in procs.values():
+            stop_process(p)
+        shutil.rmtree(tmp, ignore_errors=True)
+    return res, beside_res, t_beside
 
 
 def phase_soaks(device, card: str, beside=lambda: None) -> tuple:
@@ -6653,31 +6774,7 @@ def phase_soaks(device, card: str, beside=lambda: None) -> tuple:
         shapes.append(dict(shape=[B, T, H], max_abs_err=err))
         if not err <= TOL_KERNEL[dtype]:
             raise SystemExit(f"soaks: the kernel at {B}x{T}x{H} {dtype} misses its plain scan by {err}")
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_soaks_")
-    logs = {n: os.path.join(tmp, f"{n}.log") for n in SOAK_NAMES}
-    procs = {n: _mh_spawn(["--soak", n], logs[n]) for n in SOAK_NAMES}
-    deadline = time.monotonic() + SOAK_JOIN_S
-    try:
-        t_beside = time.perf_counter()
-        beside_res = beside()
-        t_beside = time.perf_counter() - t_beside
-        for n, p in procs.items():
-            try:
-                p.wait(timeout=max(deadline - time.monotonic(), 1.0))
-            except subprocess.TimeoutExpired:
-                raise SystemExit(f"soaks: {n} did not finish within {SOAK_JOIN_S} s:\n{open(logs[n]).read()[-3000:]}")
-        res = {}
-        for n, p in procs.items():
-            text = open(logs[n]).read()
-            lines = [line for line in text.splitlines() if line.startswith(f"soak {n} {{")]
-            if p.returncode != 0 or not lines:
-                raise SystemExit(f"soaks: {n} exited {p.returncode}:\n{text[-3000:]}")
-            res[n] = json.loads(lines[-1][len(f"soak {n} "):])
-            print(lines[-1], flush=True)
-    finally:
-        for p in procs.values():
-            stop_process(p)
-        shutil.rmtree(tmp, ignore_errors=True)
+    res, beside_res, t_beside = _soak_processes(SOAK_NAMES, SOAK_JOIN_S, beside, "soaks")
     for key in ("launches", "steps", "launches_other_threads"):
         res[key] = sum(res[n][key] for n in SOAK_NAMES)
     res["kernel_vs_plain"] = shapes
@@ -6689,6 +6786,40 @@ def phase_soaks(device, card: str, beside=lambda: None) -> tuple:
     print(f"soaks: phase {res['phase_s']:.1f} s, {res['beside_s']:.1f} of it this process's own phases beside the "
           "soaks (each soak's wall: " + ", ".join(f"{n} {res[n]['wall_s']:.1f}" for n in SOAK_NAMES)
           + f" s), {res['launches']} recurrence launches for {res['steps']} learner steps | {card}", flush=True)
+    return res, beside_res
+
+
+def phase_control_soaks(device, card: str, beside=lambda: None) -> tuple:
+    """Phase 22: the twins of the reference's fleet telemetry and autoscale
+    soaks and its obs smoke (dotaclient_tpu_torch/scripts/), three processes
+    at once (`--soak NAME`) while this process runs `beside()`. The fleet
+    soak (--quick): a rolling shard restart read as a fence, a theft flagged
+    within one poll window, the alert's bundle from several processes, the
+    control plane scaling on a fleetd meter, and no CUDA context in its
+    process. The autoscale soak (SMOKE_CUT) with serve replicas on the card
+    at the flagship policy: serve 2→4→2, broker shards 2→4→2, the actor pool
+    up and back, every move justified, no abandoned episode, no launch. The
+    obs smoke at the flagship policy: `ok` (the learner's and the server's
+    surfaces, POST /profile answered through CUPTI, fleetd's audit at 0
+    unaccounted), one launch per learner step. Fails on any false verdict,
+    any unaccounted frame, or a launch count off. Returns (the soaks'
+    result, beside's)."""
+    t0 = time.perf_counter()
+    res, beside_res, t_beside = _soak_processes(CONTROL_SOAK_NAMES, CONTROL_SOAK_JOIN_S, beside, "control soaks")
+    for key in ("launches", "steps", "launches_other_threads"):
+        res[key] = sum(res[n][key] for n in CONTROL_SOAK_NAMES)
+    res["phase_s"] = round(time.perf_counter() - t0, 2)
+    res["beside_s"] = round(t_beside, 2)
+    fo, au, ob = (res[n] for n in CONTROL_SOAK_NAMES)
+    print(f"control soaks: phase {res['phase_s']:.1f} s, {res['beside_s']:.1f} of it this process's own phases beside "
+          f"them; fleet_obs {fo['wall_s']:.1f} s ({sum(v is True for v in fo['verdict'].values())} verdicts true, "
+          f"{fo['fenced']:.0f} frames fenced, theft flagged after {fo['polls_theft_to_flag']} polls, bundle from "
+          f"{fo['bundle_pids']} processes, CUDA context {fo['cuda_initialized']}); autoscale {au['wall_s']:.1f} s "
+          f"({sum(v is True for v in au['verdict'].values())} verdicts true, paths {au['paths']}, {au['moves']} "
+          f"moves, {au['abandoned']} abandoned, {au['resumed']} resumed); obs_smoke {ob['wall_s']:.1f} s (ok "
+          f"{ob['verdict']['ok']}, profile answered in {ob['profile_answer_s']} s with {ob['profile_kernels']} "
+          f"kernels, fleet unaccounted {ob['unaccounted'][0]}); {res['launches']} recurrence launches for "
+          f"{res['steps']} learner steps | {card}", flush=True)
     return res, beside_res
 
 
@@ -7092,10 +7223,12 @@ def main() -> int:
     marks.append(("13", time.perf_counter()))
     fleet = phase_fleet(device, card, actors_window_ms=actors["window_ms_median"])  # zeroes the counter itself
     marks.append(("14", time.perf_counter()))
-    chaos = phase_chaos(device, card)  # zeroes the counter itself before each path; imports the chaos package
-    marks.append(("16", time.perf_counter()))
-    modes = phase_data_modes(device, card)  # zeroes the counter itself before each path
-    marks.append(("17", time.perf_counter()))
+    # phase 22's three soak processes (each counting its own launches by
+    # thread) run beside phases 16 and 17, which zero this process's counter
+    # themselves before each path
+    control_soaks, (chaos, modes) = phase_control_soaks(
+        device, card, beside=lambda: (phase_chaos(device, card), phase_data_modes(device, card)))
+    marks.append(("16 + 17 + 22", time.perf_counter()))
     multihost = phase_multihost(device, card)  # zeroes the counter itself before each path; ranks count their own
     marks.append(("18", time.perf_counter()))
     model_parallel = phase_model_parallel(device, card)  # ranks count their own launches
@@ -7162,6 +7295,8 @@ def main() -> int:
             "amqp_valve": amqp_valve,
             "launches_soaks": soaks["launches"],
             "soaks": soaks,
+            "launches_control_soaks": control_soaks["launches"],
+            "control_soaks": control_soaks,
         }
     ]
     spans = ", ".join(f"{name} {t1 - t0:.1f}" for (_, t0), (name, t1) in zip(marks, marks[1:]))

@@ -108,13 +108,14 @@ class ObsRuntime:
 
     def serve_metrics(self, sources: List[Callable[[], Dict[str, float]]],
                       health_provider: Optional[Callable[[], Dict]] = None, *,
-                      device) -> Optional[MetricsHTTPServer]:
+                      device, warm: Optional[Callable[[], bool]] = None) -> Optional[MetricsHTTPServer]:
         """Start /metrics when cfg.metrics_port > 0, with the tracer's and
         the watchdog's scalars added to `sources`, /healthz, GET
         /debug/flight and POST /profile, which traces `device`, the one the
         caller's nets run on (captures land in profile_dir, else dump_dir,
-        else cwd). `device=None` (a tier that steps no net and never loads
-        torch) wires no profiler: POST /profile answers 404."""
+        else cwd), once `warm()` holds (ProfileCapture). `device=None` (a
+        tier that steps no net and never loads torch) wires no profiler:
+        POST /profile answers 404."""
         if self.cfg.metrics_port <= 0:
             return None
 
@@ -126,7 +127,7 @@ class ObsRuntime:
             from dotaclient_tpu_torch.obs.compute import ProfileCapture
 
             self.profiler = ProfileCapture(self.cfg.profile_dir or self.cfg.dump_dir,
-                                           max_seconds=self.cfg.profile_max_seconds, device=device)
+                                           max_seconds=self.cfg.profile_max_seconds, device=device, warm=warm)
         self.server = MetricsHTTPServer(
             self.cfg.metrics_port,
             list(sources) + [self.tracer.scalars, _watchdog_scalars],

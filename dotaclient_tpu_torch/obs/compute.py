@@ -33,7 +33,7 @@ import math
 import os
 import threading
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -347,13 +347,24 @@ class ProfileCapture:
     the device is synchronized before the recording stops, and a trace
     with no device kernel, with kernel launches whose kernel it lacks (a
     launching thread's records lost), or with records CUPTI dropped,
-    raises."""
+    raises.
 
-    def __init__(self, out_dir: str, max_seconds: float = 60.0, *, device):
+    On the card a window opens only once `warm()` (the owner's predicate,
+    None: always) holds: CUPTI's activity enable / disable deadlocked
+    against a thread creating its cuBLAS handle (a learner's first forward
+    on the loop thread, its first backward on autograd's device thread),
+    so a capture asked for during that start waits, at most WARM_WAIT_S,
+    and then raises."""
+
+    WARM_WAIT_S = 60.0
+
+    def __init__(self, out_dir: str, max_seconds: float = 60.0, *, device,
+                 warm: Optional[Callable[[], bool]] = None):
         self.out_dir = out_dir or os.getcwd()
         self.max_seconds = max_seconds
         self.device = torch.device(device)
         self.cuda = self.device.type == "cuda"
+        self.warm = warm
         self._lock = threading.Lock()
         self.captures_done = 0
         self.last_path: Optional[str] = None
@@ -371,6 +382,14 @@ class ProfileCapture:
         if not self._lock.acquire(blocking=False):
             raise CaptureBusyError("a profiler capture is already running")
         try:
+            if self.cuda and self.warm is not None:
+                deadline = time.monotonic() + self.WARM_WAIT_S
+                while not self.warm():
+                    if time.monotonic() > deadline:
+                        raise RuntimeError(f"profiler capture: the process did not warm within {self.WARM_WAIT_S:.0f}s "
+                                           "(CUPTI's enable / disable can deadlock against a thread's first cuBLAS "
+                                           "call)")
+                    time.sleep(0.01)
             stamp = time.strftime("%Y%m%dT%H%M%S")
             path = os.path.join(self.out_dir, f"profile_{stamp}")
             n = 1

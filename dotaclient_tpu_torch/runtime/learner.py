@@ -363,6 +363,11 @@ class CheckpointWorker:
 
 
 _AUX_MAGIC = b"DTA1"
+# POST /profile's CUPTI window waits for this many steps of this process
+# (obs/compute.py ProfileCapture): the first makes the loop thread's and
+# autograd's device thread's cuBLAS handles; the second covers kernels that
+# only a later step loads (a metrics window's, a publish's)
+PROFILE_WARM_STEPS = 2
 
 
 def encode_aux(manifest: dict) -> bytes:
@@ -629,6 +634,7 @@ class Learner:
         )
         self.metrics = MetricsLogger(cfg.log_dir)
         self._boot_monotonic = time.monotonic()
+        self._life_steps = 0  # steps this process trained (a restore does not count)
         if self.obs is not None:
             # the global step's FLOPs over the sum of every rank's peak
             peak = device_peak_flops(self.device)
@@ -637,7 +643,7 @@ class Learner:
                                               overlap=self._prefetch_enabled)
             self.train_step = compute.wrap_train_step(self.train_step)
             self.obs.serve_metrics([self._surface_scalars], health_provider=self._health,
-                                   device=self.device)
+                                   device=self.device, warm=lambda: self._life_steps >= PROFILE_WARM_STEPS)
         self.env_steps_done = 0  # real (unmasked) env steps trained on
         # `_drain`: run() stops fetching, trains out what staging holds and
         # returns; `_abort`: run() returns at once, staged work dropped.
@@ -964,6 +970,7 @@ class Learner:
         """Publish and checkpoint cadence, on the loop thread after the
         version counter advanced."""
         cfg = self.cfg
+        self._life_steps += 1
         if self.version % cfg.publish_every == 0:
             params = whole_params(self.state)  # under tp a gather every rank takes part in
             if self.dist.is_primary:

@@ -6,6 +6,7 @@ on a GPU machine without JAX it runs as
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 """
 
+import json
 import time
 
 import pytest
@@ -367,6 +368,48 @@ def test_serve_soaks_on_the_card(cuda, name):
     res = chip_smoke._soak_serve(name, _soak_policy())
     assert all(v for v in res["verdict"].values() if isinstance(v, bool)) and res["unaccounted"] == [0]
     assert res["launches"] == res["steps"] > 0 and res["launches_other_threads"] == 0
+
+
+def test_fleet_obs_soak_leaves_its_process_without_a_cuda_context(cuda):
+    """The fleet telemetry soak's twin as phase 22 runs it, in a process of
+    its own: every verdict true, 0 unaccounted, no launch, and no CUDA
+    context at its end (chip_smoke raises otherwise)."""
+    import os
+    import subprocess
+    import sys
+
+    import chip_smoke
+
+    proc = subprocess.run([sys.executable, chip_smoke.__file__, "--soak", "fleet_obs"], capture_output=True, text=True,
+                          timeout=300, cwd=os.path.dirname(chip_smoke.__file__),
+                          env=dict(os.environ, DOTACLIENT_TPU_ALLOW_STRAYS="1"))
+    assert proc.returncode == 0, proc.stdout[-4000:] + proc.stderr[-4000:]
+    res = json.loads(next(ln for ln in proc.stdout.splitlines() if ln.startswith("soak fleet_obs {"))[15:])
+    assert res["cuda_initialized"] is False and res["launches"] == res["steps"] == 0
+    assert res["fenced"] == res["resident_at_kill"] > 0 and res["polls_theft_to_flag"] <= 2
+
+
+def test_autoscale_soak_serves_from_the_card(cuda):
+    """The autoscale soak's twin with its serve replicas on the card: serve
+    and broker 2→4→2, the actor pool up and back, no abandoned episode, no
+    recurrence launch (the replicas' T=1 steps are torch ops)."""
+    import chip_smoke
+
+    res = chip_smoke._soak_autoscale(_soak_policy())
+    assert all(v for v in res["verdict"].values() if isinstance(v, bool)) and not any(res["unaccounted"])
+    assert res["paths"]["server"] == [2, 4, 2] and res["abandoned"] == 0
+    assert res["launches"] == res["steps"] == 0
+
+
+def test_obs_smoke_launches_once_per_learner_step_on_the_card(cuda):
+    """The obs smoke's twin on the card: `ok` (POST /profile answered
+    through CUPTI), fleetd's audit at 0 unaccounted, one recurrence launch
+    per learner step, all on the learner's thread."""
+    import chip_smoke
+
+    res = chip_smoke._soak_obs_smoke(_soak_policy())
+    assert res["verdict"]["ok"] and res["unaccounted"] == [0.0] and res["profile_error"] is None
+    assert res["launches"] == res["steps"] == 20 and res["launches_other_threads"] == 0
 
 
 def test_a_ring_slot_goes_back_only_after_its_copy_retired(cuda):
