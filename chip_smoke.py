@@ -190,12 +190,31 @@ Phases, in order; any failure exits non-zero:
               and its obs smoke (a flagship learner's and a server's whole
               HTTP surface, POST /profile through CUPTI, fleetd's audit at
               0 unaccounted, one launch per learner step); three processes
-              at once, beside phases 16 and 17 (see phase_control_soaks).
+              at once, beside phases 16 and 17 (see phase_control_soaks);
+23. ladder  — the twins of the reference's league run (league-mode
+              self-play, aux heads), hero-pool run and 5v5 grader, cut to a
+              few updates and one or two eval episodes: the result agrees
+              with the exit code and with the recorded numbers by the
+              reference's rule, the reference's summary fields, one launch
+              per learner step plus one per reuse update and none in the
+              evaluator or the grader; and of its league soak (a
+              multi-model server on the card under two rolling restarts, a
+              3-actor league fleet: no abandoned episode, store-backed
+              resumes, exact per-model ledgers, the exploiter promoted, the
+              leaderboard bitwise on replay), bf16-wire soak (three fleet
+              states, 0 quarantined, the meters as the fleet, the bytes
+              ratio in band) and aggregate soak (replayer processes fanned
+              in, then a closed loop with genuine actor processes against a
+              flagship learner at 256 x 16 on the card: every process
+              reporting and heard, 0 bad frames; the 50k bars left out at
+              the cut); six processes at once, beside phases 18 and 19 (see
+              phase_ladder).
 Each path of the main path (serving, learner forward, each train step,
 the reuse step, the learner loop, the manifest learner, the fabric
 learner, the serve manifest, the actors' closed loop, the fleet's loop,
 the skill run, the chaos soak, each data mode, each multihost turn, each
-amqp:// and valve turn and each of the seven soaks) is driven with the kernels' launch counters zeroed
+amqp:// and valve turn, each of the seven soaks and each of phase 23's
+six runs) is driven with the kernels' launch counters zeroed
 just before it and read just after (the serve manifest's servers, the
 actor processes, the league service, the evaluator, the multihost
 ranks and the soaks are processes of their own, which start at 0 and
@@ -213,6 +232,7 @@ import math
 import os
 import queue
 import random
+import re
 import shutil
 import signal
 import socket
@@ -6486,11 +6506,14 @@ SOAK_JOIN_S = 300
 # B. Every other thread (servers, actors, fleets, the fallback) launches no
 # recurrence.
 SOAK_LEARNER_THREADS = frozenset(("MainThread", "learner-life", "fabric-learner-a", "fabric-learner-b"))
-# The recurrence's shapes in the soaks' learners at the flagship width
-# (B, seq_len + 1, H): resume part A 16 x 8; serve chaos 8 x 8; resume part
-# B, the fabric's learners and serve handoff 8 x 4. Held against the plain
-# scan before the soaks run.
-SOAK_KERNEL_SHAPES = ((16, 9, 128), (8, 9, 128), (8, 5, 128))
+# The recurrence's shapes in the soaks' learners (B, seq_len + 1, H, dtype):
+# at the flagship width resume part A and the wire soak (phase 23) 16 x 8;
+# serve chaos 8 x 8; resume part B, the fabric's learners and serve handoff
+# 8 x 4; the aggregate soak's phase B 256 x 16. Phase 23's league run, hero
+# pool and grader at their 16-wide f32 policy: 16 x 16, and 8 x 16 in a 2x2
+# reuse step's minibatches. Held against the plain scan before the soaks run.
+SOAK_KERNEL_SHAPES = ((16, 9, 128, "bfloat16"), (8, 9, 128, "bfloat16"), (8, 5, 128, "bfloat16"),
+                      (256, 17, 128, "bfloat16"), (16, 17, 16, "float32"), (8, 17, 16, "float32"))
 
 
 def soak_launch_split(by_thread: dict) -> tuple:
@@ -6499,12 +6522,14 @@ def soak_launch_split(by_thread: dict) -> tuple:
     return mine, sum(by_thread.values()) - mine
 
 
-def _soak_check(name: str, res: dict, steps: int, by_thread: dict, extra_red=(), left_out=(), trains=True) -> None:
+def _soak_check(name: str, res: dict, steps: int, by_thread: dict, extra_red=(), left_out=(), trains=True,
+                expected=None) -> None:
     """Fail the smoke on a false verdict (but those named in `left_out`),
-    an unaccounted frame, or launches that are not one per learner step on
-    the learners' threads and none elsewhere. A soak that trains nothing
-    (`trains` False) must count 0 steps and launch nothing; one that trains
-    must count steps."""
+    an unaccounted frame, or launches that are not one per learner step
+    (`expected` where reuse steps launch more) on the learners' threads and
+    none elsewhere. A soak that trains nothing (`trains` False) must count 0
+    steps and launch nothing; one that trains must count steps."""
+    expected = steps if expected is None else expected
     learner_launches, other = soak_launch_split(by_thread)
     res.update(steps=steps, launches=learner_launches + other, launches_other_threads=other,
                launches_by_thread=dict(by_thread))
@@ -6512,9 +6537,9 @@ def _soak_check(name: str, res: dict, steps: int, by_thread: dict, extra_red=(),
     red += list(extra_red)
     if red or any(res["unaccounted"]):
         raise SystemExit(f"soaks: {name}: red {red}, unaccounted {res['unaccounted']}")
-    if learner_launches != steps or other or (steps > 0) != trains:
-        raise SystemExit(f"soaks: {name}: {learner_launches} launches on learner threads for {steps} learner steps, "
-                         f"{other} on other threads ({by_thread})")
+    if learner_launches != expected or other or (steps > 0) != trains:
+        raise SystemExit(f"soaks: {name}: {learner_launches} launches on learner threads for {steps} learner steps "
+                         f"({expected} expected), {other} on other threads ({by_thread})")
 
 
 def _soak_resume(policy, platform: str = "") -> dict:
@@ -6689,14 +6714,11 @@ def _soak_obs_smoke(policy, platform: str = "") -> dict:
     return res
 
 
-SOAKS = {"resume": _soak_resume, "fabric": _soak_fabric, "serve_chaos": lambda p: _soak_serve("chaos", p),
-         "serve_handoff": lambda p: _soak_serve("handoff", p), "fleet_obs": _soak_fleet_obs,
-         "autoscale": _soak_autoscale, "obs_smoke": _soak_obs_smoke}
 
 
 def soak_main(argv) -> int:
-    """`chip_smoke.py --soak NAME`: one of phase 21's or 22's soaks on the
-    card at the flagship policy; prints `soak NAME {json}` and exits 0, or prints
+    """`chip_smoke.py --soak NAME`: one of phase 21's, 22's or 23's runs on
+    the card at the flagship policy (where the run takes one); prints `soak NAME {json}` and exits 0, or prints
     why it failed and exits 1."""
     import faulthandler
 
@@ -6705,7 +6727,8 @@ def soak_main(argv) -> int:
     name = argv[0]
     # a soak that hangs leaves every thread's stack in its log before its
     # phase gives up on it
-    faulthandler.dump_traceback_later((CONTROL_SOAK_JOIN_S if name in CONTROL_SOAK_NAMES else SOAK_JOIN_S) - 20)
+    join_s = CONTROL_SOAK_JOIN_S if name in CONTROL_SOAK_NAMES else LADDER_JOIN_S if name in LADDER_NAMES else SOAK_JOIN_S
+    faulthandler.dump_traceback_later(join_s - 20)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     try:
@@ -6761,17 +6784,16 @@ def phase_soaks(device, card: str, beside=lambda: None) -> tuple:
     verdict), or launches that are not one per learner step on the
     learners' threads and none elsewhere. Returns (the soaks' result,
     beside's)."""
-    from dotaclient_tpu_torch.config import PolicyConfig
     from dotaclient_tpu_torch.ops import lstm as L
 
     t0 = time.perf_counter()
-    dtype = torch.bfloat16 if PolicyConfig().dtype == "bfloat16" else torch.float32
     shapes = []
-    for B, T, H in SOAK_KERNEL_SHAPES:
+    for B, T, H, dtype_name in SOAK_KERNEL_SHAPES:
+        dtype = getattr(torch, dtype_name)
         ins = lstm_inputs(B, T, H, dtype, device, seed=B * T)
         with torch.no_grad():
             err = max((a - b).abs().max().item() for a, b in zip(L.lstm_kernel(*ins), L.lstm_scan(*ins)))
-        shapes.append(dict(shape=[B, T, H], max_abs_err=err))
+        shapes.append(dict(shape=[B, T, H], dtype=dtype_name, max_abs_err=err))
         if not err <= TOL_KERNEL[dtype]:
             raise SystemExit(f"soaks: the kernel at {B}x{T}x{H} {dtype} misses its plain scan by {err}")
     res, beside_res, t_beside = _soak_processes(SOAK_NAMES, SOAK_JOIN_S, beside, "soaks")
@@ -6821,6 +6843,358 @@ def phase_control_soaks(device, card: str, beside=lambda: None) -> tuple:
           f"kernels, fleet unaccounted {ob['unaccounted'][0]}); {res['launches']} recurrence launches for "
           f"{res['steps']} learner steps | {card}", flush=True)
     return res, beside_res
+
+
+# Phase 23: the twins of the ladder's league runs (scripts/train_league.py,
+# train_hero_pool.py, grade_5v5.py) and of its league, bf16-wire and
+# aggregate soaks, each in a process of its own (`--soak NAME`), all six at
+# once beside phases of this process (main picks them). The training runs
+# are cut as phase 15 cuts the skill run; the league soak and the wire soak
+# run their SMOKE_CUTs, both at the flagship policy; the
+# aggregate soak a cut with phase B's learner on the card at the flagship
+# policy and batch.
+LADDER_NAMES = ("train_league", "hero_pool", "grade_5v5", "league_soak", "wire_soak", "aggregate_soak")
+LADDER_JOIN_S = 240
+# the training runs' cut: updates, eval episodes per hero / per policy, the grader's seed
+LADDER_UPDATES, LADDER_EVAL_EPISODES, LADDER_GRADE_SEED = 4, 1, 0
+# the aggregate soak's cut (its defaults: 64 replayers for 75 s, 16 + 4 for 180 s)
+LADDER_AGGREGATE = ["--replayers", "16", "--phase-a-duration", "5", "--replayers-b", "4", "--real-actors", "2",
+                    "--duration", "12", "--policy", "flagship", "--batch-size", "256"]
+# The reference's summary fields (`- label:` lines, each once, in order) and
+# artifact keys (league_run/, hero_pool_run/, league_run_5v5/,
+# LEAGUE_SOAK.json, WIRE_SOAK.json, AGGREGATE_SOAK.json).
+LEAGUE_FIELDS = ["result", "learner updates", "league pools (PFSP 'hard')", "self-play episodes", "env steps trained"]
+HERO_POOL_FIELDS = ["result", "pool", "learner updates", "bar", "nevermore", "sniper", "viper", "wall-clock"]
+GRADE_FIELDS = ["result", "training per seed", "yardstick", "bar (each seed)", "league liveness", "mean team return",
+                "episodes W/L/D vs hard bots", "mean team net-worth margin at episode end (the time-up decider)",
+                "team TrueSkill (sum of conservative, bots anchored at default)",
+                "model P(final team beats init team)", "wall-clock"]
+GRADE_KEYS = {"final", "final_team_conservative", "init", "init_team_conservative", "p_final_beats_init", "pool_dead",
+              "return_bar", "seed", "train", "trueskill_bar"}
+LEAGUE_SOAK_KEYS = {"actors", "episodes_per_actor", "fleet", "gate_disclosure", "host", "host_preflight",
+                    "kills_executed", "league", "replay", "rolling_recovery", "rolling_spec", "serve", "store",
+                    "timestamp", "verdict"}
+WIRE_SOAK_KEYS = {"actors", "batch", "generated_by", "phase_1_all_f32", "phase_2_mixed", "phase_3_all_bf16", "phase_s",
+                  "timestamp", "topology", "verdict", "wire_bytes_per_frame_ratio_bf16_vs_f32"}
+AGGREGATE_SOAK_KEYS = {"batch", "frame_bytes_mean", "host", "learner_platform", "phase_0_transport_calibration",
+                       "phase_a_fan_in", "phase_b_closed_loop", "phases_run", "policy", "timestamp", "verdict"}
+
+
+def _md_fields(md: str) -> list:
+    return list(dict.fromkeys(re.findall(r"^- ([^:]+?):", md, flags=re.M)))
+
+
+class learner_step_updates:
+    """`with learner_step_updates() as updates:` records each Learner step's
+    PPO updates in this process (`ppo_updates_done`; 0 for a one-update
+    step). A step launches the recurrence once, and a sample-reuse step once
+    more per update (its precompute forward, then each minibatch: phase 6's
+    count), so the steps' launches are len(updates) + sum(updates)."""
+
+    def __enter__(self) -> list:
+        from dotaclient_tpu_torch.runtime.learner import Learner
+
+        self.updates, self._step = [], Learner._step
+        step, updates = self._step, self.updates
+
+        def counted(learner, payload):
+            metrics = step(learner, payload)
+            done = metrics.get("ppo_updates_done")
+            updates.append(0 if done is None else int(done.item()))
+            return metrics
+
+        Learner._step = counted
+        return self.updates
+
+    def __exit__(self, *exc):
+        from dotaclient_tpu_torch.runtime.learner import Learner
+
+        Learner._step = self._step
+        return False
+
+
+def _ladder_run(mod, argv, eval_name: str = ""):
+    """`mod.main(argv)` with its launches counted by thread, its learner's
+    steps and updates recorded, and the launches inside `mod.<eval_name>`
+    (the evaluator or the grader, on the main thread after training)
+    counted apart. Returns (rc, by_thread, updates, eval launches)."""
+    from dotaclient_tpu_torch.ops import lstm as L
+
+    eval_launches = []
+    saved = getattr(mod, eval_name) if eval_name else None
+    if eval_name:
+        def counted(*a, **k):
+            before = L.LAUNCHES
+            try:
+                return saved(*a, **k)
+            finally:
+                eval_launches.append(L.LAUNCHES - before)
+
+        setattr(mod, eval_name, counted)
+    try:
+        with launches_by_thread() as by_thread, learner_step_updates() as updates:
+            rc = mod.main(argv)
+    finally:
+        if eval_name:
+            setattr(mod, eval_name, saved)
+    return rc, by_thread, updates, sum(eval_launches)
+
+
+def _ladder_check(name: str, res: dict, by_thread: dict, updates: list, extra_red=()) -> None:
+    """_soak_check for a training run: launches = its steps plus the
+    reuse steps' updates, all on the learner's thread; none in the evaluator
+    or the grader."""
+    res["ppo_updates"] = sum(updates)
+    if res.get("eval_launches"):
+        extra_red = [*extra_red, "no_launch_in_the_evaluator"]
+    _soak_check(name, res, len(updates), by_thread, extra_red, expected=len(updates) + sum(updates))
+
+
+def _soak_train_league(policy=None, platform: str = "") -> dict:
+    """The league run's main (scripts/train_league.py) for LADDER_UPDATES
+    updates at its own 16-wide f32 policy (`policy` unused): OK (its bar is
+    liveness), the reference's LEAGUE.md fields, the recorded numbers
+    giving the result by the reference's rule, one launch per update."""
+    from dotaclient_tpu_torch.scripts import train_league as TL
+
+    tmp = tempfile.mkdtemp(prefix="ladder_league_")
+    box = {}
+    train = TL.train_config5
+    TL.train_config5 = lambda *a, **k: box.setdefault("res", train(*a, **k))
+    try:
+        t0 = time.perf_counter()
+        rc, by_thread, updates, _ = _ladder_run(TL, ["--updates", str(LADDER_UPDATES), "--out_dir", tmp]
+                                                + (["--platform", platform] if platform else []))
+        wall_s = time.perf_counter() - t0
+        md = open(os.path.join(tmp, "LEAGUE.md")).read()
+    finally:
+        TL.train_config5 = train
+        shutil.rmtree(tmp, ignore_errors=True)
+    r = box["res"]
+    res = dict(wall_s=round(wall_s, 2), rc=rc, updates=r["version"], episodes=r["episodes"],
+               league_sizes=r["league_sizes"], aux_keys=r["aux_keys"], env_steps=r["env_steps"], dead=r["pool_dead"],
+               unaccounted=[])
+    res["verdict"] = {
+        "league_run_ok": rc == 0,
+        "result_agrees_with_exit": ("**OK**" in md) == (rc == 0),
+        "result_by_the_reference_rule": (rc == 0) == TL.league_ok(r, LADDER_UPDATES),
+        "summary_fields_are_the_references": _md_fields(md) == LEAGUE_FIELDS,
+        "no_dead_actor": r["pool_dead"] == 0,
+        "every_update_taken": r["version"] == LADDER_UPDATES,
+    }
+    _ladder_check("train_league", res, by_thread, updates)
+    return res
+
+
+def _soak_hero_pool(policy=None, platform: str = "") -> dict:
+    """The hero-pool run's main (scripts/train_hero_pool.py) for
+    LADDER_UPDATES 2x2 reuse updates and LADDER_EVAL_EPISODES eval episodes
+    per hero (`policy` unused): rc 0 or 1 (the 3/3 bar at a cut is chance),
+    the result agreeing with rc and with the reference's rule on the
+    recorded evals, the reference's HERO_POOL.md fields, no dead actor, the
+    launches of every step and update and none in the evaluator."""
+    from dotaclient_tpu_torch.scripts import train_hero_pool as HP
+
+    tmp = tempfile.mkdtemp(prefix="ladder_hero_")
+    evals, pools = [], []
+    evaluate, pool_cls = HP.eval_per_hero, HP.ActorPool
+
+    class RecordingPool(pool_cls):
+        def start(self):
+            pools.append(self)
+            return super().start()
+
+    HP.eval_per_hero = lambda *a, **k: evals.append(evaluate(*a, **k)) or evals[-1]
+    HP.ActorPool = RecordingPool
+    try:
+        t0 = time.perf_counter()
+        rc, by_thread, updates, eval_launches = _ladder_run(
+            HP, ["--updates", str(LADDER_UPDATES), "--eval_episodes", str(LADDER_EVAL_EPISODES), "--out_dir", tmp]
+            + (["--platform", platform] if platform else []), "eval_per_hero")
+        wall_s = time.perf_counter() - t0
+        md = open(os.path.join(tmp, "HERO_POOL.md")).read()
+        heroes_seen = sorted({json.loads(line)["hero"] for line in open(os.path.join(tmp, "metrics.jsonl"))})
+    finally:
+        HP.eval_per_hero, HP.ActorPool = evaluate, pool_cls
+        shutil.rmtree(tmp, ignore_errors=True)
+    init, final = evals
+    deltas = {h: final[h] - init[h] for h in init}
+    version = int(re.search(r"learner updates: (\d+) ", md).group(1))
+    dead = pools[0].dead
+    res = dict(wall_s=round(wall_s, 2), rc=rc, updates=version, heroes_seen=heroes_seen, deltas=deltas, dead=dead,
+               eval_launches=eval_launches, unaccounted=[])
+    res["verdict"] = {
+        "result_agrees_with_exit": ("**OK**" in md) == (rc == 0) and rc in (0, 1),
+        "result_by_the_reference_rule": (rc == 0) == HP.hero_pool_ok(dead, version, LADDER_UPDATES, heroes_seen, deltas),
+        "summary_fields_are_the_references": _md_fields(md) == HERO_POOL_FIELDS,
+        "no_dead_actor": dead == 0,
+        "every_update_taken": version == LADDER_UPDATES,
+    }
+    _ladder_check("hero_pool", res, by_thread, updates)
+    return res
+
+
+def _soak_grade_5v5(policy=None, platform: str = "") -> dict:
+    """The 5v5 grader's main (scripts/grade_5v5.py) for one seed of
+    LADDER_UPDATES - 1 updates, LADDER_EVAL_EPISODES + 1 eval episodes per
+    policy (`policy` unused): rc 0 or 1 (both bars at a cut are chance), the
+    result agreeing with rc and both bars with the recorded numbers by the
+    reference's rule, grade_5v5.json's keys and LEAGUE.md's fields the
+    reference's, the launches of every step and update and none in the
+    grader's B=5 steps."""
+    from dotaclient_tpu_torch.scripts import grade_5v5 as G
+
+    tmp = tempfile.mkdtemp(prefix="ladder_5v5_")
+    updates_n = LADDER_UPDATES - 1
+    try:
+        t0 = time.perf_counter()
+        rc, by_thread, updates, eval_launches = _ladder_run(
+            G, ["--updates", str(updates_n), "--seeds", str(LADDER_GRADE_SEED), "--eval_episodes",
+                str(LADDER_EVAL_EPISODES + 1), "--out_dir", tmp] + (["--platform", platform] if platform else []),
+            "eval_team")
+        wall_s = time.perf_counter() - t0
+        md = open(os.path.join(tmp, "LEAGUE.md")).read()
+        per_seed = json.load(open(os.path.join(tmp, "grade_5v5.json")))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    s = per_seed[0]
+    bars = (s["final"]["mean_return"] > s["init"]["mean_return"], s["final_team_conservative"] > s["init_team_conservative"])
+    res = dict(wall_s=round(wall_s, 2), rc=rc, updates=s["train"]["version"], episodes=s["train"]["episodes"],
+               return_bar=s["return_bar"], trueskill_bar=s["trueskill_bar"],
+               returns=[s["init"]["mean_return"], s["final"]["mean_return"]],
+               team_conservative=[s["init_team_conservative"], s["final_team_conservative"]],
+               dead=s["pool_dead"], eval_launches=eval_launches, unaccounted=[])
+    res["verdict"] = {
+        "result_agrees_with_exit": ("**PASS**" in md) == (rc == 0) and rc in (0, 1),
+        "bars_by_the_reference_rule": bars == (s["return_bar"], s["trueskill_bar"])
+        and (rc == 0) == G.grade_ok(per_seed, updates_n),
+        "record_keys_are_the_references": set(s) == GRADE_KEYS,
+        "summary_fields_are_the_references": _md_fields(md) == GRADE_FIELDS,
+        "no_dead_actor": s["pool_dead"] == 0,
+        "every_update_taken": s["train"]["version"] == updates_n,
+    }
+    _ladder_check("grade_5v5", res, by_thread, updates)
+    return res
+
+
+def _soak_league(policy, platform: str = "") -> dict:
+    """The league soak's SMOKE_CUT (two rolls) with its server and actors
+    on `platform` at `policy`, the actors' envs in process: every verdict
+    true, both kills made, no learner and so no launch anywhere."""
+    from dotaclient_tpu_torch.scripts import soak_league as LS
+
+    with launches_by_thread() as by_thread:
+        art = LS.run_soak(LS.cut_args(["--platform", platform, "--env", "local"]), policy)
+    fleet, totals, league = art["fleet"], art["serve"]["totals"], art["league"]
+    res = dict(wall_s=art["wall_s"], verdict=art["verdict"], unaccounted=[], kills=art["kills_executed"],
+               recovery_s=[k.get("recovery_s") for k in art["rolling_recovery"] or []],
+               episodes=fleet["episodes_done"], resumes=[fleet["remote_resumes"], totals["resumes"]],
+               replay_steps=totals["replayed_steps"], model_requests=totals["model_requests"],
+               promotions=league["promotions_total"], results=league["results_total"],
+               exploiter_matches=fleet["exploiter_matches"], lives=totals["incarnations"])
+    extra = [] if art["kills_executed"] == len(LS.SMOKE_CUT["rolling"].split(",")) else ["every_roll_killed"]
+    if not LEAGUE_SOAK_KEYS <= set(art):
+        extra.append("artifact_keys_are_the_references")
+    _soak_check("league_soak", res, 0, by_thread, extra, trains=False)
+    return res
+
+
+def _soak_wire(policy, platform: str = "") -> dict:
+    """The bf16-wire soak's SMOKE_CUT (--quick's 2 actors, 12 s phases)
+    with its learner and actors on `platform` at `policy`: `ok` (0
+    quarantined, the meters as the fleet, the learner stepping in every
+    phase, the bytes ratio in band), one launch per learner step, all on the
+    learner's thread."""
+    from dotaclient_tpu_torch.scripts import soak_wire_bf16 as WS
+
+    with launches_by_thread() as by_thread:
+        art = WS.run_soak(WS.cut_args(["--platform", platform]), policy)
+    phases = {n: art[n] for n, _ in WS.PHASES}
+    res = dict(wall_s=art["wall_s"], verdict={"ok": art["verdict"]["ok"]}, problems=art["verdict"]["problems"],
+               unaccounted=[p["quarantined_delta"] + p["dropped_bad_delta"] for p in phases.values()],
+               ratio=art["wire_bytes_per_frame_ratio_bf16_vs_f32"],
+               bytes_per_frame=[p["bytes_per_frame"] for p in phases.values()],
+               consumed=[p["consumed_delta"] for p in phases.values()],
+               versions=[p["versions_advanced"] for p in phases.values()])
+    extra = [] if WIRE_SOAK_KEYS <= set(art) else ["artifact_keys_are_the_references"]
+    _soak_check("wire_soak", res, art["learner_steps"], by_thread, extra)
+    return res
+
+
+def _soak_aggregate(policy=None, platform: str = "") -> dict:
+    """The aggregate soak cut as LADDER_AGGREGATE (its replayers and
+    genuine actors processes on the CPU, phase B's learner on `platform` at
+    the flagship policy and batch; `policy` unused: the soak's own flag).
+    Every verdict true but the two 50k bars, bars of scale that the cut
+    cannot reach (SCALE_BOUND_VERDICTS); exact: every replayer reporting,
+    the heartbeats counting every process, 0 dropped_bad in both phases,
+    one launch per learner step on the learner's thread."""
+    from dotaclient_tpu_torch.scripts import aggregate_soak as AG
+
+    args = AG.parse_args(LADDER_AGGREGATE + (["--platform", platform] if platform else []))
+    with launches_by_thread() as by_thread:
+        art = AG.run_soak(args, port=_free_port())
+    a, b = art["phase_a_fan_in"], art["phase_b_closed_loop"]
+    res = dict(wall_s=art["wall_s"], verdict=art["verdict"], left_out=list(AG.SCALE_BOUND_VERDICTS),
+               unaccounted=[a["dropped_bad"], b["staleness"]["dropped_bad"]],
+               calibration_env_steps_per_s=art["phase_0_transport_calibration"]["env_steps_per_sec_equiv_consumed"],
+               offered_a=a["offered_env_steps_per_sec"], staged_a=a["staged_env_steps_per_sec"],
+               offered_b=b["offered_env_steps_per_sec"], consumed_b=b["consumed_env_steps_per_sec"],
+               senders=[a["senders_reporting"], b["replayers_reporting"]],
+               active_peak=[a["active_actors_peak"], b["active_actors_peak"]],
+               stale_drop_rate=b["staleness"]["stale_drop_rate"], actor_episodes=b["genuine_actor_liveness"][
+                   "episodes_completed"])
+    extra = []
+    if res["senders"] != [args.replayers, args.replayers_b] or res["active_peak"] != [args.replayers,
+                                                                                       args.replayers_b + args.real_actors]:
+        extra.append("every_process_reporting_and_heard")
+    if not AGGREGATE_SOAK_KEYS <= set(art):
+        extra.append("artifact_keys_are_the_references")
+    _soak_check("aggregate_soak", res, art["learner_steps"], by_thread, extra, left_out=AG.SCALE_BOUND_VERDICTS)
+    return res
+
+
+def phase_ladder(device, card: str, beside=lambda: None) -> tuple:
+    """Phase 23: the twins of the ladder's league run, hero-pool run and 5v5
+    grader (cut as phase 15 cuts the skill run) and of its league,
+    bf16-wire and aggregate soaks (dotaclient_tpu_torch/scripts/), six
+    processes at once (`--soak NAME`) while this process runs `beside()`.
+    The kernel at their learners' shapes is held against the plain scan in
+    phase 21 (SOAK_KERNEL_SHAPES). Fails on any false verdict but those left
+    out by name, any bad frame, an artifact whose keys or summary fields are
+    not the reference's, a dead actor, or launches that are not each
+    learner step's (a reuse step's updates included) on the learners'
+    threads and none elsewhere. Returns (the runs' result, beside's)."""
+    t0 = time.perf_counter()
+    res, beside_res, t_beside = _soak_processes(LADDER_NAMES, LADDER_JOIN_S, beside, "ladder")
+    for key in ("launches", "steps", "launches_other_threads"):
+        res[key] = sum(res[n][key] for n in LADDER_NAMES)
+    res["launches_expected"] = sum(res[n]["steps"] + res[n].get("ppo_updates", 0) for n in LADDER_NAMES)
+    res["phase_s"] = round(time.perf_counter() - t0, 2)
+    res["beside_s"] = round(t_beside, 2)
+    tl, hp, g5, ls, ws, ag = (res[n] for n in LADDER_NAMES)
+    print(f"ladder: phase {res['phase_s']:.1f} s, {res['beside_s']:.1f} of it this process's own phases beside them; "
+          f"train_league {tl['wall_s']:.1f} s (rc {tl['rc']}, {tl['updates']} updates, {tl['episodes']} episodes, "
+          f"pools {tl['league_sizes']}); hero_pool {hp['wall_s']:.1f} s (rc {hp['rc']}, {hp['updates']} updates, "
+          f"{hp['ppo_updates']} reuse updates, deltas {json.dumps({h.split('_')[-1]: round(d, 3) for h, d in hp['deltas'].items()})}); "
+          f"grade_5v5 {g5['wall_s']:.1f} s (rc {g5['rc']}, {g5['updates']} updates, return bar {g5['return_bar']}, "
+          f"TrueSkill bar {g5['trueskill_bar']}); league_soak {ls['wall_s']:.1f} s ({ls['kills']} kills, resumes "
+          f"{ls['resumes']}, {ls['promotions']} promotions, {ls['exploiter_matches']} exploiter matches); wire_soak "
+          f"{ws['wall_s']:.1f} s (ok {ws['verdict']['ok']}, bytes ratio {ws['ratio']}); aggregate_soak "
+          f"{ag['wall_s']:.1f} s (offered A {ag['offered_a']}, offered B {ag['offered_b']}, consumed B {ag['consumed_b']} "
+          f"env steps/s); {res['launches']} recurrence launches for {res['steps']} learner steps and "
+          f"{res['launches_expected'] - res['steps']} reuse updates | {card}", flush=True)
+    if res["launches"] != res["launches_expected"] or res["launches_other_threads"]:
+        raise SystemExit(f"ladder: {res['launches']} recurrence launches, {res['launches_expected']} expected, "
+                         f"{res['launches_other_threads']} on other threads")
+    return res, beside_res
+
+
+SOAKS = {"resume": _soak_resume, "fabric": _soak_fabric, "serve_chaos": lambda p: _soak_serve("chaos", p),
+         "serve_handoff": lambda p: _soak_serve("handoff", p), "fleet_obs": _soak_fleet_obs,
+         "autoscale": _soak_autoscale, "obs_smoke": _soak_obs_smoke, "train_league": _soak_train_league,
+         "hero_pool": _soak_hero_pool, "grade_5v5": _soak_grade_5v5, "league_soak": _soak_league,
+         "wire_soak": _soak_wire, "aggregate_soak": _soak_aggregate}
 
 
 # ----------------------------------------------------------------- probes
@@ -7229,10 +7603,11 @@ def main() -> int:
     control_soaks, (chaos, modes) = phase_control_soaks(
         device, card, beside=lambda: (phase_chaos(device, card), phase_data_modes(device, card)))
     marks.append(("16 + 17 + 22", time.perf_counter()))
-    multihost = phase_multihost(device, card)  # zeroes the counter itself before each path; ranks count their own
-    marks.append(("18", time.perf_counter()))
-    model_parallel = phase_model_parallel(device, card)  # ranks count their own launches
-    marks.append(("19", time.perf_counter()))
+    # phase 23's six processes (each counting its own launches by thread) run
+    # beside phases 18 and 19, whose ranks count their own
+    ladder, (multihost, model_parallel) = phase_ladder(
+        device, card, beside=lambda: (phase_multihost(device, card), phase_model_parallel(device, card)))
+    marks.append(("18 + 19 + 23", time.perf_counter()))
     amqp_valve = phase_amqp_valve(device, card)  # zeroes the counter itself before each path; loads the fake pika
     marks.append(("20", time.perf_counter()))
 
@@ -7297,6 +7672,8 @@ def main() -> int:
             "soaks": soaks,
             "launches_control_soaks": control_soaks["launches"],
             "control_soaks": control_soaks,
+            "launches_ladder": ladder["launches"],
+            "ladder": ladder,
         }
     ]
     spans = ", ".join(f"{name} {t1 - t0:.1f}" for (_, t0), (name, t1) in zip(marks, marks[1:]))

@@ -44,9 +44,10 @@ def inputs(B, T, H, dtype, device, seed=0):
     # B=128: a minibatch of the reuse step; H=48: a cluster of 3; H=40: the
     # per-thread design; H=1024: per-thread, W_h from global memory; 16x17x16:
     # the skill run's learner (scripts/train_north_star.py); 16x9x128,
-    # 8x9x128, 8x5x128: the soaks' learners at the flagship width
+    # 8x9x128, 8x5x128: the soaks' learners at the flagship width; 8x17x16:
+    # a 2x2 reuse step's minibatch in the hero-pool run and the 5v5 grader
     [(256, 17, 128), (128, 17, 128), (37, 17, 128), (5, 3, 32), (3, 1, 64), (9, 4, 256), (21, 5, 48), (4, 3, 40), (2, 2, 1024),
-     (16, 17, 16), (16, 9, 128), (8, 9, 128), (8, 5, 128)],
+     (16, 17, 16), (16, 9, 128), (8, 9, 128), (8, 5, 128), (8, 17, 16)],
 )
 def test_kernel_matches_scan(cuda, dtype, B, T, H):
     ins = inputs(B, T, H, dtype, cuda)
@@ -410,6 +411,52 @@ def test_obs_smoke_launches_once_per_learner_step_on_the_card(cuda):
     res = chip_smoke._soak_obs_smoke(_soak_policy())
     assert res["verdict"]["ok"] and res["unaccounted"] == [0.0] and res["profile_error"] is None
     assert res["launches"] == res["steps"] == 20 and res["launches_other_threads"] == 0
+
+
+@pytest.mark.parametrize("name", ["train_league", "hero_pool", "grade_5v5"])
+def test_ladder_training_runs_on_the_card(cuda, name):
+    """The league run, the hero-pool run and the 5v5 grader as phase 23 runs
+    them, cut: the result agrees with the exit code and with the recorded
+    numbers by the reference's rule, the reference's summary fields, one
+    launch per learner step plus one per reuse update, none in the
+    evaluator or the grader (chip_smoke raises otherwise)."""
+    import chip_smoke
+
+    res = chip_smoke.SOAKS[name](None)
+    assert all(res["verdict"].values()) and res["dead"] == 0 and res["rc"] in (0, 1)
+    assert res["launches"] == res["steps"] + res["ppo_updates"] and res["launches_other_threads"] == 0
+    assert res["steps"] == res["updates"] > 0
+
+
+def test_league_soak_on_the_card(cuda):
+    """The league soak's twin with its multi-model server and its actors on
+    the card: every verdict true through two rolling restarts, no launch."""
+    import chip_smoke
+
+    res = chip_smoke._soak_league(_soak_policy())
+    assert all(res["verdict"].values()) and res["kills"] == 2 and res["promotions"] >= 1
+    assert res["launches"] == res["steps"] == 0
+
+
+def test_wire_soak_on_the_card(cuda):
+    """The bf16-wire soak's twin with its learner and actors on the card:
+    `ok`, the bytes ratio in band, one launch per learner step."""
+    import chip_smoke
+
+    res = chip_smoke._soak_wire(_soak_policy())
+    assert res["verdict"]["ok"] and 0.4 <= res["ratio"] <= 0.8 and not any(res["unaccounted"])
+    assert res["launches"] == res["steps"] > 0 and res["launches_other_threads"] == 0
+
+
+def test_aggregate_soak_on_the_card(cuda):
+    """The aggregate soak's twin cut as phase 23 runs it, phase B's learner
+    on the card at the flagship policy and batch: every replayer reporting,
+    every process heard, 0 bad frames, one launch per learner step."""
+    import chip_smoke
+
+    res = chip_smoke._soak_aggregate()
+    assert res["verdict"]["closed_loop_live"] and res["unaccounted"] == [0, 0]
+    assert res["launches"] == res["steps"] > 1 and res["launches_other_threads"] == 0
 
 
 def test_a_ring_slot_goes_back_only_after_its_copy_retired(cuda):

@@ -249,7 +249,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                 "chaos/schedule.py", "chaos/controller.py", "scripts/train_north_star.py", "scripts/chaos_soak.py",
                 "scripts/resume_soak.py", "scripts/soak_broker_fabric.py", "scripts/soak_serve_chaos.py",
                 "scripts/soak_serve_handoff.py", "scripts/soak_fleet_obs.py", "scripts/soak_autoscale.py",
-                "scripts/obs_smoke.py"):
+                "scripts/obs_smoke.py", "scripts/train_league.py", "scripts/train_hero_pool.py",
+                "scripts/grade_5v5.py", "scripts/soak_league.py", "scripts/soak_wire_bf16.py",
+                "scripts/aggregate_soak.py"):
         assert REPO / "dotaclient_tpu_torch" / new in files
     grpc_sites = set()
     for path in files:

@@ -190,6 +190,21 @@ def fresh_compile():
         jax.clear_caches()
 
 
+@pytest.fixture()
+def warm_cpu_threads():
+    """One throwaway log over a [N_KEYS, 38] tensor before the measured
+    ones. On the CPU torch computes a large log through MKL inside an OpenMP
+    parallel region, and in a process's first such region MKL can compute
+    the chunks of newly started worker threads less accurately: ~1e-4
+    relative, whole chunks, in 7 of 120 fresh processes under an 8-way load
+    on an 8-core x86-64 host, never in a later call, and in none of 120 with
+    MKL_CBWR=COMPATIBLE or MKL_NUM_THREADS=1 (tests/test_torch_cpu_log.py
+    reproduces it; ROADMAP.md §C). The measured logs then run on warm
+    threads; the tolerance and the inputs are unchanged."""
+    x = torch.rand((N_KEYS, 1, 38), generator=torch.Generator().manual_seed(0)) * 0.5 + 0.25
+    torch.log(-torch.log(x))
+
+
 # Each side's noise against the float64 value of the same uniform: two
 # logs within two ulp each move g by at most eps * (2 + |g|), half the
 # pair bound above. Measured over these keys on an x86-64 CPU with
@@ -206,7 +221,7 @@ def _worst(name, got, bound, u, exact) -> str:
             f"{exact[i]!r}, |diff| {abs(float(got[i]) - float(exact[i])):.3g} = {r[i]:.3f} x its bound")
 
 
-def test_gumbel_noise_within_tolerance_of_jax(fresh_compile):
+def test_gumbel_noise_within_tolerance_of_jax(fresh_compile, warm_cpu_threads):
     for shape in [(1, 38), (16,)]:
         want = np.asarray(jax.vmap(lambda k: jax.random.gumbel(k, shape))(KEYS))
         un = threefry.gumbel_uniform(KEYS, shape)
@@ -230,7 +245,7 @@ def _count_flips(got, want, perturbed):
 
 
 @pytest.mark.parametrize("K,scale", [(4, 1.0), (9, 0.01), (16, 3.0)])
-def test_categorical_picks_jax_index(K, scale, fresh_compile):
+def test_categorical_picks_jax_index(K, scale, fresh_compile, warm_cpu_threads):
     logits = (np.random.RandomState(K).randn(N_KEYS, K) * scale).astype(np.float32)
     want = np.asarray(jax.vmap(jax.random.categorical)(KEYS, logits))
     noise = -torch.log(-torch.log(torch.from_numpy(threefry.gumbel_uniform(KEYS, (K,)))))
