@@ -1802,6 +1802,13 @@ def phase_learner_manifest(device, card: str, steps: int = 40, parity_steps: int
     return res
 
 
+# Phase 9's drained binary checkpoints every 3 steps (the other manifest runs
+# every 10), so its SIGTERM lands after the third batch from its one Python
+# producer process: waiting for the tenth took 42.9 s of the phase's 127.1 s
+# on an H100 80GB HBM3 at 700 W. Every event of the drain is kept.
+DRAIN_CHECKPOINT_EVERY = 3
+
+
 def drain_binary(card: str, args, tmp: str, extra=()):
     """The learner binary with the manifest's args over tcp:// (the port's
     broker and one producer process apart), SIGTERM once it has saved a
@@ -1812,7 +1819,8 @@ def drain_binary(card: str, args, tmp: str, extra=()):
     from dotaclient_tpu_torch.runtime.learner import decode_aux
 
     broker, bport = start_tcp_broker()
-    flags = local_manifest(args, tmp, f"tcp://127.0.0.1:{bport}", _free_port(), extra=extra)
+    flags = local_manifest(args, tmp, f"tcp://127.0.0.1:{bport}", _free_port(), checkpoint_every=DRAIN_CHECKPOINT_EVERY,
+                           extra=extra)
     cfg = parse_config(LearnerConfig(), flags)
     ck = cfg.checkpoint_dir
     prod = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--tcp-producer", str(bport), "1000",
@@ -6727,7 +6735,8 @@ def soak_main(argv) -> int:
     name = argv[0]
     # a soak that hangs leaves every thread's stack in its log before its
     # phase gives up on it
-    join_s = CONTROL_SOAK_JOIN_S if name in CONTROL_SOAK_NAMES else LADDER_JOIN_S if name in LADDER_NAMES else SOAK_JOIN_S
+    join_s = (CONTROL_SOAK_JOIN_S if name in CONTROL_SOAK_NAMES else LADDER_JOIN_S if name in LADDER_NAMES
+              else AB_JOIN_S if name in AB_NAMES else SOAK_JOIN_S)
     faulthandler.dump_traceback_later(join_s - 20)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -7190,11 +7199,248 @@ def phase_ladder(device, card: str, beside=lambda: None) -> tuple:
     return res, beside_res
 
 
+# Phase 24: the twins of the reference's seven A/B drivers (scripts/ab_*.py),
+# each at its SMOKE_CUT in a process of its own (`--soak NAME`). The host
+# A/Bs (wire quant, pack scale, in-network pack) time the host's packer and
+# copies, and the wire quant's and pack scale's closed loops train on the
+# card; the overlap A/B's learners run on the card; the three learning A/Bs
+# each run their 16-wide f32 closed loop on the card, two arms of one seed.
+# The overlap A/B runs first without the other A/Bs (AB_ALONE): its
+# pipelined-vs-serial bar holds on every host, and beside the six others on
+# the card's 8 cores it read 0.702 of serial with the host's compute
+# retention at 0.066 (0.968 alone at its defaults; H100 80GB HBM3, 700 W).
+# The six then run at once. Each wave runs beside phases of this process
+# (main picks them).
+AB_NAMES = ("ab_wire_quant", "ab_pack_scale", "ab_inet_pack", "ab_overlap", "ab_cast", "ab_ppo_reuse", "ab_replay")
+AB_ALONE = ("ab_overlap",)
+AB_JOIN_S = 240
+# The recurrence's shapes in the A/Bs' learners (B, seq_len + 1, H, dtype):
+# the overlap parity arms 16 x 9 x 16 f32, its throughput arms 32 x 17 x 64
+# f32, the wire quant's and pack scale's closed loops 64 x 17 x 32 bf16. The
+# learning A/Bs run phase 23's 16 x 17 x 16 f32 (8 x 17 x 16 in a 2x2 reuse
+# minibatch), held in phase 21.
+AB_KERNEL_SHAPES = ((16, 9, 16, "float32"), (32, 17, 64, "float32"), (64, 17, 32, "bfloat16"))
+# Bars keyed to a host probe (the twins' HOST_BOUND): the pack scale's 2x, the
+# in-network pack's collapse, the overlap's 0.98. One is left out by name, with
+# all_green, only where its probe armed it and the card's host missed it.
+AB_HOST_BOUND = {"ab_pack_scale": ("scaling_ok",), "ab_inet_pack": ("concat_collapse_ok",),
+                 "ab_overlap": ("overlap_ok",)}
+# The learning A/Bs' bars: chance at a cut of 4 updates (the reference's are
+# 45 / 45 / 30 updates x 2 seeds). Recorded, and the exit code must agree.
+AB_LEARNING_BARS = {"ab_cast": ("cast_rate_nonzero", "cast_equal_or_better_return"),
+                    "ab_ppo_reuse": ("equal_or_better_per_env_step",), "ab_replay": ("stale_drops_recovered",)}
+# Bools in the host A/Bs' verdicts that are readings of a probe, not bars.
+AB_READINGS = ("host_can_express_parallel_copy", "host_can_express_overlap")
+
+
+def _ab_main(mod, platform: str):
+    """`mod.main` at its SMOKE_CUT (--quick where the twin has it) on
+    `platform`, its launches counted by thread and its learners' steps and
+    updates recorded. Returns (rc, artifact, by_thread, updates, seconds)."""
+    argv = ["--quick"] if "quick" in vars(mod.parse_args([])) else []
+    for k, v in mod.SMOKE_CUT.items():
+        argv += [f"--{k}", str(v)]
+    fd, out = tempfile.mkstemp(prefix="ab_", suffix=".json")
+    os.close(fd)
+    try:
+        t0 = time.perf_counter()
+        with launches_by_thread() as by_thread, learner_step_updates() as updates:
+            rc = mod.main(argv + ["--out", out] + (["--platform", platform] if platform else []))
+        wall_s = time.perf_counter() - t0
+        art = json.load(open(out))
+    finally:
+        os.unlink(out)
+    return rc, art, by_thread, updates, round(wall_s, 2)
+
+
+def _ab_check(name: str, res: dict, art: dict, rc: int, by_thread: dict, updates: list, direct_steps: int = 0,
+              extra_red=(), trains=True, gate=None) -> None:
+    """_soak_check for an A/B: every bool of its verdict true but the
+    host-bound ones its probe armed and the host missed (left out by name,
+    with all_green) and its learning bars; the exit code 0 exactly when
+    `gate` (the reference's rule; default all_green) holds; launches = the
+    learners' steps (Learner steps and `direct_steps` train-step calls)
+    plus reuse updates, on the learner threads alone."""
+    v = res["verdict"] = {k: x for k, x in res["verdict"].items() if k not in AB_READINGS}
+    res["readings"] = {k: art["verdict"][k] for k in AB_READINGS if k in art.get("verdict", {})}
+    left_out = [k for k in AB_HOST_BOUND.get(name, ()) if v.get(k) is False]
+    if left_out:
+        left_out.append("all_green")
+    left_out += list(AB_LEARNING_BARS.get(name, ()))
+    res.update(rc=rc, left_out=left_out, ppo_updates=sum(updates), learner_steps=len(updates),
+               direct_steps=direct_steps)
+    gate = v["all_green"] if gate is None else gate
+    red = list(extra_red) + ([] if (rc == 0) == bool(gate) else ["rc_agrees_with_the_verdict"])
+    steps = len(updates) + direct_steps
+    _soak_check(name, res, steps, by_thread, red, left_out=left_out, trains=trains, expected=steps + sum(updates))
+
+
+def _ab_wire_quant(policy=None, platform: str = "") -> dict:
+    """The wire quant A/B: bytes halved on the wire and in the H2D layout,
+    the bf16 wire's pack >= 1.5x, the staged batches bitwise on both
+    packers; its closed loop's 2 arms x (1 + e2e_iters) steps on the card."""
+    from dotaclient_tpu_torch.scripts import ab_wire_quant as WQ
+
+    rc, art, by_thread, updates, wall_s = _ab_main(WQ, platform)
+    e2e = art["e2e"]
+    res = dict(wall_s=wall_s, verdict=art["verdict"], unaccounted=[], speedup_x=art["packer_only"]["speedup_x"],
+               pack_ms=[art["packer_only"]["pack_ms_f32_wire"], art["packer_only"]["pack_ms_bf16_wire"]],
+               obs_x=[art["wire_bytes"]["obs_share_reduction_x"], art["h2d"]["obs_share_reduction_x"]],
+               e2e_env_steps_per_s=[e2e[k]["env_steps_per_sec"] for k in ("f32_wire", "bf16_wire")])
+    same_loss = e2e["f32_wire"]["loss"] == e2e["bf16_wire"]["loss"]
+    _ab_check("ab_wire_quant", res, art, rc, by_thread, updates, direct_steps=2 * e2e["steps"],
+              extra_red=[] if same_loss else ["e2e_arms_bitwise_loss"])
+    return res
+
+
+def _ab_pack_scale(policy=None, platform: str = "") -> dict:
+    """The pack scale A/B at --quick: sharded transfer buffers bitwise the
+    single pack at 2 / 3 / 4 workers on both packers, pack_workers=1 inert,
+    ring overlap seen in the 4-worker learner; the 2x bar keyed to the
+    memcpy probe."""
+    from dotaclient_tpu_torch.scripts import ab_pack_scale as PS
+
+    rc, art, by_thread, updates, wall_s = _ab_main(PS, platform)
+    e2e = art["e2e"]
+    res = dict(wall_s=wall_s, verdict=art["verdict"], unaccounted=[], probe=art["host_copy_scaling"],
+               scaling={w: art["packer_scale"][w][f"scaling_1_to_4_x"] for w in ("f32_wire", "bf16_wire")},
+               e2e_env_steps_per_s=[e2e[k]["env_steps_per_sec"] for k in ("workers_1", "workers_4")],
+               ring_wait_s=e2e["workers_4"].get("staging_pack", {}).get("pack_ring_wait_s"))
+    _ab_check("ab_pack_scale", res, art, rc, by_thread, updates)
+    return res
+
+
+def _ab_inet_pack(policy=None, platform: str = "") -> dict:
+    """The in-network pack A/B at --quick: the assembled rows bitwise the
+    classic pack at 1-4 shards on both packers and the single buffer, the
+    unarmed broker inert (no assemble module, torch or jax); host work, no
+    learner and no launch."""
+    from dotaclient_tpu_torch.scripts import ab_inet_pack as IP
+
+    rc, art, by_thread, updates, wall_s = _ab_main(IP, platform)
+    res = dict(wall_s=wall_s, verdict=art["verdict"], unaccounted=[], host_cost=art["host_cost"],
+               probe=art["host_memcpy_probe"])
+    _ab_check("ab_inet_pack", res, art, rc, by_thread, updates, trains=False)
+    return res
+
+
+def _ab_overlap(policy=None, platform: str = "") -> dict:
+    """The overlap A/B at --quick: serial and pipelined learners bitwise on
+    both layouts, pipelined >= 0.9x serial, the defaults on, the port's
+    PrefetchModel exhausted clean with its three mutants caught; the 0.98
+    bar keyed to the concurrency probe. Launches: the parity and
+    throughput learners' steps and the device-only rate's steps."""
+    from dotaclient_tpu_torch.scripts import ab_overlap as OV
+
+    rc, art, by_thread, updates, wall_s = _ab_main(OV, platform)
+    tp = art["throughput"]
+    res = dict(wall_s=wall_s, verdict=art["verdict"], unaccounted=[], layout_ms=art["transfer_layout"],
+               device_only=tp["device_only_steps_per_sec"],
+               e2e=[tp["serial"]["env_steps_per_sec"], tp["pipelined"]["env_steps_per_sec"]],
+               probe=art["host_concurrency"]["compute_retention_with_helper"],
+               schedcheck_states=art["schedcheck_prefetch"]["head_states"])
+    _ab_check("ab_overlap", res, art, rc, by_thread, updates, direct_steps=tp["device_only_steps"])
+    return res
+
+
+def _ab_learning(name: str, policy=None, platform: str = "") -> dict:
+    """One learning A/B (cast, PPO reuse, replay) at SMOKE_CUT: its bars
+    recorded (chance at a cut), the exact counts held: every arm took its
+    updates with no dead actor; cast: the ablation cast nothing and no arm
+    landed more casts than it cast; replay: the off arm replayed no row,
+    the on arm's hit ratio within its ratio."""
+    from dotaclient_tpu_torch.scripts import ab_cast, ab_ppo_reuse, ab_replay
+
+    mod = {"ab_cast": ab_cast, "ab_ppo_reuse": ab_ppo_reuse, "ab_replay": ab_replay}[name]
+    rc, art, by_thread, updates, wall_s = _ab_main(mod, platform)
+    rows = [r for rs in art["runs"].values() for r in rs]
+    cut = mod.SMOKE_CUT["updates"]
+    extra = [] if all(r["learner_steps"] == cut and r["dead_actors"] == 0 for r in rows) else ["every_update_taken"]
+    bars = {k: art[k] for k in AB_LEARNING_BARS[name]}
+    res = dict(wall_s=wall_s, unaccounted=[], episodes=[r["episodes"] for r in rows],
+               late=[r["late_mean"] for r in rows])
+    if name == "ab_cast":
+        bars["ablation_clean_zero_casts"] = art["ablation_clean_zero_casts"]
+        res.update(cast_rate=art["cast_enabled_cast_action_rate"], casts_landed=art["cast_enabled_casts_landed_total"],
+                   cast_actions=[r["cast_actions"] for r in rows])
+        if any(r["casts_landed"] > r["cast_actions"] for r in rows):
+            extra.append("casts_landed_within_cast_actions")
+    elif name == "ab_replay":
+        off, on = art["runs"]["replay_off"], art["runs"]["replay_on"]
+        res.update(dropped_stale=art["arm_mean"]["dropped_stale"], hit_ratio=art["arm_mean"]["replay_hit_ratio"],
+                   rows_replayed=[r["rows_replayed"] for r in off + on])
+        if any(r["rows_replayed"] for r in off) or any("replay_admitted" in r for r in off):
+            extra.append("replay_off_replays_nothing")
+        if any(r["replay_hit_ratio"] > art["replay_ratio"] for r in on):
+            extra.append("hit_ratio_within_ratio")
+    else:
+        res["reuse_updates"] = sum(updates)
+        knobs = art["knobs"]["reuse"]
+        if not 0 < sum(updates) <= cut * mod.SMOKE_CUT["seeds"] * knobs["epochs"] * knobs["minibatches"]:
+            extra.append("reuse_updates_within_epochs_x_minibatches")
+    res["verdict"] = bars
+    _ab_check(name, res, art, rc, by_thread, updates, extra_red=extra, gate=all(bars.values()))
+    return res
+
+
+def phase_ab(device, card: str, alone_beside=lambda: None, beside=lambda: None) -> tuple:
+    """Phase 24: the twins of the reference's seven A/B drivers
+    (dotaclient_tpu_torch/scripts/ab_*.py), each a process of its own
+    (`--soak NAME`): AB_ALONE first while this process runs
+    `alone_beside()`, then the other six at once while it runs `beside()`.
+    The kernel is held
+    against its plain scan at the A/Bs' three new shapes first. Fails on a
+    false verdict but the host-bound ones left out by name and the learning
+    bars (chance at a cut), an exit code that disagrees with its verdict, a
+    bitwise or exact check missed, or launches that are not the learners'
+    steps plus reuse updates on the learner threads and none elsewhere.
+    Returns (the A/Bs' result, alone_beside's, beside's)."""
+    from dotaclient_tpu_torch.ops import lstm as L
+
+    t0 = time.perf_counter()
+    shapes = []
+    for B, T, H, dtype_name in AB_KERNEL_SHAPES:
+        dtype = getattr(torch, dtype_name)
+        ins = lstm_inputs(B, T, H, dtype, device, seed=B * T)
+        with torch.no_grad():
+            err = max((a - b).abs().max().item() for a, b in zip(L.lstm_kernel(*ins), L.lstm_scan(*ins)))
+        shapes.append(dict(shape=[B, T, H], dtype=dtype_name, max_abs_err=err))
+        if not err <= TOL_KERNEL[dtype]:
+            raise SystemExit(f"ab: the kernel at {B}x{T}x{H} {dtype} misses its plain scan by {err}")
+    t_alone = time.perf_counter()
+    res, alone_res, _ = _soak_processes(AB_ALONE, AB_JOIN_S, alone_beside, "ab")
+    t_alone = time.perf_counter() - t_alone
+    rest, beside_res, t_beside = _soak_processes(tuple(n for n in AB_NAMES if n not in AB_ALONE), AB_JOIN_S, beside,
+                                                 "ab")
+    res.update(rest)
+    res["alone_s"] = round(t_alone, 2)
+    for key in ("launches", "steps", "launches_other_threads", "ppo_updates"):
+        res[key] = sum(res[n][key] for n in AB_NAMES)
+    res["kernel_vs_plain"] = shapes
+    res["phase_s"] = round(time.perf_counter() - t0, 2)
+    res["beside_s"] = round(t_beside, 2)
+    left = {n: res[n]["left_out"] for n in AB_NAMES if res[n]["left_out"]}
+    print(f"ab: phase {res['phase_s']:.1f} s: {', '.join(AB_ALONE)} first ({res['alone_s']:.1f} s), then the others "
+          f"({res['beside_s']:.1f} s), each wave beside this process's own phases; "
+          + "; ".join(f"{n} {res[n]['wall_s']:.1f} s (rc {res[n]['rc']}, {res[n]['launches']} launches)"
+                      for n in AB_NAMES)
+          + f"; {res['launches']} recurrence launches for {res['steps']} learner steps and {res['ppo_updates']} reuse "
+          f"updates; left out by name {json.dumps(left)} | {card}", flush=True)
+    if res["launches"] != res["steps"] + res["ppo_updates"] or res["launches_other_threads"]:
+        raise SystemExit(f"ab: {res['launches']} recurrence launches, {res['steps'] + res['ppo_updates']} expected, "
+                         f"{res['launches_other_threads']} on other threads")
+    return res, alone_res, beside_res
+
+
 SOAKS = {"resume": _soak_resume, "fabric": _soak_fabric, "serve_chaos": lambda p: _soak_serve("chaos", p),
          "serve_handoff": lambda p: _soak_serve("handoff", p), "fleet_obs": _soak_fleet_obs,
          "autoscale": _soak_autoscale, "obs_smoke": _soak_obs_smoke, "train_league": _soak_train_league,
          "hero_pool": _soak_hero_pool, "grade_5v5": _soak_grade_5v5, "league_soak": _soak_league,
-         "wire_soak": _soak_wire, "aggregate_soak": _soak_aggregate}
+         "wire_soak": _soak_wire, "aggregate_soak": _soak_aggregate, "ab_wire_quant": _ab_wire_quant,
+         "ab_pack_scale": _ab_pack_scale, "ab_inet_pack": _ab_inet_pack, "ab_overlap": _ab_overlap,
+         "ab_cast": lambda p, platform="": _ab_learning("ab_cast", p, platform),
+         "ab_ppo_reuse": lambda p, platform="": _ab_learning("ab_ppo_reuse", p, platform),
+         "ab_replay": lambda p, platform="": _ab_learning("ab_replay", p, platform)}
 
 
 # ----------------------------------------------------------------- probes
@@ -7593,8 +7839,14 @@ def main() -> int:
     soaks, (transformer, skill) = phase_soaks(device, card,
                                               beside=lambda: (phase_transformer(device, card), phase_skill(card)))
     marks.append(("12 + 15 + 21", time.perf_counter()))
-    actors = phase_actors(device, card, fabric_window_ms=fabric["fabric_window_ms"])  # zeroes the counter itself
-    marks.append(("13", time.perf_counter()))
+    # phase 24's processes (each counting its own launches by thread): the
+    # overlap A/B beside phase 20, the six others beside phase 13 (each
+    # phase zeroes this process's counter itself); 20 loads the fake pika
+    # into this process, which no later phase reads
+    ab, amqp_valve, actors = phase_ab(
+        device, card, alone_beside=lambda: phase_amqp_valve(device, card),
+        beside=lambda: phase_actors(device, card, fabric_window_ms=fabric["fabric_window_ms"]))
+    marks.append(("13 + 20 + 24", time.perf_counter()))
     fleet = phase_fleet(device, card, actors_window_ms=actors["window_ms_median"])  # zeroes the counter itself
     marks.append(("14", time.perf_counter()))
     # phase 22's three soak processes (each counting its own launches by
@@ -7608,8 +7860,6 @@ def main() -> int:
     ladder, (multihost, model_parallel) = phase_ladder(
         device, card, beside=lambda: (phase_multihost(device, card), phase_model_parallel(device, card)))
     marks.append(("18 + 19 + 23", time.perf_counter()))
-    amqp_valve = phase_amqp_valve(device, card)  # zeroes the counter itself before each path; loads the fake pika
-    marks.append(("20", time.perf_counter()))
 
     main_case = cases[0]
     kernels = [
@@ -7674,6 +7924,8 @@ def main() -> int:
             "control_soaks": control_soaks,
             "launches_ladder": ladder["launches"],
             "ladder": ladder,
+            "launches_ab": ab["launches"],
+            "ab": ab,
         }
     ]
     spans = ", ".join(f"{name} {t1 - t0:.1f}" for (_, t0), (name, t1) in zip(marks, marks[1:]))

@@ -45,9 +45,11 @@ def inputs(B, T, H, dtype, device, seed=0):
     # per-thread design; H=1024: per-thread, W_h from global memory; 16x17x16:
     # the skill run's learner (scripts/train_north_star.py); 16x9x128,
     # 8x9x128, 8x5x128: the soaks' learners at the flagship width; 8x17x16:
-    # a 2x2 reuse step's minibatch in the hero-pool run and the 5v5 grader
+    # a 2x2 reuse step's minibatch in the hero-pool run and the 5v5 grader;
+    # 16x9x16, 32x17x64, 64x17x32: the A/B twins' learners (overlap parity
+    # and throughput, the wire-quant and pack-scale closed loops)
     [(256, 17, 128), (128, 17, 128), (37, 17, 128), (5, 3, 32), (3, 1, 64), (9, 4, 256), (21, 5, 48), (4, 3, 40), (2, 2, 1024),
-     (16, 17, 16), (16, 9, 128), (8, 9, 128), (8, 5, 128), (8, 17, 16)],
+     (16, 17, 16), (16, 9, 128), (8, 9, 128), (8, 5, 128), (8, 17, 16), (16, 9, 16), (32, 17, 64), (64, 17, 32)],
 )
 def test_kernel_matches_scan(cuda, dtype, B, T, H):
     ins = inputs(B, T, H, dtype, cuda)
@@ -457,6 +459,23 @@ def test_aggregate_soak_on_the_card(cuda):
     res = chip_smoke._soak_aggregate()
     assert res["verdict"]["closed_loop_live"] and res["unaccounted"] == [0, 0]
     assert res["launches"] == res["steps"] > 1 and res["launches_other_threads"] == 0
+
+
+@pytest.mark.parametrize("name", ["ab_wire_quant", "ab_pack_scale", "ab_inet_pack", "ab_overlap", "ab_cast",
+                                  "ab_ppo_reuse", "ab_replay"])
+def test_ab_twin_on_the_card(cuda, name):
+    """Each A/B twin at its smoke cut as phase 24 runs it: every bar held
+    but a host-bound one its probe armed and the host missed (left out by
+    name) and the learning bars (chance at a cut), the exit code agreeing
+    with the verdict, launches = steps + reuse updates on the learner
+    thread alone."""
+    import chip_smoke
+
+    res = chip_smoke.SOAKS[name](None)
+    held = {k: v for k, v in res["verdict"].items() if isinstance(v, bool) and k not in res["left_out"]}
+    assert all(held.values()), res["verdict"]
+    assert res["launches"] == res["steps"] + res["ppo_updates"] and res["launches_other_threads"] == 0
+    assert (res["steps"] > 0) == (name != "ab_inet_pack")
 
 
 def test_a_ring_slot_goes_back_only_after_its_copy_retired(cuda):

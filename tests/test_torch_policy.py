@@ -251,7 +251,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                 "scripts/soak_serve_handoff.py", "scripts/soak_fleet_obs.py", "scripts/soak_autoscale.py",
                 "scripts/obs_smoke.py", "scripts/train_league.py", "scripts/train_hero_pool.py",
                 "scripts/grade_5v5.py", "scripts/soak_league.py", "scripts/soak_wire_bf16.py",
-                "scripts/aggregate_soak.py"):
+                "scripts/aggregate_soak.py", "scripts/ab_wire_quant.py", "scripts/ab_pack_scale.py",
+                "scripts/ab_inet_pack.py", "scripts/ab_overlap.py", "scripts/ab_cast.py", "scripts/ab_ppo_reuse.py",
+                "scripts/ab_replay.py", "analysis/schedcheck.py"):
         assert REPO / "dotaclient_tpu_torch" / new in files
     grpc_sites = set()
     for path in files:
