@@ -209,12 +209,29 @@ Phases, in order; any failure exits non-zero:
               reporting and heard, 0 bad frames; the 50k bars left out at
               the cut); six processes at once, beside phases 18 and 19 (see
               phase_ladder).
+24. ab      — the twins of the reference's seven A/B drivers at their
+              smoke cuts, each a process of its own: the overlap A/B
+              beside phase 20, the six others beside phase 13; every held
+              verdict true, launches = the learners' steps plus reuse
+              updates (see phase_ab).
+25. sanitizers — graftcheck of the port: the lint entry point
+              (`-m dotaclient_tpu_torch.scripts.lint_graft --strict
+              --json`) exits 0 in a process that imports no torch, numpy,
+              jax or dotaclient_tpu; 6 flagship learner steps (pipelined
+              loop, 2 pack workers with the ring and the lease reaper,
+              publisher, async checkpoint every 3, watchdog) under the
+              lock sanitizer with 0 inversions and 0 long holds, then
+              under the race sanitizer beside an in-process server whose
+              4 sessions see 2 hot-swaps, with 0 races and every reply
+              bitwise its standalone key step; the params and Adam state
+              after both bitwise the same steps with no monitor; alone
+              in this process, last (see phase_sanitizers).
 Each path of the main path (serving, learner forward, each train step,
 the reuse step, the learner loop, the manifest learner, the fabric
 learner, the serve manifest, the actors' closed loop, the fleet's loop,
 the skill run, the chaos soak, each data mode, each multihost turn, each
-amqp:// and valve turn, each of the seven soaks and each of phase 23's
-six runs) is driven with the kernels' launch counters zeroed
+amqp:// and valve turn, each of the seven soaks, each of phase 23's
+six runs and each of phase 25's sanitized runs) is driven with the kernels' launch counters zeroed
 just before it and read just after (the serve manifest's servers, the
 actor processes, the league service, the evaluator, the multihost
 ranks and the soaks are processes of their own, which start at 0 and
@@ -1528,6 +1545,9 @@ def _window_ms(line) -> float:
 # producer waits after the request before it releases the PROFILE_STEPS
 # steps the window must see (the profiler's start can outlast steps that
 # run unheld). One capture, which must name the recurrence kernel.
+# Phase 9's two runs over tcp:// with 4 producer processes: steps each,
+# three 5-step windows (their median leaves the warm-up window out)
+TCP4_STEPS = 15
 PROFILE_WINDOW_S = 2
 PROFILE_START_S = 1.0
 PROFILE_STEPS = 6
@@ -1794,8 +1814,9 @@ def phase_learner_manifest(device, card: str, steps: int = 40, parity_steps: int
           f"{res['normal_step_ms']} (checkpoint call {res['ckpt_call_ms']} ms on the loop thread), worker save "
           f"{worker.last_save_s:.3f} s ({worker.saved} saved, {worker.coalesced} coalesced) | {card}", flush=True)
     if tcp:
-        res["tcp4_pack1"] = phase_learner_tcp(device, card, res["free_manifest_ms"], producers=4, flags=list(extra))
-        res["tcp4_pack4"] = phase_learner_tcp(device, card, res["free_manifest_ms"], producers=4,
+        res["tcp4_pack1"] = phase_learner_tcp(device, card, res["free_manifest_ms"], steps=TCP4_STEPS, producers=4,
+                                              flags=list(extra))
+        res["tcp4_pack4"] = phase_learner_tcp(device, card, res["free_manifest_ms"], steps=TCP4_STEPS, producers=4,
                                               flags=list(extra) + ["--staging.pack_workers", "4"])
     res["phase_s"] = time.perf_counter() - t_phase
     print(f"learner manifest: phase {res['phase_s']:.1f} s | {card}", flush=True)
@@ -1959,6 +1980,38 @@ def serve_client_main(argv) -> int:
     return 0
 
 
+def replay_sessions(policy, device, nets: dict, sessions: dict, ep_len: int, carry_every: int, label: str) -> int:
+    """Every reply row of every session (phase 8's client records) bitwise
+    the standalone key step replayed on `device` with the net of the
+    version it was served from: action, logp, value, key and the carry
+    when one was sent. Returns the replies checked."""
+    from dotaclient_tpu_torch.env import featurizer as F
+    from dotaclient_tpu_torch.models import policy as P
+    from dotaclient_tpu_torch.ops.batch import as_tensors
+    from dotaclient_tpu_torch.runtime.actor import make_key_actor_step
+    from dotaclient_tpu_torch.serve import wire as W
+    from dotaclient_tpu_torch.serve.server import InferenceServer
+
+    step, checked = make_key_actor_step(policy), 0
+    for k in sorted(sessions):
+        key = np.array([0, k], np.uint32)
+        for i, row in enumerate(sessions[k]):
+            start, _, bf16 = serve_flags(k, i % ep_len, carry_every)
+            if start:
+                state = P.initial_state(policy, (1,), device)
+            req = W.decode_step_request(W.encode_step_request(k, serve_obs(k, i), key, obs_bf16=bf16))
+            obs = as_tensors(F.stack([InferenceServer._canon_obs(req.obs)]), device)
+            state, action, logp, value, key = step(nets[row["version"]], state, obs, key)
+            mine = (key.tolist(), [int(a.item()) for a in action], int(logp.cpu().numpy().view(np.uint32)[0]),
+                    int(value.cpu().numpy().view(np.uint32)[0]))
+            carry_ok = row["carry"] is None or row["carry"] == [x[0].cpu().numpy().tobytes().hex() for x in state]
+            if (row["key"], row["action"], row["logp"], row["value"]) != mine or not carry_ok:
+                raise SystemExit(f"{label}: session {k} step {i} (v{row['version']}) is not bitwise the standalone "
+                                 f"key step")
+            checked += 1
+    return checked
+
+
 def _probe(port: int, frames):
     """Send S_INFO then `frames` on one fresh connection; the replies."""
     from dotaclient_tpu_torch.serve import wire as W
@@ -1990,7 +2043,7 @@ def phase_serve(device, card: str, policy=None, clients: int = 4, per_client: in
     from dotaclient_tpu_torch.models import policy as P
     from dotaclient_tpu_torch.ops import lstm as L
     from dotaclient_tpu_torch.ops.batch import as_tensors
-    from dotaclient_tpu_torch.runtime.actor import make_batched_key_actor_step, make_key_actor_step, net_like
+    from dotaclient_tpu_torch.runtime.actor import make_batched_key_actor_step, net_like
     from dotaclient_tpu_torch.serve import wire as W
     from dotaclient_tpu_torch.serve.server import InferenceServer
     from dotaclient_tpu_torch.transport.params import named_params
@@ -2082,24 +2135,7 @@ def phase_serve(device, card: str, policy=None, clients: int = 4, per_client: in
         raise SystemExit("serve: a session's version went back, or v2 was not served after the swap")
 
     # the sampled sessions, replayed through the standalone key step on the card
-    step = make_key_actor_step(cfg)
-    checked = 0
-    for k in sorted(sampled):
-        rows, key = sampled[k], np.array([0, k], np.uint32)
-        for i, row in enumerate(rows):
-            start, _, bf16 = serve_flags(k, i % ep_len, carry_every)
-            if start:
-                state = P.initial_state(cfg, (1,), device)
-            req = W.decode_step_request(W.encode_step_request(k, serve_obs(k, i), key, obs_bf16=bf16))
-            obs = as_tensors(F.stack([InferenceServer._canon_obs(req.obs)]), device)
-            state, action, logp, value, key = step(nets[row["version"]], state, obs, key)
-            got = (row["key"], row["action"], row["logp"], row["value"])
-            mine = (key.tolist(), [int(a.item()) for a in action], int(logp.cpu().numpy().view(np.uint32)[0]),
-                    int(value.cpu().numpy().view(np.uint32)[0]))
-            carry_ok = row["carry"] is None or row["carry"] == [x[0].cpu().numpy().tobytes().hex() for x in state]
-            if got != mine or not carry_ok:
-                raise SystemExit(f"serve: session {k} step {i} is not bitwise the standalone key step")
-            checked += 1
+    checked = replay_sessions(cfg, device, nets, sampled, ep_len, carry_every, "serve")
 
     # the device's busy share of one full tick, and its parts
     tick_step = make_batched_key_actor_step(cfg)
@@ -2489,6 +2525,11 @@ def _fabric_backlog_turn(shards, args, tmp: str, extra, steps: int = 40, produce
                 backlog_reply_lost=unseen, shard1_reply_lost=lost)
 
 
+# Phase 10's backlog turn: its learner's steps. Every check of the turn is
+# settled once each producer has failed over and republished, long before
+# the fabric-fed run's 40 steps; the smoke's budget pays for phase 25 here.
+FABRIC_BACKLOG_STEPS = 24
+
 # Phase 10's timed turns over the fabric and over one endpoint: one pair,
 # to hold the whole smoke near 800 s beside phase 17 (PERF.md §4).
 FABRIC_TURNS = ("fabric", "single")
@@ -2682,7 +2723,8 @@ def phase_learner_fabric(card: str, single_window_ms, steps: int = 40, producers
         probe = TcpBroker("127.0.0.1", shards[0][1])
         final_weights = probe.poll_weights()  # the restart's last publish
         probe.close()
-        backlog = _fabric_backlog_turn(shards, args, os.path.join(tmp, "backlog"), extra, steps, producers)
+        backlog = _fabric_backlog_turn(shards, args, os.path.join(tmp, "backlog"), extra,
+                                       min(steps, FABRIC_BACKLOG_STEPS), producers)
         lines = [json.loads(x) for x in open(os.path.join(cfg.log_dir, "metrics.jsonl"))]
         run_window_ms = statistics.median(_window_ms(r) for r in lines)
         turns = {}
@@ -2724,8 +2766,8 @@ def phase_learner_fabric(card: str, single_window_ms, steps: int = 40, producers
           f"{lost}; restart at v{steps} (high-water {hwm}) with {pending} pending, trained to v{steps + 1} "
           f"| {card}", flush=True)
     print(f"learner fabric: shard 1 stopped holding {backlog['backlog']} acknowledged frames for "
-          f"{backlog['stopped_s']:.1f} s (producer failovers {backlog['failovers']}), then {steps} more steps from "
-          f"producers publishing {steps + 3} batches: fan-in popped {[int(x) for x in backlog['popped']]} = delivered "
+          f"{backlog['stopped_s']:.1f} s (producer failovers {backlog['failovers']}), then {backlog['steps']} more steps "
+          f"from producers publishing {backlog['steps'] + 3} batches: fan-in popped {[int(x) for x in backlog['popped']]} = delivered "
           f"{int(backlog['delivered'])} + fenced {int(backlog['fence_dropped'])} + dup {int(backlog['dup_dropped'])}; "
           f"of the backlog {backlog['backlog_fenced']} fenced (lost, each after its key's new epoch was delivered), "
           f"{backlog['backlog_delivered_late']} delivered late, {backlog['backlog_reply_lost']} popped into replies "
@@ -7443,6 +7485,318 @@ SOAKS = {"resume": _soak_resume, "fabric": _soak_fabric, "serve_chaos": lambda p
          "ab_replay": lambda p, platform="": _ab_learning("ab_replay", p, platform)}
 
 
+# ---------------------------------------------------------------- phase 25
+# Graftcheck of the port on the card: the lint as its own process, then the
+# flagship learner's threads under the lock sanitizer, and the same learner
+# beside an in-process server under the race sanitizer, each run held
+# bitwise against the same steps with no monitor installed.
+SANITIZER_STEPS = 6
+SANITIZER_CKPT_EVERY = 3
+SANITIZER_SESSIONS = 4
+SANITIZER_EP_LEN = 8
+SANITIZER_CARRY_EVERY = 4
+SANITIZER_SWAPS = 2  # hot-swaps the sessions must see (versions changing under them)
+SANITIZER_MIN_ROWS = 16  # steps each session takes at least
+LINT_HEAVY = ("torch", "numpy", "jax", "jaxlib")
+
+
+def lint_check(card: str) -> dict:
+    """(a): the port's lint entry point as a process of its own under
+    `-X importtime`, --strict --json on the tree as shipped. Fails unless
+    it exits 0 with an ok report line and its process imported none of
+    LINT_HEAVY nor the JAX package."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_lint_")
+    log = os.path.join(tmp, "importtime.log")
+    t0 = time.perf_counter()
+    with open(log, "w") as err:
+        proc = subprocess.run([sys.executable, "-X", "importtime", "-m", "dotaclient_tpu_torch.scripts.lint_graft",
+                               "--strict", "--json"], stdout=subprocess.PIPE, stderr=err, text=True, timeout=300,
+                              cwd=ROOT)
+    wall_s = time.perf_counter() - t0
+    held = _imported_by_log(log)
+    shutil.rmtree(tmp, ignore_errors=True)
+    heavy = sorted(m for m in held if m.split(".")[0] in LINT_HEAVY or m == "dotaclient_tpu"
+                   or m.startswith("dotaclient_tpu."))
+    lines = proc.stdout.strip().splitlines()
+    report = json.loads(lines[-1]) if lines else {}
+    if proc.returncode != 0 or not report.get("ok") or heavy or not held:
+        raise SystemExit(f"sanitizers (a): lint exit {proc.returncode}, report {report}, heavy modules {heavy[:8]}")
+    print(f"sanitizers (a): lint_graft --strict exit 0 in {wall_s:.2f} s: {report['files_scanned']} files, "
+          f"{report['suppressed']} suppressed inline, {report['baselined']} baselined, no torch/numpy/jax/"
+          f"dotaclient_tpu module among the {len(held)} its process imported | {card}", flush=True)
+    return dict(wall_s=round(wall_s, 3), files=report["files_scanned"], suppressed=report["suppressed"],
+                baselined=report["baselined"], modules=len(held), rule_seconds=report["rule_seconds"])
+
+
+def _sanitizer_cfg(tmp: str, name: str, base=None):
+    """Phase 25's learner: the flagship config (or `base`) with the
+    pipelined loop and its prefetch lane, two pack workers (the ring and
+    the lease reaper), a publish every step, an async checkpoint every
+    SANITIZER_CKPT_EVERY steps and the watchdog."""
+    from dotaclient_tpu_torch.config import LearnerConfig
+
+    cfg = LearnerConfig() if base is None else base
+    obs = dataclasses.replace(cfg.obs, enabled=True, install_handlers=False, metrics_port=0,
+                              dump_dir=os.path.join(tmp, name),
+                              watchdog=dataclasses.replace(cfg.obs.watchdog, enabled=True, interval_s=0.05))
+    return dataclasses.replace(cfg, publish_every=1, metrics_every=SANITIZER_CKPT_EVERY,
+                               checkpoint_every=SANITIZER_CKPT_EVERY, native_packer=True,
+                               log_dir=os.path.join(tmp, name, "logs"), checkpoint_dir=os.path.join(tmp, name, "ck"),
+                               staging=dataclasses.replace(cfg.staging, pack_workers=max(2, cfg.staging.pack_workers)),
+                               learner=dataclasses.replace(cfg.learner, prefetch=True),
+                               ckpt=dataclasses.replace(cfg.ckpt, async_save=True), obs=obs)
+
+
+class _watch_new:
+    """`with _watch_new(monitor, cls, ...):` opts every instance of the
+    classes created inside the block into the race monitor's write
+    tracing from its first attribute on (the staging pool and ring are
+    made inside Learner.run)."""
+
+    def __init__(self, monitor, *classes):
+        self.monitor, self.classes, self.saved = monitor, classes, {}
+
+    def __enter__(self):
+        for cls in self.classes:
+            orig = cls.__dict__.get("__init__")
+            self.saved[cls] = orig
+            init = cls.__init__
+
+            def watched(obj, *a, _init=init, **kw):
+                self.monitor.watch(obj)
+                _init(obj, *a, **kw)
+
+            cls.__init__ = watched
+        return self
+
+    def __exit__(self, *exc):
+        for cls, orig in self.saved.items():
+            if orig is None:
+                del cls.__init__
+            else:
+                cls.__init__ = orig
+        return False
+
+
+def _serve_session(port: int, k: int, stop, rows: list, hidden: int, errors: list) -> None:
+    """Session k against the server on `port` over a connection of its
+    own: steps with its own jax key (PRNGKey(k)) until `stop` is set and
+    at least SANITIZER_MIN_ROWS steps are done; every reply goes to `rows`."""
+    from dotaclient_tpu_torch.serve import wire as W
+
+    try:
+        with socket.create_connection(("127.0.0.1", port), timeout=120) as s:
+            buf = s.makefile("rb")
+
+            def call(mtype, payload):
+                s.sendall(W.frame(mtype, payload))
+                n, _ = struct.unpack("<IB", buf.read(5))
+                return buf.read(n)
+
+            call(W.S_INFO, b"")
+            key, i = np.array([0, k], np.uint32), 0
+            while not stop.is_set() or i < SANITIZER_MIN_ROWS:
+                start, carry, bf16 = serve_flags(k, i % SANITIZER_EP_LEN, SANITIZER_CARRY_EVERY)
+                r = W.decode_step_response(call(W.S_STEP, W.encode_step_request(
+                    k, serve_obs(k, i), key, episode_start=start, want_carry=carry, obs_bf16=bf16)), hidden)
+                if r.status != W.OK:
+                    raise RuntimeError(f"session {k} step {i}: status {r.status}")
+                rows.append({"version": r.version, "key": r.rng.tolist(), "action": r.action.tolist(),
+                             "logp": int(np.float32(r.logp).view(np.uint32)),
+                             "value": int(np.float32(r.value).view(np.uint32)),
+                             "carry": None if r.carry is None else [x.tobytes().hex() for x in r.carry]})
+                key, i = r.rng, i + 1
+    except BaseException as e:  # the phase reads it
+        errors.append(f"session {k}: {type(e).__name__}: {e}")
+
+
+def _sanitized_run(cfg, frames, device, name: str, monitor=None, serve: bool = False) -> dict:
+    """SANITIZER_STEPS learner steps over `frames` (published before the
+    run) with `monitor` installed (None: no monitor). Under a RaceMonitor
+    the learner, its staging buffer, pack pool, transfer ring, publisher
+    and checkpoint worker are watched, CUDA events convey
+    happens-before, and with `serve` an in-process InferenceServer polls
+    the learner's weights while SANITIZER_SESSIONS sessions step."""
+    from dotaclient_tpu_torch.analysis.racecheck import RaceMonitor
+    from dotaclient_tpu_torch.config import InferenceConfig, ServeConfig
+    from dotaclient_tpu_torch.parallel import fused_io
+    from dotaclient_tpu_torch.runtime import staging as staging_mod
+    from dotaclient_tpu_torch.runtime.actor import net_like
+    from dotaclient_tpu_torch.runtime.learner import Learner
+    from dotaclient_tpu_torch.serve.server import InferenceServer
+    from dotaclient_tpu_torch.transport import memory as tmem
+    from dotaclient_tpu_torch.transport.params import named_params
+    from dotaclient_tpu_torch.transport.serialize import deserialize_weights
+
+    race = isinstance(monitor, RaceMonitor)
+    if monitor is not None:
+        monitor.install()  # raises when another instrumentation owns threading: a failure, never a skip
+    server, sessions, out = None, {}, {}
+    try:
+        if race and device.type == "cuda":
+            monitor.watch_events(torch.cuda.Event)
+        tmem.reset(name)
+        for f in frames:
+            tmem.MemoryBroker(name).publish_experience(f)
+        watched = (staging_mod._PackPool, fused_io.TransferRing) if race else ()
+        with _watch_new(monitor, *watched):
+            learner = Learner(cfg, tmem.MemoryBroker(name), device)
+            published = {}
+            publish = learner.broker.publish_weights
+
+            def recording_publish(frame):
+                published[struct.unpack_from("<I", frame, 4)[0]] = frame
+                publish(frame)
+
+            learner.broker.publish_weights = recording_publish
+            if race:
+                for obj in (learner, learner.staging, learner.publisher, learner._ckpt_worker):
+                    monitor.watch(obj)
+            stop, errors, threads = threading.Event(), [], []
+            if serve:
+                icfg = InferenceConfig(serve=ServeConfig(port=0, max_batch=SANITIZER_SESSIONS, gather_window_s=0.002,
+                                                         weight_poll_s=0.005), policy=cfg.policy, seed=cfg.seed)
+                server = InferenceServer(icfg, tmem.MemoryBroker(name), device=device)
+                if race:
+                    monitor.watch(server)
+                # the learner's v0 params, so a version-0 reply has one net
+                server.swap_params(named_params(learner.state.net), 0)
+                nets = {0: server.params}
+                server.start()
+                for k in range(SANITIZER_SESSIONS):
+                    sessions[k] = []
+                    threads.append(threading.Thread(target=_serve_session, daemon=True, name=f"sanitizer-session-{k}",
+                                                    args=(server.port, k, stop, sessions[k], cfg.policy.lstm_hidden,
+                                                          errors)))
+                    threads[-1].start()
+                deadline = time.monotonic() + 60
+                while not all(sessions.values()) and time.monotonic() < deadline and not errors:
+                    time.sleep(0.002)
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            with launches_by_thread() as by_thread:
+                done = learner.run(num_steps=SANITIZER_STEPS, batch_timeout=60.0, max_idle=3)
+            if serve:
+                deadline = time.monotonic() + 60
+                while server.version != SANITIZER_STEPS and time.monotonic() < deadline and not errors:
+                    time.sleep(0.002)
+                seen = [len(rows) for rows in sessions.values()]
+                while (min(len(rows) for rows in sessions.values()) < max(seen) + 2 and time.monotonic() < deadline
+                       and not errors):
+                    time.sleep(0.002)  # every session steps on the last version too
+                stop.set()
+                for t in threads:
+                    t.join(timeout=60)
+                server.stop()
+                if errors or any(t.is_alive() for t in threads):
+                    raise SystemExit(f"sanitizers (c): sessions failed {errors[:4]}")
+                for v, frame in published.items():
+                    nets.setdefault(v, net_like(server.params, deserialize_weights(frame)[0]))
+                out["swaps_seen"] = min(len({r["version"] for r in rows}) - 1 for rows in sessions.values())
+                out["rows"] = sum(len(rows) for rows in sessions.values())
+                out["server_swaps"] = server.weight_swaps_total
+                out["versions"] = sorted({r["version"] for rows in sessions.values() for r in rows})
+            learner.close()
+    finally:
+        if monitor is not None:
+            monitor.uninstall()
+        if server is not None:
+            server.stop()
+    if done != SANITIZER_STEPS or learner.version != SANITIZER_STEPS:
+        raise SystemExit(f"sanitizers: {name}: {done} steps done, version {learner.version}")
+    out.update(bits=_state_bits(learner.state), by_thread=dict(by_thread), published=sorted(published),
+               saved=learner._ckpt_worker.saved, watchdog=learner.obs.watchdog.verdict()
+               if learner.obs is not None and learner.obs.watchdog is not None else None)
+    if serve:
+        out["nets"], out["sessions"] = nets, sessions
+    return out
+
+
+def phase_sanitizers(device, card: str, base=None) -> dict:
+    """Phase 25: (a) the lint process; (b) SANITIZER_STEPS flagship learner
+    steps (pipelined loop and lane, two pack workers, ring and lease
+    reaper, publisher, async checkpoint, watchdog) under lockcheck's
+    LockMonitor: 0 inversions, 0 holds over its default threshold, the
+    kernel launched once per step on the loop thread and nowhere else;
+    (c) the same under racecheck's RaceMonitor beside an in-process
+    server taking hot-swaps from the publisher while SANITIZER_SESSIONS
+    sessions step: 0 unsuppressed races, every suppression reasoned, every
+    reply bitwise its standalone key step; (d) the params and Adam state
+    after (b) and after (c) bitwise those of the same steps with no
+    monitor. The lint runs beside (b)-(d) in its own process."""
+    from dotaclient_tpu_torch.analysis.lockcheck import LockMonitor
+    from dotaclient_tpu_torch.analysis.racecheck import RaceMonitor
+
+    t0 = time.perf_counter()
+    lint = {}
+    lint_thread = threading.Thread(target=lambda: lint.update(lint_check(card)), name="sanitizer-lint")
+    lint_thread.start()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sanitizers_")
+    try:
+        cfg = _sanitizer_cfg(tmp, "plain", base)
+        frames = _stamped(rollout_frames(cfg, SANITIZER_STEPS), cfg.batch_size)
+        runs, walls = {}, {}
+        for arm in ("plain", "lock", "race"):
+            monitor = {"plain": None, "lock": LockMonitor(), "race": RaceMonitor()}[arm]
+            t1 = time.perf_counter()
+            runs[arm] = _sanitized_run(_sanitizer_cfg(tmp, arm, base), frames, device, f"chip_sanitizers_{arm}",
+                                       monitor=monitor, serve=arm == "race")
+            walls[arm] = round(time.perf_counter() - t1, 3)
+            runs[arm]["monitor"] = monitor
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        lint_thread.join(timeout=300)
+    if not lint:
+        raise SystemExit("sanitizers (a): the lint check did not finish")
+
+    for arm, r in runs.items():
+        if r["by_thread"] != {"MainThread": SANITIZER_STEPS}:
+            raise SystemExit(f"sanitizers: {arm}: recurrence launches by thread {r['by_thread']}, expected "
+                             f"{SANITIZER_STEPS} on the loop thread only")
+        if r["published"] != list(range(SANITIZER_STEPS + 1)) or r["saved"] < 1:
+            raise SystemExit(f"sanitizers: {arm}: published {r['published']}, {r['saved']} async checkpoints")
+    lock = runs["lock"]["monitor"].report()
+    if lock["inversions"] or lock["over_held"] or lock["acquisitions"] < 100:
+        raise SystemExit(f"sanitizers (b): lockcheck {json.dumps(lock)[:2000]}")
+    race_mon = runs["race"]["monitor"]
+    race = race_mon.report()
+    unreasoned = [s for s in race_mon.suppressed if not s.get("reason", "").strip()]
+    if race["races"] or unreasoned or race["writes_traced"] < 100:
+        raise SystemExit(f"sanitizers (c): racecheck {json.dumps(race)[:2000]}; unreasoned {unreasoned}")
+    r = runs["race"]
+    if r["swaps_seen"] < SANITIZER_SWAPS:
+        raise SystemExit(f"sanitizers (c): the sessions saw versions {r['versions']}: fewer than {SANITIZER_SWAPS} "
+                         f"hot-swaps under them")
+    checked = replay_sessions(cfg.policy, device, r["nets"], r["sessions"], SANITIZER_EP_LEN, SANITIZER_CARRY_EVERY,
+                              "sanitizers (c)")
+    plain = runs["plain"]["bits"]
+    for arm in ("lock", "race"):
+        if runs[arm]["bits"] != plain:
+            raise SystemExit(f"sanitizers (d): the params and Adam state after the {arm} run are not bitwise the "
+                             f"run with no monitor")
+    phase_s = round(time.perf_counter() - t0, 2)
+    out = dict(lint=lint, steps=SANITIZER_STEPS, launches=runs["lock"]["by_thread"]["MainThread"],
+               launches_race=runs["race"]["by_thread"]["MainThread"], lock=lock,
+               race={k: race[k] for k in ("writes_traced", "threads", "suppressed", "event_records", "event_observed")},
+               suppressions=[{k: s[k] for k in ("attr", "reason")} for s in race_mon.suppressed],
+               rows_checked=checked, versions_served=r["versions"], server_swaps=r["server_swaps"],
+               wall_s=walls, phase_s=phase_s)
+    print(f"sanitizers (b): lockcheck over {SANITIZER_STEPS} flagship steps (B={cfg.batch_size} T={cfg.seq_len}, "
+          f"pipelined, {cfg.staging.pack_workers} pack workers, ring depth {cfg.staging.transfer_depth}, async checkpoint "
+          f"every {SANITIZER_CKPT_EVERY}, watchdog): {lock['acquisitions']} acquisitions, {lock['edges']} order edges, "
+          f"0 inversions, 0 holds over {LockMonitor().hold_threshold_s} s; {out['launches']} launches on the loop "
+          f"thread, none elsewhere | {card}", flush=True)
+    print(f"sanitizers (c): racecheck over the same steps beside the server: {race['writes_traced']} writes traced "
+          f"over {race['threads']} threads, CUDA event edges {race['event_records']} recorded / "
+          f"{race['event_observed']} observed, 0 races, {race['suppressed']} suppressed (each with a reason); "
+          f"{SANITIZER_SESSIONS} sessions, {checked} replies over versions {r['versions']} bitwise the standalone key "
+          f"step | {card}", flush=True)
+    print(f"sanitizers (d): params and Adam state after the lock and race runs bitwise the run with no monitor; "
+          f"walls plain {walls['plain']:.2f} / lock {walls['lock']:.2f} / race {walls['race']:.2f} s, lint "
+          f"{lint['wall_s']:.2f} s beside them; phase {phase_s:.1f} s | {card}", flush=True)
+    return out
+
+
 # ----------------------------------------------------------------- probes
 # `python3 chip_smoke.py --probe profile|profile_kineto|tree_h2d|replay_h2d`
 # measures one question each and checks nothing; the smoke never runs them.
@@ -7860,6 +8214,10 @@ def main() -> int:
     ladder, (multihost, model_parallel) = phase_ladder(
         device, card, beside=lambda: (phase_multihost(device, card), phase_model_parallel(device, card)))
     marks.append(("18 + 19 + 23", time.perf_counter()))
+    # phase 25 alone: its monitors patch this process's threading, so no
+    # other phase of this process may run beside it
+    sanitizers = phase_sanitizers(device, card)
+    marks.append(("25", time.perf_counter()))
 
     main_case = cases[0]
     kernels = [
@@ -7926,6 +8284,8 @@ def main() -> int:
             "ladder": ladder,
             "launches_ab": ab["launches"],
             "ab": ab,
+            "launches_sanitizers": sanitizers["launches"] + sanitizers["launches_race"],
+            "sanitizers": sanitizers,
         }
     ]
     spans = ", ".join(f"{name} {t1 - t0:.1f}" for (_, t0), (name, t1) in zip(marks, marks[1:]))

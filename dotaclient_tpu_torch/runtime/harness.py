@@ -75,7 +75,8 @@ class ActorPool:
         loop = asyncio.new_event_loop()
         try:
             actor = self._maybe_vectorize(self._make_actor(i))
-            self.actors.append(actor)
+            with self._lock:
+                self.actors.append(actor)
 
             async def go():
                 if hasattr(actor, "episode_stream"):
@@ -107,7 +108,9 @@ class ActorPool:
         """The fleet's publish counters: the producer side of a
         conservation ledger (exact once stop() has joined the threads)."""
         published = shed = failed = 0
-        for a in list(self.actors):
+        with self._lock:
+            actors = list(self.actors)
+        for a in actors:
             published += int(getattr(a, "rollouts_published", 0))
             shed += int(getattr(a, "rollouts_shed", 0))
             failed += int(getattr(a, "rollouts_failed", 0))

@@ -454,8 +454,12 @@ class _LeaseReaper:
         self._held = keep
 
     def release_all(self) -> None:
-        """After the device is idle (run() teardown): every copy is done."""
-        for lease, _ in self._held:
+        """At run() teardown, after the device went idle: each copy's
+        event has completed, so its synchronize() returns at once and
+        fences the release locally all the same."""
+        for lease, ready in self._held:
+            if ready is not None:
+                ready.synchronize()
             lease.release()
         self._held = []
 

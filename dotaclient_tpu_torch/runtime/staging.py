@@ -788,6 +788,7 @@ class StagingBuffer:
 
     def quarantine(self) -> List[dict]:
         """Snapshot of the dead-letter ring (newest last)."""
+        # graftlint: disable=THR001(one GIL-atomic deque-snapshot copy; appends live in _quarantine_put on the sole consumer thread)
         return list(self._quarantine)
 
     def _offer_replay(self, item, frame: bytes, version: int, current_version: int, ref=None) -> bool:
@@ -1036,6 +1037,7 @@ class StagingBuffer:
         if not self._mutate_lock.acquire(timeout=timeout):
             return None
         try:
+            # graftlint: disable=THR001(held under _mutate_lock, the lock the consumer holds around its two mutation call sites)
             snap: dict = {"pending": [bytes(self._item_encode(it)) for it in self._pending]}
             if self._reservoir is not None:
                 snap["reservoir"] = self._reservoir.snapshot()
@@ -1105,6 +1107,7 @@ class StagingBuffer:
             need = self.cfg.batch_size
             if self._reservoir is not None:
                 need -= min(self._replay_target, self._reservoir.occupancy)
+            # graftlint: disable=THR001(read under _mutate_lock; the consumer's mutation call sites (_ingest/_next_batch_items in _run) hold the same lock, lexically outside the helpers)
             if len(self._pending) >= need:
                 return False
         if not self._ready.empty():
@@ -1166,8 +1169,10 @@ class StagingBuffer:
             out = dict(self._stats)
             out["intake_frames"] = self._intake_frames
         out["ready_batches"] = self._ready.qsize()
-        out["pending_rollouts"] = len(self._pending)  # a gauge: may drift by one in-flight frame
+        # graftlint: disable=THR001(one GIL-atomic len read; a gauge that may drift by one in-flight frame)
+        out["pending_rollouts"] = len(self._pending)
         cutoff = time.monotonic() - self.heartbeat_window_s
+        # graftlint: disable=THR001(one GIL-atomic dict-copy snapshot; pruning lives in _ingest on the sole writer thread)
         seen = dict(self._actor_seen)
         out["active_actors"] = sum(1 for t in seen.values() if t >= cutoff)
         if self._reservoir is not None:

@@ -131,6 +131,7 @@ def _landed(sb, tag: str):
     stats = sb.stats()
     lease = sb.last_batch_lease
     if lease is not None:
+        # graftlint: disable=LIF001(no device copy of this slot: row_hashes read the host rows, done before the release)
         lease.release()
     return hashes, stats
 

@@ -296,8 +296,10 @@ def section_throughput(steps: int, log_dir: str, platform: str = ""):
         runs[arm].append(_throughput_turn(f"abov_tp_{arm}_{i}", arm == "pipelined", frames, steps, log_dir, platform))
     for arm, recs in runs.items():
         rate = float(np.mean([r["env_steps_per_sec"] for r in recs]))
+        # the mean of two rates of one decimal has two: rounding it to one
+        # would move it by half the last digit
         rec = {"steps": sum(r["steps"] for r in recs) // len(recs), "wall_s": round(sum(r["wall_s"] for r in recs), 2),
-               "env_steps_per_sec": round(rate, 1), "e2e_over_device_only": round(rate / device_rate, 3)}
+               "env_steps_per_sec": round(rate, 2), "e2e_over_device_only": round(rate / device_rate, 3)}
         rec.update({k: round(float(np.mean([r[k] for r in recs])), 5) for k in THROUGHPUT_KEYS if k in recs[0]})
         rec["runs"] = recs
         out[arm] = rec

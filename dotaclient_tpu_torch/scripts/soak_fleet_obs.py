@@ -224,6 +224,7 @@ class Producer:
         self.stop_ev.set()
         if self.thread.ident is not None:
             self.thread.join(timeout=10)
+        # graftlint: disable=THR001(read after join(): the worker thread has exited)
         for c in self._clients.values():
             c.close()
         self.obs.stop()
@@ -280,6 +281,7 @@ class Consumer:
         self.stop_ev.set()
         if self.thread.ident is not None:
             self.thread.join(timeout=10)
+        # graftlint: disable=THR001(read after join(): the worker thread has exited)
         for c in self._clients.values():
             c.close()
         self.obs.stop()

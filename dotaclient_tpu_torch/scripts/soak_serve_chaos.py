@@ -50,10 +50,11 @@ import time
 from dotaclient_tpu_torch.scripts.chaos_soak import _ACTOR_AT, SENTINEL_WARM_ID, make_frames, tiny_policy
 
 
-def _make_serve_inc(policy, seed, max_batch, weights_port=None, platform="", store_port=None):
+def _make_serve_inc(policy, seed, max_batch, weights_port=None, platform="", store_port=None, wrap=None):
     """ServeIncarnations whose lives poll the shared weight fanout
     (weights_port None: version-0 serving) and, with `store_port`, stream
-    their carries to the store there."""
+    their carries to the store there. `wrap(server)` is applied to every
+    life as it starts."""
     from dotaclient_tpu_torch.chaos import ServeIncarnations
     from dotaclient_tpu_torch.config import InferenceConfig, ServeConfig
     from dotaclient_tpu_torch.serve.server import InferenceServer
@@ -70,9 +71,53 @@ def _make_serve_inc(policy, seed, max_batch, weights_port=None, platform="", sto
             platform=platform,
         )
         broker = TcpBroker(port=weights_port, retry=RetryPolicy(window_s=5.0)) if weights_port else None
-        return InferenceServer(cfg, broker=broker).start()
+        server = InferenceServer(cfg, broker=broker).start()
+        return server if wrap is None else wrap(server)
 
     return ServeIncarnations(make_server, port=0)
+
+
+class _MidStepKill:
+    """The parity arm's server controller: each kill lands on a step
+    request the live server has received and not answered. The kill arms
+    a hold and waits (at most HOLD_WAIT_S) for the next request, which the
+    server holds unanswered until the kill cancels it. A kill at a wall
+    time alone lands between two steps whenever the clients are short of
+    CPU (their env and featurizer time grows, a request's time in flight
+    does not), and kills_hit_inflight_steps then reads false by pace
+    alone (1 of 16 CPU runs with eight soaks at once)."""
+
+    HOLD_WAIT_S = 2.0
+
+    def __init__(self):
+        self.inc = None  # the ServeIncarnations whose lives wrap() hooks
+        self._armed, self._held = threading.Event(), threading.Event()
+
+    def wrap(self, server):
+        step_request = server._step_request
+
+        async def held_step_request(conn, payload):
+            if self._armed.is_set():
+                self._armed.clear()
+                self._held.set()
+                await asyncio.Event().wait()  # never answered: the kill cancels this task
+            return await step_request(conn, payload)
+
+        server._step_request = held_step_request
+        return server
+
+    def kill(self):
+        self._held.clear()
+        self._armed.set()
+        self._held.wait(self.HOLD_WAIT_S)
+        self._armed.clear()
+        return self.inc.kill()
+
+    def restart(self):
+        self.inc.restart()
+
+    def wait_first_request(self, timeout=30.0, stop=None):
+        return self.inc.wait_first_request(timeout, stop)
 
 
 def _acfg(policy, endpoint, env_addr="local", seed=100, cooldown_s=0.4, fallback_local=False, fallback_after_s=1.0,
@@ -161,7 +206,9 @@ def _run_parity_arm(policy, envs, episodes_per_env, kills_spec, seed, mem_name, 
     from dotaclient_tpu_torch.transport.base import connect
     from dotaclient_tpu_torch.transport.serialize import deserialize_rollout
 
-    inc = _make_serve_inc(policy, seed=1, max_batch=envs, platform=platform)
+    killer = _MidStepKill() if kills_spec else None
+    inc = _make_serve_inc(policy, seed=1, max_batch=envs, platform=platform,
+                          wrap=None if killer is None else killer.wrap)
     mem.reset(mem_name)
     broker = connect(f"mem://{mem_name}")
     cfg = _acfg(policy, f"127.0.0.1:{inc.port}", seed=seed, cooldown_s=0.3, platform=platform)
@@ -174,7 +221,9 @@ def _run_parity_arm(policy, envs, episodes_per_env, kills_spec, seed, mem_name, 
     deadline = time.monotonic() + deadline_s
     runner = None
     if kills_spec:
-        runner = ScheduleRunner(FaultSchedule.parse(kills_spec, seed=0), broker=None, t0=time.monotonic(), server=inc)
+        killer.inc = inc
+        runner = ScheduleRunner(FaultSchedule.parse(kills_spec, seed=0), broker=None, t0=time.monotonic(),
+                                server=killer)
 
     async def drive():
         async def one(env):
@@ -356,6 +405,7 @@ class LiveLearner:
         ft.join(timeout=60)
         st.join(timeout=10)
         if ft.is_alive():
+            # graftlint: disable=THR001(list.append is one GIL-atomic call; a wedged fleet thread can at most add its own entry)
             self.fleet_errors.append("fleet thread failed to join (teardown wedge)")
         fleet.broker.close()
         ledger = {
@@ -402,6 +452,7 @@ class LiveLearner:
             "unaccounted_frames": unaccounted,
         }
         learner_rec = {"versions_trained": int(staging_stats["batches"]), "crashed": self.crashed,
+                       # graftlint: disable=THR001(read after run_fleet_phase joined the fleet thread)
                        "fleet_errors": self.fleet_errors, "watchdog": watchdog}
         return conservation, learner_rec
 
@@ -504,10 +555,10 @@ def phase_fallback(args, policy, live) -> dict:
 
 # A cut of --quick that keeps every event its verdicts need, run by the
 # smoke's phase 21 and the CPU tests: parity kills at 0.9, 2.1 and 3.3 s over
-# the default 24 episodes (--quick: the 0.9 s kill over 12; the clients step
-# in lockstep, so one kill can land between two steps and hit no in-flight
-# step, and 12 episodes end before a second kill: ROADMAP.md §C); failover
-# 6 s (9) with --quick's kill at 3 s; fallback 2 + 3 + 3 s (3 + 4 + 5).
+# the default 24 episodes (--quick: the 0.9 s kill over 12, and 12 episodes
+# end before a second kill: ROADMAP.md §C); each lands on a held step
+# request (_MidStepKill); failover 6 s (9) with --quick's kill at 3 s;
+# fallback 2 + 3 + 3 s (3 + 4 + 5).
 SMOKE_CUT = dict(parity_episodes=24, parity_kills="kill@0.9:0.8@server,kill@2.1:0.8@server,kill@3.3:0.8@server",
                  failover_s=6.0, fallback_warm_s=2.0, fallback_down_s=3.0, fallback_post_s=3.0)
 

@@ -1112,3 +1112,23 @@ def test_two_ranks_on_the_card_step_as_one_process(cuda, tmp_path):
         updates = int(a[f"{case}/updates"])
         for n, p in named_params(state.net):
             assert np.abs(a[f"{case}/param/{n}"] - p).max() <= 2e-2 * cfg.ppo.lr * updates, (case, n)
+
+
+def test_sanitized_learner_and_server_on_the_card(cuda):
+    """Phase 25 at a small width (16 × 8, the soaks' policy): the lint
+    process imports no torch, numpy or jax; the pipelined learner with two
+    pack workers, the ring and its lease reaper, the publisher, the async
+    checkpoint and the watchdog under lockcheck (0 inversions, 0 long
+    holds) and under racecheck beside an in-process server whose sessions
+    see two hot-swaps (0 races, CUDA events as happens-before edges, every
+    reply bitwise its standalone key step); both runs' params and Adam
+    state bitwise the run with no monitor (chip_smoke raises otherwise)."""
+    from dotaclient_tpu_torch.config import LearnerConfig
+
+    import chip_smoke
+
+    res = chip_smoke.phase_sanitizers(cuda, "test", base=LearnerConfig(batch_size=16, seq_len=8,
+                                                                        policy=_soak_policy()))
+    assert res["launches"] == res["launches_race"] == chip_smoke.SANITIZER_STEPS
+    assert res["lock"]["inversions"] == [] and res["lock"]["over_held"] == []
+    assert len(res["versions_served"]) >= chip_smoke.SANITIZER_SWAPS + 1

@@ -147,6 +147,10 @@ def _reference_configs(ref, monkeypatch):
     monkeypatch.setattr(jselfplay, "SelfPlayActor", actor)
     monkeypatch.setattr(jservice, "serve", lambda servicer: (types.SimpleNamespace(stop=lambda g: None), 7000))
     monkeypatch.setattr(ref, "_tiny_policy", _tiny_policy)
+    # the reference's main runs its host preflight first, which exits when
+    # any other process of this repo listens (another test worker's soak):
+    # the capture measures nothing, so disclose strays instead
+    monkeypatch.setenv("DOTACLIENT_TPU_ALLOW_STRAYS", "1")
     with pytest.raises(_Stop):
         ref.main([])
     return seen

@@ -253,7 +253,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                 "scripts/grade_5v5.py", "scripts/soak_league.py", "scripts/soak_wire_bf16.py",
                 "scripts/aggregate_soak.py", "scripts/ab_wire_quant.py", "scripts/ab_pack_scale.py",
                 "scripts/ab_inet_pack.py", "scripts/ab_overlap.py", "scripts/ab_cast.py", "scripts/ab_ppo_reuse.py",
-                "scripts/ab_replay.py", "analysis/schedcheck.py"):
+                "scripts/ab_replay.py", "analysis/schedcheck.py", "analysis/core.py", "analysis/thr_rules.py",
+                "analysis/lif_rules.py", "analysis/obs_rules.py", "analysis/fleetgraph.py", "analysis/grammar_check.py",
+                "analysis/proto_rules.py", "analysis/lockcheck.py", "analysis/racecheck.py", "scripts/lint_graft.py"):
         assert REPO / "dotaclient_tpu_torch" / new in files
     grpc_sites = set()
     for path in files:
