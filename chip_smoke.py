@@ -84,10 +84,11 @@ Phases, in order; any failure exits non-zero:
               bf16), a 64-row batched key step bitwise the single one, the
               learner binary with --policy.arch transformer (20 steps,
               serial and pipelined bitwise, DTW2 and restore bitwise,
-              compute_mfu), and scripts/bench_tf.py's ladder (contexts
-              64/128/256 at batch 64, dense, blockwise and remat: ms, device
-              ms, env steps/s, peak memory; blockwise vs dense, remat
-              bitwise); no recurrence launch (see phase_transformer);
+              compute_mfu), and the bench_tf twin's ladder through its
+              bench_config (contexts 64/128/256 at batch 64, dense,
+              blockwise and remat: ms, device ms, env steps/s, MFU, peak
+              memory; blockwise vs dense, remat bitwise); no recurrence
+              launch (see phase_transformer);
 13. actors  — a 4-slot VectorActor's frames (flagship policy, the port's
               fake env in-process) byte for byte its standalone Actors';
               then a closed loop with no jax, dotaclient_tpu,
@@ -226,12 +227,24 @@ Phases, in order; any failure exits non-zero:
               bitwise its standalone key step; the params and Adam state
               after both bitwise the same steps with no monitor; alone
               in this process, last (see phase_sanitizers).
+26. bench   — the twins of the reference's bench drivers at their
+              smoke cuts, each a process of its own, all at once beside
+              phase 9: bench_lstm at B=256, T=16, H 128 / 256 / 512 (the
+              kernel's forward and its forward + backward gradients
+              against the plain scan in f32 and bf16, then its timing
+              rows), bench.py at the flagship 256 x 16 (every section, one
+              launch per train step, the end-to-end rate no higher than
+              the device-only rate), bench_actors at 1 and 4 envs and
+              bench_serve at 4 envs over a fresh server (0 launches and no
+              JAX, google.protobuf or grpc in their processes); each
+              twin's keys the reference's (see phase_bench). bench_tf's
+              ladder is phase 12's.
 Each path of the main path (serving, learner forward, each train step,
 the reuse step, the learner loop, the manifest learner, the fabric
 learner, the serve manifest, the actors' closed loop, the fleet's loop,
 the skill run, the chaos soak, each data mode, each multihost turn, each
 amqp:// and valve turn, each of the seven soaks, each of phase 23's
-six runs and each of phase 25's sanitized runs) is driven with the kernels' launch counters zeroed
+six runs, each of phase 25's sanitized runs and each bench twin) is driven with the kernels' launch counters zeroed
 just before it and read just after (the serve manifest's servers, the
 actor processes, the league service, the evaluator, the multihost
 ranks and the soaks are processes of their own, which start at 0 and
@@ -3246,8 +3259,6 @@ TOL_TF_STEP = {"float32": 1e-4, "bfloat16": 2e-2}
 # gradient norm averages them over every element (as TOL_GRAD_NORM).
 TOL_TF_BLOCK_METRICS = 5e-3
 TOL_TF_BLOCK_GRAD_NORM = 1e-3
-TF_LADDER = ((64, 0, False), (128, 0, False), (128, 64, False), (128, 64, True),
-             (256, 0, False), (256, 64, False), (256, 64, True))
 
 
 def _tf_step_vs_unroll(device, policy, rows: int, steps: int, seed: int):
@@ -3408,47 +3419,38 @@ def _tf_learner_binary(device, card: str, flags, steps: int, tmp: str):
 
 
 def _tf_ladder_row(device, ctx: int, block: int, remat: bool, batch: int):
-    """One shape of scripts/bench_tf.py's ladder through the learner's
-    default path (build_single_train_step): host-paced and device ms per
-    step, env steps/s and the peak memory of a step. Returns (row, the
-    params after its first step, that step's metrics)."""
-    from dotaclient_tpu_torch.config import LearnerConfig, PolicyConfig
-    from dotaclient_tpu_torch.ops.batch import make_train_batch
-    from dotaclient_tpu_torch.parallel import train_step as ts
-    from dotaclient_tpu_torch.runtime.staging import cast_obs_to_compute_dtype
+    """One shape of the bench_tf twin's ladder (its `bench_config`: the
+    reference's timed steps, env steps/s and MFU), with this phase's reads
+    taken on the same built step: host-paced and device ms per step and
+    the peak memory of a step. Returns (row, the params after its first
+    step, that step's metrics)."""
+    from dotaclient_tpu_torch.scripts import bench_tf as BT
     from dotaclient_tpu_torch.transport.params import named_params
 
-    cfg = LearnerConfig(batch_size=batch, seq_len=ctx - 1, policy=PolicyConfig(
-        arch="transformer", tf_context=ctx, tf_attn_block=block, tf_remat=remat))
-    step, io = ts.build_single_train_step(cfg, device)
-    buf = io.pack_transfer(cast_obs_to_compute_dtype(cfg, make_train_batch(cfg, 0)))
-    state, first = step(ts.init_train_state(cfg, device), io.consume(*io.transfer(buf)))
-    first_state = named_params(state.net)  # host copies
-    holder = [state]
+    first = {}
 
-    def run():
-        holder[0], _ = step(holder[0], io.consume(*io.transfer(buf)))
+    def measure(run, state, metrics):
+        first["params"], first["metrics"] = named_params(state.net), metrics  # host copies, before `run`
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        run()
+        torch.cuda.synchronize()
+        out = dict(max_memory_allocated=torch.cuda.max_memory_allocated(device),
+                   ms=cuda_ms(run, samples=5, calls=3), device_ms=cuda_ms(run, samples=5, calls=1, ahead=True))
+        # The spin holds the stream only while a step's launches fit the
+        # device's queue of pending launches (~1,000); past it the host blocks
+        # mid-step and `device_ms` takes in host gaps. The profiler's busy time
+        # (the sum of the step's kernel times) has no such limit.
+        out["busy_ms"], out["profiled_wall_ms"], out["device_kernels"] = profile_device(
+            run, f"transformer ctx {ctx} block {block} remat {remat}", top=0 if block else 8)
+        return out
 
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(device)
-    run()
-    torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated(device)
-    ms = cuda_ms(run, samples=5, calls=3)
-    device_ms = cuda_ms(run, samples=5, calls=1, ahead=True)
-    row = dict(tf_context=ctx, seq_len=ctx - 1, batch=batch, attn_block=block, remat=remat, ms=ms, device_ms=device_ms,
-               env_steps_per_sec=batch * (ctx - 1) / (ms / 1e3), max_memory_allocated=peak)
-    # The spin holds the stream only while a step's launches fit the
-    # device's queue of pending launches (~1,000); past it the host blocks
-    # mid-step and `device_ms` takes in host gaps. The profiler's busy time
-    # (the sum of the step's kernel times) has no such limit.
-    row["busy_ms"], row["profiled_wall_ms"], row["device_kernels"] = profile_device(
-        run, f"transformer ctx {ctx} block {block} remat {remat}", top=0 if block else 8)
-    return row, first_state, {k: v.item() for k, v in first.items()}
+    row = BT.bench_config(ctx, block, remat, batch, BT.SMOKE_CUT["iters"], device, measure=measure)
+    return row, first["params"], first["metrics"]
 
 
 def phase_transformer(device, card: str, policy=None, rows: int = 256, tick_rows: int = 64, ticks: int = 3,
-                      learner_flags=("--policy.arch", "transformer"), learner_steps: int = 20, ladder=TF_LADDER,
+                      learner_flags=("--policy.arch", "transformer"), learner_steps: int = 20, ladder=None,
                       ladder_batch: int = 64):
     """Phase 12: the transformer family on the card at its full width
     (`policy`, default PolicyConfig(arch="transformer"): d_model 128, 2
@@ -3507,15 +3509,19 @@ def phase_transformer(device, card: str, policy=None, rows: int = 256, tick_rows
           f"(spin), profiled busy {step_row['busy_ms']:.3f} ms over {step_row['device_kernels']} kernels; peak memory "
           f"{step_row['max_memory_allocated'] / 2**20:.1f} MiB | {card}", flush=True)
     rows_out, firsts = [], {}
+    if ladder is None:
+        from dotaclient_tpu_torch.scripts import bench_tf as BT
+
+        ladder = BT.LADDER
     for ctx, block, remat in ladder:
         row, first_params, first_metrics = _tf_ladder_row(device, ctx, block, remat, ladder_batch)
         firsts[(ctx, block, remat)] = (first_params, first_metrics)
         rows_out.append(row)
         print(f"transformer ladder: ctx {ctx} (seq_len {ctx - 1}) x batch {ladder_batch}, attn_block {block}, remat "
               f"{remat}: {row['ms']:.3f} ms per step host-paced, {row['device_ms']:.3f} device (spin); "
-              f"profiled busy {row['busy_ms']:.3f} ms over {row['device_kernels']} kernels; "
-              f"{row['env_steps_per_sec']:.0f} env steps/s; peak memory {row['max_memory_allocated'] / 2**20:.1f} MiB "
-              f"| {card}", flush=True)
+              f"profiled busy {row['busy_ms']:.3f} ms over {row['device_kernels']} kernels; the twin's "
+              f"{row['step_ms']:.2f} ms per step, {row['env_steps_per_sec']:.0f} env steps/s, MFU {row['mfu_pct']}%; "
+              f"peak memory {row['max_memory_allocated'] / 2**20:.1f} MiB | {card}", flush=True)
     checks = []
     for (ctx, block, remat), (params, metrics) in firsts.items():
         if block and not remat and (ctx, 0, False) in firsts:
@@ -5559,11 +5565,11 @@ def mh_rank_main(argv) -> int:
     return 0
 
 
-def _mh_spawn(args, log: str):
+def _mh_spawn(args, log: str, env=None):
     """A process of this script with `args`, its output in the file `log`."""
     with open(log, "w") as out:
         return subprocess.Popen([sys.executable, os.path.abspath(__file__), *args], cwd=ROOT, stdout=out,
-                                stderr=subprocess.STDOUT)
+                                stderr=subprocess.STDOUT, env=env)
 
 
 def _mh_join(procs, logs, what: str, timeout: float = MH_JOIN_S) -> None:
@@ -6778,7 +6784,7 @@ def soak_main(argv) -> int:
     # a soak that hangs leaves every thread's stack in its log before its
     # phase gives up on it
     join_s = (CONTROL_SOAK_JOIN_S if name in CONTROL_SOAK_NAMES else LADDER_JOIN_S if name in LADDER_NAMES
-              else AB_JOIN_S if name in AB_NAMES else SOAK_JOIN_S)
+              else AB_JOIN_S if name in AB_NAMES else BENCH_JOIN_S if name in BENCH_NAMES else SOAK_JOIN_S)
     faulthandler.dump_traceback_later(join_s - 20)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -6791,13 +6797,16 @@ def soak_main(argv) -> int:
     return 0
 
 
-def _soak_processes(names, join_s: float, beside, label: str) -> tuple:
-    """`chip_smoke.py --soak NAME` for every name at once, while this process
-    runs `beside()`; each soak's `soak NAME {json}` line. Returns (the soaks'
-    results by name, beside's result, beside's seconds)."""
+def _soak_processes(names, join_s: float, beside, label: str, env=None) -> tuple:
+    """`chip_smoke.py --soak NAME` for every name at once (in `env`, default
+    this process's), while this process runs `beside()`; each soak's `soak
+    NAME {json}` line, and the first line of each soak's own host preflight
+    that names stray listeners (a soak's log is shown whole only when it
+    fails). Returns (the soaks' results by name, beside's result, beside's
+    seconds)."""
     tmp = tempfile.mkdtemp(prefix="chip_smoke_soaks_")
     logs = {n: os.path.join(tmp, f"{n}.log") for n in names}
-    procs = {n: _mh_spawn(["--soak", n], logs[n]) for n in names}
+    procs = {n: _mh_spawn(["--soak", n], logs[n], env) for n in names}
     deadline = time.monotonic() + join_s
     try:
         t_beside = time.perf_counter()
@@ -6816,6 +6825,9 @@ def _soak_processes(names, join_s: float, beside, label: str) -> tuple:
                 raise SystemExit(f"{label}: {n} exited {p.returncode}:\n{text[-3000:]}")
             res[n] = json.loads(lines[-1][len(f"soak {n} "):])
             print(lines[-1], flush=True)
+            strays = [line for line in text.splitlines() if "preflight:" in line and "stray" in line]
+            if strays:
+                print(f"{label}: {n}'s {strays[0].strip()}", flush=True)
     finally:
         for p in procs.values():
             stop_process(p)
@@ -7346,6 +7358,7 @@ def _ab_pack_scale(policy=None, platform: str = "") -> dict:
     e2e = art["e2e"]
     res = dict(wall_s=wall_s, verdict=art["verdict"], unaccounted=[], probe=art["host_copy_scaling"],
                scaling={w: art["packer_scale"][w][f"scaling_1_to_4_x"] for w in ("f32_wire", "bf16_wire")},
+               split={w: art["packer_scale"][w]["split"] for w in ("f32_wire", "bf16_wire")},
                e2e_env_steps_per_s=[e2e[k]["env_steps_per_sec"] for k in ("workers_1", "workers_4")],
                ring_wait_s=e2e["workers_4"].get("staging_pack", {}).get("pack_ring_wait_s"))
     _ab_check("ab_pack_scale", res, art, rc, by_thread, updates)
@@ -7474,6 +7487,300 @@ def phase_ab(device, card: str, alone_beside=lambda: None, beside=lambda: None) 
     return res, alone_res, beside_res
 
 
+# ---------------------------------------------------------------- phase 26
+# The twins of the reference's five bench drivers (dotaclient_tpu_torch/
+# bench.py and scripts/bench_{lstm,tf,actors,serve}.py): bench_tf's ladder is
+# phase 12's (one copy); the four others run here at their SMOKE_CUTs, each a
+# process of its own (`--soak NAME`), all at once beside phase 9.
+BENCH_NAMES = ("bench_lstm", "bench", "bench_actors", "bench_serve")
+BENCH_JOIN_S = 180
+BENCH_TAG = "DOTACLIENT_TPU_SMOKE_BENCH"  # marks phase 26's processes and their children in their environment
+BENCH_GRACE_S = 5.0  # a twin's child may take this long to exit after the twin
+# bench_lstm's kernel check at B=256, T=16, H 128 / 256 / 512, the forward
+# held to TOL_KERNEL and the forward + backward gradients of x_proj and w_h
+# to these, relative to each plain gradient's largest value. Both arms run
+# the same backward (recompute_backward) and differ only through the
+# forward's saved h / c sequences (within TOL_KERNEL). In f32 that is the
+# kernel's sums in another order; in bf16 the backward rebuilds z from h
+# rounded to bf16, so one h element rounding the other way moves its gate
+# terms by a bf16 ulp (2^-8 of the value), and both gradients are cast to
+# bf16 at the end: the relative bound of phase 6's Adam moments (TOL_MOMENT).
+TOL_BENCH_GRAD = {torch.float32: 1e-4, torch.bfloat16: TOL_MOMENT}
+# The keys each twin's artifact must carry: the reference's (the CPU tests
+# read them off its source and its mains); bench.py's plus the reason its
+# vs_baseline is null.
+BENCH_KEYS = {"metric", "platform", "value", "unit", "vs_baseline", "vs_baseline_reason", "split",
+              "device_only_steps_per_sec", "packer_only_steps_per_sec", "pack_workers", "host_pack_cpu_s_per_batch",
+              "host_concat_s_per_batch", "e2e_over_device_only", "pipeline_overlap_ratio", "pipeline",
+              "flops_per_step_model", "flops_per_step_xla", "achieved_flops_per_sec", "mfu_pct", "h2d_bytes_per_iter",
+              "h2d_obs_bytes_per_iter", "pack_path_obs_dtype", "wire_bytes_per_env_step",
+              "wire_bytes_per_env_step_bf16", "d2h_bytes_per_iter", "transfer_layout_ab", "trace_stage_breakdown",
+              "compute_breakdown"}
+BENCH_LSTM_KEYS = {"backend", "device", "valid_for_dispatcher", "note", "rows", "timestamp"}
+BENCH_LSTM_ROW_KEYS = {"B", "T", "H", "dtype", "scan_fwd_us", "scan_fwdbwd_us", "pallas_fwd_us", "pallas_fwdbwd_us",
+                       "pallas_wins_fwdbwd"}
+BENCH_ACTORS_KEYS = {"generated_by", "host", "host_preflight", "policy", "seconds_per_config", "baseline_single",
+                     "curve", "meets_2x_bar_at_8_envs", "extrapolation", "notes"}
+BENCH_ACTORS_ROW_KEYS = {"envs_per_process", "offered_steps_per_sec", "steps", "seconds", "batch_occupancy",
+                         "gather_wait_ms", "jit_step_ms", "speedup_vs_single", "thread_fleet_steps_per_sec",
+                         "thread_fleet_dead_threads", "speedup_vs_thread_fleet"}
+BENCH_SERVE_KEYS = {"generated_by", "host", "host_preflight", "policy", "seconds_per_config", "serve_config", "curve",
+                    "verdict", "notes"}
+BENCH_SERVE_ROW_KEYS = {"envs", "vector", "serve", "vector_pr5_committed_steps_per_sec", "serve_speedup_vs_pr5_fleet",
+                        "serve_speedup_vs_fresh_vector"}
+
+
+def _bench_device(platform: str):
+    return torch.device("cpu") if platform == "cpu" else torch.device("cuda", 0)
+
+
+def _bench_lstm(policy=None, platform: str = "") -> dict:
+    """bench_lstm's main at its cut (5 calls per timing run) on the card, and
+    its kernel check at each (H, dtype): the kernel's forward within
+    TOL_KERNEL of the plain scan, its forward + backward gradients within
+    TOL_BENCH_GRAD of the same backward over the plain scan. Launches: 2 per
+    check, and per H 2 x (1 + 3 x iters) in the kernel's timing runs."""
+    from dotaclient_tpu_torch.ops import lstm as L
+    from dotaclient_tpu_torch.scripts import bench_lstm as BL
+
+    device = _bench_device(platform)
+    on_card = device.type == "cuda"
+    checks, red = [], []
+    fd, out = tempfile.mkstemp(prefix="bench_lstm_", suffix=".json")
+    os.close(fd)
+    try:
+        t0 = time.perf_counter()
+        with launches_by_thread() as by_thread:
+            for B, T, H in BL.SHAPES:
+                for dtype in (torch.float32, torch.bfloat16):
+                    c = BL.kernel_vs_scan(B, T, H, dtype, device, forward="kernel" if on_card else "scan_recompute")
+                    if on_card:
+                        c["design"] = L.kernel_geometry(B, H, dtype, device).design
+                    checks.append(c)
+                    if not (c["fwd_max_abs"] <= TOL_KERNEL[dtype] and c["grad_x_proj_rel"] <= TOL_BENCH_GRAD[dtype]
+                            and c["grad_w_h_rel"] <= TOL_BENCH_GRAD[dtype]):
+                        red.append(f"kernel_vs_scan_{H}_{c['dtype']}")
+            rc = BL.main(["--iters", str(BL.SMOKE_CUT["iters"]), "--out", out]
+                         + (["--platform", platform] if platform else []))
+        wall_s = time.perf_counter() - t0
+        art = json.load(open(out))
+    finally:
+        os.unlink(out)
+    iters = BL.SMOKE_CUT["iters"]
+    expected = (2 * len(checks) + len(BL.SHAPES) * 2 * (1 + 3 * iters)) if on_card else 0
+    keys_ok = set(art) == BENCH_LSTM_KEYS and all(set(r) == BENCH_LSTM_ROW_KEYS for r in art["rows"])
+    res = dict(wall_s=round(wall_s, 2), rows=art["rows"], note=art["note"], kernel_vs_scan=checks,
+               verdict={"rc_0": rc == 0, "references_keys": keys_ok or not on_card,
+                        "kernel_rows_on_the_card": art["valid_for_dispatcher"] == on_card}, unaccounted=[])
+    _soak_check("bench_lstm", res, expected, by_thread, extra_red=red, trains=on_card, expected=expected)
+    return res
+
+
+def _bench(policy=None, platform: str = "") -> dict:
+    """bench.py's twin at its cut on the card: the flagship learner 256 x 16
+    through every section; one recurrence launch per train step (each step
+    call counted), all on this process's main thread; the end-to-end rate
+    no higher than the device-only rate; the reference's keys."""
+    from dotaclient_tpu_torch import bench as BB
+    from dotaclient_tpu_torch.parallel import train_step as ts
+
+    calls, build = [], ts.build_single_train_step
+
+    def counted_build(cfg, device=None, dist=None):
+        step, io = build(cfg, device, dist)
+
+        def counted(state, payload, *perms):
+            calls.append(1)
+            return step(state, payload, *perms)
+
+        return counted, io
+
+    ts.build_single_train_step = counted_build
+    try:
+        t0 = time.perf_counter()
+        with launches_by_thread() as by_thread:
+            out = BB.run(platform, BB.SMOKE_CUT)
+        wall_s = time.perf_counter() - t0
+    finally:
+        ts.build_single_train_step = build
+    cut = BB.SMOKE_CUT
+    schedule = 2 + cut["device_iters"] + cut["e2e_iters"] + cut["trace_batches"] + cut["compute_steps"]
+    verdict = {
+        "references_keys": set(out) == BENCH_KEYS,
+        "every_section_ran": not any(isinstance(out.get(k), dict) and "error" in out[k]
+                                     for k in ("trace_stage_breakdown", "compute_breakdown"))
+                             and out.get("transfer_layout_ab") is not None,
+        "e2e_no_higher_than_device_only": out["value"] <= out["device_only_steps_per_sec"],
+        "steps_as_scheduled": len(calls) == schedule,
+        "vs_baseline_null": out["vs_baseline"] is None,
+    }
+    res = dict(wall_s=round(wall_s, 2), value=out["value"], device_only=out["device_only_steps_per_sec"],
+               packer_only=out["packer_only_steps_per_sec"], e2e_over_device_only=out["e2e_over_device_only"],
+               split=out["split"], overlap=out["pipeline_overlap_ratio"], mfu_pct=out["mfu_pct"],
+               host_pack_cpu_s=out["host_pack_cpu_s_per_batch"], host_concat_s=out["host_concat_s_per_batch"],
+               transfer_layout_ab=out["transfer_layout_ab"], trace=out["trace_stage_breakdown"],
+               compute=out["compute_breakdown"], unit=out["unit"], verdict=verdict, unaccounted=[])
+    _soak_check("bench", res, len(calls), by_thread)
+    return res
+
+
+def _bench_actors(policy=None, platform: str = "") -> dict:
+    """bench_actors' twin at its cut (envs 1 and 4, 0.5 s windows) with the
+    actors on the card: every arm steps, no thread dies, the reference's
+    keys, 0 recurrence launches (the actors' T=1 step is torch ops) and
+    no jax / dotaclient_tpu / google.protobuf / grpc in this process."""
+    from dotaclient_tpu_torch.scripts import bench_actors as BA
+
+    t0 = time.perf_counter()
+    with launches_by_thread() as by_thread:
+        art = BA.run(BA.cut_args(["--platform", platform] if platform else []))
+    wall_s = time.perf_counter() - t0
+    curve = art["curve"]
+    verdict = {
+        "references_keys": set(art) == BENCH_ACTORS_KEYS and all(set(r) == BENCH_ACTORS_ROW_KEYS for r in curve),
+        "every_arm_steps": art["baseline_single"]["offered_steps_per_sec"] > 0 and all(
+            r["offered_steps_per_sec"] > 0 and r["thread_fleet_steps_per_sec"] > 0 for r in curve),
+        "no_dead_thread": all(r["thread_fleet_dead_threads"] == 0 for r in curve),
+        "no_forbidden_module": not forbidden_modules(list(sys.modules)),
+    }
+    res = dict(wall_s=round(wall_s, 2), baseline=art["baseline_single"]["offered_steps_per_sec"],
+               curve=[{k: r[k] for k in ("envs_per_process", "offered_steps_per_sec", "thread_fleet_steps_per_sec",
+                                         "speedup_vs_thread_fleet", "batch_occupancy", "jit_step_ms")} for r in curve],
+               extrapolation=art["extrapolation"], verdict=verdict, unaccounted=[])
+    _soak_check("bench_actors", res, 0, by_thread, trains=False)
+    return res
+
+
+def _bench_serve(policy=None, platform: str = "") -> dict:
+    """bench_serve's twin at its cut (N=4: a vector process, a fresh server
+    through `--serve-binary`, one client process), on the card: both arms
+    step with no wire error, the reference's keys, 0 recurrence launches in
+    the server (its status file), and no jax / dotaclient_tpu /
+    google.protobuf / grpc in the server (status), the clients (`-X
+    importtime` logs) or this process. The 1.5x verdict is recorded: a bar
+    of this host's CPU, not held."""
+    from dotaclient_tpu_torch.scripts import bench_serve as BS
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_bench_serve_")
+    status = os.path.join(tmp, "server.json")
+    children = BS.Children(python=(sys.executable, "-X", "importtime"),
+                           server_argv=(os.path.abspath(__file__), "--serve-binary", status), stderr_dir=tmp)
+    try:
+        t0 = time.perf_counter()
+        with launches_by_thread() as by_thread:
+            art = BS.orchestrate(BS.cut_args(["--platform", platform] if platform else []), children)
+        wall_s = time.perf_counter() - t0
+        server = _read_json(status) or {}
+        logs = sorted(n for n in os.listdir(tmp) if n.endswith(".log"))
+        held = sorted({m for n in logs for m in forbidden_modules(_imported_by_log(os.path.join(tmp, n)))})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    curve = art["curve"]
+    verdict = {
+        "references_keys": set(art) == BENCH_SERVE_KEYS and all(set(r) == BENCH_SERVE_ROW_KEYS for r in curve),
+        "both_arms_step": all(r["vector"]["offered_steps_per_sec"] > 0 and r["serve"]["offered_steps_per_sec"] > 0
+                              for r in curve),
+        "no_wire_error": all(r["serve"]["wire_errors"] == 0 for r in curve),
+        "server_stopped_cleanly": bool(server.get("stopped")),
+        "server_launches_0": server.get("launches") == 0,
+        "no_forbidden_module": not held and not server.get("forbidden") and not forbidden_modules(list(sys.modules)),
+        "every_child_logged": len(logs) == sum(2 + r["serve"]["client_processes"] for r in curve),
+    }
+    res = dict(wall_s=round(wall_s, 2), child_logs=logs, held=held,
+               curve=[{"envs": r["envs"], "vector": r["vector"], "serve": {k: v for k, v in r["serve"].items()},
+                       "serve_over_vector": r["serve_speedup_vs_fresh_vector"]} for r in curve],
+               recorded_verdict=art["verdict"], verdict=verdict, unaccounted=[])
+    _soak_check("bench_serve", res, 0, by_thread, trains=False)
+    return res
+
+
+def _tagged_processes(tag: str) -> list:
+    """(pid, cmdline) of every live process whose environment holds
+    BENCH_TAG=tag: phase 26's twins and every process they started, which
+    inherit the environment (a zombie's is empty: it holds no socket)."""
+    needle, found = f"{BENCH_TAG}={tag}".encode(), []
+    for pid in os.listdir("/proc"):
+        if not pid.isdigit():
+            continue
+        try:
+            with open(f"/proc/{pid}/environ", "rb") as f:
+                if needle not in f.read().split(b"\0"):
+                    continue
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                found.append((int(pid), f.read().replace(b"\0", b" ").decode(errors="replace").strip()[:200]))
+        except OSError:  # gone, or not ours to read
+            continue
+    return found
+
+
+def _bench_left_behind(tag: str) -> dict:
+    """Phase 26 leaves nothing running: once its twins' processes have
+    exited, no process they started (a server, a client, a vector process)
+    may still be alive or hold a listening socket. A child in its last
+    moments gets BENCH_GRACE_S; any left after it fails the phase, named
+    with the ports it listens on."""
+    from dotaclient_tpu_torch.obs import preflight
+
+    t0 = time.monotonic()
+    while True:
+        left = _tagged_processes(tag)
+        if not left or time.monotonic() - t0 > BENCH_GRACE_S:
+            break
+        time.sleep(0.1)
+    if left:
+        pids = {pid for pid, _ in left}
+        ports = [s for s in preflight.scan_listeners() if s["pid"] in pids]
+        raise SystemExit(f"bench: {len(left)} process(es) of the twins still alive {BENCH_GRACE_S} s after them: "
+                         f"{left}; listening: {ports}")
+    return {"alive": 0, "listening": 0, "grace_s": round(time.monotonic() - t0, 2)}
+
+
+def phase_bench(device, card: str, beside=lambda: None) -> tuple:
+    """Phase 26: the bench twins on the card, each a process of its own
+    (`--soak NAME`, BENCH_NAMES) at its cut, all at once while this process
+    runs `beside()`. Fails on a false held bool, a kernel check past its
+    bound, or launches that are not one per train step on the bench's main
+    thread and the kernel checks' and timings' in bench_lstm (0 in the
+    actors and the server). Returns (the twins' results, beside's)."""
+    t0 = time.perf_counter()
+    tag = f"{os.getpid()}-{time.monotonic_ns()}"
+    res, beside_res, t_beside = _soak_processes(BENCH_NAMES, BENCH_JOIN_S, beside, "bench",
+                                                env=dict(os.environ, **{BENCH_TAG: tag}))
+    res["left_behind"] = _bench_left_behind(tag)
+    res["phase_s"] = round(time.perf_counter() - t0, 2)
+    res["beside_s"] = round(t_beside, 2)
+    res["launches"] = sum(res[n]["launches"] for n in BENCH_NAMES)
+    lstm, bench, actors, serve = (res[n] for n in BENCH_NAMES)
+    for c in lstm["kernel_vs_scan"]:
+        print(f"bench_lstm kernel vs scan: B=256 T=16 H={c['shape'][2]} {c['dtype']} ({c.get('design')}): forward max "
+              f"abs {c['fwd_max_abs']:.3g} (limit {TOL_KERNEL[getattr(torch, c['dtype'])]}), gradients of x_proj / "
+              f"w_h {c['grad_x_proj_rel']:.3g} / {c['grad_w_h_rel']:.3g} of their largest (limit "
+              f"{TOL_BENCH_GRAD[getattr(torch, c['dtype'])]}) | {card}", flush=True)
+    print("bench_lstm: " + "; ".join(
+        f"H={r['H']} {r['dtype']}: scan fwd {r['scan_fwd_us']} / fwd+bwd {r['scan_fwdbwd_us']} us, kernel fwd "
+        f"{r.get('pallas_fwd_us')} / fwd+bwd {r.get('pallas_fwdbwd_us')} us" for r in lstm["rows"])
+        + f"; {lstm['note']}; {lstm['launches']} launches | {card}", flush=True)
+    print(f"bench: {bench['value']} env steps/s end to end, device-only {bench['device_only']}, packer-only "
+          f"{bench['packer_only']}, e2e/device {bench['e2e_over_device_only']}, overlap {bench['overlap']}, MFU "
+          f"{bench['mfu_pct']}%, classic pack {bench['host_pack_cpu_s'] * 1e3:.3f} ms vs concat "
+          f"{bench['host_concat_s'] * 1e3:.3f} ms per batch; {bench['launches']} launches for {bench['steps']} train "
+          f"steps | {card}", flush=True)
+    print("bench_actors: single " + f"{actors['baseline']}; " + "; ".join(
+        f"N={r['envs_per_process']}: vector {r['offered_steps_per_sec']} vs thread fleet "
+        f"{r['thread_fleet_steps_per_sec']} env steps/s ({r['speedup_vs_thread_fleet']}x)" for r in actors["curve"])
+        + f"; {actors['launches']} launches | {card}", flush=True)
+    print("bench_serve: " + "; ".join(
+        f"N={r['envs']}: vector {r['vector']['offered_steps_per_sec']} (p50 {r['vector']['p50_ms']} / p99 "
+        f"{r['vector']['p99_ms']} ms), serve {r['serve']['offered_steps_per_sec']} (p50 {r['serve']['p50_ms']} / p99 "
+        f"{r['serve']['p99_ms']} ms), {r['serve_over_vector']}x" for r in serve["curve"])
+        + f"; verdict ok {serve['recorded_verdict']['ok']} (recorded); 0 launches in the server | {card}", flush=True)
+    print(f"bench: no process of the twins (servers, clients, vector processes) alive or listening after them "
+          f"({res['left_behind']['grace_s']} s after the last exited) | {card}", flush=True)
+    print(f"bench: phase {res['phase_s']:.1f} s, {res['beside_s']:.1f} of it this process's own phase beside them; "
+          + ", ".join(f"{n} {res[n]['wall_s']:.1f} s" for n in BENCH_NAMES) + f" | {card}", flush=True)
+    return res, beside_res
+
+
 SOAKS = {"resume": _soak_resume, "fabric": _soak_fabric, "serve_chaos": lambda p: _soak_serve("chaos", p),
          "serve_handoff": lambda p: _soak_serve("handoff", p), "fleet_obs": _soak_fleet_obs,
          "autoscale": _soak_autoscale, "obs_smoke": _soak_obs_smoke, "train_league": _soak_train_league,
@@ -7482,7 +7789,8 @@ SOAKS = {"resume": _soak_resume, "fabric": _soak_fabric, "serve_chaos": lambda p
          "ab_pack_scale": _ab_pack_scale, "ab_inet_pack": _ab_inet_pack, "ab_overlap": _ab_overlap,
          "ab_cast": lambda p, platform="": _ab_learning("ab_cast", p, platform),
          "ab_ppo_reuse": lambda p, platform="": _ab_learning("ab_ppo_reuse", p, platform),
-         "ab_replay": lambda p, platform="": _ab_learning("ab_replay", p, platform)}
+         "ab_replay": lambda p, platform="": _ab_learning("ab_replay", p, platform), "bench_lstm": _bench_lstm,
+         "bench": _bench, "bench_actors": _bench_actors, "bench_serve": _bench_serve}
 
 
 # ---------------------------------------------------------------- phase 25
@@ -8177,9 +8485,12 @@ def main() -> int:
     loop["tcp"] = phase_learner_tcp(device, card, loop["free_pipelined_ms"])
     serve = phase_serve(device, card)  # zeroes the counters itself before its main path
     marks.append(("7 tcp + 8", time.perf_counter()))
-    manifest = phase_learner_manifest(device, card)  # zeroes the counters itself before each path
+    # phase 26's four processes (each counting its own launches by thread)
+    # run beside phase 9, which zeroes this process's counters itself before
+    # each path
+    bench, manifest = phase_bench(device, card, beside=lambda: phase_learner_manifest(device, card))
     loop["tcp4"] = manifest["tcp4_pack1"]  # four producer processes, the flagship flags: phase 7's run, made once
-    marks.append(("9", time.perf_counter()))
+    marks.append(("9 + 26", time.perf_counter()))
     fabric, shards = phase_learner_fabric(card, manifest["window_ms"])  # zeroes the counters itself
     try:
         serve_manifest = phase_serve_manifest(device, card, shards, serve, weights_version=fabric["weights_version"])
@@ -8286,6 +8597,8 @@ def main() -> int:
             "ab": ab,
             "launches_sanitizers": sanitizers["launches"] + sanitizers["launches_race"],
             "sanitizers": sanitizers,
+            "launches_bench": bench["launches"],
+            "bench": {n: {k: v for k, v in bench[n].items() if k not in ("launches_by_thread",)} for n in BENCH_NAMES},
         }
     ]
     spans = ", ".join(f"{name} {t1 - t0:.1f}" for (_, t0), (name, t1) in zip(marks, marks[1:]))

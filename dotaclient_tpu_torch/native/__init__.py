@@ -34,6 +34,16 @@ def _ptr(a: np.ndarray) -> ctypes.c_void_p:
     return ctypes.c_void_p(a.ctypes.data)
 
 
+def _bytes_data_offset() -> int:
+    """Offset of a bytes object's data from its id() (CPython's
+    PyBytesObject.ob_sval), read once through ctypes' own char* conversion."""
+    probe = b"offset probe"
+    return ctypes.cast(ctypes.c_char_p(probe), ctypes.c_void_p).value - id(probe)
+
+
+_BYTES_DATA_AT = _bytes_data_offset()
+
+
 def _frame_array(frames: List[bytes]):
     """(pointer array, keepalive): a char* per frame; the bytes objects
     stay referenced by the caller's list for the call."""
@@ -129,19 +139,77 @@ def _validate_out_strides(batch, obs_bf16: bool, rows: int) -> np.ndarray:
     return np.asarray(strides, np.int64)
 
 
-def _pack_batch_args(frames, batch, seq_len, lstm_hidden, with_aux, obs_bf16, strides, row_offset=0):
-    """The dt_pack_batch argument vector for (frames, batch) → (args,
-    keepalive); keepalive must outlive the call."""
+class PackPlan:
+    """A prebuilt dt_pack_batch call: packs exactly `n` frames into rows
+    [row_offset, row_offset + n) of ONE long-lived `out` batch of
+    `total_rows` rows, call after call (the twin of the reference's
+    native.PackPlan).
+
+    The sharded pack (`staging.pack_workers` > 1) packs every batch into
+    reused ring slots, so the per-call glue (the 20-leaf stride and dtype
+    check, the 20 output and 3 meta pointers) is the same every batch: a
+    plan pays it once, and `pack` marshals only the frame pointers and
+    lengths before the C call (which releases the GIL); `pack_rows` takes
+    them marshalled already, once for the whole batch. Its bytes are
+    `pack_frames`' with the same arguments. The plan keeps `out` alive;
+    its leaves must not be replaced (a ring slot's live as long as the
+    ring)."""
+
+    def __init__(self, lib: ctypes.CDLL, out, n: int, seq_len: int, lstm_hidden: int, with_aux: bool,
+                 obs_bf16: bool, row_offset: int = 0, total_rows: Optional[int] = None):
+        rows = n + row_offset if total_rows is None else total_rows
+        if row_offset < 0 or row_offset + n > rows:
+            raise BatchLayoutError(f"rows [{row_offset}, {row_offset + n}) do not fit an out batch of {rows}")
+        self._lib = lib
+        self.n = n
+        self.row_offset = row_offset
+        strides = _validate_out_strides(out, obs_bf16, rows)
+        meta = (np.empty(n, np.uint32), np.empty(n, np.uint32), np.empty(n, np.float32))  # versions, actor ids, returns
+        outs = [None if a is None else _ptr(a) for a in _ordered_out_leaves(out)]
+        ints = (n, row_offset, seq_len, lstm_hidden, int(with_aux), int(obs_bf16), *_SCHEMA_DIMS)
+        self._tail = (*map(ctypes.c_int64, ints), _ptr(strides), *outs, *map(_ptr, meta))
+        self._keep = (out, strides, meta)  # everything the prebuilt pointers reference
+
+    def pack(self, frames: List[bytes]) -> None:
+        """One C pack of the n frames into the planned rows: the per-call work
+        is the frames' pointers and lengths. BatchLayoutError unless
+        len(frames) == n; TypeError for a frame that is not bytes; a
+        malformed frame raises ValueError naming its absolute batch row."""
+        if len(frames) != self.n:
+            raise BatchLayoutError(f"plan packs {self.n} frames, got {len(frames)}")
+        ptrs, lens = marshal_frames(frames)  # the caller's list keeps the frames alive
+        self._call((_ptr(ptrs), _ptr(lens), *self._tail))
+
+    def pack_rows(self, ptrs: np.ndarray, lens: np.ndarray) -> None:
+        """The planned rows packed from the whole batch's frames, marshalled
+        once by `marshal_frames` and indexed by batch row: the shards of
+        one batch share one marshal (the sharded pack's dispatcher makes
+        it). The caller keeps the frames and both arrays alive for the
+        call."""
+        end = self.row_offset + self.n
+        if len(ptrs) < end or len(lens) < end:
+            raise BatchLayoutError(f"plan packs rows [{self.row_offset}, {end}) of a batch of {len(ptrs)} frames")
+        at = 8 * self.row_offset
+        self._call((ctypes.c_void_p(ptrs.ctypes.data + at), ctypes.c_void_p(lens.ctypes.data + at), *self._tail))
+
+    def _call(self, args) -> None:
+        rc = self._lib.dt_pack_batch(*args)
+        if rc != 0:
+            raise ValueError(f"native packer rejected frame {self.row_offset - rc - 1}")
+
+
+def marshal_frames(frames: List[bytes]) -> Tuple[np.ndarray, np.ndarray]:
+    """(data pointers u64, lengths i64) of the frames, for dt_pack_batch; the
+    frames must stay alive while the pointers are used. TypeError for a
+    frame that is not bytes."""
+    if not all(type(f) is bytes for f in frames):
+        raise TypeError("the native packer takes frames as bytes")
     n = len(frames)
-    ptrs, keep = _frame_array(frames)
-    lens = np.fromiter((len(f) for f in frames), np.int64, count=n)
-    meta = (np.empty(n, np.uint32), np.empty(n, np.uint32), np.empty(n, np.float32))  # versions, actor ids, returns
-    outs = [None if a is None else _ptr(a) for a in _ordered_out_leaves(batch)]
-    args = (
-        ptrs, _ptr(lens), n, row_offset, seq_len, lstm_hidden, int(with_aux), int(obs_bf16), *_SCHEMA_DIMS,
-        _ptr(strides), *outs, *map(_ptr, meta),
-    )
-    return args, (keep, lens, meta, strides, batch)
+    # vectorised: a bytes object's data sits at a fixed offset from its
+    # address (measured once, _BYTES_DATA_AT)
+    ptrs = np.fromiter(map(id, frames), np.uint64, count=n)
+    ptrs += _BYTES_DATA_AT
+    return ptrs, np.fromiter(map(len, frames), np.int64, count=n)
 
 
 def pack_frames(lib: ctypes.CDLL, frames: List[bytes], seq_len: int, lstm_hidden: int, with_aux: bool,
@@ -153,14 +221,7 @@ def pack_frames(lib: ctypes.CDLL, frames: List[bytes], seq_len: int, lstm_hidden
     exactly row_offset + n). Each row depends only on its own frame, so
     concurrent calls on disjoint row ranges of one `out` write the bytes
     one call would (the sharded pack). A malformed frame raises ValueError
-    naming its row; an `out` layout mismatch raises BatchLayoutError."""
-    n = len(frames)
-    rows = n + row_offset if total_rows is None else total_rows
-    if row_offset < 0 or row_offset + n > rows:
-        raise BatchLayoutError(f"rows [{row_offset}, {row_offset + n}) do not fit an out batch of {rows}")
-    strides = _validate_out_strides(out, obs_bf16, rows)
-    args, keep = _pack_batch_args(frames, out, seq_len, lstm_hidden, with_aux, obs_bf16, strides, row_offset)
-    rc = lib.dt_pack_batch(*args)
-    del keep
-    if rc != 0:
-        raise ValueError(f"native packer rejected frame {row_offset - rc - 1}")
+    naming its row; an `out` layout mismatch raises BatchLayoutError. One
+    call builds and uses a PackPlan; a caller that packs the same rows of
+    the same `out` again keeps the plan instead."""
+    PackPlan(lib, out, len(frames), seq_len, lstm_hidden, with_aux, obs_bf16, row_offset, total_rows).pack(frames)

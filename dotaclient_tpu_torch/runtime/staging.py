@@ -324,6 +324,8 @@ class StagingBuffer:
         self._intake: Optional["queue.Queue"] = None
         self._pool: Optional[_PackPool] = None
         self._ring = None
+        # ring slot index -> its native.PackPlan per shard (ring mode, native packer)
+        self._slot_plans: Dict[int, List] = {}
         self._fatal: Optional[BaseException] = None
         self._lib = None
         if cfg.native_packer:
@@ -449,6 +451,7 @@ class StagingBuffer:
             self._pool = _PackPool(workers)
             if self._fused_io is not None:
                 self._ring = self._fused_io.make_ring(self.cfg.staging.transfer_depth)
+                self._slot_plans = {}  # plans point into the OLD ring's buffers
             self._assembler = threading.Thread(target=self._run_assembler, daemon=True, name="staging-assembler")
             self._assembler.start()
             self._thread = threading.Thread(target=self._run_pop, daemon=True, name="staging-consumer")
@@ -730,15 +733,33 @@ class StagingBuffer:
     def _pack_sharded(self, items: List):
         """N workers each fill a disjoint contiguous row range of one
         re-zeroed ring slot (or, without fused_io, of one fresh dense
-        batch); any split is bitwise the single-call pack."""
+        batch); any split is bitwise the single-call pack. A ring slot
+        lives as long as the ring, so with the native packer each (slot,
+        shard) keeps one native.PackPlan, and a batch pays one marshal of
+        its frame pointers before the workers' C calls."""
         B = len(items)
         if self._fused_io is None:
             out, slot = self._dense_out(B), None
         else:
             slot = self._acquire_slot()
             out = slot.batch
-        thunks = [(lambda o=off, c=cnt: self._pack_rows(out, items[o : o + c], row_offset=o, total_rows=B))
-                  for off, cnt in shard_rows(B, self._pool.n)]
+        if slot is not None and self._lib is not None:
+            from dotaclient_tpu_torch import native
+
+            plans = self._slot_plans.get(slot.index)
+            if plans is None:
+                p = self.cfg.policy
+                plans = self._slot_plans[slot.index] = [
+                    native.PackPlan(self._lib, out, cnt, self.cfg.seq_len, p.lstm_hidden, p.aux_heads, self._obs_bf16,
+                                    off, B)
+                    for off, cnt in shard_rows(B, self._pool.n)]
+            # one marshal of the batch's frame pointers here; each worker's
+            # share of the GIL is then its ctypes call alone
+            ptrs, lens = native.marshal_frames(items)
+            thunks = [(lambda p=p: p.pack_rows(ptrs, lens)) for p in plans]
+        else:
+            thunks = [(lambda o=off, c=cnt: self._pack_rows(out, items[o : o + c], row_offset=o, total_rows=B))
+                      for off, cnt in shard_rows(B, self._pool.n)]
         err = self._pool.run_tasks(thunks, self._stop)
         if err is not None:
             if slot is not None:

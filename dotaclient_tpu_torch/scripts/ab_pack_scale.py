@@ -10,7 +10,8 @@ Sections, at matched seeds (the SAME frames feed every arm):
    group buffers through staging's _PackPool, each shard call what
    staging's ring path runs per batch. Interleaved rounds: every arm
    sees the same host weather, the scaling is a median of per-round
-   ratios.
+   ratios. Each wire's `split` gives a sharded batch's marshal, and per
+   worker its pack and wait, with kept plans and with a plan per call.
 2. parity - the sharded transfer buffers are bitwise the single-thread
    pack for workers 2, 3 (an uneven split) and 4, through the port's
    StagingBuffer on the native and the Python packer, over mixed DTR1 +
@@ -45,6 +46,8 @@ import time
 
 import numpy as np
 
+from dotaclient_tpu_torch.bench import _make_frames as make_frames  # noqa: F401 (the producers' frames, for callers)
+from dotaclient_tpu_torch.bench import _start_producers
 from dotaclient_tpu_torch.config import LearnerConfig, ObsConfig, PolicyConfig, PPOConfig
 from dotaclient_tpu_torch.scripts.ab_wire_quant import best_quartile, make_rollouts
 from dotaclient_tpu_torch.transport.serialize import cast_rollout_obs_bf16, serialize_rollout
@@ -153,8 +156,18 @@ def payload_sha256(payload) -> str:
 def section_packer_scale(reps: int, device):
     """Packer steps/s at 1 / 2 / 4 workers, both wires, flagship shape. The
     timed region is what staging's pack pays per batch: the single pack
-    call (w=1) or the pool dispatch, N concurrent row-shard calls and the
-    join (w>1)."""
+    call (w=1) or one marshal of the frame pointers, the pool dispatch, N
+    concurrent row-shard calls of prebuilt plans and the join (w>1).
+
+    `split` says where a sharded batch's time goes, per worker: the
+    dispatcher's marshal of the frame pointers, each shard's C call
+    (`pack`, which releases the GIL) and the rest of the wall (`wait`:
+    dispatch, the queue, the GIL, the join). `per_call_w4` is the same at 4
+    workers with no kept plan: each shard builds its PackPlan per call
+    (`args`: the stride and dtype check and the output pointers, what the
+    dense path's pack_frames pays per shard) and packs its own frames
+    (`pack`: their marshal and the C call). It runs in the same rounds
+    and stays out of the scaling."""
     from dotaclient_tpu_torch import native
     from dotaclient_tpu_torch.runtime.staging import _PackPool, shard_rows
 
@@ -167,32 +180,78 @@ def section_packer_scale(reps: int, device):
     io = group_io(LearnerConfig(batch_size=FLAGSHIP_B, seq_len=FLAGSHIP_T), device)
     _groups, out = io.alloc_views()  # one shared target; L = T frames fill every row
     pools = {w: _PackPool(w, name=f"abps-{w}") for w in WORKER_ARMS if w > 1}
-    shards = {w: shard_rows(FLAGSHIP_B, w) for w in WORKER_ARMS}
+    # per arm, one prebuilt PackPlan per shard: what staging's ring path
+    # keeps per slot (the glue paid once, not per call), packing from one
+    # marshal of the batch's frame pointers
+    plans = {w: [native.PackPlan(lib, out, c, FLAGSHIP_T, FLAGSHIP_H, False, True, o, FLAGSHIP_B)
+                 for o, c in shard_rows(FLAGSHIP_B, w)]
+             for w in WORKER_ARMS if w > 1}
     stop = threading.Event()
 
-    def pack(w, frames):
-        if w == 1:
+    def pack(w, frames, kept=True):
+        """(marshal s, [(args s, pack s)] per shard) of one batch."""
+        if w == 1:  # the classic per-batch call, glue included: what pack_workers=1 pays
             native.pack_frames(lib, frames, FLAGSHIP_T, FLAGSHIP_H, False, obs_bf16=True, out=out)
-            return
-        thunks = [(lambda o=o, c=c: native.pack_frames(lib, frames[o : o + c], FLAGSHIP_T, FLAGSHIP_H, False, True, out,
-                                                       row_offset=o, total_rows=FLAGSHIP_B))
-                  for o, c in shards[w]]
+            return 0.0, []
+        parts = [None] * w
+        if kept:
+            t0 = time.perf_counter()
+            ptrs, lens = native.marshal_frames(frames)
+            marshal = time.perf_counter() - t0
+
+            def shard(k, p):
+                t0 = time.perf_counter()
+                p.pack_rows(ptrs, lens)
+                parts[k] = (0.0, time.perf_counter() - t0)
+
+            thunks = [(lambda k=k, p=p: shard(k, p)) for k, p in enumerate(plans[w])]
+        else:
+            marshal = 0.0
+
+            def shard(k, o, c):
+                t0 = time.perf_counter()
+                plan = native.PackPlan(lib, out, c, FLAGSHIP_T, FLAGSHIP_H, False, True, o, FLAGSHIP_B)
+                t1 = time.perf_counter()
+                plan.pack(frames[o : o + c])
+                parts[k] = (t1 - t0, time.perf_counter() - t1)
+
+            thunks = [(lambda k=k, o=o, c=c: shard(k, o, c)) for k, (o, c) in enumerate(shard_rows(FLAGSHIP_B, w))]
         err = pools[w].run_tasks(thunks, stop)
         if err is not None:
             raise err
+        return marshal, parts
+
+    def split_of(samples):
+        """Best-quartile ms of the wall and, per worker, of each part."""
+        walls = [wall for wall, _, _ in samples]
+        args = [float(np.mean([a for a, _ in parts])) for _, _, parts in samples]
+        packs = [float(np.mean([p for _, p in parts])) for _, _, parts in samples]
+        waits = [float(np.mean([wall - m - a - p for a, p in parts])) for wall, m, parts in samples]
+        return {"wall_ms": round(best_quartile(walls) * 1e3, 4),
+                "marshal_ms": round(best_quartile([m for _, m, _ in samples]) * 1e3, 4),
+                "args_ms_per_worker": round(best_quartile(args) * 1e3, 4),
+                "pack_ms_per_worker": round(best_quartile(packs) * 1e3, 4),
+                "wait_ms_per_worker": round(best_quartile(waits) * 1e3, 4)}
 
     result = {}
     try:
         for wire, frames in wires.items():
             for w in WORKER_ARMS:
                 pack(w, frames)  # warm: page faults, the pool's threads
-            rounds = []
+            pack(4, frames, kept=False)
+            rounds, splits = [], {w: [] for w in WORKER_ARMS if w > 1}
+            splits["per_call_w4"] = []
             for _ in range(reps):
                 row = {}
                 for w in WORKER_ARMS:
                     t0 = time.perf_counter()
-                    pack(w, frames)
+                    marshal, parts = pack(w, frames)
                     row[w] = time.perf_counter() - t0
+                    if w > 1:
+                        splits[w].append((row[w], marshal, parts))
+                t0 = time.perf_counter()
+                marshal, parts = pack(4, frames, kept=False)
+                splits["per_call_w4"].append((time.perf_counter() - t0, marshal, parts))
                 rounds.append(row)
             arm = {}
             steps = FLAGSHIP_B * FLAGSHIP_T
@@ -205,6 +264,7 @@ def section_packer_scale(reps: int, device):
                 arm[f"scaling_1_to_{w}_x"] = round(ratios[len(ratios) // 2], 3)
             arm["method"] = ("median of per-round interleaved time ratios; rates are "
                              "best-quartile means (shared-host noise defense)")
+            arm["split"] = {(k if isinstance(k, str) else f"w{k}"): split_of(v) for k, v in splits.items()}
             result[wire] = arm
     finally:
         stop.set()
@@ -296,75 +356,6 @@ def section_parity(device):
     return out
 
 
-def make_frames(cfg: LearnerConfig, n_frames: int):
-    """Pre-serialized seeded rollout frames of length seq_len (the twin of
-    bench.py's producer frames, byte for byte)."""
-    from dotaclient_tpu_torch.env import featurizer as F
-    from dotaclient_tpu_torch.ops.action_dist import Action
-    from dotaclient_tpu_torch.transport.serialize import Rollout
-
-    frames = []
-    T = cfg.seq_len
-    H = cfg.policy.lstm_hidden
-    r = np.random.RandomState(0)
-    for i in range(n_frames):
-        T1 = T + 1
-        obs = F.Observation(
-            global_feats=r.randn(T1, F.GLOBAL_FEATURES).astype(np.float32),
-            hero_feats=r.randn(T1, F.HERO_FEATURES).astype(np.float32),
-            unit_feats=r.randn(T1, F.MAX_UNITS, F.UNIT_FEATURES).astype(np.float32),
-            unit_mask=r.rand(T1, F.MAX_UNITS) < 0.6,
-            target_mask=r.rand(T1, F.MAX_UNITS) < 0.3,
-            action_mask=np.ones((T1, F.N_ACTION_TYPES), bool),
-        )
-        rollout = Rollout(
-            obs=obs,
-            actions=Action(
-                type=r.randint(0, 2, T).astype(np.int32),
-                move_x=r.randint(0, 9, T).astype(np.int32),
-                move_y=r.randint(0, 9, T).astype(np.int32),
-                target=np.zeros(T, np.int32),
-            ),
-            behavior_logp=(-1.5 + 0.1 * r.randn(T)).astype(np.float32),
-            behavior_value=r.randn(T).astype(np.float32) * 0.1,
-            rewards=(r.randn(T) * 0.1).astype(np.float32),
-            dones=np.zeros(T, np.float32),
-            initial_state=(np.zeros(H, np.float32), np.zeros(H, np.float32)),
-            version=0,
-            actor_id=i,
-        )
-        frames.append(serialize_rollout(rollout))
-    return frames
-
-
-def start_producers(cfg: LearnerConfig, broker_name: str, n_threads: int = 2) -> threading.Event:
-    """Producer threads republishing 512 pre-serialized frames, throttled to
-    keep about three batches queued (an unthrottled spin would model
-    nothing real and burn the host's cores). Set the returned event to
-    stop them."""
-    from dotaclient_tpu_torch.transport import memory as mem
-    from dotaclient_tpu_torch.transport.base import connect
-
-    mem.reset(broker_name)
-    producer_conn = connect(f"mem://{broker_name}", maxlen=cfg.batch_size * 4)
-    frames = make_frames(cfg, 512)
-    stop = threading.Event()
-    high_water = cfg.batch_size * 3
-
-    def producer():
-        i = 0
-        while not stop.is_set():
-            if producer_conn.experience_depth() >= high_water:
-                time.sleep(0.001)
-                continue
-            producer_conn.publish_experience(frames[i % len(frames)])
-            i += 1
-
-    for k in range(n_threads):
-        threading.Thread(target=producer, daemon=True, name=f"abps-producer-{k}").start()
-    return stop
-
-
 def e2e_config(workers: int, seed: int, steps: int, platform: str = "") -> LearnerConfig:
     """The closed loop's learner: 64 x 16, 32-wide policy (bf16 compute),
     obs step phases on, a staleness window wide enough for republished
@@ -395,7 +386,7 @@ def section_e2e(seed: int, steps: int, platform: str = ""):
     for workers in (1, 4):
         cfg = e2e_config(workers, seed, steps, platform)
         name = f"abps_e2e_w{workers}"
-        stop = start_producers(cfg, name, n_threads=2)
+        stop = _start_producers(cfg, name, n_threads=2, name="abps-producer")
         learner = Learner(cfg, connect(f"mem://{name}"), device="cpu" if platform == "cpu" else None)
         occupancy_max = [0.0]
         sample_stop = threading.Event()

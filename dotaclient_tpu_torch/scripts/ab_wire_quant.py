@@ -34,6 +34,7 @@ Run: python -m dotaclient_tpu_torch.scripts.ab_wire_quant [--quick] [--out wire_
 from __future__ import annotations
 
 import argparse
+import ctypes
 import hashlib
 import json
 import threading
@@ -165,9 +166,15 @@ def section_packer_only(rollouts, reps: int):
     bf = [serialize_rollout(cast_rollout_obs_bf16(r)) for r in rollouts]
     B, T, H = len(rollouts), rollouts[0].length, rollouts[0].initial_state[0].shape[-1]
     out = bf16_out_batch(B, T, H)
-    strides = native._validate_out_strides(out, True, B)
-    args_f32, keep1 = native._pack_batch_args(f32, out, T, H, False, True, strides)
-    args_bf, keep2 = native._pack_batch_args(bf, out, T, H, False, True, strides)
+    plan = native.PackPlan(lib, out, B, T, H, False, True)
+
+    def call_args(frames):
+        """(the plan's dt_pack_batch argument vector for frames, keepalive)"""
+        ptrs, lens = native.marshal_frames(frames)
+        return (ctypes.c_void_p(ptrs.ctypes.data), ctypes.c_void_p(lens.ctypes.data), *plan._tail), (ptrs, lens)
+
+    args_f32, keep1 = call_args(f32)
+    args_bf, keep2 = call_args(bf)
     if lib.dt_pack_batch(*args_f32) != 0 or lib.dt_pack_batch(*args_bf) != 0:
         raise RuntimeError("native packer rejected the A/B's frames")
 

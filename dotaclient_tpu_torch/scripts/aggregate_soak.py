@@ -47,6 +47,8 @@ import tempfile
 import threading
 import time
 
+from dotaclient_tpu_torch.bench import _make_frames as make_frames
+
 PORT = 13971
 SENTINEL_WARM_ID = 999_999
 # Frame header offsets (transport/serialize.py DTR1/2/3): the version and
@@ -70,49 +72,6 @@ def policy_for(name: str):
     if name == "flagship":
         return PolicyConfig()  # the production config: 128-wide, bf16 compute
     return PolicyConfig(unit_embed_dim=16, lstm_hidden=16, mlp_hidden=16, dtype="float32")
-
-
-def make_frames(cfg, n_frames: int):
-    """Pre-serialized rollout frames of length seq_len from a
-    RandomState(0) stream (the reference's bench generator's draws)."""
-    import numpy as np
-
-    from dotaclient_tpu_torch.env import featurizer as F
-    from dotaclient_tpu_torch.ops.action_dist import Action
-    from dotaclient_tpu_torch.transport.serialize import Rollout, serialize_rollout
-
-    frames = []
-    T = cfg.seq_len
-    H = cfg.policy.lstm_hidden
-    r = np.random.RandomState(0)
-    for i in range(n_frames):
-        T1 = T + 1
-        obs = F.Observation(
-            global_feats=r.randn(T1, F.GLOBAL_FEATURES).astype(np.float32),
-            hero_feats=r.randn(T1, F.HERO_FEATURES).astype(np.float32),
-            unit_feats=r.randn(T1, F.MAX_UNITS, F.UNIT_FEATURES).astype(np.float32),
-            unit_mask=r.rand(T1, F.MAX_UNITS) < 0.6,
-            target_mask=r.rand(T1, F.MAX_UNITS) < 0.3,
-            action_mask=np.ones((T1, F.N_ACTION_TYPES), bool),
-        )
-        rollout = Rollout(
-            obs=obs,
-            actions=Action(
-                type=r.randint(0, 2, T).astype(np.int32),
-                move_x=r.randint(0, 9, T).astype(np.int32),
-                move_y=r.randint(0, 9, T).astype(np.int32),
-                target=np.zeros(T, np.int32),
-            ),
-            behavior_logp=(-1.5 + 0.1 * r.randn(T)).astype(np.float32),
-            behavior_value=r.randn(T).astype(np.float32) * 0.1,
-            rewards=(r.randn(T) * 0.1).astype(np.float32),
-            dones=np.zeros(T, np.float32),
-            initial_state=(np.zeros(H, np.float32), np.zeros(H, np.float32)),
-            version=0,
-            actor_id=i,
-        )
-        frames.append(serialize_rollout(rollout))
-    return frames
 
 
 # --------------------------------------------------------------- replayer

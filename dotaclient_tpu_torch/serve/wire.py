@@ -40,9 +40,11 @@ R_STEP payload:
 
 S_RESUME payload: u64 client_key, u32 boundary_step, u64 carry_hash.
 R_RESUME payload: u64 client_key, u8 status, u32 version, u32
-episode_step. (The carry store behind S_RESUME is not ported: ROADMAP
-A.12b; the port's server answers UNKNOWN_CLIENT, as the reference does
-with no store.)
+episode_step. A server armed with a carry store
+(`--serve.handoff_endpoint`, serve/handoff.py) restores the named
+boundary's carry from it as the session's resident carry and answers OK;
+a miss, a fingerprint mismatch or a server with no store answers
+UNKNOWN_CLIENT, and the client abandons that episode.
 """
 
 from __future__ import annotations

@@ -5,10 +5,9 @@ A fabric shard with assembly armed packs each admitted frame ONCE into
 the learner's single-buffer row layout (parallel/fused_io.py RowLayout)
 and serves consumers DTB1 blocks of pre-packed rows; the learner host
 then lands rows with a row concat. The row encoder is the learner's own
-pack over views of the same RowLayout: the native packer's
-`pack_frames` on a one-row batch (the reference prebuilds a one-row
-`native.PackPlan`, which the port does not have), or `fill_rollouts`, so
-shard-assembled and learner-packed bytes are the same bytes.
+pack over views of the same RowLayout: a one-row `native.PackPlan`
+prebuilt over the row buffer, or `fill_rollouts`, so shard-assembled and
+learner-packed bytes are the same bytes.
 
 A shard imports this module only once a GET_BLOCK arms its assembler
 (transport/tcp.py), so a shard that never arms assembly keeps its import
@@ -62,16 +61,17 @@ class RowAssembler:
         for view, leaf in zip(tree_flatten(self._batch)[0], tmpl_leaves):
             view[...] = _host_array(leaf)
         self._pristine = self._buf.copy()
-        self._lib = None
+        self._plan = None
         if use_native:
             from dotaclient_tpu_torch import native
 
             self._native = native
             self._lib = native.load_packer()
+            self._plan = native.PackPlan(self._lib, self._batch, 1, seq_len, lstm_hidden, with_aux, obs_bf16, 0, 1)
 
     @property
     def native_active(self) -> bool:
-        return self._lib is not None
+        return self._plan is not None
 
     def assemble(self, frame: bytes, priority: float = 0.0) -> AssembledRow:
         """One admitted broker frame (FAB1 envelope included when the
@@ -95,15 +95,14 @@ class RowAssembler:
             trace_id, birth = peek_rollout_trace(frame)
         self._np.copyto(self._buf, self._pristine)
         spec = self.spec
-        if self._lib is not None:
+        if self._plan is not None:
             hdr = self._native.frame_header(self._lib, frame)
             if hdr is None:
                 raise ValueError("parse")
             version, L, H, _flags, actor_id, ep_ret, last_done = hdr
             if L > spec.seq_len or H != spec.lstm_hidden:
                 raise ValueError("layout")
-            self._native.pack_frames(self._lib, [frame], spec.seq_len, spec.lstm_hidden, spec.with_aux,
-                                     spec.obs_bf16, self._batch)
+            self._plan.pack([frame])
         else:
             from dotaclient_tpu_torch.runtime.staging import fill_rollouts
             from dotaclient_tpu_torch.transport.serialize import deserialize_rollout

@@ -166,6 +166,20 @@ def test_cut_run_trains_both_arms_and_meters_the_pool(artifact):
     assert "staging_pack" not in e2e["workers_1"]  # the classic path adds no pool meters
 
 
+def test_cut_run_splits_the_sharded_pack(artifact):
+    """Each wire's split: kept plans pay one marshal and no per-worker
+    arguments; a plan per call pays its arguments on the workers; every
+    part is a share of its wall."""
+    for wire in ("f32_wire", "bf16_wire"):
+        split = artifact["packer_scale"][wire]["split"]
+        assert set(split) == {"w2", "w4", "per_call_w4"}
+        for arm, parts in split.items():
+            assert parts["wall_ms"] > 0 and parts["pack_ms_per_worker"] > 0
+            assert parts["marshal_ms"] + parts["args_ms_per_worker"] + parts["pack_ms_per_worker"] <= parts["wall_ms"]
+            kept = arm != "per_call_w4"
+            assert (parts["marshal_ms"] > 0) == kept and (parts["args_ms_per_worker"] > 0) != kept
+
+
 @pytest.mark.nightly
 @pytest.mark.slow
 def test_ab_pack_scale_quick_on_the_cpu(tmp_path):

@@ -1132,3 +1132,19 @@ def test_sanitized_learner_and_server_on_the_card(cuda):
     assert res["launches"] == res["launches_race"] == chip_smoke.SANITIZER_STEPS
     assert res["lock"]["inversions"] == [] and res["lock"]["over_held"] == []
     assert len(res["versions_served"]) >= chip_smoke.SANITIZER_SWAPS + 1
+
+
+@pytest.mark.parametrize("name", ["bench_lstm", "bench", "bench_actors", "bench_serve"])
+def test_bench_twin_on_the_card(cuda, name):
+    """Each bench twin at its smoke cut as phase 26 runs it: every held bool
+    true (bench_lstm's kernel within its bounds at H 128 / 256 / 512 in f32
+    and bf16; bench.py's end-to-end rate no higher than its device-only
+    rate), one launch per train step in bench.py, the kernel checks' and
+    timings' in bench_lstm, none in the actors and the server (chip_smoke
+    raises otherwise)."""
+    import chip_smoke
+
+    res = chip_smoke.SOAKS[name](None)
+    assert all(res["verdict"].values()), res["verdict"]
+    assert res["launches"] == res["steps"] and res["launches_other_threads"] == 0
+    assert (res["steps"] > 0) == (name in ("bench_lstm", "bench"))

@@ -255,7 +255,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                 "scripts/ab_inet_pack.py", "scripts/ab_overlap.py", "scripts/ab_cast.py", "scripts/ab_ppo_reuse.py",
                 "scripts/ab_replay.py", "analysis/schedcheck.py", "analysis/core.py", "analysis/thr_rules.py",
                 "analysis/lif_rules.py", "analysis/obs_rules.py", "analysis/fleetgraph.py", "analysis/grammar_check.py",
-                "analysis/proto_rules.py", "analysis/lockcheck.py", "analysis/racecheck.py", "scripts/lint_graft.py"):
+                "analysis/proto_rules.py", "analysis/lockcheck.py", "analysis/racecheck.py", "scripts/lint_graft.py",
+                "bench.py", "scripts/bench_lstm.py", "scripts/bench_tf.py", "scripts/bench_actors.py",
+                "scripts/bench_serve.py"):
         assert REPO / "dotaclient_tpu_torch" / new in files
     grpc_sites = set()
     for path in files:
